@@ -1,0 +1,1 @@
+"""Utility tier: log-domain constants and helpers, errors."""

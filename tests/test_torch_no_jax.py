@@ -1,0 +1,93 @@
+"""The PyTorch port never imports jax.
+
+The machine the port runs on has no jax, so ``poccala_tpu_torch`` (and
+``chip_smoke.py``, which drives it there) may import from the JAX package
+only its four jax-free modules.  An AST scan pins the rule statically; a
+subprocess runs the serving slice on the CPU and checks that jax was
+never loaded.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+ALLOWED = {"poccala_tpu.config", "poccala_tpu.io.wav", "poccala_tpu.serve",
+           "poccala_tpu.lm.ngram"}
+SOURCES = sorted((ROOT / "poccala_tpu_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def imported_modules(path: Path):
+    """Every module an import statement of ``path`` names (for
+    ``from pkg import name`` both ``pkg`` and ``pkg.name``)."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, [alias.name]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module, [f"{node.module}.{a.name}"
+                                for a in node.names]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    for module, names in imported_modules(path):
+        top = module.split(".")[0]
+        assert top not in ("jax", "jaxlib", "orbax"), (path, module)
+        if top == "poccala_tpu":
+            assert module in ALLOWED or all(n in ALLOWED for n in names), \
+                (path, module, names)
+
+
+SLICE = textwrap.dedent("""
+    import os, sys, tempfile
+    import numpy as np, torch
+    torch.set_num_threads(1)
+    from poccala_tpu.config import Config
+    from poccala_tpu.io import wav as wav_io
+    from poccala_tpu_torch.decoder.device import DeviceBeamDecoder
+    from poccala_tpu_torch.io.corpus import UnitInventory
+    from poccala_tpu_torch.lexicon import FlatLexicon, PinYin, PronunciationLexicon
+    from poccala_tpu_torch.models.senone_bank import create_bank
+    from poccala_tpu_torch.ops import vad
+    from poccala_tpu_torch.ops.frontend import Frontend
+    from poccala_tpu_torch.serve import DecodeService
+
+    cfg = Config()
+    cfg.model.mix_level = cfg.model.max_mix_level = 2
+    inv = UnitInventory.standard("XIF_tone")
+    bank = create_bank(len(inv), cfg.model, cfg.frontend.feat_dim,
+                       generator=torch.Generator().manual_seed(0))
+    lex = PronunciationLexicon()
+    lex.generate(["你好", "马"], PinYin())
+    dec = DeviceBeamDecoder(bank, FlatLexicon.from_tree(lex.lexicon, inv))
+    fe = Frontend(cfg.frontend)
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "a.wav")
+        sig = rng.normal(size=16000) * 30
+        sig[6000:12000] += 3000 * np.sin(np.arange(6000) * 0.08)
+        wav_io.write_wav(path, sig, 16000)
+        data, _ = wav_io.load_wav(path)
+        feats, mask = fe.mfcc(wav_io.preprocess_signal(data))
+        packed, n = vad.apply_mask(feats, vad.vad_mask(feats, mask))
+    with DecodeService(dec, batch_size=2) as svc:
+        hyps = svc.submit(packed[:n]).result(timeout=120)
+    assert len(hyps) == 1, hyps
+    assert "jax" not in sys.modules, "the port imported jax"
+    print("OK", n)
+""")
+
+
+def test_slice_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", SLICE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
