@@ -2,15 +2,24 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the hand-written CUDA kernel from ``poccala_tpu_torch/csrc``,
-holds it against its plain PyTorch version, and drives the port's
-decode-serving path (WAV -> MFCC -> VAD -> DecodeService ->
-DeviceBeamDecoder) at full model width: the XIF_tone inventory (202 units,
-606 senones), 8 mixtures, 39-dim features, a random bank from a seeded
-``torch.Generator`` and the built-in lexicon.  Each phase prints one line;
-any failure raises, so the script exits non-zero and prints no result.
-The last lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": ...}``.
+Builds the hand-written CUDA kernels from ``poccala_tpu_torch/csrc`` (the
+GMM scorer and the banded HMM forward / backward / Viterbi), holds each
+against its plain PyTorch version, and drives both halves of the port's
+main path at full model width with random weights from a seeded
+``torch.Generator``:
+
+* decode serving (WAV -> MFCC -> VAD -> DecodeService ->
+  DeviceBeamDecoder): the XIF_tone inventory (202 units, 606 senones),
+  8 mixtures, 39-dim features, the built-in lexicon;
+* training (bench.py's ``one_epoch``: MFCC -> embedded Baum-Welch E-step
+  -> M-step -> Viterbi forced alignment) at the XIF inventory (62 units,
+  186 senones), 8 mixtures, 39 dims, 256 x 4 s utterances, and
+  ``Trainer.auto(mode=2)`` on a synthetic corpus, GPU against CPU, whose
+  trained bank is checkpointed, reloaded and decoded.
+
+Each phase prints one line; any failure raises, so the script exits
+non-zero and prints no result.  The last lines are the kernels' JSON
+record, the card's name and power limit, and ``{"ok": true, "device": ...}``.
 
 It needs a CUDA device (there is no CPU fallback) and imports no jax.
 """
@@ -24,6 +33,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -31,21 +41,34 @@ import torch
 from poccala_tpu.config import Config, ModelConfig
 from poccala_tpu.io import wav as wav_io
 from poccala_tpu_torch.decoder.device import DeviceBeamDecoder
+from poccala_tpu_torch.io import corpus as corpus_io
 from poccala_tpu_torch.io.corpus import UnitInventory
 from poccala_tpu_torch.lexicon import FlatLexicon, PinYin, PronunciationLexicon
 from poccala_tpu_torch.lexicon.builtin_table import BUILTIN_PINYIN
 from poccala_tpu_torch.models import senone_bank as sb
+from poccala_tpu_torch.models.topology import build_embedded_batch
+from poccala_tpu_torch.ops import hmm as hmm_ops
 from poccala_tpu_torch.ops import vad as vad_ops
 from poccala_tpu_torch.ops.cuda import build
 from poccala_tpu_torch.ops.cuda import gmm_score_cuda as gk
+from poccala_tpu_torch.ops.cuda import hmm_banded_cuda as hk
 from poccala_tpu_torch.ops.frontend import Frontend
 from poccala_tpu_torch.ops.gmm_score import gmm_log_scores
 from poccala_tpu_torch.serve import DecodeService
+from poccala_tpu_torch.train import accumulators as acc
+from poccala_tpu_torch.train import alignment as align
+from poccala_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from poccala_tpu_torch.train.trainer import Trainer
 
 S, M, D = 606, 8, 39          # XIF_tone senones, mixtures, feature dim
 SLICE_T = 256 * 319           # bench_decode's 256 x 4 s batch, in frames
 F32_TOL = dict(rtol=1e-4, atol=1e-4)   # tests/test_pallas_kernels.py:37
 BF16_TOL = dict(rtol=1e-3, atol=5e-2)  # tests/test_bf16_scoring.py:115
+DP_TOL = dict(rtol=1e-5, atol=1e-5)    # tests/test_gmm_hmm_kernels.py:102
+# bench.py's training shape: XIF units, 5-state HMMs, 8 mixtures, 39 dims,
+# 256 utterances of 4 s (319 frames), labels of 8-16 units
+TRAIN_B, TRAIN_T, TRAIN_L, TRAIN_W = 256, 319, 16, 5
+KERNEL_NAMES = ("gmm_score", "hmm_banded")
 
 
 def say(phase: str, **fields) -> None:
@@ -93,13 +116,20 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    t0 = time.perf_counter()
-    built = build.build("gmm_score")
-    secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in built.log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    say("build", seconds=round(secs, 3), compiled=built.compiled,
-        library=str(built.path.name), ptxas=ptxas)
+    """Every kernel source compiled at once, one nvcc each."""
+    def one(name):
+        t0 = time.perf_counter()
+        built = build.build(name)
+        return name, built, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNEL_NAMES)) as pool:
+        results = list(pool.map(one, KERNEL_NAMES))
+    for name, built, secs in results:
+        ptxas = [ln.strip() for ln in built.log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        say("build", kernel=name, seconds=round(secs, 3),
+            compiled=built.compiled, library=str(built.path.name),
+            ptxas=ptxas)
 
 
 def scoring_inputs(t: int, gen: torch.Generator, floor: bool = False):
@@ -389,6 +419,252 @@ def phase_throughput(seed: int, dec: DeviceBeamDecoder, smi: str,
         decode_call_profile=busy, device=torch.cuda.get_device_name(0), nvidia_smi=smi)
 
 
+# ----------------------------------------------------------------------
+# training
+# ----------------------------------------------------------------------
+
+def train_config() -> Config:
+    cfg = Config()
+    cfg.model.state_num = 5
+    cfg.model.mix_level = cfg.model.max_mix_level = M
+    return cfg
+
+
+def dp_inputs(gen: torch.Generator, b: int, t: int, max_l: int):
+    """Sentence HMMs of random labels (8..max_l units, one batch-padding
+    utterance), log_b from scoring random frames against a random XIF
+    bank, ragged frame masks (one full, one single-frame) — the DP
+    kernels' operands as the training path builds them."""
+    cfg = train_config()
+    inv = UnitInventory.standard("XIF")
+    bank = sb.create_bank(len(inv), cfg.model, D, generator=gen,
+                          device="cuda")
+    labels = torch.randint(0, len(inv), (b, max_l), generator=gen)
+    lens = torch.randint(min(8, max_l), max_l + 1, (b,), generator=gen)
+    lens[1] = 0
+    n_true = torch.randint(1, t + 1, (b,), generator=gen)
+    n_true[0], n_true[-1] = t, 1
+    masks = (torch.arange(t)[None] < n_true[:, None]).cuda()
+    feats = (torch.randn(b, t, D, generator=gen) * 2).cuda()
+    ehmm = build_embedded_batch(bank, labels.cuda(), lens.cuda(), 5, max_l)
+    _, _, log_b = acc.sentence_scores(bank, ehmm, feats)
+    return ehmm.band, ehmm.log_pi, log_b, masks
+
+
+def phase_hmm_kernels(seed: int) -> dict:
+    """Each DP kernel against its plain version at a small ragged shape and
+    bench.py's training shape; times at the training shape."""
+    gen = torch.Generator().manual_seed(seed)
+    record = {}
+    for b, t, max_l in ((6, 23, 4), (TRAIN_B, TRAIN_T, TRAIN_L)):
+        band, log_pi, log_b, masks = dp_inputs(gen, b, t, max_l)
+        w = TRAIN_W
+        runs = {
+            "forward": (
+                lambda: hk.forward_banded_cuda(band, log_pi, log_b, masks, w),
+                lambda: hmm_ops.forward_log_banded_plain(band, log_pi, log_b,
+                                                         masks, w)),
+            "backward": (
+                lambda: hk.backward_banded_cuda(band, log_b, masks, w),
+                lambda: hmm_ops.backward_log_banded_plain(band, log_b, masks,
+                                                          w)),
+            "viterbi": (
+                lambda: hk.viterbi_banded_cuda(band, log_pi, log_b, masks, w),
+                lambda: hmm_ops.viterbi_log_banded_plain(band, log_pi, log_b,
+                                                         masks, w)),
+        }
+        for name, (kernel, plain) in runs.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            if name == "forward":
+                err = max(float((got[0] - want[0]).abs().max()),
+                          float((got[1] - want[1]).abs().max()))
+                ok = (torch.allclose(got[0], want[0], **DP_TOL)
+                      and torch.allclose(got[1], want[1], **DP_TOL))
+                tol = DP_TOL
+            elif name == "backward":
+                err = float((got - want).abs().max())
+                ok = torch.allclose(got, want, **DP_TOL)
+                tol = DP_TOL
+            else:
+                err = float((got[0] - want[0]).abs().max())
+                tol = dict(rtol=1e-6, atol=0.0, paths="equal")
+                ok = (torch.equal(got[1], want[1])
+                      and torch.allclose(got[0], want[0], rtol=1e-6, atol=0)
+                      and torch.allclose(got[2], want[2], rtol=1e-6, atol=0))
+            line = dict(kernel=name, b=b, t=t, n_s=int(band.shape[1]), w=w,
+                        max_abs_err=err, tol=tol, ok=bool(ok))
+            if b == TRAIN_B:
+                line["ms"] = median_ms(kernel)
+                line["plain_ms"] = median_ms(plain, reps=3)
+                record[name] = dict(max_abs_err=err, ms=line["ms"],
+                                    plain_ms=line["plain_ms"])
+            say("hmm_kernel_vs_plain", **line)
+            check(ok, f"hmm kernel vs plain at {line}")
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_train_throughput(seed: int, smi: str, epochs: int = 8) -> dict:
+    """bench.py:143-154's one_epoch on the port: MFCC -> batch_stats ->
+    apply_update -> align_batch at 256 x 4 s, one warm-up epoch, then
+    ``epochs`` timed epochs synchronised by one probe scalar.  Returns the
+    DP kernels' launches in the timed run."""
+    cfg = train_config()
+    inv = UnitInventory.standard("XIF")
+    rate = cfg.frontend.sample_rate
+    n_samples = int(4.0 * rate)
+    rng = np.random.default_rng(seed)
+    signals = torch.as_tensor(
+        (rng.normal(size=(TRAIN_B, n_samples)) * 2000).astype(np.float32),
+        device="cuda")
+    n_samp = torch.full((TRAIN_B,), n_samples, dtype=torch.int64,
+                        device="cuda")
+    labels = torch.as_tensor(rng.integers(0, len(inv), size=(
+        TRAIN_B, TRAIN_L)).astype(np.int32), device="cuda")
+    lens = torch.as_tensor(rng.integers(TRAIN_L // 2, TRAIN_L + 1, size=(
+        TRAIN_B,)).astype(np.int32), device="cuda")
+    fe = Frontend(cfg.frontend, device="cuda")
+    bank0 = sb.create_bank(len(inv), cfg.model, cfg.frontend.feat_dim,
+                           generator=torch.Generator().manual_seed(seed),
+                           device="cuda")
+
+    def one_epoch(bank, mark=None):
+        mark = mark or (lambda _: None)
+        feats, masks = fe.mfcc_batch(signals, n_samp)
+        mark("frontend")
+        stats, _ = acc.batch_stats(bank, labels, lens, feats, masks, 5,
+                                   TRAIN_L, mark=mark)
+        new_bank = acc.apply_update(bank, stats)
+        mark("m_step")
+        scores, label_pos = align.align_batch(new_bank, labels, lens, feats,
+                                              masks, 5, TRAIN_L)
+        mark("alignment")
+        probe = stats.loglik + scores.sum() + label_pos.sum()
+        return new_bank, probe
+
+    t0 = time.perf_counter()
+    float(one_epoch(bank0)[1])
+    warm_s = time.perf_counter() - t0
+
+    for kernel in hk.KERNELS.values():
+        kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bank, total = bank0, 0.0
+    for _ in range(epochs):
+        bank, probe = one_epoch(bank)
+        total = total + probe
+    total = float(total)  # synchronises every epoch's work
+    elapsed = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in hk.KERNELS.items()}
+    check(np.isfinite(total), f"finite probe ({total})")
+    for k, n in launches.items():
+        check(n >= epochs, f"the training path launched the {k} kernel "
+              f"({n} times in {epochs} epochs)")
+
+    # where one epoch's device time goes (CUDA events, separate run)
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    mark("start")
+    one_epoch(bank0, mark)
+    torch.cuda.synchronize()
+    breakdown = {name: marks[i - 1][1].elapsed_time(ev)
+                 for i, (name, ev) in enumerate(marks) if i}
+    busy = device_profile(lambda: one_epoch(bank0))
+
+    audio_s = TRAIN_B * 4.0 * epochs
+    say("train_throughput",
+        metric="train_em_plus_viterbi_audio_throughput",
+        value=audio_s / elapsed, unit="audio-s/s", batch=TRAIN_B,
+        utt_seconds=4.0, epochs=epochs, frames=TRAIN_T, units=len(inv),
+        senones=int(bank0.num_states), mixtures=M, dim=D,
+        max_label_len=TRAIN_L, seconds=elapsed, warmup_seconds=warm_s,
+        probe=total, dp_kernel_launches=launches, breakdown_ms=breakdown,
+        epoch_profile=busy, device=torch.cuda.get_device_name(0),
+        nvidia_smi=smi)
+    return launches
+
+
+def xif_lexicon(inv: UnitInventory) -> FlatLexicon:
+    """The built-in words with toneless readings, so their syllables spell
+    XIF units."""
+    table = {c: sorted({r.rstrip("012345") for r in rs})
+             for c, rs in BUILTIN_PINYIN.items()}
+    lex = PronunciationLexicon()
+    lex.generate(list(table), PinYin(table))
+    return FlatLexicon.from_tree(lex.lexicon, inv)
+
+
+def phase_train_e2e(seed: int) -> None:
+    """Trainer.auto(mode=2, t=3) at full width (XIF, 8 mixtures, 39 dims)
+    on a synthetic corpus of 64 utterances, on the GPU and on the CPU from
+    the same flat-started bank; the GPU's bank is checkpointed, reloaded
+    and decodes an utterance.  The corpus speaks 12 of the 62 units (each
+    of their senones sees ~150 frames) and its features are CMVN-normalised:
+    both keep float32 EM well conditioned, so the two devices can agree."""
+    inv = UnitInventory.standard("XIF")
+    with tempfile.TemporaryDirectory() as tmp:
+        audio, label = corpus_io.generate_synthetic_corpus(
+            tmp, UnitInventory(inv.units[:12]), num_utts=64,
+            units_per_utt=(2, 5), unit_seconds=0.25, seed=seed)
+        cfg = train_config()
+        cfg.paths.audio_file_path, cfg.paths.label_file_path = audio, label
+        cfg.frontend.vad = False
+        cfg.frontend.cmvn = cfg.frontend.cmvn_var = True
+        cfg.train.batch_size, cfg.train.max_frames = 32, 160
+        cfg.train.max_label_len, cfg.train.proportion = 5, 1.0
+        cfg.train.step = 2
+        t0 = time.perf_counter()
+        batches = list(corpus_io.Corpus(cfg, inv).batches())
+        load_s = time.perf_counter() - t0
+
+        gpu = Trainer(cfg, inv, generator=torch.Generator().manual_seed(seed),
+                      device="cuda")
+        gpu.flat_start(batches)
+        cpu = Trainer(cfg, inv, device="cpu")
+        cpu.bank = sb.bank_from_numpy(sb.bank_to_numpy(gpu.bank))
+        before = hk.forward_banded_cuda.launches
+        t0 = time.perf_counter()
+        g_ll = gpu.auto(batches, t=3, mode=2, init=False)
+        gpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c_ll = cpu.auto(batches, t=3, mode=2, init=False)
+        cpu_s = time.perf_counter() - t0
+        rel = float(np.max(np.abs(np.array(g_ll) / np.array(c_ll) - 1)))
+        check(hk.forward_banded_cuda.launches > before,
+              "GPU training ran the DP kernels")
+        check(all(np.isfinite(g_ll)) and g_ll[1] > g_ll[0]
+              and g_ll[2] >= g_ll[1] - 1e-2, f"GPU logliks rise: {g_ll}")
+        # three EM epochs of float32 sums in another order (cuBLAS,
+        # atomics) compound through the updates
+        check(rel < 1e-3, f"GPU vs CPU logliks {g_ll} vs {c_ll}")
+
+        path = os.path.join(tmp, "ckpt")
+        save_checkpoint(path, gpu.bank, manifest={"mode": 2, "round": 3},
+                        units=inv.units)
+        bank, man = load_checkpoint(path, device="cuda")
+        check(all(torch.equal(getattr(bank, f), getattr(gpu.bank, f))
+                  for f in sb.FIELDS), "checkpoint round trip")
+        flat = xif_lexicon(inv)
+        b = batches[0]
+        n = int(b.t_masks[0].sum())
+        hyps = DeviceBeamDecoder(bank, flat).decode_batch(b.feats[:1, :n],
+                                                          [n])[0]
+        check(len(hyps) >= 1 and np.isfinite(hyps[0].score),
+              "the trained bank decodes to a finite 1-best")
+    say("train_e2e", utterances=sum(int(x.label_lens.size) for x in batches),
+        batches=len(batches), gpu_logliks=g_ll, cpu_logliks=c_ll,
+        max_rel_diff=rel, tol_rel=1e-3, gpu_seconds=gpu_s, cpu_seconds=cpu_s,
+        corpus_load_seconds=load_s, lexicon_nodes=int(flat.n_nodes),
+        decoded_words=list(hyps[0].words), decoded_score=hyps[0].score)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -396,15 +672,24 @@ def main(argv=None) -> int:
 
     smi = phase_device()
     phase_build()
-    record = phase_kernel(args.seed)
+    records = {"gmm_log_scores": phase_kernel(args.seed)}
+    records.update(phase_hmm_kernels(args.seed))
     phase_known_answer(args.seed)
     launches, dec = phase_serve(args.seed)
     phase_throughput(args.seed, dec, smi)
+    del dec
+    torch.cuda.empty_cache()
+    train_launches = phase_train_throughput(args.seed, smi)
+    phase_train_e2e(args.seed)
     check("jax" not in sys.modules, "jax was never imported")
 
-    kernel = dict(name="gmm_log_scores", route="cuda", source=gk.SOURCE,
-                  replaces=gk.REPLACES, launches=launches, **record)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    kernels = [dict(name="gmm_log_scores", route="cuda", source=gk.SOURCE,
+                    replaces=gk.REPLACES, launches=launches,
+                    **records["gmm_log_scores"])]
+    kernels += [dict(name=f"hmm_{k}_banded", route="cuda", source=hk.SOURCE,
+                     replaces=hk.REPLACES[k], launches=train_launches[k],
+                     **records[k]) for k in hk.KERNELS]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

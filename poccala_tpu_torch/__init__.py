@@ -8,11 +8,19 @@ four jax-free modules ``poccala_tpu.config``, ``poccala_tpu.io.wav``,
 ``poccala_tpu.serve`` and ``poccala_tpu.lm.ngram``; host NumPy code that
 sits behind a jax import there is copied here.
 
-Ported so far: the decode-serving slice — WAV -> MFCC frontend -> VAD ->
-:class:`~poccala_tpu.serve.DecodeService` ->
-:class:`~poccala_tpu_torch.decoder.device.DeviceBeamDecoder`, whose GMM
-scoring runs a hand-written CUDA kernel (``csrc/gmm_score.cu``) on the
-GPU and its plain PyTorch version on the CPU.
+Ported so far:
+
+* the decode-serving slice — WAV -> MFCC frontend -> VAD ->
+  :class:`~poccala_tpu.serve.DecodeService` ->
+  :class:`~poccala_tpu_torch.decoder.device.DeviceBeamDecoder`, whose GMM
+  scoring runs a hand-written CUDA kernel (``csrc/gmm_score.cu``);
+* scheme-2 training — corpus batching, flat start, embedded Baum-Welch
+  (:mod:`~poccala_tpu_torch.train.accumulators`), Viterbi forced
+  alignment and :class:`~poccala_tpu_torch.train.trainer.Trainer`, whose
+  banded forward / backward / Viterbi run hand-written CUDA kernels
+  (``csrc/hmm_banded.cu``) — and npz checkpoints.
+
+On the GPU each kernel launches; on the CPU its plain PyTorch version runs.
 """
 
 __version__ = "0.1.0"

@@ -51,6 +51,21 @@ from poccala_tpu_torch.ops.cuda.gmm_score_cuda import gmm_log_scores_fast
 from poccala_tpu_torch.utils.logmath import NEG_INF
 
 
+def check_context_fits(t_pad: int, n_vocab: int) -> None:
+    """The packed context ``(h+1)*(V+1) + l`` is int32: refuse a batch
+    whose ``(T+1)(V+1)`` reaches 2³¹."""
+    if (t_pad + 1) * (n_vocab + 1) >= 2**31:
+        raise ValueError(f"packed decoder context overflows int32 at "
+                         f"T={t_pad}, V={n_vocab}")
+
+
+def check_lm_keys_fit(n_vocab: int) -> None:
+    """The sparse device LM keys ``l*V + w`` (``l`` up to V) are int32:
+    refuse a vocabulary whose ``(V+1)V`` reaches 2³¹."""
+    if (n_vocab + 1) * n_vocab >= 2**31:
+        raise ValueError(f"sparse device LM keys overflow int32 at V={n_vocab}")
+
+
 def _top_k(x: torch.Tensor, k: int):
     """``lax.top_k`` over the last axis: descending, lower index first
     among equal values."""
@@ -117,9 +132,7 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         lm_sparse = lm_flat = None
         if self._lm_sparse is not None:
             uni, rboff, cbase, keys, vals = self._lm_sparse
-            if (v + 1) * v >= 2**31:
-                raise ValueError(
-                    f"sparse device LM keys overflow int32 at V={v}")
+            check_lm_keys_fit(v)
             lm_sparse = (t(uni, torch.float32), t(rboff, torch.float32),
                          t(cbase, torch.float32),
                          t(keys.astype(np.int32), torch.int32),
@@ -401,10 +414,7 @@ class DeviceBeamDecoder(VectorBeamDecoder):
              n_cand: int):
         """Scoring + frame loop + n-best for ``feats [B, T, D]``."""
         b, t_pad, _ = feats.shape
-        vp1 = self._n_vocab + 1
-        if (t_pad + 1) * vp1 >= 2**31:
-            raise ValueError(f"packed decoder context overflows int32 at "
-                             f"T={t_pad}, V={self._n_vocab}")
+        check_context_fits(t_pad, self._n_vocab)
         dev = feats.device
         scores = self._scores(feats)
         deltas, ctx = self._seed(tabs, b)

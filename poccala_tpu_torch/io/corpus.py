@@ -1,12 +1,19 @@
-"""Unit inventories (the part of ``poccala_tpu/io/corpus.py`` the decode
-slice needs: ``standard_inventory`` and ``UnitInventory``, copied as host
-code because that module imports the JAX frontend;
-``tests/test_torch_lexicon.py`` pins the copy to the original).
+"""Corpus handling: unit inventories, label files, batching (port of
+``poccala_tpu/io/corpus.py``).
 
-The standard Mandarin IF / XIF / XIF_tone phone sets and the reference's
-unit-file format (header line + comma-separated unit rows,
-``AcousticModel.load_unit``, ``AcousticModel.py:134-162``).  Corpus
-scanning, label parsing and batching wait for the training port.
+The host code is copied from the JAX module, which imports the JAX
+frontend; ``tests/test_torch_lexicon.py`` and ``tests/test_torch_train.py``
+pin the copies to the originals:
+
+* the standard Mandarin IF / XIF / XIF_tone phone sets and the
+  reference's unit-file format (``AcousticModel.py:134-162``);
+* corpus scanning (``<name>.wav`` + ``<name>.wav.trn``), per-job
+  sharding and label parsing (``AcousticModel.py:443-461, 664-681``);
+* :class:`Corpus`: WAV -> MFCC+Δ+ΔΔ -> VAD packing per utterance, through
+  the port's frontend and VAD, padded into fixed-shape :class:`Batch`es
+  (``corpus.py:241-257``).  The native C++ batch loader is not ported:
+  ``use_native=True`` raises;
+* the synthetic corpus the tests and benchmarks train on.
 """
 
 from __future__ import annotations
@@ -14,6 +21,12 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 
+import numpy as np
+
+from poccala_tpu.config import Config
+from poccala_tpu.io import wav as wav_io
+from poccala_tpu_torch.ops import vad as vad_ops
+from poccala_tpu_torch.ops.frontend import Frontend
 from poccala_tpu_torch.utils.errors import UnitFileError
 
 # Standard Mandarin pinyin phone sets (the linguistic inventories behind
@@ -84,3 +97,220 @@ class UnitInventory:
 
     def encode(self, names: list[str]) -> list[int]:
         return [self.id_of[n] for n in names]
+
+
+# ----------------------------------------------------------------------
+# Corpus scanning / label parsing
+# ----------------------------------------------------------------------
+
+def scan_corpus(audio_dir: str, label_dir: str) -> list[tuple[str, str]]:
+    """Pair ``<name>.wav`` with ``<name>.wav.trn``
+    (``AcousticModel.init_audio``, ``AcousticModel.py:443-461``)."""
+    pairs = []
+    for root, _, files in os.walk(audio_dir):
+        for fname in sorted(files):
+            if not fname.endswith(".wav"):
+                continue
+            name = fname[: -len(".wav")]
+            label = os.path.join(label_dir, name + ".wav.trn")
+            pairs.append((os.path.join(root, fname), label))
+    return pairs
+
+
+def shard_pairs(pairs: list, job_id: int, task_num: int) -> list:
+    """Contiguous per-job shard (``Task.split_data``, ``Controller.py:79-106``)."""
+    if task_num <= 1:
+        return pairs
+    chunk = len(pairs) // task_num
+    start = job_id * chunk
+    end = start + chunk if job_id < task_num - 1 else len(pairs)
+    return pairs[start:end]
+
+
+def read_label(path: str, load_line: int = 0) -> list[str]:
+    """Read the unit row of a ``.trn`` label file
+    (``AcousticModel.__generator``, ``AcousticModel.py:671-679``)."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    return lines[load_line].strip().split(" ")
+
+
+# ----------------------------------------------------------------------
+# Batching
+# ----------------------------------------------------------------------
+
+@dataclass
+class Batch:
+    """One padded utterance batch."""
+
+    feats: np.ndarray       # [B, T, D] float32
+    t_masks: np.ndarray     # [B, T] bool
+    labels: np.ndarray      # [B, L] int32
+    label_lens: np.ndarray  # [B] int32
+
+
+class Corpus:
+    """Feature-extracting corpus iterator.
+
+    The per-utterance pipeline (``AcousticModel.__load_audio``,
+    ``AcousticModel.py:463-477``): WAV → stereo merge → MFCC+Δ+ΔΔ → VAD
+    packing; then padding into fixed-shape batches.
+    """
+
+    def __init__(self, cfg: Config, inventory: UnitInventory,
+                 pairs: list[tuple[str, str]] | None = None):
+        self.cfg = cfg
+        self.inventory = inventory
+        if pairs is None:
+            pairs = scan_corpus(cfg.paths.audio_file_path,
+                                cfg.paths.label_file_path)
+            pairs = shard_pairs(pairs, cfg.paths.env_id, cfg.train.task_num)
+        self.pairs = pairs
+        self.frontend = Frontend(cfg.frontend)
+        self._pinyin = None
+        if cfg.train.label_format == "pinyin":
+            from poccala_tpu_torch.lexicon.pinyin import PinYin
+
+            self._pinyin = PinYin()
+
+    def _encode_label(self, names: list[str]) -> list[int]:
+        """Label tokens -> unit ids, converting pinyin syllables to
+        units first in 'pinyin' label format (THCHS-30 style).
+
+        Conversion wins over unit-name pass-through: a token whose G2P
+        conversion lands entirely in the inventory uses the converted
+        units even when the token itself names a unit — ``er4`` is both
+        the XIF_tone final and a spellable syllable, and the syllable
+        reading (``#_e, er4``) is what the audio contains and what the
+        decode lexicon compiles (``PinYin.word2pinyin``), so labels
+        must match it (pre-r05 the unit name won and the zero-initial
+        unit silently vanished from training labels).  Pass-through
+        remains the fallback for non-convertible unit tokens — the
+        trained ``sil`` silence model's label token."""
+        if self._pinyin is not None:
+            units: list[str] = []
+            for syl in names:
+                conv = self._pinyin.syllable_to_units(syl)
+                if all(u in self.inventory.id_of for u in conv):
+                    units.extend(conv)
+                elif syl in self.inventory.id_of:
+                    units.append(syl)
+                else:
+                    # unknown either way: keep the token so encode()
+                    # raises KeyError -> bad-data discard upstream
+                    units.append(syl)
+            names = units
+        return self.inventory.encode(names)
+
+    def load_utterance(self, wav_path: str, label_path: str):
+        data, rate = wav_io.load_wav(wav_path)
+        signal = wav_io.preprocess_signal(
+            data, drop_zeros=self.cfg.frontend.reference_quirks
+        )
+        feats, mask = self.frontend.mfcc(signal)
+        if self.cfg.frontend.vad:
+            keep = vad_ops.vad_mask(
+                feats, mask,
+                sample_size=self.cfg.frontend.vad_sample_size,
+                alpha=self.cfg.frontend.vad_alpha,
+                beta=self.cfg.frontend.vad_beta,
+            )
+        else:
+            keep = mask
+        packed, n = vad_ops.apply_mask(
+            feats, keep, max_frames=self.cfg.train.max_frames
+        )
+        names = read_label(label_path, self.cfg.train.load_line)
+        label_ids = self._encode_label(names)
+        return packed, n, label_ids
+
+    def batches(self, batch_size: int | None = None, drop_last: bool = False,
+                use_native: bool | None = None):
+        """Yield :class:`Batch` objects over the (sharded) corpus, loading
+        one utterance at a time (``corpus.py:241-257``).  The native C++
+        batch loader is not ported: ``use_native=True`` raises."""
+        if use_native:
+            raise NotImplementedError(
+                "the native batch loader is not ported; use_native must be "
+                "False or None")
+        bs = batch_size or self.cfg.train.batch_size
+        t_max = self.cfg.train.max_frames
+        l_max = self.cfg.train.max_label_len
+        d = self.cfg.frontend.feat_dim
+        buf: list[tuple[np.ndarray, int, list[int]]] = []
+        for wav_path, label_path in self.pairs:
+            try:
+                buf.append(self.load_utterance(wav_path, label_path))
+            except (KeyError, FileNotFoundError, IndexError):
+                # unknown unit in label / missing label: discard the
+                # utterance (bad-data discard, AcousticModel.py:751-757)
+                continue
+            if len(buf) == bs:
+                yield self._pack(buf, bs, t_max, l_max, d)
+                buf = []
+        if buf and not drop_last:
+            yield self._pack(buf, bs, t_max, l_max, d)
+
+    @staticmethod
+    def _pack(buf, bs, t_max, l_max, d) -> Batch:
+        b = len(buf)
+        feats = np.zeros((b, t_max, d), np.float32)
+        t_masks = np.zeros((b, t_max), bool)
+        labels = np.zeros((b, l_max), np.int32)
+        lens = np.zeros((b,), np.int32)
+        for i, (packed, n, label_ids) in enumerate(buf):
+            feats[i] = packed
+            t_masks[i, :n] = True
+            ll = min(len(label_ids), l_max)
+            labels[i, :ll] = label_ids[:ll]
+            lens[i] = ll
+        return Batch(feats=feats, t_masks=t_masks, labels=labels,
+                     label_lens=lens)
+
+
+# ----------------------------------------------------------------------
+# Synthetic corpus (tests / bench: the repo ships no audio corpus)
+# ----------------------------------------------------------------------
+
+def synth_unit_signal(unit_id: int, n: int, rate: int, rng) -> np.ndarray:
+    """A distinct spectral signature per unit: two harmonics whose
+    frequencies encode the unit id, plus noise."""
+    t = np.arange(n) / rate
+    f0 = 150.0 + 37.0 * (unit_id % 17)
+    f1 = 900.0 + 83.0 * (unit_id % 11)
+    sig = (
+        4000 * np.sin(2 * np.pi * f0 * t + rng.uniform(0, 6.28))
+        + 2000 * np.sin(2 * np.pi * f1 * t + rng.uniform(0, 6.28))
+        + 300 * rng.normal(size=n)
+    )
+    return sig
+
+
+def generate_synthetic_corpus(
+    out_dir: str,
+    inventory: UnitInventory,
+    num_utts: int = 32,
+    units_per_utt: tuple[int, int] = (2, 5),
+    unit_seconds: float = 0.25,
+    rate: int = 16000,
+    seed: int = 0,
+) -> tuple[str, str]:
+    """Write a synthetic WAV+label corpus in the reference's directory
+    layout.  Returns (audio_dir, label_dir)."""
+    rng = np.random.default_rng(seed)
+    audio_dir = os.path.join(out_dir, "record")
+    label_dir = os.path.join(out_dir, "label")
+    os.makedirs(audio_dir, exist_ok=True)
+    os.makedirs(label_dir, exist_ok=True)
+    n_unit = int(unit_seconds * rate)
+    for i in range(num_utts):
+        l = rng.integers(units_per_utt[0], units_per_utt[1] + 1)
+        unit_ids = rng.integers(0, len(inventory), size=l)
+        sig = np.concatenate(
+            [synth_unit_signal(int(u), n_unit, rate, rng) for u in unit_ids]
+        )
+        name = f"utt{i:05d}"
+        wav_io.write_wav(os.path.join(audio_dir, name + ".wav"), sig, rate)
+        with open(os.path.join(label_dir, name + ".wav.trn"), "w") as f:
+            f.write(" ".join(inventory.units[u] for u in unit_ids) + "\n")
+    return audio_dir, label_dir

@@ -1,4 +1,4 @@
-"""Model tier: the senone bank."""
+"""Model tier: the senone bank and the embedded sentence-HMM topology."""
 
 from poccala_tpu_torch.models.senone_bank import SenoneBank
 

@@ -145,3 +145,37 @@ def create_bank(
     bank = SenoneBank(means, log_var, log_w, log_a, log_pi, mix_counts,
                       identity_senone_map(num_units, emit))
     return bank.to(device) if device is not None else bank
+
+
+def flat_start(
+    bank: SenoneBank,
+    global_mean: torch.Tensor,
+    global_var: torch.Tensor,
+    generator: torch.Generator,
+    coefficient: float = 1.0,
+    differentiation: bool = True,
+) -> SenoneBank:
+    """Flat start (``AcousticModel.__flat_start``,
+    ``AcousticModel.py:479-517``): every senone's GMM gets the global
+    mean/covariance; mixture means are differentiated by a random
+    per-mixture offset ``diff * diag(cov)`` drawn once and shared by all
+    senones (``AcousticModel.py:504-509``).  ``diff`` is drawn on the CPU
+    from ``generator`` (its draws differ from ``jax.random``'s)."""
+    s, m, d = bank.means.shape
+    dev = bank.means.device
+    global_mean = torch.as_tensor(global_mean, dtype=torch.float32,
+                                  device=dev)
+    global_var = torch.as_tensor(global_var, dtype=torch.float32, device=dev)
+    if differentiation:
+        u1 = torch.rand((m, 1), generator=generator)
+        u2 = torch.rand((m, 1), generator=generator)
+        diff = ((u1 - u2) * coefficient).to(dev)  # [M, 1], in (-c, c)
+    else:
+        diff = torch.zeros((m, 1), device=dev)
+    # mean_m[j] = global_mean + diff_j * diag(global_cov) (AcousticModel.py:514)
+    mean_m = global_mean[None, :] + diff * global_var[None, :]
+    means = mean_m[None].expand(s, m, d).contiguous()
+    log_var = torch.log(torch.clamp(global_var, min=1e-10))[None, None] \
+        .expand(s, m, d).contiguous()
+    return SenoneBank(means, log_var, bank.log_w, bank.log_A, bank.log_pi,
+                      bank.mix_counts, bank.senone_map)

@@ -1,1 +1,2 @@
-"""Compute ops tier: frontend, VAD, GMM scoring and its CUDA kernel."""
+"""Compute ops tier: frontend, VAD, GMM scoring, HMM dynamic programming,
+and their CUDA kernels."""

@@ -56,35 +56,41 @@ def gmm_component_logpdf(
 ) -> torch.Tensor:
     """Per-component Gaussian log-densities for all frames × states.
 
-    :param x: ``[T, D]`` frames
-    :param means: ``[S, M, D]`` mixture means
-    :param log_var: ``[S, M, D]`` log diagonal variances
-    :param score_dtype: 'float32' (exact) or 'bfloat16' (frame-mean-
-        centred operands rounded to bf16, fp32 products and sums)
-    :returns: ``[T, S, M]`` log N(x_t | μ_sm, σ²_sm)
+    Leading batch axes are allowed and must match between ``x`` and the
+    parameters (the training E-step scores each utterance against its own
+    gathered sentence senones: ``x [B, T, D]``, ``means [B, N_s, M, D]``).
+
+    :param x: ``[..., T, D]`` frames
+    :param means: ``[..., S, M, D]`` mixture means
+    :param log_var: ``[..., S, M, D]`` log diagonal variances
+    :param score_dtype: 'float32' (exact) or 'bfloat16' (operands centred
+        on the mean of the ``T`` frames given — padding included — rounded
+        to bf16, fp32 products and sums)
+    :returns: ``[..., T, S, M]`` log N(x_t | μ_sm, σ²_sm)
     """
-    s, m, d = means.shape
+    *lead, s, m, d = means.shape
     prec = torch.exp(-log_var)
     const = normalizer_const(log_var, normalizer)
     if score_dtype == "bfloat16":
         # shift-invariant centering (see poccala_tpu/ops/gmm_score.py:72-81)
-        c = torch.mean(x, dim=0)
-        x = x - c[None]
-        means = means - c[None, None]
+        c = torch.mean(x, dim=-2)
+        x = x - c[..., None, :]
+        means = means - c[..., None, None, :]
         op = _round_bf16
     elif score_dtype == "float32":
         op = None
     else:
         raise ValueError(f"unknown score_dtype: {score_dtype!r}")
-    a1 = prec.reshape(s * m, d)
-    a2 = (means * prec).reshape(s * m, d)
-    mu2p = torch.sum(means * means * prec, dim=-1)  # [S, M]
+    a1 = prec.reshape(*lead, s * m, d)
+    a2 = (means * prec).reshape(*lead, s * m, d)
+    mu2p = torch.sum(means * means * prec, dim=-1)  # [..., S, M]
     x2, x1 = x * x, x
     if op is not None:
         x2, x1, a1, a2 = op(x2), op(x1), op(a1), op(a2)
-    quad = x2 @ a1.T - 2.0 * (x1 @ a2.T)  # [T, S*M]
-    t = x.shape[0]
-    return -0.5 * (quad.reshape(t, s, m) + mu2p[None]) + const[None]
+    quad = x2 @ a1.transpose(-1, -2) - 2.0 * (x1 @ a2.transpose(-1, -2))
+    t = x.shape[-2]
+    return (-0.5 * (quad.reshape(*lead, t, s, m) + mu2p[..., None, :, :])
+            + const[..., None, :, :])
 
 
 def gmm_log_scores(

@@ -1,1 +1,2 @@
-"""Training tier (so far only checkpoint loading)."""
+"""Training tier: Baum-Welch statistics and M-step, forced alignment,
+the scheme-2 trainer, checkpoints."""

@@ -1,1 +1,1 @@
-"""Utility tier: log-domain constants and helpers, errors."""
+"""Utility tier: log-domain constants and helpers, errors, logging."""

@@ -1,4 +1,4 @@
-"""The domain errors the ported slice raises (the classes of
+"""The domain errors the ported slices raise (the classes of
 ``poccala_tpu/utils/errors.py``; that module's package imports jax)."""
 
 from __future__ import annotations
@@ -14,3 +14,7 @@ class UnitFileError(PoccalaError):
 
 class ParameterFileError(PoccalaError):
     """Checkpoint missing or corrupt (ref ParameterFileExistsError)."""
+
+
+class ModeError(PoccalaError):
+    """Unknown training scheme; valid schemes are 1 and 2 (ref ModeError)."""

@@ -25,7 +25,8 @@ from poccala_tpu.lexicon import PronunciationLexicon as JaxLexicon
 from poccala_tpu.lexicon.builtin_table import BUILTIN_PINYIN
 from poccala_tpu.lm.ngram import Ngram
 from poccala_tpu.models import senone_bank as jsb
-from poccala_tpu_torch.decoder.device import DeviceBeamDecoder, _top_k
+from poccala_tpu_torch.decoder.device import (
+    DeviceBeamDecoder, _top_k, check_context_fits, check_lm_keys_fit)
 from poccala_tpu_torch.io.corpus import UnitInventory
 from poccala_tpu_torch.lexicon import FlatLexicon, PinYin, PronunciationLexicon
 from poccala_tpu_torch.models import senone_bank as tsb
@@ -160,3 +161,37 @@ def test_empty_lexicon_answers_nothing(world):
     dec = DeviceBeamDecoder(world["tbank"], flat)
     assert flat.n_nodes == 1
     assert dec.decode_batch(world["feats"], world["n_frames"]) == [[], [], []]
+
+
+@pytest.mark.parametrize("t_pad,ok", [(2**24 - 2, True), (2**24 - 1, False)])
+def test_context_packing_guard_at_the_limit(t_pad, ok):
+    """``(T+1)(V+1) < 2³¹`` with V+1 = 128: T = 2²⁴-2 is the last frame
+    count that packs into int32, T = 2²⁴-1 reaches 2³¹ exactly."""
+    if ok:
+        check_context_fits(t_pad, 127)
+    else:
+        with pytest.raises(ValueError, match="overflows int32"):
+            check_context_fits(t_pad, 127)
+
+
+@pytest.mark.parametrize("v,ok", [(46340, True), (46341, False)])
+def test_lm_key_guard_at_the_limit(v, ok):
+    """``(V+1)V < 2³¹``: 46341·46340 fits, 46342·46341 does not."""
+    if ok:
+        check_lm_keys_fit(v)
+    else:
+        with pytest.raises(ValueError, match="overflow int32"):
+            check_lm_keys_fit(v)
+
+
+def test_decode_refuses_an_overflowing_batch(world):
+    """The guard runs before any work: a batch of (T+1)(V+1) = 2³¹ frames,
+    passed as a broadcast view that allocates nothing, is refused."""
+    dec = DeviceBeamDecoder(world["tbank"], world["tflat"])
+    dec._prep_device()
+    v = dec._n_vocab
+    t_pad = -(-2**31 // (v + 1)) - 1
+    assert (t_pad + 1) * (v + 1) >= 2**31 > t_pad * (v + 1)
+    feats = torch.zeros((1, 1, D)).expand(1, t_pad, D)
+    with pytest.raises(ValueError, match="overflows int32"):
+        dec.decode_batch(feats, [t_pad])

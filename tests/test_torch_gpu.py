@@ -1,5 +1,7 @@
-"""The PyTorch port on a CUDA device: the hand-written GMM kernel against
-its plain version, and the GPU frontend and decoder against the CPU.
+"""The PyTorch port on a CUDA device: the hand-written kernels (GMM
+scoring, banded HMM forward / backward / Viterbi) against their plain
+versions, and the GPU frontend, decoder and Baum-Welch statistics against
+the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The
 file imports no jax, so it also runs where jax is absent, without the
@@ -19,8 +21,11 @@ from poccala_tpu_torch.lexicon import FlatLexicon, PinYin, PronunciationLexicon
 from poccala_tpu_torch.lexicon.builtin_table import BUILTIN_PINYIN
 from poccala_tpu_torch.models import senone_bank as sb
 from poccala_tpu_torch.ops import gmm_score as tg
+from poccala_tpu_torch.ops import hmm as thmm
 from poccala_tpu_torch.ops.cuda import gmm_score_cuda as gk
+from poccala_tpu_torch.ops.cuda import hmm_banded_cuda as hk
 from poccala_tpu_torch.ops.frontend import Frontend
+from poccala_tpu_torch.train import accumulators as acc
 
 pytestmark = pytest.mark.gpu
 
@@ -122,3 +127,92 @@ def test_decoder_gpu_matches_cpu(cuda):
         # near-tie that kernel rounding could reorder
         if len(w) > 1 and w[0].score - w[1].score > 0.01:
             assert g[0].words == w[0].words
+
+
+def banded_inputs(rng, b, t_pad, n, w):
+    """Left-to-right bands with dead edges and pruned long skips, log_b at
+    GMM-score scale with an impossible last state, ragged masks with one
+    full, one all-padded and one single-frame utterance."""
+    band = np.log(rng.dirichlet(np.ones(w), size=(b, n)))
+    col = np.arange(n)[:, None] + np.arange(w)[None, :]
+    band = np.where(col[None] < n, band, -1e30)
+    band[:, :, 3:] = np.where(rng.uniform(size=(b, n, w - 3)) < 0.5, -1e30,
+                              band[:, :, 3:])
+    log_pi = np.log(rng.dirichlet(np.ones(n), size=b))
+    log_b = rng.normal(size=(b, t_pad, n)) * 20 - 60
+    log_b[:, :, -1] = -1e30
+    lens = rng.integers(1, t_pad + 1, size=b)
+    lens[0], lens[-1] = t_pad, 1
+    masks = np.arange(t_pad)[None] < lens[:, None]
+    masks[1] = False
+    f32 = [torch.tensor(a, dtype=torch.float32)
+           for a in (band, log_pi, log_b)]
+    return f32 + [torch.tensor(masks)]
+
+
+@pytest.mark.parametrize("b,t_pad,n,w", [(3, 1, 11, 5), (6, 37, 26, 5),
+                                         (64, 319, 50, 5), (4, 60, 300, 7)])
+def test_hmm_kernels_match_plain(cuda, b, t_pad, n, w):
+    rng = np.random.default_rng(b * t_pad + n)
+    band, log_pi, log_b, masks = [a.to(cuda) for a in
+                                  banded_inputs(rng, b, t_pad, n, w)]
+    before = {k: f.launches for k, f in hk.KERNELS.items()}
+    la, ll = thmm.forward_log_banded_batch(band, log_pi, log_b, masks, w)
+    lb = thmm.backward_log_banded_batch(band, log_b, masks, w)
+    want_a, want_ll = thmm.forward_log_banded_plain(band, log_pi, log_b,
+                                                    masks, w)
+    want_b = thmm.backward_log_banded_plain(band, log_b, masks, w)
+    torch.cuda.synchronize()
+    assert torch.allclose(la, want_a, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(ll, want_ll, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(lb, want_b, rtol=1e-5, atol=1e-5)
+    for end_states in (0, 3):
+        sc, path, delta = thmm.viterbi_log_banded_batch(
+            band, log_pi, log_b, masks, w, end_states)
+        wsc, wpath, wdelta = thmm.viterbi_log_banded_plain(
+            band, log_pi, log_b, masks, w, end_states)
+        torch.cuda.synchronize()
+        assert torch.equal(path, wpath)
+        assert torch.allclose(sc, wsc, rtol=1e-6, atol=0.0)
+        assert torch.allclose(delta, wdelta, rtol=1e-6, atol=0.0)
+    after = {k: f.launches for k, f in hk.KERNELS.items()}
+    assert after == {"forward": before["forward"] + 1,
+                     "backward": before["backward"] + 1,
+                     "viterbi": before["viterbi"] + 2}
+
+
+@pytest.mark.parametrize("score_dtype", ["float32", "bfloat16"])
+def test_batch_stats_gpu_matches_cpu(cuda, score_dtype):
+    """The E-step on the card (CUDA DP kernels, cuBLAS moments, atomic
+    index_add_) against the CPU (plain DP, sequential scatter): float32
+    sums of up to T·N_s terms in another order, so every field within
+    rtol 1e-4 plus an absolute 1e-4 of the field's largest magnitude."""
+    rng = np.random.default_rng(3)
+    cfg = ModelConfig(state_num=5, mix_level=4, max_mix_level=4)
+    bank = sb.create_bank(20, cfg, 13,
+                          generator=torch.Generator().manual_seed(3))
+    arrays = sb.bank_to_numpy(bank)
+    arrays["means"] = rng.normal(size=arrays["means"].shape).astype(
+        np.float32)
+    bank = sb.bank_from_numpy(arrays)
+    b, t_pad, max_l = 12, 50, 6
+    labels = rng.integers(0, 20, size=(b, max_l)).astype(np.int32)
+    lens = rng.integers(1, max_l + 1, size=b).astype(np.int32)
+    lens[-1] = 0
+    xs = (rng.normal(size=(b, t_pad, 13)) * 1.5).astype(np.float32)
+    masks = np.arange(t_pad)[None] < rng.integers(10, t_pad + 1, size=b)[:, None]
+    kw = dict(count_final_exit=True, bw_inner_iters=3,
+              score_dtype=score_dtype)
+    want, wll = acc.batch_stats(bank, labels, lens, xs, masks, 5, max_l, **kw)
+    before = hk.forward_banded_cuda.launches
+    got, gll = acc.batch_stats(bank.to(cuda), labels, lens, xs, masks, 5,
+                               max_l, **kw)
+    torch.cuda.synchronize()
+    assert hk.forward_banded_cuda.launches > before
+    assert torch.allclose(gll.cpu(), wll, rtol=1e-5, atol=1e-5)
+    for f, g in acc.stats_to_numpy(got).items():
+        w = acc.stats_to_numpy(want)[f]
+        scale = max(1.0, float(np.abs(w).max()))
+        err = float(np.abs(g - w).max())
+        assert np.allclose(g, w, rtol=1e-4, atol=1e-4 * scale), (f, err,
+                                                                  scale)

@@ -3,8 +3,8 @@
 The machine the port runs on has no jax, so ``poccala_tpu_torch`` (and
 ``chip_smoke.py``, which drives it there) may import from the JAX package
 only its four jax-free modules.  An AST scan pins the rule statically; a
-subprocess runs the serving slice on the CPU and checks that jax was
-never loaded.
+subprocess runs the serving slice and a small training step on the CPU
+and checks that jax was never loaded.
 """
 
 import ast
@@ -80,6 +80,34 @@ SLICE = textwrap.dedent("""
     with DecodeService(dec, batch_size=2) as svc:
         hyps = svc.submit(packed[:n]).result(timeout=120)
     assert len(hyps) == 1, hyps
+
+    # a small training step: synthetic corpus -> flat start -> embedded
+    # Baum-Welch -> forced alignment -> checkpoint
+    from poccala_tpu_torch.io import corpus as tcorpus
+    from poccala_tpu_torch.train import alignment
+    from poccala_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from poccala_tpu_torch.train.trainer import Trainer
+    tinv = tcorpus.UnitInventory(["a", "o", "e"])
+    with tempfile.TemporaryDirectory() as tmp:
+        audio, label = tcorpus.generate_synthetic_corpus(
+            tmp, tinv, num_utts=4, units_per_utt=(2, 3), unit_seconds=0.2)
+        tcfg = Config()
+        tcfg.paths.audio_file_path, tcfg.paths.label_file_path = audio, label
+        tcfg.frontend.vad = False
+        tcfg.model.mix_level = tcfg.model.max_mix_level = 1
+        tcfg.train.batch_size, tcfg.train.max_frames = 4, 64
+        tcfg.train.max_label_len, tcfg.train.proportion = 3, 1.0
+        batches = list(tcorpus.Corpus(tcfg, tinv).batches())
+        tr = Trainer(tcfg, tinv)
+        lls = tr.auto(batches, t=2, mode=2)
+        b = batches[0]
+        _, lp = alignment.align_batch(tr.bank, b.labels, b.label_lens, b.feats,
+                                      b.t_masks, 5, 3)
+        save_checkpoint(os.path.join(tmp, "ckpt"), tr.bank)
+        bank2, _ = load_checkpoint(os.path.join(tmp, "ckpt"))
+    assert lls[1] > lls[0], lls
+    assert int((lp >= 0).sum()) > 0
+    assert torch.equal(bank2.means, tr.bank.means)
     assert "jax" not in sys.modules, "the port imported jax"
     print("OK", n)
 """)
