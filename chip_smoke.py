@@ -15,7 +15,12 @@ main path at full model width with random weights from a seeded
   -> M-step -> Viterbi forced alignment) at the XIF inventory (62 units,
   186 senones), 8 mixtures, 39 dims, 256 x 4 s utterances, and
   ``Trainer.auto(mode=2)`` on a synthetic corpus, GPU against CPU, whose
-  trained bank is checkpointed, reloaded and decoded.
+  trained bank is checkpointed, reloaded and decoded;
+* scheme-1 training: ``Trainer.auto(t=2, mode=1, add_mix=True)`` on the
+  same 256 x 4 s batch at 7 -> 8 mixtures (uniform segmentation, k-means,
+  EM, SMEM, then realignment and re-clustering, each round ending with
+  the transmat epoch), timed phase by phase, and on the synthetic corpus
+  on the GPU against the CPU.
 
 Each phase prints one line; any failure raises, so the script exits
 non-zero and prints no result.  The last lines are the kernels' JSON
@@ -68,6 +73,11 @@ DP_TOL = dict(rtol=1e-5, atol=1e-5)    # tests/test_gmm_hmm_kernels.py:102
 # bench.py's training shape: XIF units, 5-state HMMs, 8 mixtures, 39 dims,
 # 256 utterances of 4 s (319 frames), labels of 8-16 units
 TRAIN_B, TRAIN_T, TRAIN_L, TRAIN_W = 256, 319, 16, 5
+# scheme 1 (BASELINE config 2, bench.py:112-136): 7 mixtures growing to 8
+S1_MIX, S1_MAX_MIX = 7, M
+# GPU vs CPU scheme-1 logliks: float32 perturbations of 3e-7 move them by
+# ~1e-5 relative through k-means, EM and SMEM; 1e-4 leaves 10x room
+S1_E2E_RTOL = 1e-4
 KERNEL_NAMES = ("gmm_score", "hmm_banded")
 
 
@@ -505,6 +515,23 @@ def phase_hmm_kernels(seed: int) -> dict:
     return record
 
 
+def train_batch(seed: int, cfg: Config, n_units: int):
+    """bench.py's synthetic training batch on the card: 256 utterances of
+    4 s Gaussian noise (σ = 2000) with random labels of 8-16 units."""
+    n_samples = int(4.0 * cfg.frontend.sample_rate)
+    rng = np.random.default_rng(seed)
+    signals = torch.as_tensor(
+        (rng.normal(size=(TRAIN_B, n_samples)) * 2000).astype(np.float32),
+        device="cuda")
+    n_samp = torch.full((TRAIN_B,), n_samples, dtype=torch.int64,
+                        device="cuda")
+    labels = torch.as_tensor(rng.integers(0, n_units, size=(
+        TRAIN_B, TRAIN_L)).astype(np.int32), device="cuda")
+    lens = torch.as_tensor(rng.integers(TRAIN_L // 2, TRAIN_L + 1, size=(
+        TRAIN_B,)).astype(np.int32), device="cuda")
+    return signals, n_samp, labels, lens
+
+
 def phase_train_throughput(seed: int, smi: str, epochs: int = 8) -> dict:
     """bench.py:143-154's one_epoch on the port: MFCC -> batch_stats ->
     apply_update -> align_batch at 256 x 4 s, one warm-up epoch, then
@@ -512,18 +539,7 @@ def phase_train_throughput(seed: int, smi: str, epochs: int = 8) -> dict:
     DP kernels' launches in the timed run."""
     cfg = train_config()
     inv = UnitInventory.standard("XIF")
-    rate = cfg.frontend.sample_rate
-    n_samples = int(4.0 * rate)
-    rng = np.random.default_rng(seed)
-    signals = torch.as_tensor(
-        (rng.normal(size=(TRAIN_B, n_samples)) * 2000).astype(np.float32),
-        device="cuda")
-    n_samp = torch.full((TRAIN_B,), n_samples, dtype=torch.int64,
-                        device="cuda")
-    labels = torch.as_tensor(rng.integers(0, len(inv), size=(
-        TRAIN_B, TRAIN_L)).astype(np.int32), device="cuda")
-    lens = torch.as_tensor(rng.integers(TRAIN_L // 2, TRAIN_L + 1, size=(
-        TRAIN_B,)).astype(np.int32), device="cuda")
+    signals, n_samp, labels, lens = train_batch(seed, cfg, len(inv))
     fe = Frontend(cfg.frontend, device="cuda")
     bank0 = sb.create_bank(len(inv), cfg.model, cfg.frontend.feat_dim,
                            generator=torch.Generator().manual_seed(seed),
@@ -601,28 +617,35 @@ def xif_lexicon(inv: UnitInventory) -> FlatLexicon:
     return FlatLexicon.from_tree(lex.lexicon, inv)
 
 
+def e2e_corpus(tmp: str, seed: int, inv: UnitInventory):
+    """The synthetic corpus of the end-to-end phases: 64 utterances of
+    2-5 of the first 12 XIF units (each of their senones sees ~150
+    frames), CMVN-normalised features, batches of 32.  Both keep float32
+    EM well conditioned, so the GPU and the CPU can agree.
+    :returns: (cfg, batches, load seconds)"""
+    audio, label = corpus_io.generate_synthetic_corpus(
+        tmp, UnitInventory(inv.units[:12]), num_utts=64,
+        units_per_utt=(2, 5), unit_seconds=0.25, seed=seed)
+    cfg = train_config()
+    cfg.paths.audio_file_path, cfg.paths.label_file_path = audio, label
+    cfg.frontend.vad = False
+    cfg.frontend.cmvn = cfg.frontend.cmvn_var = True
+    cfg.train.batch_size, cfg.train.max_frames = 32, 160
+    cfg.train.max_label_len, cfg.train.proportion = 5, 1.0
+    cfg.train.step = 2
+    t0 = time.perf_counter()
+    batches = list(corpus_io.Corpus(cfg, inv).batches())
+    return cfg, batches, time.perf_counter() - t0
+
+
 def phase_train_e2e(seed: int) -> None:
     """Trainer.auto(mode=2, t=3) at full width (XIF, 8 mixtures, 39 dims)
-    on a synthetic corpus of 64 utterances, on the GPU and on the CPU from
-    the same flat-started bank; the GPU's bank is checkpointed, reloaded
-    and decodes an utterance.  The corpus speaks 12 of the 62 units (each
-    of their senones sees ~150 frames) and its features are CMVN-normalised:
-    both keep float32 EM well conditioned, so the two devices can agree."""
+    on :func:`e2e_corpus`, on the GPU and on the CPU from the same
+    flat-started bank; the GPU's bank is checkpointed, reloaded and
+    decodes an utterance."""
     inv = UnitInventory.standard("XIF")
     with tempfile.TemporaryDirectory() as tmp:
-        audio, label = corpus_io.generate_synthetic_corpus(
-            tmp, UnitInventory(inv.units[:12]), num_utts=64,
-            units_per_utt=(2, 5), unit_seconds=0.25, seed=seed)
-        cfg = train_config()
-        cfg.paths.audio_file_path, cfg.paths.label_file_path = audio, label
-        cfg.frontend.vad = False
-        cfg.frontend.cmvn = cfg.frontend.cmvn_var = True
-        cfg.train.batch_size, cfg.train.max_frames = 32, 160
-        cfg.train.max_label_len, cfg.train.proportion = 5, 1.0
-        cfg.train.step = 2
-        t0 = time.perf_counter()
-        batches = list(corpus_io.Corpus(cfg, inv).batches())
-        load_s = time.perf_counter() - t0
+        cfg, batches, load_s = e2e_corpus(tmp, seed, inv)
 
         gpu = Trainer(cfg, inv, generator=torch.Generator().manual_seed(seed),
                       device="cuda")
@@ -665,6 +688,118 @@ def phase_train_e2e(seed: int) -> None:
         decoded_words=list(hyps[0].words), decoded_score=hyps[0].score)
 
 
+def scheme1_config() -> Config:
+    """BASELINE config 2 for scheme 1: 7 mixtures, growing to 8."""
+    cfg = train_config()
+    cfg.model.mix_level = S1_MIX
+    cfg.train.max_label_len = TRAIN_L
+    return cfg
+
+
+def phase_train_scheme1(seed: int, smi: str) -> None:
+    """Trainer.auto(t=2, mode=1, add_mix=True) at full width on
+    train_throughput's 256 x 4 s batch: round 1 = uniform segmentation,
+    k-means, EM and batched SMEM at 7 mixtures; round 2 = Viterbi
+    realignment, k-means re-clustering for growth and EM at 8; both end
+    with the transmat epoch.  Every phase is timed on the host clock after
+    a CUDA synchronise (the trainer's ``mark`` hook), the DP kernels'
+    launches are counted per round, and the bank must stay on the GPU."""
+    cfg = scheme1_config()
+    inv = UnitInventory.standard("XIF")
+    signals, n_samp, labels, lens = train_batch(seed, cfg, len(inv))
+    feats, masks = Frontend(cfg.frontend, device="cuda").mfcc_batch(signals,
+                                                                   n_samp)
+    batches = [corpus_io.Batch(feats.cpu().numpy(), masks.cpu().numpy(),
+                               labels.cpu().numpy(), lens.cpu().numpy())]
+    del signals, feats
+    marks = []
+    tr = None
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter(),
+                       {k: f.launches for k, f in hk.KERNELS.items()}))
+        check(all(getattr(tr.bank, f).is_cuda for f in sb.FIELDS),
+              f"the bank stayed on the GPU through {name}")
+
+    tr = Trainer(cfg, inv, generator=torch.Generator().manual_seed(seed),
+                 device="cuda", mark=mark)
+    for kernel in hk.KERNELS.values():
+        kernel.launches = 0
+    torch.cuda.synchronize()
+    marks.append(("start", time.perf_counter(),
+                  {k: 0 for k in hk.KERNELS}))
+    lls = tr.auto(batches, t=2, mode=1, add_mix=True)
+
+    rounds, lo = [], 0
+    for h in tr.history:
+        hi = next(i for i in range(lo + 1, len(marks))
+                  if marks[i][0] == "transmat")
+        split = {marks[i][0]: marks[i][1] - marks[i - 1][1]
+                 for i in range(lo + 1, hi + 1)}
+        launches = {k: marks[hi][2][k] - marks[lo][2][k] for k in hk.KERNELS}
+        rounds.append(dict(
+            round=h["round"], mix_level=h["mix_level"], loglik=h["loglik"],
+            seconds=marks[hi][1] - marks[lo][1], split_seconds=split,
+            em_iters_max=h["em_iters"],
+            smem_accepted=h.get("smem_accepted"), cap=h["cap"],
+            frames_dropped=h["dropped"], dp_kernel_launches=launches))
+        lo = hi
+    check(all(np.isfinite(lls)), f"finite scheme-1 logliks {lls}")
+    check(rounds[1]["dp_kernel_launches"]["viterbi"] > 0,
+          "round 2's realignment launched the Viterbi kernel")
+    for r in rounds:
+        check(r["dp_kernel_launches"]["forward"] > 0
+              and r["dp_kernel_launches"]["backward"] > 0,
+              f"round {r['round']}'s transmat epoch launched the "
+              "forward/backward kernels")
+
+    # a third (realignment) round under the profiler, without the marks'
+    # synchronisations
+    tr.mark = lambda _: None
+    profile = device_profile(lambda: tr.scheme1_round(batches, init=False))
+    check(all(getattr(tr.bank, f).is_cuda for f in sb.FIELDS),
+          "the bank stayed on the GPU")
+    say("train_scheme1", units=len(inv), senones=int(tr.bank.num_states),
+        mixtures=[S1_MIX, S1_MAX_MIX], dim=D, batch=TRAIN_B, utt_seconds=4.0,
+        frames=int(masks.shape[1]), max_label_len=TRAIN_L, logliks=lls,
+        rounds=rounds, round3_profile=profile,
+        device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+
+
+def phase_scheme1_e2e(seed: int) -> None:
+    """Trainer.auto(t=2, mode=1, add_mix=True) on :func:`e2e_corpus`
+    (7 mixtures growing to 8) on the GPU and on the CPU from the same
+    generator seed: the round logliks agree within S1_E2E_RTOL, the SMEM
+    acceptance counts are equal, and the realignment round's loglik is
+    above the first round's."""
+    inv = UnitInventory.standard("XIF")
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, batches, _ = e2e_corpus(tmp, seed, inv)
+        cfg.model.mix_level = S1_MIX
+        for dev in ("cuda", "cpu"):
+            tr = Trainer(cfg, inv, generator=torch.Generator().manual_seed(
+                seed), device=dev)
+            t0 = time.perf_counter()
+            lls = tr.auto(batches, t=2, mode=1, add_mix=True)
+            runs[dev] = dict(
+                logliks=lls, seconds=time.perf_counter() - t0,
+                smem_accepted=[h.get("smem_accepted") for h in tr.history],
+                em_iters_max=[h["em_iters"] for h in tr.history])
+    g, c = runs["cuda"], runs["cpu"]
+    rel = float(np.max(np.abs(np.array(g["logliks"])
+                              / np.array(c["logliks"]) - 1)))
+    check(all(np.isfinite(g["logliks"])) and g["logliks"][1] > g["logliks"][0],
+          f"GPU scheme-1 logliks rise: {g['logliks']}")
+    check(g["smem_accepted"] == c["smem_accepted"],
+          f"SMEM moves GPU {g['smem_accepted']} vs CPU {c['smem_accepted']}")
+    check(rel < S1_E2E_RTOL, f"GPU vs CPU logliks {g} vs {c}")
+    say("scheme1_e2e", utterances=sum(int(x.label_lens.size)
+                                      for x in batches),
+        gpu=g, cpu=c, max_rel_diff=rel, tol_rel=S1_E2E_RTOL)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -681,6 +816,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_launches = phase_train_throughput(args.seed, smi)
     phase_train_e2e(args.seed)
+    phase_train_scheme1(args.seed, smi)
+    phase_scheme1_e2e(args.seed)
     check("jax" not in sys.modules, "jax was never imported")
 
     kernels = [dict(name="gmm_log_scores", route="cuda", source=gk.SOURCE,

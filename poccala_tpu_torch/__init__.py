@@ -18,7 +18,12 @@ Ported so far:
   (:mod:`~poccala_tpu_torch.train.accumulators`), Viterbi forced
   alignment and :class:`~poccala_tpu_torch.train.trainer.Trainer`, whose
   banded forward / backward / Viterbi run hand-written CUDA kernels
-  (``csrc/hmm_banded.cu``) — and npz checkpoints.
+  (``csrc/hmm_banded.cu``) — and npz checkpoints;
+* scheme-1 training — per-senone frame buckets from uniform segmentation
+  or realignment, grouped k-means and EM (:mod:`~poccala_tpu_torch.ops.
+  kmeans`, :mod:`~poccala_tpu_torch.ops.em`), split-and-merge EM
+  (:mod:`~poccala_tpu_torch.train.smem`), mixture growth — plus k-means
+  state tying and the reference's per-unit parameter layout.
 
 On the GPU each kernel launches; on the CPU its plain PyTorch version runs.
 """

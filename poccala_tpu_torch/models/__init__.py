@@ -1,4 +1,5 @@
-"""Model tier: the senone bank and the embedded sentence-HMM topology."""
+"""Model tier: the senone bank, the embedded sentence-HMM topology and
+state tying."""
 
 from poccala_tpu_torch.models.senone_bank import SenoneBank
 

@@ -14,7 +14,8 @@ fields are buffers, so ``bank.to(device)`` moves it whole:
 :func:`bank_from_numpy` / :func:`bank_to_numpy` convert to and from the
 ``{field: ndarray}`` form keyed like the checkpoint's ``bank.npz``
 (``train/checkpoint.py:42-44``) — the weight converter between the two
-packages.
+packages.  Banks are not modified in place: :func:`replace` builds a new
+one, as ``dataclasses.replace`` does for the JAX bank.
 """
 
 from __future__ import annotations
@@ -79,6 +80,12 @@ def bank_from_numpy(arrays: dict, device=None) -> SenoneBank:
 def bank_to_numpy(bank: SenoneBank) -> dict:
     """:class:`SenoneBank` -> ``{field: ndarray}`` (host copies)."""
     return {f: getattr(bank, f).detach().cpu().numpy() for f in FIELDS}
+
+
+def replace(bank: SenoneBank, **changes) -> SenoneBank:
+    """A new bank with the given fields replaced (``dataclasses.replace``
+    on the JAX package's bank)."""
+    return SenoneBank(**{f: changes.get(f, getattr(bank, f)) for f in FIELDS})
 
 
 def identity_senone_map(num_units: int, emit: int,
@@ -177,5 +184,18 @@ def flat_start(
     means = mean_m[None].expand(s, m, d).contiguous()
     log_var = torch.log(torch.clamp(global_var, min=1e-10))[None, None] \
         .expand(s, m, d).contiguous()
-    return SenoneBank(means, log_var, bank.log_w, bank.log_A, bank.log_pi,
-                      bank.mix_counts, bank.senone_map)
+    return replace(bank, means=means, log_var=log_var)
+
+
+# ----------------------------------------------------------------------
+# Mixture growth (Controller.add_mix_level, Controller.py:153-159)
+# ----------------------------------------------------------------------
+
+def grow_mixtures(bank: SenoneBank, new_counts) -> SenoneBank:
+    """Record new per-senone mixture targets, capped at ``max_mix``.  The
+    re-clustering itself happens at the next k-means init
+    (``AcousticModel.__cal_gmm`` re-clusters when ``gmm.mixture !=
+    mix_level``, ``AcousticModel.py:552-558``)."""
+    new_counts = torch.as_tensor(new_counts, device=bank.mix_counts.device)
+    return replace(bank, mix_counts=torch.clamp(new_counts, max=bank.max_mix)
+                   .to(torch.int32))

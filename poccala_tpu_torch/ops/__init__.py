@@ -1,2 +1,2 @@
 """Compute ops tier: frontend, VAD, GMM scoring, HMM dynamic programming,
-and their CUDA kernels."""
+grouped k-means and EM, and the CUDA kernels."""

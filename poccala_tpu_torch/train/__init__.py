@@ -1,2 +1,2 @@
 """Training tier: Baum-Welch statistics and M-step, forced alignment,
-the scheme-2 trainer, checkpoints."""
+split-and-merge EM, the trainer of both schemes, checkpoints."""

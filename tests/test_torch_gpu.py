@@ -216,3 +216,124 @@ def test_batch_stats_gpu_matches_cpu(cuda, score_dtype):
         err = float(np.abs(g - w).max())
         assert np.allclose(g, w, rtol=1e-4, atol=1e-4 * scale), (f, err,
                                                                   scale)
+
+
+# ----------------------------------------------------------------------
+# scheme 1: k-means, EM, SMEM and fit_gmms on the card
+# ----------------------------------------------------------------------
+
+def blob_groups(rng, g=6, f=200, d=4):
+    """Per group three blobs with ragged masks and one all-masked group.
+    The blobs sit near the origin (|μ|²/σ² ≲ 40): Σγx²/n − μ² then loses
+    little to cancellation, and float32 EM stays within 2e-5 of float64."""
+    centers = rng.normal(size=(g, 3, d)) * 2
+    x = centers[np.arange(g)[:, None], rng.integers(0, 3, size=(g, f))] \
+        + rng.normal(size=(g, f, d)) * 0.6
+    mask = rng.uniform(size=(g, f)) < 0.85
+    mask[2] = False
+    return (torch.tensor(x, dtype=torch.float32), torch.tensor(mask))
+
+
+def test_kmeans_em_gpu_matches_cpu(cuda):
+    """The same inputs and generator seed on both devices: the same
+    assignments and EM iteration counts, parameters at 1e-4."""
+    from poccala_tpu_torch.ops import em as tem
+    from poccala_tpu_torch.ops import kmeans as tkm
+
+    x, mask = blob_groups(np.random.default_rng(4))
+    want = tkm.kmeans_grouped(torch.Generator().manual_seed(3), x, mask, 3)
+    got = tkm.kmeans_grouped(torch.Generator().manual_seed(3), x.to(cuda),
+                             mask.to(cuda), 3)
+    assert torch.equal(got["assign"].cpu(), want["assign"])
+    assert torch.equal(got["counts"].cpu(), want["counts"])
+    for f in ("means", "variances", "alpha"):
+        assert torch.allclose(got[f].cpu(), want[f], **F32), f
+
+    g, m = x.shape[0], 4
+    mix_mask = torch.arange(m)[None].expand(g, m) < 3
+    params = (nn_pad(want["means"], m), nn_pad(torch.log(want["variances"]), m),
+              torch.log(torch.clamp(nn_pad(want["alpha"][..., None], m)[..., 0],
+                                    min=1e-30)))
+    floor = np.full(4, 1e-3, np.float32)
+    wp, wq, wit = tem.em_fit_grouped(*params, x, mask, mix_mask,
+                                     c_covariance=floor)
+    gp, gq, git = tem.em_fit_grouped(*(p.to(cuda) for p in params),
+                                     x.to(cuda), mask.to(cuda),
+                                     mix_mask.to(cuda), c_covariance=floor)
+    assert torch.equal(git.cpu(), wit)
+    assert torch.allclose(gq.cpu(), wq, rtol=1e-5, atol=1e-3)
+    for a, b in zip(gp, wp):
+        assert torch.allclose(a.cpu(), b, **F32)
+
+
+def nn_pad(a, m):
+    """Pad the mixture axis (dim 1) of ``a`` with zeros up to ``m``."""
+    return torch.nn.functional.pad(a, (0, 0, 0, m - a.shape[1]))
+
+
+class _SmemTrainer:
+    def __init__(self, bank, cfg):
+        self.bank, self.cfg, self.mix_level = bank, cfg, 3
+        self.generator = torch.Generator().manual_seed(7)
+
+
+def smem_world():
+    """tests/test_smem_batched.py's world without jax: six senones of
+    three mixtures on three blobs; the even ones are EM-converged from
+    the classic SMEM local optimum, the odd ones from the truth."""
+    from poccala_tpu_torch.ops import em as tem
+
+    rng = np.random.default_rng(0)
+    cfg = Config()
+    cfg.model.state_num, cfg.model.mix_level = 5, 3
+    cfg.model.max_mix_level = 4
+    bank = sb.create_bank(2, cfg.model, 2, differentiation=False)
+    s, cap, d = 6, 360, 2
+    frames = np.zeros((s, cap, d), np.float32)
+    means0 = np.zeros((s, 4, d), np.float32)
+    for i in range(s):
+        blob = rng.normal(size=(cap // 3, d)) * 0.3
+        pts = np.concatenate([blob + [0, 0], blob + [6, 0], blob + [0, 6]])
+        frames[i] = pts[rng.permutation(cap)]
+        means0[i, :3] = ([[0.1, 0.0], [-0.1, 0.0], [3.0, 3.0]] if i % 2 == 0
+                         else [[0, 0], [6, 0], [0, 6]])
+    log_w0 = np.full((s, 4), -1e30, np.float32)
+    log_w0[:, :3] = np.log(1 / 3)
+    mask = np.ones((s, cap), bool)
+    p, _, _ = tem.em_fit_grouped(
+        torch.tensor(means0), torch.zeros(s, 4, d), torch.tensor(log_w0),
+        torch.tensor(frames), torch.tensor(mask),
+        torch.arange(4)[None].expand(s, 4) < 3, max_iters=30)
+    return sb.replace(bank, means=p.means, log_var=p.log_var,
+                      log_w=p.log_w), cfg, frames, mask
+
+
+def test_smem_batched_gpu_makes_world_decisions(cuda):
+    from poccala_tpu_torch.train import smem as tsmem
+
+    bank, cfg, frames, mask = smem_world()
+    means0 = bank.means.clone()
+    tr = _SmemTrainer(bank.to(cuda), cfg)       # Module.to moves in place
+    new, n = tsmem.smem_pass_batched(tr, frames, mask, np.ones(6, bool))
+    changed = (new.means.cpu() != means0).any(-1).any(-1).numpy()
+    assert n == 3
+    assert np.array_equal(changed, [1, 0, 1, 0, 1, 0])
+    assert all(getattr(new, f).is_cuda for f in sb.FIELDS)
+
+
+def test_fit_gmms_keeps_bank_on_gpu(cuda):
+    from poccala_tpu_torch.io.corpus import UnitInventory as Inv
+    from poccala_tpu_torch.train.trainer import Trainer
+
+    cfg = Config()
+    cfg.model.state_num, cfg.model.mix_level = 5, 3
+    cfg.model.max_mix_level = 4
+    tr = Trainer(cfg, Inv(["a", "o", "e", "i"]), device=cuda)
+    rng = np.random.default_rng(5)
+    frames = rng.normal(size=(12, 120, 39)).astype(np.float32)
+    mask = rng.uniform(size=(12, 120)) < 0.9
+    mask[3] = False                      # a senone without data
+    tr.fit_gmms(frames, mask, reinit=True, smem=True)
+    assert all(getattr(tr.bank, f).is_cuda for f in sb.FIELDS)
+    assert torch.isfinite(tr.bank.means).all()
+    assert tr.round_info["em_iters"] >= 1 and "smem_accepted" in tr.round_info

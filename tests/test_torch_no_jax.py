@@ -3,8 +3,8 @@
 The machine the port runs on has no jax, so ``poccala_tpu_torch`` (and
 ``chip_smoke.py``, which drives it there) may import from the JAX package
 only its four jax-free modules.  An AST scan pins the rule statically; a
-subprocess runs the serving slice and a small training step on the CPU
-and checks that jax was never loaded.
+subprocess runs the serving slice and small training runs of both
+schemes on the CPU and checks that jax was never loaded.
 """
 
 import ast
@@ -105,9 +105,17 @@ SLICE = textwrap.dedent("""
                                       b.t_masks, 5, 3)
         save_checkpoint(os.path.join(tmp, "ckpt"), tr.bank)
         bank2, _ = load_checkpoint(os.path.join(tmp, "ckpt"))
+        # scheme 1: uniform segmentation -> k-means -> EM -> batched SMEM
+        # -> transmat epoch, then realignment with one more mixture
+        tcfg.model.mix_level, tcfg.model.max_mix_level = 3, 4
+        tcfg.train.smem, tcfg.train.smem_impl = True, "batched"
+        tr1 = Trainer(tcfg, tinv)
+        lls1 = tr1.auto(batches, t=2, mode=1, add_mix=True)
     assert lls[1] > lls[0], lls
     assert int((lp >= 0).sum()) > 0
     assert torch.equal(bank2.means, tr.bank.means)
+    assert np.isfinite(lls1).all() and tr1.mix_level == 4, lls1
+    assert "smem_accepted" in tr1.history[0], tr1.history
     assert "jax" not in sys.modules, "the port imported jax"
     print("OK", n)
 """)

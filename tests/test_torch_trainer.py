@@ -122,12 +122,6 @@ def test_unported_parts_raise(corpus):
     with pytest.raises(NotImplementedError, match="Queue 1"):
         Trainer(cfg, tinv, mesh=object())
     tr = Trainer(cfg, tinv)
-    for call in (lambda: tr.auto(batches, mode=1),
-                 lambda: tr.scheme1_round(batches, init=True),
-                 lambda: tr.fit_gmms(None, None, reinit=True),
-                 tr.add_mix_level):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            call()
     with pytest.raises(ModeError):
         tr.auto(batches, mode=3)
 
