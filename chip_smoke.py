@@ -20,7 +20,16 @@ main path at full model width with random weights from a seeded
   same 256 x 4 s batch at 7 -> 8 mixtures (uniform segmentation, k-means,
   EM, SMEM, then realignment and re-clustering, each round ending with
   the transmat epoch), timed phase by phase, and on the synthetic corpus
-  on the GPU against the CPU.
+  on the GPU against the CPU;
+* streaming decode at the decode width: eight live ``ServiceStream``
+  sessions fed 25-frame chunks at the rate audio arrives, one lockstep
+  session of eight streams, each held to the one-shot decode, and the GMM
+  kernel against its plain version at a chunk's shapes;
+* block-pruned decode over a synthetic 21.6k-node lexicon at the decode
+  batch (256 x 4 s), exact against ``active_blocks`` 8 and 4;
+* the command line (``python -m poccala_tpu_torch.cli --device cuda``):
+  synth-corpus, train, align, decode, listen and serve on a small corpus,
+  train, align and decode held against ``--device cpu``.
 
 Each phase prints one line; any failure raises, so the script exits
 non-zero and prints no result.  The last lines are the kernels' JSON
@@ -49,6 +58,7 @@ from poccala_tpu_torch.decoder.device import DeviceBeamDecoder
 from poccala_tpu_torch.io import corpus as corpus_io
 from poccala_tpu_torch.io.corpus import UnitInventory
 from poccala_tpu_torch.lexicon import FlatLexicon, PinYin, PronunciationLexicon
+from poccala_tpu_torch.lexicon.build import synthetic_lexicon
 from poccala_tpu_torch.lexicon.builtin_table import BUILTIN_PINYIN
 from poccala_tpu_torch.models import senone_bank as sb
 from poccala_tpu_torch.models.topology import build_embedded_batch
@@ -78,7 +88,12 @@ S1_MIX, S1_MAX_MIX = 7, M
 # GPU vs CPU scheme-1 logliks: float32 perturbations of 3e-7 move them by
 # ~1e-5 relative through k-means, EM and SMEM; 1e-4 leaves 10x room
 S1_E2E_RTOL = 1e-4
+# GPU vs CPU logliks of the CLI's two scheme-2 rounds: they differed by
+# 1.6e-6 relative on an H100; 1e-4 leaves 60x room
+CLI_TRAIN_RTOL = 1e-4
 KERNEL_NAMES = ("gmm_score", "hmm_banded")
+CHUNK = 25                    # stream chunk in frames (ServiceStream default)
+STREAMS = 8                   # live sessions, and the lockstep batch
 
 
 def say(phase: str, **fields) -> None:
@@ -105,6 +120,25 @@ def median_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
+
+
+def loop_ms(fn, n: int = 100) -> float:
+    """Mean CUDA-event time of ``fn`` over ``n`` back-to-back calls after
+    a warm-up: for calls too short for one event pair to resolve."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def pct(values, q) -> float:
+    return float(np.percentile(np.asarray(values), q))
 
 
 # ----------------------------------------------------------------------
@@ -800,6 +834,363 @@ def phase_scheme1_e2e(seed: int) -> None:
         gpu=g, cpu=c, max_rel_diff=rel, tol_rel=S1_E2E_RTOL)
 
 
+# ----------------------------------------------------------------------
+# streaming, block-pruned search, command line
+# ----------------------------------------------------------------------
+
+def speech_features(seed: int, cfg: Config, n: int, seconds: float):
+    """``n`` utterances of :func:`synthetic_speech` through the frontend
+    and VAD on the card (cmd_listen's composition): packed ``[T, D]``
+    host arrays."""
+    rng = np.random.default_rng(seed)
+    fe = Frontend(cfg.frontend, device="cuda")
+    rate = cfg.frontend.sample_rate
+    out = []
+    for _ in range(n):
+        feats, mask = fe.mfcc(synthetic_speech(rng, rate, seconds))
+        keep = vad_ops.vad_mask(feats, mask) if cfg.frontend.vad else mask
+        packed, kept = vad_ops.apply_mask(feats, keep)
+        out.append(packed[: int(kept)])
+    return out
+
+
+def same_nbest(got, want, what: str) -> None:
+    check(bool(got) and [h.words for h in got] == [h.words for h in want],
+          f"{what}: words {[h.words for h in got]} vs "
+          f"{[h.words for h in want]}")
+    check(np.allclose([h.score for h in got], [h.score for h in want],
+                      rtol=1e-4, atol=0.0),
+          f"{what}: scores {[h.score for h in got]} vs "
+          f"{[h.score for h in want]}")
+
+
+def phase_stream(seed: int, smi: str) -> None:
+    """Streaming decode at the decode width (XIF_tone, 606 senones, 8
+    mixtures, 39 dims, built-in lexicon): eight ``ServiceStream`` sessions
+    of one 4 s utterance each, fed 25-frame chunks at the rate the audio
+    arrives, then one lockstep session of all eight; every final n-best
+    against the one-shot decode on the card.  Then the chunk advance alone
+    (host clock after a synchronise), its device profile, and the GMM
+    kernel against its plain version at one chunk (T = 25) and a lockstep
+    chunk (T = 200)."""
+    phase_t0 = time.perf_counter()
+    dec, cfg = full_width_decoder(seed, "cuda")
+    feats = speech_features(seed, cfg, STREAMS, 4.0)
+    chunk_s = CHUNK * cfg.frontend.frame_step / cfg.frontend.sample_rate
+    cap = [-(-len(f) // CHUNK) * CHUNK for f in feats]
+    n_min = min(len(f) for f in feats)
+    lock = np.stack([f[:n_min] for f in feats])
+
+    gk.gmm_log_scores_cuda.launches = 0
+    done_at = {}
+    with DecodeService(dec, batch_size=8) as svc:
+        sessions = [svc.open_stream(chunk_frames=CHUNK, max_frames=c)
+                    for c in cap]
+        futs, last_feed = {}, {}
+        t0 = time.monotonic()
+        for k in range(max(cap) // CHUNK):
+            time.sleep(max(0.0, t0 + k * chunk_s - time.monotonic()))
+            for i, s in enumerate(sessions):
+                part = feats[i][k * CHUNK:(k + 1) * CHUNK]
+                if len(part):
+                    s.feed(part)
+                if i not in futs and (k + 1) * CHUNK >= len(feats[i]):
+                    last_feed[i] = time.monotonic()
+                    futs[i] = s.result(return_nbest=2)
+                    futs[i].add_done_callback(
+                        lambda _, i=i: done_at.setdefault(
+                            i, time.monotonic()))
+        finals = [futs[i].result(timeout=600) for i in range(STREAMS)]
+        live_chunks = svc.stats.stream_chunks
+        lockstep = svc.open_stream(chunk_frames=CHUNK,
+                                   max_frames=-(-n_min // CHUNK) * CHUNK,
+                                   batch=STREAMS)
+        for lo in range(0, n_min, CHUNK):
+            lockstep.feed(lock[:, lo:lo + CHUNK])
+        lock_finals = lockstep.result(return_nbest=2).result(timeout=600)
+        stats = svc.stats
+    launches = gk.gmm_log_scores_cuda.launches
+    latency = [done_at[i] - last_feed[i] for i in range(STREAMS)]
+    check(launches > 0, "the stream path launched the GMM kernel")
+
+    for i, f in enumerate(feats):
+        same_nbest(finals[i], dec.decode_batch(f[None], [len(f)], 2)[0],
+                   f"stream {i} vs one-shot")
+    for i, want in enumerate(dec.decode_batch(lock, [n_min] * STREAMS, 2)):
+        same_nbest(lock_finals[i], want, f"lockstep stream {i} vs one-shot")
+
+    def advance_ms(x, n_chunks):
+        """Host ms per chunk advance of one session, after a synchronise."""
+        st = dec.stream_init(batch=x.shape[0], max_frames=n_chunks * CHUNK)
+        times = []
+        for k in range(n_chunks):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dec.stream_feed(st, x[:, k * CHUNK:(k + 1) * CHUNK])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return times, st
+
+    one = feats[0][None, : len(feats[0]) // CHUNK * CHUNK]
+    one_ms, _ = advance_ms(one, one.shape[1] // CHUNK)
+    lock_ms, st = advance_ms(lock[:, : n_min // CHUNK * CHUNK], n_min // CHUNK)
+    st1 = dec.stream_init(batch=1, max_frames=CHUNK)
+    chunk_profile = device_profile(lambda: dec.stream_feed(st1, one[:, :CHUNK]))
+    result_ms = median_ms(lambda: dec.stream_result(st))
+
+    gen = torch.Generator().manual_seed(seed)
+    for t in (CHUNK, STREAMS * CHUNK):
+        x, means, log_var, log_w = scoring_inputs(t, gen)
+        got = gk.gmm_log_scores_cuda(x, means, log_var, log_w)
+        want = gmm_log_scores(x, means, log_var, log_w)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all())
+              and bool(torch.allclose(got, want, **F32_TOL)),
+              f"kernel vs plain at T = {t}: max abs err {err}")
+        say("kernel_vs_plain", t=t, s=S, m=M, d=D, score_dtype="float32",
+            normalizer="textbook", max_abs_err=err, tol=F32_TOL, ok=True,
+            ms=loop_ms(lambda: gk.gmm_log_scores_cuda(x, means, log_var,
+                                                      log_w)),
+            plain_ms=loop_ms(lambda: gmm_log_scores(x, means, log_var,
+                                                    log_w)))
+    say("stream", sessions=STREAMS, chunk_frames=CHUNK,
+        chunk_audio_seconds=chunk_s, utt_seconds=4.0,
+        kept_frames=[len(f) for f in feats], lexicon_nodes=int(
+            dec.lexicon.n_nodes),
+        live_chunks=live_chunks, all_chunks=stats.stream_chunks,
+        lockstep_frames=n_min,
+        kernel_launches=launches,
+        gmm_launches_per_chunk=launches / stats.stream_chunks,
+        chunk_advance_ms=dict(p50=pct(one_ms, 50), p90=pct(one_ms, 90)),
+        lockstep_chunk_advance_ms=dict(p50=pct(lock_ms, 50),
+                                       p90=pct(lock_ms, 90)),
+        real_time_factor=pct(one_ms, 50) / 1e3 / chunk_s,
+        lockstep_real_time_factor=pct(lock_ms, 50) / 1e3 / chunk_s / STREAMS,
+        final_result_latency_ms=dict(p50=pct(latency, 50) * 1e3,
+                                     p90=pct(latency, 90) * 1e3),
+        stream_result_ms=result_ms, chunk_profile=chunk_profile,
+        one_best=["".join(f[0].words) for f in finals],
+        phase_seconds=time.perf_counter() - phase_t0,
+        device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+
+
+def phase_pruned(seed: int, smi: str, batch: int = 256,
+                 utt_seconds: float = 4.0) -> None:
+    """Block-pruned search at the decode batch (bench.py's 256 x 4 s of
+    noise through the frontend) over the synthetic ~21.6k-node lexicon
+    standing in for Mandarin.dat: exact, then block_size 256 with 8 and 4
+    active blocks, each timed after a warm-up call and a synchronise, with
+    its peak device memory; then one pruned stream session against the
+    one-shot pruned decode."""
+    phase_t0 = time.perf_counter()
+    cfg = Config()
+    cfg.model.mix_level = cfg.model.max_mix_level = M
+    inv = UnitInventory.standard("XIF_tone")
+    flat, words, _ = synthetic_lexicon(inv)
+    lex_s = time.perf_counter() - phase_t0
+    bank = sb.create_bank(len(inv), cfg.model, cfg.frontend.feat_dim,
+                          generator=torch.Generator().manual_seed(seed),
+                          device="cuda")
+    rng = np.random.default_rng(seed)
+    n_samples = int(utt_seconds * cfg.frontend.sample_rate)
+    signals = torch.as_tensor(
+        (rng.normal(size=(batch, n_samples)) * 2000).astype(np.float32),
+        device="cuda")
+    feats, masks = Frontend(cfg.frontend, device="cuda").mfcc_batch(
+        signals, torch.full((batch,), n_samples, device="cuda"))
+    n_frames = masks.sum(dim=1).cpu().numpy()
+    del signals
+
+    runs, outs = {}, {}
+    for name, kw in (("exact", {}),
+                     ("k8", dict(block_size=256, active_blocks=8)),
+                     ("k4", dict(block_size=256, active_blocks=4))):
+        dec = DeviceBeamDecoder(bank, flat, **kw)
+        t0 = time.perf_counter()
+        dec._prep_device()
+        prep_s = time.perf_counter() - t0
+        check(dec._prune_on == bool(kw), f"{name}: pruning engaged as set")
+        dec.decode_batch(feats, n_frames)                     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gk.gmm_log_scores_cuda.launches = 0
+        t0 = time.perf_counter()
+        outs[name] = dec.decode_batch(feats, n_frames)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        check(gk.gmm_log_scores_cuda.launches == 1,
+              f"{name}: one GMM kernel launch per decode call")
+        check(all(len(h) >= 1 for h in outs[name]),
+              f"{name}: every utterance decoded")
+        runs[name] = dict(wall_ms=wall_ms, table_prep_seconds=prep_s,
+                          peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                          blocks=getattr(dec, "_n_blocks", None))
+        del dec
+    for name in ("k8", "k4"):
+        agree, worst = 0, 0.0
+        for he, hp in zip(outs["exact"], outs[name]):
+            agree += he[0].words == hp[0].words
+            worst = max(worst, (hp[0].score - he[0].score) / abs(he[0].score))
+        check(worst <= 1e-4, f"{name}: a pruned 1-best beat the exact one by "
+              f"{worst} relative")
+        runs[name].update(one_best_agreement=agree / batch,
+                          max_rel_excess_over_exact=worst)
+
+    # a pruned stream session of one utterance equals the pruned one-shot
+    dec = DeviceBeamDecoder(bank, flat, block_size=256, active_blocks=8)
+    x = feats[0, : int(n_frames[0])]
+    st = dec.stream_init(batch=1, max_frames=len(x))
+    for lo in range(0, len(x), CHUNK):
+        dec.stream_feed(st, x[lo:lo + CHUNK])
+    same_nbest(dec.stream_result(st, 2)[0], dec.decode_batch(
+        x[None], [len(x)], 2)[0], "pruned stream vs pruned one-shot")
+    say("pruned", lexicon_nodes=int(flat.n_nodes), words=len(words),
+        lexicon_build_seconds=lex_s, batch=batch, utt_seconds=utt_seconds,
+        frames=int(feats.shape[1]), block_size=256, runs=runs,
+        stream_equals_one_shot=True, phase_seconds=time.perf_counter()
+        - phase_t0, device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+
+
+def phase_cli(seed: int) -> None:
+    """``python -m poccala_tpu_torch.cli``, in process, on a 12-utterance
+    synthetic corpus (6 units, 18 senones, 1 of 2 mixtures): with
+    ``--device cuda`` synth-corpus, train (scheme 2, two rounds, CMVN),
+    align, decode --decoder device, listen --wav and serve over three
+    WAVs, where listen's and serve's 1-best must equal decode's.  Then
+    train, align and decode again with ``--device cpu``, the kernels'
+    plain versions: the CPU's logliks from its own flat start within
+    CLI_TRAIN_RTOL of the GPU's and, on the GPU's checkpoint, align's
+    frames equal and decode's n-best equal at 1e-4 relative.  Last the
+    GMM kernel against its plain version on the trained bank at the
+    decode's frames."""
+    import contextlib
+    import io
+
+    from poccala_tpu_torch import cli
+
+    def run(device, *argv) -> list[dict]:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--device", device, *argv])
+        return [json.loads(line) for line in buf.getvalue().splitlines()]
+
+    gk.gmm_log_scores_cuda.launches = 0
+    for kernel in hk.KERNELS.values():
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        units = os.path.join(tmp, "units")
+        with open(units, "w") as f:
+            f.write("units\nn,i3,h,ao3,m,a1\n")
+        words = os.path.join(tmp, "words.txt")
+        with open(words, "w") as f:
+            f.write("你好\n你\n马\n")
+        dirs = run("cuda", "--units", units, "--set", f"train.seed={seed}",
+                   "synth-corpus", "--out", tmp, "--num-utts", "12")[0]
+        common = ["--units", units,
+                  "--set", f"paths.audio_file_path={dirs['audio_dir']}",
+                  "--set", f"paths.label_file_path={dirs['label_dir']}",
+                  "--set", "train.load_line=0", "--set", "frontend.vad=false",
+                  "--set", "frontend.cmvn=true", "--set", "model.mix_level=1",
+                  "--set", "model.max_mix_level=2",
+                  "--set", "train.max_frames=256",
+                  "--set", "train.batch_size=6", "--set", "train.step=4",
+                  "--set", "train.proportion=1.0"]
+        lex = os.path.join(tmp, "lex.pkl")
+        run("cuda", *common, "build-lexicon", "--words", words, "--out", lex)
+        wavs = [os.path.join(dirs["audio_dir"], f"utt{i:05d}.wav")
+                for i in range(3)]
+        ckpt, logliks, aligned, decoded = {}, {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            ckpt[dev] = os.path.join(tmp, f"ckpt_{dev}")
+            hist = os.path.join(tmp, f"hist_{dev}.json")
+            run(dev, *common, "train", "--mode", "2", "--epochs", "2",
+                "--checkpoint", ckpt[dev], "--history", hist)
+            with open(hist) as f:
+                logliks[dev] = [h["loglik"] for h in json.load(f)]
+            # both devices align and decode with the GPU's bank
+            aligned[dev] = run(dev, *common, "align", "--checkpoint",
+                               ckpt["cuda"])
+            decoded[dev] = run(dev, *common, "decode", "--decoder", "device",
+                               "--checkpoint", ckpt["cuda"], "--lexicon",
+                               lex, *wavs)
+            if dev == "cuda":
+                model = ["--checkpoint", ckpt["cuda"], "--lexicon", lex]
+                listened = run("cuda", *common, "listen", *model, "--wav",
+                               wavs[0], "--chunk-frames", str(CHUNK))
+                wav_list = os.path.join(tmp, "wavs.txt")
+                with open(wav_list, "w") as f:
+                    f.write("\n".join(wavs) + "\n")
+                served = run("cuda", *common, "serve", *model, "--list",
+                             wav_list, "--batch-size", "2",
+                             "--frame-bucket", "32")
+                dp = {k: f.launches for k, f in hk.KERNELS.items()}
+                gmm = gk.gmm_log_scores_cuda.launches
+
+        # the GMM kernel at the CLI's S, M, D on the trained bank
+        cfg = Config()
+        cfg.frontend.vad, cfg.frontend.cmvn = False, True
+        fe = Frontend(cfg.frontend, device="cuda")
+        x = []
+        for w in wavs:
+            feats, mask = fe.mfcc(wav_io.preprocess_signal(
+                wav_io.load_wav(w)[0]))
+            x.append(feats[: int(mask.sum())])
+        x = torch.cat(x)
+        bank, _ = load_checkpoint(ckpt["cuda"], device="cuda")
+    launches = gk.gmm_log_scores_cuda.launches
+    got = gk.gmm_log_scores_cuda(x, bank.means, bank.log_var, bank.log_w)
+    want = gmm_log_scores(x, bank.means, bank.log_var, bank.log_w)
+    gk.gmm_log_scores_cuda.launches = launches
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all())
+          and bool(torch.allclose(got, want, **F32_TOL)),
+          f"kernel vs plain on the CLI's bank: max abs err {err}")
+
+    g_ll, c_ll = logliks["cuda"], logliks["cpu"]
+    rel = float(np.max(np.abs(np.array(g_ll) / np.array(c_ll) - 1)))
+    check(all(np.isfinite(g_ll)) and g_ll[1] > g_ll[0],
+          f"CLI training logliks rise: {g_ll}")
+    check(rel < CLI_TRAIN_RTOL, f"CLI GPU vs CPU logliks {g_ll} vs {c_ll}")
+    check(len(aligned["cuda"]) == len(aligned["cpu"]) == 12
+          and all(np.isfinite(a["score"]) for a in aligned["cuda"]),
+          "align answered every utterance with a finite score")
+    for i, (g, c) in enumerate(zip(aligned["cuda"], aligned["cpu"])):
+        check(g["frames"] == c["frames"], f"align {i}: GPU frames vs CPU")
+        check(np.isclose(g["score"], c["score"], rtol=1e-4, atol=0.0),
+              f"align {i}: GPU score {g['score']} vs CPU {c['score']}")
+    check(all(d["nbest"] for d in decoded["cuda"]), "decode answered every WAV")
+    for g, c in zip(decoded["cuda"], decoded["cpu"]):
+        got, want = g["nbest"], c["nbest"]
+        check([h["words"] for h in got] == [h["words"] for h in want],
+              f"decode {g['wav']}: GPU n-best {got} vs CPU {want}")
+        check(np.allclose([h["score"] for h in got],
+                          [h["score"] for h in want], rtol=1e-4, atol=0.0),
+              f"decode {g['wav']}: GPU scores {got} vs CPU {want}")
+    final = listened[-1]["final"]
+    dec0 = decoded["cuda"][0]["nbest"]
+    check(bool(final) and final[0]["words"] == dec0[0]["words"],
+          f"listen's final {final[:1]} vs decode's {dec0[:1]}")
+    check([s["wav"] for s in served] == wavs, "serve kept the input order")
+    for s, d in zip(served, decoded["cuda"]):
+        check(s["nbest"][0]["words"] == d["nbest"][0]["words"],
+              f"serve's 1-best {s['nbest'][0]} vs decode's {d['nbest'][0]}")
+    check(gmm > 0 and dp["forward"] > 0 and dp["backward"] > 0
+          and dp["viterbi"] > 0, f"the CLI launched the kernels: gmm {gmm}, "
+          f"dp {dp}")
+    say("cli", commands=["synth-corpus", "build-lexicon", "train", "align",
+                         "decode", "listen", "serve"],
+        senones=int(bank.num_states), mixtures=int(bank.means.shape[1]),
+        gpu_logliks=g_ll, cpu_logliks=c_ll, max_rel_diff=rel,
+        tol_rel=CLI_TRAIN_RTOL, align_frames_equal=True,
+        decode_equal_rtol=1e-4, kernel_frames=int(x.shape[0]),
+        kernel_max_abs_err=err, kernel_tol=F32_TOL,
+        one_best=[d["nbest"][0]["words"] for d in decoded["cuda"]],
+        listen_partials=len(listened) - 1, gmm_launches=gmm,
+        dp_kernel_launches=dp, phase_seconds=time.perf_counter() - t0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -818,6 +1209,9 @@ def main(argv=None) -> int:
     phase_train_e2e(args.seed)
     phase_train_scheme1(args.seed, smi)
     phase_scheme1_e2e(args.seed)
+    phase_stream(args.seed, smi)
+    phase_pruned(args.seed, smi)
+    phase_cli(args.seed)
     check("jax" not in sys.modules, "jax was never imported")
 
     kernels = [dict(name="gmm_log_scores", route="cuda", source=gk.SOURCE,

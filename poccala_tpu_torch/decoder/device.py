@@ -1,7 +1,8 @@
 """Device decoder: dense graph Viterbi over the lexicon tree (port of
-``poccala_tpu/decoder/device.py``, exact search only).
+``poccala_tpu/decoder/device.py``).
 
-Every lexicon node is always live.  Per frame, batched over utterances:
+Every lexicon node is live in the exact search.  Per frame, batched over
+utterances:
 
 1. **in-node advance**: one banded max-plus step over all nodes against
    the frame's senone scores, with the winning source state's packed
@@ -20,26 +21,43 @@ and the last word ``l`` into one int32.  The n-best is extracted on the
 device (exit scores -> top emissions over the static (node, word) slots ->
 pointer-chase backtrace) and the host only maps ids to words.
 
+**Block-pruned search** (``active_blocks``): the nodes are permuted into
+DFS order, so every subtree is contiguous, and padded with dead nodes to
+a multiple of ``block_size``.  Per frame only the ``active_blocks`` best
+blocks by a one-step lookahead run the banded advance, on a compact carry
+``[B, K, block_size, Ns]``; the entry row ``[B, N]`` and the word
+emissions stay global, so a pruned block revives through word re-entry
+or parent flow (the reference's keep-fraction beam, ``Decoder.py:34``).
+
+**Streaming** (``stream_init`` / ``stream_feed`` / ``stream_result``):
+the carry and the traceback rows persist across feature chunks on the
+bank's device; traceback pointers are absolute frame indices, so a
+chunked decode equals the one-shot decode of the concatenated features.
+
 Scoring goes through :func:`~poccala_tpu_torch.ops.cuda.gmm_score_cuda.
 gmm_log_scores_fast`: the CUDA kernel for a bank on the GPU, the plain
 version on the CPU.  Where JAX scans the frames inside one program, this
 is a Python loop over frames batched over utterances; on the GPU every op
-is an asynchronous launch on the current stream, so
-:meth:`decode_dispatch` returns once the work is enqueued and
-:meth:`decode_collect` synchronises by copying the results to the host.
+is an asynchronous launch on the calling thread's current stream (the
+worker thread of :class:`~poccala_tpu.serve.DecodeService` runs batches
+and stream chunks alike there), so :meth:`decode_dispatch` returns once
+the work is enqueued and :meth:`decode_collect` synchronises by copying
+the results to the host.
 
 Tie order follows the JAX version: strict ``>`` in every compare-select
 (the smaller band offset wins a tie), first-index ``argmax``, and a
 stable descending sort in place of ``lax.top_k`` (lower index first among
-equal values; ``torch.topk`` leaves that order unspecified).
+equal values; ``torch.topk`` leaves that order unspecified).  The block
+selection depends on it: many blocks tie at ``NEG_INF``.
 
-Not ported yet: streaming (``stream_*``), block-pruned search
-(``active_blocks``) and sharded decode (``mesh=``).
+Not ported: sharded decode (``mesh=``, ROADMAP.md Queue 1 item 6) and
+``prune_hysteresis`` (a measured negative, ``benchmarks/
+pruned_trained.json``); both raise.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -75,7 +93,10 @@ def _top_k(x: torch.Tensor, k: int):
 
 @dataclass
 class _Tables:
-    """The decoder's device tables (``_prep_device``)."""
+    """The decoder's device tables (``_prep_device``).  With
+    ``active_blocks`` set the node axis is in DFS order and padded to
+    ``n_blocks * block_size`` with dead rows: not emitting, no parent, not
+    a root child, bands at ``NEG_INF``, no word slot."""
 
     bands: torch.Tensor       # [N, Ns, W_eff] f32 banded log transitions
     senone: torch.Tensor      # [N, Ns] int64, clipped to >= 0
@@ -90,20 +111,48 @@ class _Tables:
     lm_flat: torch.Tensor | None  # [(V+1)*V] f32
 
 
-class DeviceBeamDecoder(VectorBeamDecoder):
-    """Dense graph-Viterbi decoder on the bank's device.  Constructor
-    matches :class:`poccala_tpu_torch.decoder.beam.BeamDecoder`;
-    ``max_words`` bounds the backtrace length of one hypothesis."""
+@dataclass
+class _StreamState:
+    """An online decode session (:meth:`DeviceBeamDecoder.stream_init`):
+    the search carry and the per-chunk traceback rows ``[B, Tc]``, all on
+    the bank's device."""
 
-    def __init__(self, *args, max_words: int = 64,
-                 active_blocks: int | None = None, **kwargs):
-        if active_blocks is not None:
+    batch: int
+    max_frames: int
+    t_offset: int = 0
+    carry: tuple | None = None
+    tb_prev: list = field(default_factory=list)
+    tb_word: list = field(default_factory=list)
+
+
+class DeviceBeamDecoder(VectorBeamDecoder):
+    """Graph-Viterbi decoder on the bank's device.  The constructor takes
+    the JAX decoder's arguments: those of
+    :class:`poccala_tpu_torch.decoder.beam.BeamDecoder`, ``max_words``
+    (bounds the backtrace length of one hypothesis), ``emit_top``
+    (accepted and ignored, as in JAX), ``block_size`` (clamped to >= 8)
+    and ``active_blocks`` (clamped to >= 1; None keeps the exact search).
+    ``prune_hysteresis`` must be 0."""
+
+    def __init__(self, *args, emit_top: int = 4, max_words: int = 64,
+                 block_size: int = 1024, active_blocks: int | None = None,
+                 prune_hysteresis: float = 0.0, **kwargs):
+        if float(prune_hysteresis) != 0.0:
             raise NotImplementedError(
-                "block-pruned decode (active_blocks) is not ported yet; "
-                "the PyTorch decoder runs the exact dense search")
+                "prune_hysteresis is not ported: the sticky block selection "
+                "measured worse than the plain one at every width "
+                "(benchmarks/pruned_trained.json); widen active_blocks "
+                "instead")
         super().__init__(*args, **kwargs)
+        self.emit_top = max(1, int(emit_top))  # accepted; not used
         self.max_words = max(2, int(max_words))
+        self.block_size = max(8, int(block_size))
+        self.active_blocks = (None if active_blocks is None
+                              else max(1, int(active_blocks)))
+        self.prune_hysteresis = 0.0
         self._tabs: _Tables | None = None
+        self._prune_on = False
+        self._perm = None  # new -> old node permutation (pruned mode)
 
     @property
     def device(self) -> torch.device:
@@ -149,6 +198,46 @@ class DeviceBeamDecoder(VectorBeamDecoder):
                 par[c] = p
         is_rc = np.zeros((n_nodes,), bool)
         is_rc[np.asarray(self._roots, np.int64)] = True
+
+        # block pruning: DFS-permute so subtrees are block-contiguous (a
+        # live word keeps its prefix path in few blocks) and pad to a
+        # block multiple with dead nodes.  Traceback rows hold frame
+        # pointers and word ids, never node ids, so hypotheses do not see
+        # the permutation.  As in JAX the permuted tables stay when the
+        # pruning turns out to be a no-op.
+        self._prune_on = (self.active_blocks is not None
+                          and n_nodes > self.block_size)
+        if self._prune_on:
+            perm = np.zeros(n_nodes, np.int64)      # new -> old
+            pos, stack = 0, [0]
+            seen = np.zeros(n_nodes, bool)
+            while stack:
+                nid = stack.pop()
+                if seen[nid]:
+                    continue
+                seen[nid] = True
+                perm[pos] = nid
+                pos += 1
+                stack.extend(reversed(list(lex.children(nid))))
+            assert pos == n_nodes, "lexicon tree has unreachable nodes"
+            self._perm = perm
+            new_of = np.empty(n_nodes, np.int64)
+            new_of[perm] = np.arange(n_nodes)
+            bands, senone, word_tab = bands[perm], senone[perm], word_tab[perm]
+            par = np.where(par[perm] >= 0,
+                           new_of[np.clip(par[perm], 0, None)], -1)
+            is_rc = is_rc[perm]
+            pad = (-n_nodes) % self.block_size
+            bands = np.pad(bands, ((0, pad), (0, 0), (0, 0)),
+                           constant_values=NEG_INF)
+            senone = np.pad(senone, ((0, pad), (0, 0)), constant_values=-1)
+            word_tab = np.pad(word_tab, ((0, pad), (0, 0)),
+                              constant_values=-1)
+            par = np.pad(par, (0, pad), constant_values=-1)
+            is_rc = np.pad(is_rc, (0, pad))
+            self._n_blocks = bands.shape[0] // self.block_size
+            if self.active_blocks >= self._n_blocks:
+                self._prune_on = False  # pruning would be a no-op
         # word-emission slots: the static (node, word) pairs
         node_slot, word_slot = np.nonzero(word_tab >= 0)
         if len(node_slot) == 0:
@@ -188,13 +277,14 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         b_orig = int(np.shape(feats)[0])
         if len(self._roots) == 0:
             return (None, None, b_orig, return_nbest)
-        if isinstance(n_frames, torch.Tensor):
-            n_frames = n_frames.cpu().numpy()
-        n_frames = np.asarray(n_frames, np.int64)
         feats = torch.as_tensor(feats, dtype=torch.float32,
                                 device=self.device)
-        seqs, scores = self._run(tabs, feats, n_frames,
-                                 self._n_cand(return_nbest))
+        t_pad = feats.shape[1]
+        check_context_fits(t_pad, self._n_vocab)
+        carry, tb_prev, tb_word = self._scan(
+            tabs, self._seed(tabs, b_orig), self._scores(feats), 0, n_frames)
+        seqs, scores = self._finalize(tabs, carry, tb_prev, tb_word,
+                                      self._n_cand(return_nbest))
         return (seqs, scores, b_orig, return_nbest)
 
     def decode_collect(self, handle):
@@ -237,6 +327,81 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         return out
 
     # ------------------------------------------------------------------
+    # Streaming (online) decode: the reference's record -> VAD -> decode
+    # serving intent (Decoder.py:190-218) as a chunk-incremental API.
+    # ------------------------------------------------------------------
+
+    def stream_init(self, batch: int = 1,
+                    max_frames: int = 4096) -> _StreamState:
+        """Start a streaming decode session.
+
+        :param batch: number of parallel (lockstep) audio streams
+        :param max_frames: total-frame capacity; exceeding it raises at
+            feed time
+        """
+        self._prep_device()
+        check_context_fits(max_frames, self._n_vocab)
+        return _StreamState(batch=batch, max_frames=max_frames)
+
+    def stream_feed(self, st: _StreamState, feats_chunk,
+                    n_valid=None) -> _StreamState:
+        """Advance the decoder over one feature chunk.
+
+        :param feats_chunk: ``[B, Tc, D]`` (or ``[Tc, D]`` when
+            ``batch == 1``), array or tensor on any device
+        :param n_valid: ``[B]`` valid frame counts (default: the whole
+            chunk); later frames are frozen, and the frame offset still
+            advances by ``Tc``
+        """
+        tabs = self._prep_device()
+        feats = torch.as_tensor(feats_chunk, dtype=torch.float32,
+                                device=self.device)
+        if feats.ndim == 2:
+            feats = feats[None]
+        b, t_c, _ = feats.shape
+        if b != st.batch:
+            raise ValueError(f"stream batch {st.batch} != chunk batch {b}")
+        if st.t_offset + t_c > st.max_frames:
+            raise ValueError(
+                f"stream exceeds max_frames={st.max_frames}; "
+                f"restart with a larger capacity")
+        if n_valid is None:
+            n_valid = np.full((b,), t_c, np.int64)
+        if st.carry is None:
+            st.carry = self._seed(tabs, b)
+        st.carry, tb_prev, tb_word = self._scan(
+            tabs, st.carry, self._scores(feats), st.t_offset, n_valid)
+        st.tb_prev.append(tb_prev)
+        st.tb_word.append(tb_word)
+        st.t_offset += t_c
+        return st
+
+    def stream_result(self, st: _StreamState, return_nbest: int = 1):
+        """Current n-best hypotheses per stream (callable at any point;
+        the stream may continue afterwards)."""
+        if st.carry is None:
+            return [[] for _ in range(st.batch)]
+        tabs = self._prep_device()
+        seqs, scores = self._finalize(
+            tabs, st.carry, torch.cat(st.tb_prev, dim=1),
+            torch.cat(st.tb_word, dim=1), self._n_cand(return_nbest))
+        return self._to_hypotheses(seqs.cpu().numpy(), scores.cpu().numpy(),
+                                   st.batch, return_nbest)
+
+    def decode_stream(self, chunks, return_nbest: int = 1):
+        """Decode one utterance (or a lockstep batch) delivered as a list
+        of feature chunks; equals :meth:`decode_batch` on the
+        concatenated features."""
+        if not len(chunks):
+            return []
+        b = 1 if chunks[0].ndim == 2 else chunks[0].shape[0]
+        st = self.stream_init(batch=b,
+                              max_frames=sum(c.shape[-2] for c in chunks))
+        for c in chunks:
+            st = self.stream_feed(st, c)
+        return self.stream_result(st, return_nbest=return_nbest)
+
+    # ------------------------------------------------------------------
     # the search
     # ------------------------------------------------------------------
 
@@ -275,22 +440,39 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         return torch.full(w_r.shape, -float(self.word_penalty),
                           dtype=torch.float32, device=w_r.device)
 
-    def _exit_of(self, tabs: _Tables, deltas, ctx):
-        """Max-plus flow into the virtual exit state ``[B, N]``, with the
-        winning source state's packed context."""
-        bands = tabs.bands
-        b, n_nodes, n_s = deltas.shape
-        ex = torch.full((b, n_nodes), NEG_INF, device=deltas.device)
-        ex_ctx = torch.full((b, n_nodes), self._n_vocab, dtype=torch.int32,
-                            device=deltas.device)
-        for k in range(1, bands.shape[2]):
+    def _advance(self, bands, deltas, ctx):
+        """Banded in-node max-plus advance over the last axis, with the
+        winning source state's context: ``deltas``/``ctx`` ``[..., Ns]``
+        against ``bands`` ``[..., Ns, W]`` (broadcast)."""
+        v = self._n_vocab
+        best = torch.full_like(deltas, NEG_INF)
+        bctx = torch.full_like(ctx, v)
+        for k in range(bands.shape[-1]):
+            cand = deltas + bands[..., k]
+            cctx = ctx
+            if k:
+                cand = F.pad(cand[..., :-k], (k, 0), value=NEG_INF)
+                cctx = F.pad(ctx[..., :-k], (k, 0), value=v)
+            win = cand > best
+            best = torch.where(win, cand, best)
+            bctx = torch.where(win, cctx, bctx)
+        return best, bctx
+
+    def _exit_of(self, bands, deltas, ctx):
+        """Max-plus flow into the virtual exit state ``[...]`` of each
+        node, with the winning source state's packed context."""
+        n_s = deltas.shape[-1]
+        ex = torch.full(deltas.shape[:-1], NEG_INF, device=deltas.device)
+        ex_ctx = torch.full(deltas.shape[:-1], self._n_vocab,
+                            dtype=torch.int32, device=deltas.device)
+        for k in range(1, bands.shape[-1]):
             rr = n_s - 1 - k
             if rr < 0:
                 continue
-            cand = deltas[:, :, rr] + bands[:, rr, k]
+            cand = deltas[..., rr] + bands[..., rr, k]
             win = cand > ex
             ex = torch.where(win, cand, ex)
-            ex_ctx = torch.where(win, ctx[:, :, rr], ex_ctx)
+            ex_ctx = torch.where(win, ctx[..., rr], ex_ctx)
         return ex, ex_ctx
 
     def _candidates(self, tabs: _Tables, ex, ex_ctx, r: int):
@@ -313,36 +495,12 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         tot = torch.where(r_sc > NEG_INF / 2, r_sc + lm_r, NEG_INF)
         return tot, r_ix, c_r
 
-    def _step(self, tabs: _Tables, deltas, ctx, frame_scores, ti: int,
-              active):
-        """One frame for the whole batch.  ``deltas``/``ctx`` are
-        ``[B, N, Ns]``, ``frame_scores`` ``[B, S]``, ``active`` ``[B]``.
-        Returns the new carry and this frame's traceback row
-        ``(prev_row, word_row)``, each ``[B]`` int32."""
+    def _enter(self, tabs: _Tables, ex, ex_ctx, ti: int):
+        """The frame's best word emission and the new entry row from the
+        flat exits ``ex``/``ex_ctx`` ``[B, N]``: ``(entry, entry_ctx)``
+        ``[B, N]`` and the traceback row ``(prev_row, word_row)`` ``[B]``."""
         v = self._n_vocab
         vp1 = v + 1
-        bands = tabs.bands
-
-        # 1. banded in-node advance; ctx rides the same selects
-        best = torch.full_like(deltas, NEG_INF)
-        bctx = torch.full_like(ctx, v)
-        for k in range(bands.shape[2]):
-            cand = deltas + bands[:, :, k]
-            cctx = ctx
-            if k:
-                cand = F.pad(cand[..., :-k], (k, 0), value=NEG_INF)
-                cctx = F.pad(ctx[..., :-k], (k, 0), value=v)
-            win = cand > best
-            best = torch.where(win, cand, best)
-            bctx = torch.where(win, cctx, bctx)
-        log_b = torch.where(tabs.emitting, frame_scores[:, tabs.senone],
-                            NEG_INF)
-        log_b[..., 0] = 0.0
-        d_new = torch.clamp(best + log_b, min=NEG_INF)
-        ctx_new = bctx
-
-        # 2-3. exits, best emission, entry refresh
-        ex, ex_ctx = self._exit_of(tabs, d_new, ctx_new)
         r_top = 1 if self.lm is None else int(min(tabs.node_slot.shape[0], 16))
         tot, r_ix, c_r = self._candidates(tabs, ex, ex_ctx, r_top)
         rb = torch.argmax(tot, dim=1, keepdim=True)
@@ -359,6 +517,25 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         entry = torch.maximum(flow, restart)
         re_ctx = (ti + 1) * vp1 + torch.where(word_row >= 0, word_row, v)
         entry_ctx = torch.where(use_restart, re_ctx[:, None], flow_ctx)
+        return entry, entry_ctx, prev_row, word_row
+
+    def _step(self, tabs: _Tables, carry, frame_scores, ti: int, active):
+        """One frame of the exact search for the whole batch.  The carry
+        is ``(deltas, ctx)``, each ``[B, N, Ns]``; ``frame_scores`` is
+        ``[B, S]`` and ``active`` ``[B]``.  Returns the new carry and this
+        frame's traceback row ``(prev_row, word_row)``, each ``[B]``."""
+        deltas, ctx = carry
+        # 1. banded in-node advance; ctx rides the same selects
+        best, ctx_new = self._advance(tabs.bands, deltas, ctx)
+        log_b = torch.where(tabs.emitting, frame_scores[:, tabs.senone],
+                            NEG_INF)
+        log_b[..., 0] = 0.0
+        d_new = torch.clamp(best + log_b, min=NEG_INF)
+
+        # 2-3. exits, best emission, entry refresh
+        ex, ex_ctx = self._exit_of(tabs.bands, d_new, ctx_new)
+        entry, entry_ctx, prev_row, word_row = self._enter(tabs, ex, ex_ctx,
+                                                           ti)
         d_new[..., 0] = entry
         ctx_new[..., 0] = entry_ctx
 
@@ -367,19 +544,143 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         ctx = torch.where(keep, ctx_new, ctx)
         prev_row = torch.where(active, prev_row, -1)
         word_row = torch.where(active, word_row, -1)
-        return deltas, ctx, prev_row, word_row
+        return (deltas, ctx), prev_row, word_row
+
+    def _step_pruned(self, tabs: _Tables, carry, frame_scores, ti: int,
+                     active):
+        """One frame of the block-pruned search (``make_pruned``'s
+        ``step_pruned``) on the compact carry ``(kb [B, K], d_act
+        [B, K, blk, Ns], c_act, entry [B, N], entry_ctx [B, N])``: only the
+        K active blocks' token scores are carried, plus the global entry
+        row.  Same returns as :meth:`_step`."""
+        kb, d_act, c_act, entry, entry_ctx = carry
+        b, k_act = kb.shape
+        blk, n_blk = self.block_size, self._n_blocks
+        n_s = tabs.bands.shape[1]
+        v = self._n_vocab
+        dev = kb.device
+        rows = torch.arange(b, device=dev)[:, None]
+
+        # 0. block selection by a one-step lookahead: best token (entry
+        # row included) plus the node's best emitting score this frame.
+        # lb_full [B, N, Ns] is the one O(N·Ns) temporary per frame.
+        lb_full = torch.where(tabs.emitting, frame_scores[:, tabs.senone],
+                              NEG_INF)
+        la = lb_full.amax(dim=2)                            # [B, N]
+        pot = entry + la
+        blk_best = pot.view(b, n_blk, blk).amax(dim=2)      # [B, n_blk]
+        la_act = la.view(b, n_blk, blk)[rows, kb]           # [B, K, blk]
+        int_pot = (d_act.amax(dim=3) + la_act).amax(dim=2)  # [B, K]
+        blk_best = blk_best.scatter_reduce(1, kb, int_pot, "amax")
+        _, kb_new = _top_k(blk_best, k_act)
+
+        # 1. carry remap old -> new active set: surviving blocks keep
+        # their interior, fresh ones start dead; every active block's
+        # entry state refreshes from the global entry row
+        eq = kb_new[:, :, None] == kb[:, None, :]           # [B, K, K]
+        found = eq.any(dim=2)[..., None, None]
+        src = torch.argmax(eq.to(torch.int32), dim=2)
+        d = torch.where(found, d_act[rows, src], NEG_INF)
+        c = torch.where(found, c_act[rows, src], v)
+        d[..., 0] = entry.view(b, n_blk, blk)[rows, kb_new]
+        c[..., 0] = entry_ctx.view(b, n_blk, blk)[rows, kb_new]
+        bz = tabs.bands.view(n_blk, blk, n_s, -1)[kb_new]  # [B, K, blk, Ns, W]
+        log_b = lb_full.view(b, n_blk, blk, n_s)[rows, kb_new]
+        log_b[..., 0] = 0.0
+
+        # 2. banded in-node advance on the active blocks only
+        best, ctx_adv = self._advance(bz, d, c)
+        d_new = torch.clamp(best + log_b, min=NEG_INF)
+
+        # 3. exits of the active blocks, scattered to the flat node axis
+        ex_k, exc_k = self._exit_of(bz, d_new, ctx_adv)    # [B, K, blk]
+        ex = torch.full((b, n_blk, blk), NEG_INF, device=dev)
+        ex[rows, kb_new] = ex_k
+        ex_ctx = torch.full((b, n_blk, blk), v, dtype=torch.int32,
+                            device=dev)
+        ex_ctx[rows, kb_new] = exc_k
+
+        # 4-5. emission and entry refresh over the global [B, N] rows
+        entry_new, entry_ctx_new, prev_row, word_row = self._enter(
+            tabs, ex.view(b, -1), ex_ctx.view(b, -1), ti)
+
+        # 6. freeze everything on inactive frames
+        a1, a3 = active[:, None], active[:, None, None, None]
+        carry = (torch.where(a1, kb_new, kb),
+                 torch.where(a3, d_new, d_act),
+                 torch.where(a3, ctx_adv, c_act),
+                 torch.where(a1, entry_new, entry),
+                 torch.where(a1, entry_ctx_new, entry_ctx))
+        prev_row = torch.where(active, prev_row, -1)
+        word_row = torch.where(active, word_row, -1)
+        return carry, prev_row, word_row
 
     def _seed(self, tabs: _Tables, b: int):
+        """The carry before the first frame: every first-level node's
+        entry state at 0."""
         n_nodes, n_s, _ = tabs.bands.shape
         dev = tabs.bands.device
-        deltas = torch.full((b, n_nodes, n_s), NEG_INF, device=dev)
-        deltas[:, :, 0] = torch.where(tabs.is_root_child, 0.0, NEG_INF)
-        ctx = torch.full((b, n_nodes, n_s), self._n_vocab, dtype=torch.int32,
-                         device=dev)
+        v = self._n_vocab
+        entry = torch.where(tabs.is_root_child, 0.0, NEG_INF)
+        if not self._prune_on:
+            deltas = torch.full((b, n_nodes, n_s), NEG_INF, device=dev)
+            deltas[:, :, 0] = entry
+            return deltas, torch.full((b, n_nodes, n_s), v,
+                                      dtype=torch.int32, device=dev)
+        blk, k_act = self.block_size, self.active_blocks
+        kb = torch.arange(k_act, device=dev).expand(b, k_act).contiguous()
+        d = torch.full((b, k_act, blk, n_s), NEG_INF, device=dev)
+        d[..., 0] = entry.view(-1, blk)[kb]
+        c = torch.full((b, k_act, blk, n_s), v, dtype=torch.int32, device=dev)
+        return (kb, d, c, entry.expand(b, n_nodes).contiguous(),
+                torch.full((b, n_nodes), v, dtype=torch.int32, device=dev))
+
+    def _expand(self, tabs: _Tables, carry):
+        """The carry as full ``(deltas, ctx)`` ``[B, N, Ns]`` (the compact
+        pruned carry scattered back once, for the n-best)."""
+        if not self._prune_on:
+            return carry
+        kb, d_act, c_act, entry, entry_ctx = carry
+        b = kb.shape[0]
+        n_nodes, n_s, _ = tabs.bands.shape
+        rows = torch.arange(b, device=kb.device)[:, None]
+        d3 = torch.full((b, self._n_blocks, self.block_size, n_s), NEG_INF,
+                        device=kb.device)
+        d3[rows, kb] = d_act
+        c3 = torch.full(d3.shape, self._n_vocab, dtype=torch.int32,
+                        device=kb.device)
+        c3[rows, kb] = c_act
+        deltas = d3.view(b, n_nodes, n_s)
+        ctx = c3.view(b, n_nodes, n_s)
+        deltas[..., 0] = entry
+        ctx[..., 0] = entry_ctx
         return deltas, ctx
 
-    def _finalize(self, tabs: _Tables, deltas, ctx, tb_prev, tb_word,
-                  n_cand: int):
+    def _scan(self, tabs: _Tables, carry, scores: torch.Tensor, t0: int,
+              n_valid):
+        """Advance ``carry`` over the frames of ``scores`` ``[B, Tc, S]``,
+        whose first frame has the absolute index ``t0``; frames at or past
+        ``n_valid`` ``[B]`` are frozen.  Returns ``(carry, tb_prev,
+        tb_word)``, the rows ``[B, Tc]`` int32 (-1 where no word)."""
+        b, t_c, _ = scores.shape
+        dev = scores.device
+        if isinstance(n_valid, torch.Tensor):
+            n_valid = n_valid.cpu().numpy()
+        n_valid = np.asarray(n_valid, np.int64)
+        tb_prev = torch.full((b, t_c), -1, dtype=torch.int32, device=dev)
+        tb_word = torch.full((b, t_c), -1, dtype=torch.int32, device=dev)
+        actives = (torch.arange(t_c)[None]
+                   < torch.as_tensor(n_valid)[:, None]).to(dev)
+        step = self._step_pruned if self._prune_on else self._step
+        # frames past every utterance's end are frozen no-ops: stop there
+        for i in range(int(min(t_c, n_valid.max(initial=0)))):
+            carry, prev_row, word_row = step(tabs, carry, scores[:, i],
+                                             t0 + i, actives[:, i])
+            tb_prev[:, i] = prev_row
+            tb_word[:, i] = word_row
+        return carry, tb_prev, tb_word
+
+    def _finalize(self, tabs: _Tables, carry, tb_prev, tb_word, n_cand: int):
         """Device n-best: final exits -> top emissions over the static
         (node, word) slots -> pointer-chase backtrace.  Returns
         ``(seqs [B, C, L] int32, scores [B, C] f32)``."""
@@ -389,7 +690,8 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         n_cand = min(n_cand, int(q))
         r_fin = int(min(q, max(32, 2 * n_cand)))
 
-        ex, ex_ctx = self._exit_of(tabs, deltas, ctx)
+        deltas, ctx = self._expand(tabs, carry)
+        ex, ex_ctx = self._exit_of(tabs.bands, deltas, ctx)
         tot, r_ix, c_r = self._candidates(tabs, ex, ex_ctx, r_fin)
         scores, c_ix = _top_k(tot, n_cand)
         last_words = tabs.word_slot[r_ix.gather(1, c_ix)]        # [B, C]
@@ -409,24 +711,3 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         seqs = torch.where(pos >= 0,
                            rev.gather(2, torch.clamp(pos, min=0)), -1)
         return seqs.to(torch.int32), scores
-
-    def _run(self, tabs: _Tables, feats: torch.Tensor, n_frames: np.ndarray,
-             n_cand: int):
-        """Scoring + frame loop + n-best for ``feats [B, T, D]``."""
-        b, t_pad, _ = feats.shape
-        check_context_fits(t_pad, self._n_vocab)
-        dev = feats.device
-        scores = self._scores(feats)
-        deltas, ctx = self._seed(tabs, b)
-        tb_prev = torch.full((b, t_pad), -1, dtype=torch.int32, device=dev)
-        tb_word = torch.full((b, t_pad), -1, dtype=torch.int32, device=dev)
-        actives = (torch.arange(t_pad)[None]
-                   < torch.as_tensor(n_frames)[:, None]).to(dev)
-        # frames past every utterance's end are frozen no-ops: stop there
-        t_stop = int(min(t_pad, n_frames.max(initial=0)))
-        for ti in range(t_stop):
-            deltas, ctx, prev_row, word_row = self._step(
-                tabs, deltas, ctx, scores[:, ti], ti, actives[:, ti])
-            tb_prev[:, ti] = prev_row
-            tb_word[:, ti] = word_row
-        return self._finalize(tabs, deltas, ctx, tb_prev, tb_word, n_cand)

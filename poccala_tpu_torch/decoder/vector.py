@@ -1,6 +1,6 @@
 """Host decode tables (the part of ``poccala_tpu/decoder/vector.py`` the
 device decoder needs: ``_prep_tables``, copied as host code because that
-module's import chain loads jax).
+module's import chain loads jax, and the single-utterance ``decode``).
 
 Builds, once per decoder, the padded child table, the vocabulary and the
 per-node word table, and the LM tables over that vocabulary: sparse
@@ -12,6 +12,7 @@ The vectorized host token-passing tier waits for a later port.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from poccala_tpu_torch.decoder.beam import BeamDecoder
 
@@ -98,3 +99,15 @@ class VectorBeamDecoder(BeamDecoder):
                     for q in range(v):
                         bi[p, q] = self.lm.logprob(vocab[q], [vocab[p]])
                 self._lm_tab = self.lm_weight * bi - self.word_penalty
+
+    # ------------------------------------------------------------------
+    def decode(self, feats, n_frames=None, return_nbest: int = 5):
+        """Single-utterance API parity with :class:`BeamDecoder`:
+        ``decode_batch`` of ``feats[None, :n_frames]`` (an array, or a
+        tensor on any device)."""
+        if not isinstance(feats, torch.Tensor):
+            feats = np.asarray(feats, np.float32)
+        t = int(n_frames) if n_frames is not None else len(feats)
+        out = self.decode_batch(feats[None, :t], np.asarray([t]),
+                                return_nbest=return_nbest)
+        return out[0]

@@ -9,10 +9,12 @@ pin the copies to the originals:
   reference's unit-file format (``AcousticModel.py:134-162``);
 * corpus scanning (``<name>.wav`` + ``<name>.wav.trn``), per-job
   sharding and label parsing (``AcousticModel.py:443-461, 664-681``);
-* :class:`Corpus`: WAV -> MFCC+Δ+ΔΔ -> VAD packing per utterance, through
-  the port's frontend and VAD, padded into fixed-shape :class:`Batch`es
-  (``corpus.py:241-257``).  The native C++ batch loader is not ported:
-  ``use_native=True`` raises;
+* :class:`Corpus`: WAV -> MFCC+Δ+ΔΔ -> VAD packing through the port's
+  frontend and VAD on the corpus's device, padded into fixed-shape
+  :class:`Batch`es — per utterance (``corpus.py:241-257``), or a batch at
+  a time with the WAVs decoded by the JAX package's jax-free native
+  loader (``poccala_tpu.native``, a g++-built ctypes library) and the
+  frontend and VAD batched (``corpus.py:259-315``);
 * the synthetic corpus the tests and benchmarks train on.
 """
 
@@ -154,11 +156,12 @@ class Corpus:
 
     The per-utterance pipeline (``AcousticModel.__load_audio``,
     ``AcousticModel.py:463-477``): WAV → stereo merge → MFCC+Δ+ΔΔ → VAD
-    packing; then padding into fixed-shape batches.
+    packing; then padding into fixed-shape batches.  The frontend and VAD
+    run on ``device`` (the CPU when None); batches are host arrays.
     """
 
     def __init__(self, cfg: Config, inventory: UnitInventory,
-                 pairs: list[tuple[str, str]] | None = None):
+                 pairs: list[tuple[str, str]] | None = None, device=None):
         self.cfg = cfg
         self.inventory = inventory
         if pairs is None:
@@ -166,7 +169,7 @@ class Corpus:
                                 cfg.paths.label_file_path)
             pairs = shard_pairs(pairs, cfg.paths.env_id, cfg.train.task_num)
         self.pairs = pairs
-        self.frontend = Frontend(cfg.frontend)
+        self.frontend = Frontend(cfg.frontend, device=device)
         self._pinyin = None
         if cfg.train.label_format == "pinyin":
             from poccala_tpu_torch.lexicon.pinyin import PinYin
@@ -226,13 +229,19 @@ class Corpus:
 
     def batches(self, batch_size: int | None = None, drop_last: bool = False,
                 use_native: bool | None = None):
-        """Yield :class:`Batch` objects over the (sharded) corpus, loading
-        one utterance at a time (``corpus.py:241-257``).  The native C++
-        batch loader is not ported: ``use_native=True`` raises."""
+        """Yield :class:`Batch` objects over the (sharded) corpus.
+
+        With the native loader available (``use_native=None`` auto), WAV
+        decoding runs in the C++ thread pool and the MFCC+VAD pipeline
+        runs batched on the corpus's device; otherwise utterances load one
+        at a time.  ``use_native=True`` without a working g++ raises."""
+        if use_native is None:
+            from poccala_tpu import native
+
+            use_native = native.available()
         if use_native:
-            raise NotImplementedError(
-                "the native batch loader is not ported; use_native must be "
-                "False or None")
+            yield from self._batches_native(batch_size, drop_last)
+            return
         bs = batch_size or self.cfg.train.batch_size
         t_max = self.cfg.train.max_frames
         l_max = self.cfg.train.max_label_len
@@ -249,6 +258,61 @@ class Corpus:
                 yield self._pack(buf, bs, t_max, l_max, d)
                 buf = []
         if buf and not drop_last:
+            yield self._pack(buf, bs, t_max, l_max, d)
+
+    def _batches_native(self, batch_size: int | None, drop_last: bool):
+        """Native batch WAV load + batched frontend and VAD."""
+        from poccala_tpu import native
+
+        fcfg = self.cfg.frontend
+        bs = batch_size or self.cfg.train.batch_size
+        t_max = self.cfg.train.max_frames
+        l_max = self.cfg.train.max_label_len
+        d = fcfg.feat_dim
+        max_samples = (t_max - 1) * fcfg.frame_step + fcfg.frame_size
+
+        for start in range(0, len(self.pairs), bs):
+            chunk = self.pairs[start: start + bs]
+            if len(chunk) < bs and drop_last:
+                break
+            labels_ok, label_ids = [], []
+            for _, label_path in chunk:
+                try:
+                    names = read_label(label_path, self.cfg.train.load_line)
+                    label_ids.append(self._encode_label(names))
+                    labels_ok.append(True)
+                except (KeyError, FileNotFoundError, IndexError):
+                    label_ids.append([])
+                    labels_ok.append(False)
+            signals, lengths, _ = native.load_wav_batch(
+                [p for p, _ in chunk], max_samples,
+                drop_zeros=fcfg.reference_quirks,
+            )
+            keep = [i for i in range(len(chunk))
+                    if labels_ok[i] and lengths[i] > fcfg.frame_size]
+            if not keep:
+                continue
+            signals = signals[keep]
+            lengths = lengths[keep]
+            label_ids = [label_ids[i] for i in keep]
+            feats, masks = self.frontend.mfcc_batch(
+                signals, lengths.astype(np.int64))
+            if fcfg.vad:
+                keep_masks = vad_ops.vad_mask_batch(
+                    feats, masks,
+                    sample_size=fcfg.vad_sample_size,
+                    alpha=fcfg.vad_alpha, beta=fcfg.vad_beta,
+                )
+            else:
+                keep_masks = masks
+            feats_np = feats.cpu().numpy()
+            keep_np = keep_masks.cpu().numpy()
+            buf = []
+            for i in range(len(feats_np)):
+                packed, n = vad_ops.apply_mask(
+                    feats_np[i], keep_np[i], max_frames=t_max
+                )
+                buf.append((packed, n, label_ids[i]))
             yield self._pack(buf, bs, t_max, l_max, d)
 
     @staticmethod

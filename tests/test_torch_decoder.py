@@ -147,8 +147,12 @@ def test_top_k_orders_ties_by_index():
 
 
 def test_unported_modes_raise(world, rng):
-    with pytest.raises(NotImplementedError):
-        DeviceBeamDecoder(world["tbank"], world["tflat"], active_blocks=4)
+    """``prune_hysteresis`` (a measured negative) and ``mesh=`` are not
+    ported; block pruning (``active_blocks``) is, in
+    tests/test_torch_pruned.py."""
+    with pytest.raises(NotImplementedError, match="prune_hysteresis"):
+        DeviceBeamDecoder(world["tbank"], world["tflat"], active_blocks=4,
+                          prune_hysteresis=0.5)
     dec, utt = separable_world(rng)
     with pytest.raises(NotImplementedError):
         dec.decode_batch(utt([4, 5])[None], [24], mesh=object())

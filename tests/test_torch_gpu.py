@@ -129,6 +129,62 @@ def test_decoder_gpu_matches_cpu(cuda):
             assert g[0].words == w[0].words
 
 
+def decode_world(seed):
+    """A random XIF_tone bank (13 dims, 2 mixtures) and noise features."""
+    cfg = ModelConfig(state_num=5, mix_level=2, max_mix_level=2)
+    inv = UnitInventory.standard("XIF_tone")
+    bank = sb.create_bank(len(inv), cfg, 13,
+                          generator=torch.Generator().manual_seed(seed))
+    feats = (np.random.default_rng(seed).normal(size=(2, 60, 13)) * 2
+             ).astype(np.float32)
+    return inv, bank, feats
+
+
+def test_stream_gpu_matches_one_shot(cuda):
+    """Chunked decode on the card (the GMM kernel on every 25-frame chunk)
+    equals the one-shot decode on the card."""
+    inv, bank, feats = decode_world(4)
+    lex = PronunciationLexicon()
+    lex.generate(list(BUILTIN_PINYIN), PinYin())
+    dec = DeviceBeamDecoder(bank.to(cuda), FlatLexicon.from_tree(lex.lexicon,
+                                                                  inv))
+    one_shot = dec.decode_batch(feats, [60, 60], 3)
+    before = gk.gmm_log_scores_cuda.launches
+    st = dec.stream_init(batch=2, max_frames=75)
+    for lo in range(0, 75, 25):
+        chunk = np.zeros((2, 25, 13), np.float32)
+        part = feats[:, lo:lo + 25]
+        chunk[:, : part.shape[1]] = part
+        st = dec.stream_feed(st, chunk, n_valid=[part.shape[1]] * 2)
+    streamed = dec.stream_result(st, 3)
+    assert gk.gmm_log_scores_cuda.launches == before + 3
+    assert st.carry[0].is_cuda and st.tb_prev[0].is_cuda
+    for s, o in zip(streamed, one_shot):
+        assert [h.words for h in s] == [h.words for h in o]
+        assert np.allclose([h.score for h in s], [h.score for h in o],
+                           rtol=1e-5, atol=0.0)
+
+
+def test_pruned_gpu_matches_cpu(cuda):
+    """The block-pruned search on the card against the CPU: the same
+    words wherever the CPU's ranking is not a near-tie, scores at 1e-4."""
+    from poccala_tpu_torch.lexicon.build import synthetic_lexicon
+
+    inv, bank, feats = decode_world(5)
+    flat, _, _ = synthetic_lexicon(inv, min_nodes=1500, n_chars=12)
+    kw = dict(block_size=64, active_blocks=2)
+    want = DeviceBeamDecoder(bank, flat, **kw).decode_batch(feats, [60, 41], 3)
+    gdec = DeviceBeamDecoder(sb.bank_from_numpy(sb.bank_to_numpy(bank),
+                                                device=cuda), flat, **kw)
+    got = gdec.decode_batch(feats, [60, 41], 3)
+    assert gdec._prune_on
+    for g, w in zip(got, want):
+        assert np.allclose([h.score for h in g], [h.score for h in w],
+                           rtol=1e-4, atol=0.0)
+        if len(w) > 1 and w[0].score - w[1].score > 0.01:
+            assert g[0].words == w[0].words
+
+
 def banded_inputs(rng, b, t_pad, n, w):
     """Left-to-right bands with dead edges and pruned long skips, log_b at
     GMM-score scale with an impossible last state, ragged masks with one

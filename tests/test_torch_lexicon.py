@@ -10,6 +10,7 @@ table and LM tables — must be equal on the built-in lexicon.
 """
 
 import inspect
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -21,6 +22,7 @@ from poccala_tpu.decoder.beam import BeamDecoder as JaxBeamDecoder
 from poccala_tpu.decoder.device import DeviceBeamDecoder as JaxDevice
 from poccala_tpu.decoder.vector import VectorBeamDecoder as JaxVector
 from poccala_tpu.io import corpus as jcorpus
+from poccala_tpu.lexicon import build as jbuild
 from poccala_tpu.lexicon import builtin_table as jtable
 from poccala_tpu.lexicon import lexicon as jlex
 from poccala_tpu.lexicon import pinyin as jpinyin
@@ -31,6 +33,7 @@ from poccala_tpu_torch.decoder.beam import BeamDecoder as TorchBeamDecoder
 from poccala_tpu_torch.decoder.device import DeviceBeamDecoder as TorchDevice
 from poccala_tpu_torch.decoder.vector import VectorBeamDecoder as TorchVector
 from poccala_tpu_torch.io import corpus as tcorpus
+from poccala_tpu_torch.lexicon import build as tbuild
 from poccala_tpu_torch.lexicon import builtin_table as ttable
 from poccala_tpu_torch.lexicon import lexicon as tlex
 from poccala_tpu_torch.lexicon import pinyin as tpinyin
@@ -60,6 +63,9 @@ VERBATIM = {
                              TorchBeamDecoder.__init__),
     "DeviceBeamDecoder._to_hypotheses": (JaxDevice._to_hypotheses,
                                          TorchDevice._to_hypotheses),
+    "reference_words": (jbuild.reference_words, tbuild.reference_words),
+    "build_reference_lexicon": (jbuild.build_reference_lexicon,
+                                tbuild.build_reference_lexicon),
 }
 
 
@@ -71,6 +77,8 @@ def test_copied_source_is_verbatim(name):
 
 def test_tables_and_inventories_equal():
     assert ttable.BUILTIN_PINYIN == jtable.BUILTIN_PINYIN
+    assert Path(tbuild.DEFAULT_DAT).parts[-2:] == \
+        Path(jbuild.DEFAULT_DAT).parts[-2:]
     assert tpinyin.EXTEND_DICT == jpinyin.EXTEND_DICT
     assert tpinyin.SYLLABLE_INITIALS == jpinyin.SYLLABLE_INITIALS
     for kind in ("IF", "XIF", "XIF_tone"):
@@ -165,3 +173,20 @@ def test_decoder_tables_equal(lm_kind):
         assert np.array_equal(td._lm_tab, jd._lm_tab)
     else:
         assert td._lm_sparse is None and td._lm_tab is None
+
+
+def test_reference_lexicon_from_a_dat_table(tmp_path):
+    """``build_reference_lexicon`` on a small ``Mandarin.dat``-format
+    table: the port's copy builds the JAX lexicon."""
+    dat = tmp_path / "Mandarin.dat"
+    dat.write_text("".join(f"{ord(c):X}\t{r[0]}\n"
+                           for c, r in jtable.BUILTIN_PINYIN.items()))
+    kw = dict(dat_path=str(dat), n_single=40, n_multi=60, seed=2)
+    jf, jw, _ = jbuild.build_reference_lexicon(
+        jcorpus.UnitInventory.standard("XIF_tone"), **kw)
+    tf, tw, _ = tbuild.build_reference_lexicon(
+        tcorpus.UnitInventory.standard("XIF_tone"), **kw)
+    assert tw == jw and len(tw) == 100
+    for f in ("child_ptr", "child_ids", "node_units"):
+        assert np.array_equal(getattr(tf, f), getattr(jf, f))
+    assert tf.node_words == jf.node_words and tf.n_nodes > 40

@@ -2,9 +2,10 @@
 
 The machine the port runs on has no jax, so ``poccala_tpu_torch`` (and
 ``chip_smoke.py``, which drives it there) may import from the JAX package
-only its four jax-free modules.  An AST scan pins the rule statically; a
-subprocess runs the serving slice and small training runs of both
-schemes on the CPU and checks that jax was never loaded.
+only its seven jax-free modules.  An AST scan pins the rule statically; a
+subprocess runs the serving slice (batch and streaming), a block-pruned
+decode, the command line and small training runs of both schemes on the
+CPU and checks that jax was never loaded.
 """
 
 import ast
@@ -18,7 +19,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 ALLOWED = {"poccala_tpu.config", "poccala_tpu.io.wav", "poccala_tpu.serve",
-           "poccala_tpu.lm.ngram"}
+           "poccala_tpu.lm.ngram", "poccala_tpu.native",
+           "poccala_tpu.io.audio_device", "poccala_tpu.cli"}
 SOURCES = sorted((ROOT / "poccala_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
@@ -79,7 +81,37 @@ SLICE = textwrap.dedent("""
         packed, n = vad.apply_mask(feats, vad.vad_mask(feats, mask))
     with DecodeService(dec, batch_size=2) as svc:
         hyps = svc.submit(packed[:n]).result(timeout=120)
+        # the padded final chunk counts against the capacity
+        stream = svc.open_stream(chunk_frames=8, max_frames=-(-n // 8) * 8)
+        stream.feed(packed[:n])
+        streamed = stream.result().result(timeout=120)
     assert len(hyps) == 1, hyps
+    assert [h.words for h in streamed] == [h.words for h in hyps]
+
+    # a block-pruned decode over a synthetic lexicon of ~500 nodes
+    from poccala_tpu_torch.lexicon.build import synthetic_lexicon
+    big, _, _ = synthetic_lexicon(inv, min_nodes=500, n_chars=8)
+    pruned = DeviceBeamDecoder(bank, big, block_size=64, active_blocks=2)
+    out = pruned.decode_batch(packed[None, :n], [n])
+    assert pruned._prune_on and len(out[0]) == 1, out
+
+    # the command line: checkpoint + lexicon pickle + WAV -> decode
+    import contextlib, io, json
+    from poccala_tpu_torch import cli
+    from poccala_tpu_torch.train.checkpoint import save_checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "a.wav")
+        wav_io.write_wav(wav, sig, 16000)
+        save_checkpoint(os.path.join(tmp, "ck"), bank, units=inv.units)
+        lex.save(os.path.join(tmp, "lex.pkl"))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--device", "cpu", "--set", "model.mix_level=2",
+                      "--set", "model.max_mix_level=2", "decode",
+                      "--checkpoint", os.path.join(tmp, "ck"),
+                      "--lexicon", os.path.join(tmp, "lex.pkl"), wav])
+    line = json.loads(buf.getvalue())
+    assert line["wav"] == wav and line["nbest"], line
 
     # a small training step: synthetic corpus -> flat start -> embedded
     # Baum-Welch -> forced alignment -> checkpoint

@@ -59,7 +59,7 @@ def corpus(tmp_path_factory):
     cfg.train.proportion = 1.0
     jb = list(jcorpus.Corpus(cfg, inv).batches(use_native=False))
     tinv = tcorpus.UnitInventory.standard("XIF")
-    tb = list(tcorpus.Corpus(cfg, tinv).batches())
+    tb = list(tcorpus.Corpus(cfg, tinv).batches(use_native=False))
     return cfg, inv, tinv, jb, tb
 
 
@@ -71,8 +71,11 @@ def test_corpus_batches_match_jax(corpus):
         assert np.array_equal(g.labels, w.labels)
         assert np.array_equal(g.label_lens, w.label_lens)
         np.testing.assert_allclose(g.feats, w.feats, rtol=2e-3, atol=2e-3)
-    with pytest.raises(NotImplementedError):
-        next(tcorpus.Corpus(cfg, tinv).batches(use_native=True))
+    # the native loader gives the same batches (tests/test_torch_native.py)
+    for g, w in zip(tcorpus.Corpus(cfg, tinv).batches(use_native=True), tb):
+        assert np.array_equal(g.t_masks, w.t_masks)
+        assert np.array_equal(g.labels, w.labels)
+        np.testing.assert_allclose(g.feats, w.feats, rtol=2e-3, atol=2e-3)
 
 
 @pytest.mark.parametrize("var_floor_scale", [0.0, 0.3])
