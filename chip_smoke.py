@@ -3,10 +3,11 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the hand-written CUDA kernels from ``poccala_tpu_torch/csrc`` (the
-GMM scorer and the banded HMM forward / backward / Viterbi), holds each
-against its plain PyTorch version, and drives both halves of the port's
-main path at full model width with random weights from a seeded
-``torch.Generator``:
+GMM scorer in float32 and bfloat16 and the banded HMM forward / backward /
+Viterbi), holds each against its plain PyTorch version, computes each one's
+bound (bytes over the memory rate or operations over the peak rate), and
+drives both halves of the port's main path at full model width with random
+weights from a seeded ``torch.Generator``:
 
 * decode serving (WAV -> MFCC -> VAD -> DecodeService ->
   DeviceBeamDecoder): the XIF_tone inventory (202 units, 606 senones),
@@ -35,7 +36,8 @@ Each phase prints one line; any failure raises, so the script exits
 non-zero and prints no result.  The last lines are the kernels' JSON
 record, the card's name and power limit, and ``{"ok": true, "device": ...}``.
 
-It needs a CUDA device (there is no CPU fallback) and imports no jax.
+It needs a CUDA device (there is no CPU fallback) and imports neither jax
+nor anything of the JAX package.
 """
 
 from __future__ import annotations
@@ -52,8 +54,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from poccala_tpu.config import Config, ModelConfig
-from poccala_tpu.io import wav as wav_io
+from poccala_tpu_torch.config import Config, ModelConfig
+from poccala_tpu_torch.io import wav as wav_io
 from poccala_tpu_torch.decoder.device import DeviceBeamDecoder
 from poccala_tpu_torch.io import corpus as corpus_io
 from poccala_tpu_torch.io.corpus import UnitInventory
@@ -170,7 +172,7 @@ def phase_build() -> None:
         results = list(pool.map(one, KERNEL_NAMES))
     for name, built, secs in results:
         ptxas = [ln.strip() for ln in built.log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "Used" in ln or "spill" in ln]
         say("build", kernel=name, seconds=round(secs, 3),
             compiled=built.compiled, library=str(built.path.name),
             ptxas=ptxas)
@@ -206,40 +208,122 @@ def scoring_inputs(t: int, gen: torch.Generator, floor: bool = False):
     return [a.cuda() for a in (x, means, log_var, log_w)]
 
 
+# NVIDIA's data-sheet peaks of one H100 SXM (dense), for the bounds
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+
+
+def bound_ms(n_bytes: float, flops: float, op_type: str) -> dict:
+    """The least time the card could take: every input read once and every
+    output written once at the memory rate, or the operations at the peak
+    rate of their type, whichever is larger."""
+    by_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    by_ops = flops / PEAK_FLOPS[op_type] * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def gmm_bound(t: int, s: int, m: int, d: int, dtype: str) -> dict:
+    """x, means, log_var, log_w in and [T, S] out, all float32 in device
+    memory; 2·T·2D·S·M operations of the [x², x] product."""
+    n_bytes = 4 * (t * d + 2 * s * m * d + s * m + t * s)
+    return bound_ms(n_bytes, 2 * t * 2 * d * s * m, dtype)
+
+
+def scoring_case(gen, t, s, m, d, dead_slot=False):
+    """Small-scale random inputs at an arbitrary shape, for the ragged
+    cases; ``dead_slot`` gives the last mixture slot the weight -1e30 of a
+    padded slot."""
+    means = torch.randn(s, m, d, generator=gen) * 2
+    log_var = torch.rand(s, m, d, generator=gen) * 2.0 - 0.5
+    x = torch.randn(t, d, generator=gen) * 2
+    log_w = torch.log_softmax(torch.randn(s, m, generator=gen), dim=-1)
+    if dead_slot:
+        log_w[:, -1] = -1e30
+    return [a.cuda() for a in (x, means, log_var, log_w)]
+
+
+def compare_gmm(args, dtype, norm="textbook") -> tuple[float, bool, dict]:
+    kw = dict(normalizer=norm, score_dtype=dtype)
+    got = gk.gmm_log_scores_cuda(*args, **kw)
+    want = gmm_log_scores(*args, **kw)
+    torch.cuda.synchronize()
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    err = float((got - want).abs().max())
+    ok = bool(torch.isfinite(got).all()) and got.shape == want.shape \
+        and bool(torch.allclose(got, want, **tol))
+    return err, ok, tol
+
+
+def clocks_under_load(fn, launches: int = 300) -> str:
+    """``clocks.sm, power.draw`` as nvidia-smi reads them while ``launches``
+    calls of ``fn`` are queued on the card (the published peaks assume the
+    full boost clock)."""
+    for _ in range(launches):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_kernel(seed: int) -> dict:
-    """Kernel vs plain version at T = 1000 and the slice's T."""
+    """Both GMM kernels against the plain version at T = 1000 and the
+    slice's T (both normalizers, the floor-variance case), then at ragged
+    shapes; times, the bound and the product's library time at the slice's
+    T.  Returns the two kernels' records."""
     gen = torch.Generator().manual_seed(seed)
-    record = {}
+    records = {}
     cases = [("float32", "textbook", False), ("float32", "reference", False),
              ("float32", "textbook", True), ("bfloat16", "textbook", False),
              ("bfloat16", "reference", False)]
     for t in (1000, SLICE_T):
         for dtype, norm, floor in cases:
-            x, means, log_var, log_w = scoring_inputs(t, gen, floor)
+            args = scoring_inputs(t, gen, floor)
+            err, ok, tol = compare_gmm(args, dtype, norm)
             kw = dict(normalizer=norm, score_dtype=dtype)
-            got = gk.gmm_log_scores_cuda(x, means, log_var, log_w, **kw)
-            want = gmm_log_scores(x, means, log_var, log_w, **kw)
-            torch.cuda.synchronize()
-            tol = F32_TOL if dtype == "float32" else BF16_TOL
-            err = float((got - want).abs().max())
-            ok = bool(torch.isfinite(got).all()) and got.shape == (t, S) \
-                and bool(torch.allclose(got, want, **tol))
             line = dict(t=t, s=S, m=M, d=D, score_dtype=dtype,
                         normalizer=norm, floor_variances=floor,
                         max_abs_err=err, tol=tol, ok=ok)
             if t == SLICE_T and not floor and norm == "textbook":
                 line["ms"] = median_ms(lambda: gk.gmm_log_scores_cuda(
-                    x, means, log_var, log_w, **kw))
+                    *args, **kw))
                 line["plain_ms"] = median_ms(lambda: gmm_log_scores(
-                    x, means, log_var, log_w, **kw))
-                if dtype == "float32":
-                    record = dict(max_abs_err=err, ms=line["ms"],
-                                  plain_ms=line["plain_ms"])
+                    *args, **kw))
+                # the one library call nearest to the kernel: the product
+                # alone, [T, 2D] x [2D, S·M], without packing, bias or
+                # logsumexp; the port never calls it
+                op = torch.float32 if dtype == "float32" else torch.bfloat16
+                xa = torch.randn(t, 2 * D, device="cuda").to(op)
+                w = torch.randn(2 * D, S * M, device="cuda").to(op)
+                line["library_ms"] = median_ms(lambda: torch.matmul(xa, w))
+                line["library_call"] = "torch.matmul, the product alone"
+                del xa, w
+                line.update(gmm_bound(t, S, M, D, dtype))
+                line["clocks_under_load"] = clocks_under_load(
+                    lambda: gk.gmm_log_scores_cuda(*args, **kw))
+                records[dtype] = {k: line[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}
             say("kernel_vs_plain", **line)
             check(ok, f"kernel vs plain at {line}")
-            del got, want
+            del args
+    # ragged shapes: T and S off the tiles, one mixture, a padded slot,
+    # other feature widths (run-time K), S odd / even / a multiple of 4
+    ragged = [dict(t=1, s=1, m=1, d=39), dict(t=130, s=65, m=1, d=39),
+              dict(t=333, s=607, m=3, d=39, dead_slot=True),
+              dict(t=200, s=606, m=8, d=13), dict(t=5000, s=100, m=2, d=7),
+              dict(t=40000, s=130, m=4, d=40), dict(t=77, s=64, m=5, d=26)]
+    for shape in ragged:
+        for dtype in ("float32", "bfloat16"):
+            err, ok, tol = compare_gmm(scoring_case(gen, **shape), dtype)
+            say("kernel_vs_plain_ragged", **shape, score_dtype=dtype,
+                max_abs_err=err, tol=tol, ok=ok)
+            check(ok, f"kernel vs plain at ragged {shape} {dtype}")
     torch.cuda.empty_cache()
-    return record
+    return records
 
 
 def phase_known_answer(seed: int) -> None:
@@ -400,10 +484,12 @@ def device_profile(fn) -> dict:
 
 def phase_throughput(seed: int, dec: DeviceBeamDecoder, smi: str,
                      batch: int = 256, utt_seconds: float = 4.0,
-                     calls: int = 3) -> None:
+                     calls: int = 3) -> int:
     """bench.py:bench_decode's shape: frontend + scoring + frame loop +
     n-best per call, double-buffered dispatch/collect, host work inside
-    the timed region."""
+    the timed region.  Then one call of the same batch through a decoder
+    with ``score_dtype="bfloat16"``; returns the bfloat16 kernel's launches
+    in it."""
     cfg = Config()
     fe = Frontend(cfg.frontend, device="cuda")
     rate = cfg.frontend.sample_rate
@@ -451,6 +537,21 @@ def phase_throughput(seed: int, dec: DeviceBeamDecoder, smi: str,
     ev[3].record()
     torch.cuda.synchronize()
 
+    # the same batch with bfloat16 scoring (cfg.model.score_dtype)
+    dec16 = DeviceBeamDecoder(dec.bank, dec.lexicon, score_dtype="bfloat16")
+    dec16.decode_batch(feats, n_frames)                       # warm-up
+    gk.gmm_log_scores_cuda.launches_bf16 = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hyps16 = dec16.decode_batch(feats, n_frames)
+    bf16_ms = (time.perf_counter() - t0) * 1e3
+    bf16_launches = gk.gmm_log_scores_cuda.launches_bf16
+    check(all(len(h) >= 1 and np.isfinite(h[0].score) for h in hyps16),
+          "every utterance decoded with bfloat16 scoring")
+    check(bf16_launches == 1, "one bfloat16 kernel launch per decode call")
+    drift = max(abs(a[0].score - b[0].score) / abs(b[0].score)
+                for a, b in zip(hyps16, hyps))
+
     audio_s = batch * utt_seconds * calls
     say("throughput", metric="decode_audio_throughput",
         value=audio_s / elapsed, unit="audio-s/s", batch=batch,
@@ -460,7 +561,11 @@ def phase_throughput(seed: int, dec: DeviceBeamDecoder, smi: str,
         breakdown_ms=dict(frontend=ev[0].elapsed_time(ev[1]),
                           scoring=ev[1].elapsed_time(ev[2]),
                           decode_call_with_scoring=ev[2].elapsed_time(ev[3])),
-        decode_call_profile=busy, device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+        decode_call_profile=busy,
+        bf16_call=dict(wall_ms=bf16_ms, kernel_launches=bf16_launches,
+                       max_rel_score_drift_vs_f32=drift),
+        device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    return bf16_launches
 
 
 # ----------------------------------------------------------------------
@@ -493,6 +598,22 @@ def dp_inputs(gen: torch.Generator, b: int, t: int, max_l: int):
     ehmm = build_embedded_batch(bank, labels.cuda(), lens.cuda(), 5, max_l)
     _, _, log_b = acc.sentence_scores(bank, ehmm, feats)
     return ehmm.band, ehmm.log_pi, log_b, masks
+
+
+def hmm_bound(name: str, b: int, t: int, n: int, w: int) -> dict:
+    """band [B, N, W], log_b [B, T, N] (float32) and the uint8 frame mask
+    in, plus log_pi [B, N] for forward and Viterbi; out: forward alpha
+    [B, T, N] and loglik [B], backward beta [B, T, N], Viterbi score [B],
+    path [B, T] int32 and delta [B, N].  About 4·W float32 operations per
+    (b, t, n) for the log-sum recursions, 2·W for the max."""
+    n_in = 4 * (b * n * w + b * t * n) + b * t
+    if name == "backward":
+        n_out, ops = 4 * b * t * n, 4 * w
+    else:
+        n_in += 4 * b * n
+        n_out, ops = ((4 * (b * t * n + b), 4 * w) if name == "forward"
+                      else (4 * (b + b * t + b * n), 2 * w))
+    return bound_ms(n_in + n_out, b * t * n * ops, "float32")
 
 
 def phase_hmm_kernels(seed: int) -> dict:
@@ -541,8 +662,11 @@ def phase_hmm_kernels(seed: int) -> dict:
             if b == TRAIN_B:
                 line["ms"] = median_ms(kernel)
                 line["plain_ms"] = median_ms(plain, reps=3)
-                record[name] = dict(max_abs_err=err, ms=line["ms"],
-                                    plain_ms=line["plain_ms"])
+                line.update(hmm_bound(name, b, t, int(band.shape[1]), w))
+                record[name] = dict(
+                    max_abs_err=err, ms=line["ms"], plain_ms=line["plain_ms"],
+                    bound_ms=line["bound_ms"], bound_by=line["bound_by"],
+                    library_ms=None)
             say("hmm_kernel_vs_plain", **line)
             check(ok, f"hmm kernel vs plain at {line}")
     torch.cuda.empty_cache()
@@ -685,7 +809,8 @@ def phase_train_e2e(seed: int) -> None:
                       device="cuda")
         gpu.flat_start(batches)
         cpu = Trainer(cfg, inv, device="cpu")
-        cpu.bank = sb.bank_from_numpy(sb.bank_to_numpy(gpu.bank))
+        cpu.bank = sb.bank_from_numpy(sb.bank_to_numpy(gpu.bank),
+                                      device="cpu")
         before = hk.forward_banded_cuda.launches
         t0 = time.perf_counter()
         g_ll = gpu.auto(batches, t=3, mode=2, init=False)
@@ -948,12 +1073,24 @@ def phase_stream(seed: int, smi: str) -> None:
         check(bool(torch.isfinite(got).all())
               and bool(torch.allclose(got, want, **F32_TOL)),
               f"kernel vs plain at T = {t}: max abs err {err}")
+        err16, ok16, _ = compare_gmm([x, means, log_var, log_w], "bfloat16")
+        check(ok16, f"bf16 kernel vs plain at T = {t}: max abs err {err16}")
+
+        def cold():
+            gk._packs.clear()   # what every call cost before the pack cache
+            gk.gmm_log_scores_cuda(x, means, log_var, log_w)
+
         say("kernel_vs_plain", t=t, s=S, m=M, d=D, score_dtype="float32",
             normalizer="textbook", max_abs_err=err, tol=F32_TOL, ok=True,
             ms=loop_ms(lambda: gk.gmm_log_scores_cuda(x, means, log_var,
                                                       log_w)),
+            uncached_pack_ms=loop_ms(cold),
+            bf16_ms=loop_ms(lambda: gk.gmm_log_scores_cuda(
+                x, means, log_var, log_w, score_dtype="bfloat16")),
+            bf16_max_abs_err=err16,
             plain_ms=loop_ms(lambda: gmm_log_scores(x, means, log_var,
-                                                    log_w)))
+                                                    log_w)),
+            **gmm_bound(t, S, M, D, "float32"))
     say("stream", sessions=STREAMS, chunk_frames=CHUNK,
         chunk_audio_seconds=chunk_s, utt_seconds=4.0,
         kept_frames=[len(f) for f in feats], lexicon_nodes=int(
@@ -1198,11 +1335,11 @@ def main(argv=None) -> int:
 
     smi = phase_device()
     phase_build()
-    records = {"gmm_log_scores": phase_kernel(args.seed)}
+    records = phase_kernel(args.seed)
     records.update(phase_hmm_kernels(args.seed))
     phase_known_answer(args.seed)
     launches, dec = phase_serve(args.seed)
-    phase_throughput(args.seed, dec, smi)
+    bf16_launches = phase_throughput(args.seed, dec, smi)
     del dec
     torch.cuda.empty_cache()
     train_launches = phase_train_throughput(args.seed, smi)
@@ -1213,10 +1350,15 @@ def main(argv=None) -> int:
     phase_pruned(args.seed, smi)
     phase_cli(args.seed)
     check("jax" not in sys.modules, "jax was never imported")
+    check(not [m for m in sys.modules if m.split(".")[0] == "poccala_tpu"],
+          "nothing of the JAX package was imported")
 
     kernels = [dict(name="gmm_log_scores", route="cuda", source=gk.SOURCE,
                     replaces=gk.REPLACES, launches=launches,
-                    **records["gmm_log_scores"])]
+                    **records["float32"]),
+               dict(name="gmm_log_scores_bf16", route="cuda",
+                    source=gk.SOURCE, replaces=gk.REPLACES,
+                    launches=bf16_launches, **records["bfloat16"])]
     kernels += [dict(name=f"hmm_{k}_banded", route="cuda", source=hk.SOURCE,
                      replaces=hk.REPLACES[k], launches=train_launches[k],
                      **records[k]) for k in hk.KERNELS]

@@ -3,8 +3,8 @@
     python -m poccala_tpu_torch.cli [--device cuda|cpu] [--config INI]
         [--set KEY=VALUE ...] [--units FILE|KIND] <command> ...
 
-The subcommands, flags and JSON output lines are the JAX CLI's (its
-``build_parser`` is reused, with the port's handlers):
+The subcommands, flags and JSON output lines are the JAX CLI's (the
+port keeps its own copy of ``build_parser``, with its own handlers):
 
 * ``train``      — ``Trainer.auto`` (schemes 1/2, mixture growth,
                    round-granular checkpoint/resume)
@@ -15,15 +15,16 @@ The subcommands, flags and JSON output lines are the JAX CLI's (its
                    optional n-best rescore by a higher-order LM
 * ``listen``     — microphone window (or ``--wav``) → stream decode with a
                    partial 1-best per chunk
-* ``serve``      — WAV paths → :class:`~poccala_tpu.serve.DecodeService`
+* ``serve``      — WAV paths → :class:`~poccala_tpu_torch.serve.DecodeService`
 * ``export-ref`` / ``import-ref`` — reference parameter-layout interop
 * ``synth-corpus`` — generate a synthetic WAV corpus
 * ``build-lexicon`` — word list → pronunciation-lexicon pickle
 * ``train-lm``   — text → N-gram counts
 
 One addition: the global ``--device`` (default ``cuda``) places the bank,
-the frontend and the trainer.  ``--device cuda`` without a CUDA device
-raises; nothing falls back to the CPU.
+the frontend and the trainer (:func:`poccala_tpu_torch.utils.device.resolve`).
+``--device cuda`` without a CUDA device raises; nothing falls back to the
+CPU.
 
 Deviations while the port is partial (``ROADMAP.md`` Queue 1): ``decode``
 defaults to ``--decoder device``, where the JAX CLI defaults to the host
@@ -44,7 +45,7 @@ import torch
 
 
 def _load_config(args) -> "Config":
-    from poccala_tpu.config import Config
+    from poccala_tpu_torch.config import Config
 
     cfg = Config.from_ini(args.config) if args.config else Config()
     if args.set:
@@ -64,12 +65,9 @@ def _load_inventory(cfg, args):
 def _device(args) -> torch.device:
     """The ``--device`` of the commands that place tensors; a CUDA device
     that is not there is an error, never a reason to run on the CPU."""
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "--device cuda: no CUDA device is available; pass --device cpu "
-            "to run the port on the CPU")
-    return dev
+    from poccala_tpu_torch.utils.device import resolve
+
+    return resolve(args.device)
 
 
 def _not_ported(what: str, item: str):
@@ -97,7 +95,7 @@ def _load_decode_graph(args, inv):
 def _load_lm(args):
     if not args.lm:
         return None
-    from poccala_tpu.lm.ngram import Ngram
+    from poccala_tpu_torch.lm.ngram import Ngram
 
     lm = Ngram(args.lm_order)
     lm.init_gram(args.lm)
@@ -123,7 +121,7 @@ def _device_decoder(args, cfg, inv, dev):
 def _features_fn(cfg, dev):
     """WAV path -> VAD-packed ``[T, D]`` features, as the JAX CLI computes
     them (``cmd_decode``/``cmd_serve``), with the frontend on ``dev``."""
-    from poccala_tpu.io import wav as wav_io
+    from poccala_tpu_torch.io import wav as wav_io
     from poccala_tpu_torch.ops import vad as vad_ops
     from poccala_tpu_torch.ops.frontend import Frontend
 
@@ -230,7 +228,7 @@ def cmd_decode(args):
     outs = dec.decode_batch(feats_b, nf, return_nbest=5)
     if args.rescore_lm:
         # two-pass higher-order LM: bigram decode, n-best rescore
-        from poccala_tpu.lm.ngram import Ngram
+        from poccala_tpu_torch.lm.ngram import Ngram
         from poccala_tpu_torch.decoder.rescore import rescore_nbest
 
         rlm = Ngram(args.rescore_order, smoothing="wb")
@@ -260,7 +258,7 @@ def cmd_listen(args):
     if not path:
         import tempfile
 
-        from poccala_tpu.io import audio_device
+        from poccala_tpu_torch.io import audio_device
 
         path = os.path.join(tempfile.gettempdir(), "poccala_listen.wav")
         print(f"recording {args.seconds:.1f}s ...", file=sys.stderr)
@@ -287,7 +285,7 @@ def cmd_listen(args):
 def cmd_serve(args):
     """Batch serving: read WAV paths (one per line) from stdin or
     ``--list``, decode them through the double-buffered
-    :class:`~poccala_tpu.serve.DecodeService`, and print one JSON line
+    :class:`~poccala_tpu_torch.serve.DecodeService`, and print one JSON line
     per WAV in input order."""
     from poccala_tpu_torch.serve import DecodeService
 
@@ -333,7 +331,7 @@ def cmd_export_ref(args):
 
     cfg = _load_config(args)
     inv = _load_inventory(cfg, args)
-    bank, _ = ckpt.load_checkpoint(args.checkpoint)
+    bank, _ = ckpt.load_checkpoint(args.checkpoint, device=_device(args))
     ckpt.export_reference_layout(args.out, bank, inv, cfg.model.unit_type)
     print(f"exported to {args.out}/{cfg.model.unit_type}", file=sys.stderr)
 
@@ -345,7 +343,7 @@ def cmd_import_ref(args):
     inv = _load_inventory(cfg, args)
     bank = ckpt.import_reference_layout(
         args.src, inv, cfg.model.unit_type, cfg.model.state_num,
-        cfg.model.max_mix_level,
+        cfg.model.max_mix_level, device=_device(args),
     )
     ckpt.save_checkpoint(args.checkpoint, bank, {"imported": args.src},
                          units=inv.units)
@@ -375,7 +373,7 @@ def cmd_build_lexicon(args):
 
 
 def cmd_train_lm(args):
-    from poccala_tpu.lm.ngram import Ngram
+    from poccala_tpu_torch.lm.ngram import Ngram
 
     lm = Ngram(args.order, smoothing=args.smoothing)
     with open(args.text) as f:
@@ -395,29 +393,159 @@ COMMANDS = {
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The JAX CLI's parser (one flag set for both packages), with the
-    port's handlers, the global ``--device`` and ``decode``'s default
-    tier set to ``device``.  A subcommand without a port handler is a
-    KeyError here, so no JAX handler can ever run."""
-    from poccala_tpu import cli as jax_cli
-
-    p = jax_cli.build_parser()
-    p.prog = "poccala-tpu-torch"
+    """The JAX CLI's flag set (``poccala_tpu/cli.py:build_parser``, copied;
+    ``tests/test_torch_cli.py`` pins the two together) with the port's
+    handlers, the global ``--device`` and ``decode``'s default tier set to
+    ``device``."""
+    p = argparse.ArgumentParser(prog="poccala-tpu-torch")
     p.add_argument("--device", default="cuda",
                    help="torch device of the bank, frontend and trainer "
                         "(default cuda; cpu runs the plain PyTorch "
                         "versions of the kernels)")
-    sub = next(a for a in p._actions
-               if isinstance(a, argparse._SubParsersAction))
-    for name, sp in sub.choices.items():
-        sp.set_defaults(fn=COMMANDS[name])
-    decode = sub.choices["decode"]
-    decode.set_defaults(decoder="device")
-    for action in decode._actions:
-        if action.dest == "decoder":
-            action.help = ("decoder tier: the on-device search (default); "
-                           "the host tiers vector and simple are not "
-                           "ported yet and raise")
+    p.add_argument("--config", help="INI config (reference layout)")
+    p.add_argument("--set", action="append", metavar="KEY=VALUE",
+                   help="config override (repeatable)")
+    p.add_argument("--units", help="unit file path or inventory kind "
+                                   "(IF/XIF/XIF_tone)")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def add_dist_flags(sp):
+        sp.add_argument("--distributed", action="store_true",
+                        help="run over the (data, state) device mesh from "
+                             "the config (--set mesh.data_axis=4 "
+                             "mesh.state_axis=2)")
+        sp.add_argument("--coordinator",
+                        help="multi-host coordinator address "
+                             "(host:port)")
+        sp.add_argument("--num-processes", type=int)
+        sp.add_argument("--process-id", type=int)
+
+    t = sub.add_parser("train")
+    t.add_argument("--mode", type=int, default=2, choices=(1, 2))
+    t.add_argument("--epochs", type=int, default=1)
+    t.add_argument("--init", action="store_true", default=True)
+    t.add_argument("--no-init", dest="init", action="store_false")
+    t.add_argument("--add-mix", action="store_true")
+    t.add_argument("--checkpoint")
+    t.add_argument("--resume", action="store_true")
+    t.add_argument("--history")
+    add_dist_flags(t)
+    t.set_defaults(fn=cmd_train)
+
+    a = sub.add_parser("align")
+    a.add_argument("--checkpoint", required=True)
+    a.set_defaults(fn=cmd_align)
+
+    d = sub.add_parser("decode")
+    d.add_argument("--checkpoint", required=True)
+    d.add_argument("--lexicon", required=True)
+    d.add_argument("--cd", help="CD sidecar from cd-expand: decode "
+                                "with the context-dependent graph")
+    d.add_argument("--lm")
+    d.add_argument("--lm-order", type=int, default=2)
+    d.add_argument("--rescore-lm",
+                   help="rescore the n-best with this (higher-order) "
+                        "LM after decoding")
+    d.add_argument("--rescore-order", type=int, default=3)
+    d.add_argument("--beam", type=float, default=0.85)
+    d.add_argument("--decoder", choices=("vector", "device", "simple"),
+                   default="device",
+                   help="decoder tier: the on-device search (default); "
+                        "the host tiers vector and simple are not "
+                        "ported yet and raise")
+    d.add_argument("wavs", nargs="+")
+    add_dist_flags(d)
+    d.set_defaults(fn=cmd_decode)
+
+    cdx = sub.add_parser("cd-expand")
+    cdx.add_argument("--checkpoint", required=True,
+                     help="trained CI checkpoint to expand")
+    cdx.add_argument("--vocab", required=True,
+                     help="word list (one word per line)")
+    cdx.add_argument("--table", help="Mandarin.dat-format G2P table "
+                                     "(default: built-in subset)")
+    cdx.add_argument("--out-checkpoint", required=True)
+    cdx.add_argument("--out-cd", required=True,
+                     help="CD sidecar (triples + routing trees)")
+    cdx.add_argument("--target-senones", type=int, default=0,
+                     help="tied-senone budget (0 = 3x the CI count)")
+    cdx.add_argument("--retrain-epochs", type=int, default=3)
+    cdx.add_argument("--word-line", type=int, default=0,
+                     help=".trn line carrying the word sequence "
+                          "(word boundaries reset context)")
+    cdx.add_argument("--min-occ", type=float, default=16.0)
+    cdx.add_argument("--map-tau", type=float, default=0.0,
+                     help="MAP-smooth retrained leaves toward their CI "
+                          "parents, prior strength in frames "
+                          "(w = n/(n+tau)); 0 = off")
+    cdx.set_defaults(fn=cmd_cd_expand)
+
+    li = sub.add_parser("listen")
+    li.add_argument("--checkpoint", required=True)
+    li.add_argument("--lexicon", required=True)
+    li.add_argument("--cd", help="CD sidecar: stream-decode with the "
+                                 "context-dependent graph")
+    li.add_argument("--lm")
+    li.add_argument("--lm-order", type=int, default=2)
+    li.add_argument("--beam", type=float, default=0.85)
+    li.add_argument("--wav",
+                    help="decode this WAV instead of recording (no "
+                         "microphone needed)")
+    li.add_argument("--seconds", type=float, default=5.0,
+                    help="microphone capture window (Decoder.py:190)")
+    li.add_argument("--chunk-frames", type=int, default=25,
+                    help="stream-decode chunk size in frames")
+    li.set_defaults(fn=cmd_listen)
+
+    sv = sub.add_parser("serve")
+    sv.add_argument("--checkpoint", required=True)
+    sv.add_argument("--lexicon", required=True)
+    sv.add_argument("--cd", help="CD sidecar: serve with the "
+                                 "context-dependent graph")
+    sv.add_argument("--lm")
+    sv.add_argument("--lm-order", type=int, default=2)
+    sv.add_argument("--beam", type=float, default=0.85)
+    sv.add_argument("--list", help="file of WAV paths (default: stdin)")
+    sv.add_argument("--batch-size", type=int, default=8)
+    sv.add_argument("--frame-bucket", type=int, default=128)
+    sv.add_argument("--nbest", type=int, default=1)
+    sv.add_argument("--max-wait-ms", type=float, default=20.0,
+                    help="batch-fill wait after the first request "
+                         "(DecodeService max_wait_s)")
+    add_dist_flags(sv)
+    sv.set_defaults(fn=cmd_serve)
+
+    e = sub.add_parser("export-ref")
+    e.add_argument("--checkpoint", required=True)
+    e.add_argument("--out", required=True)
+    e.set_defaults(fn=cmd_export_ref)
+
+    i = sub.add_parser("import-ref")
+    i.add_argument("--src", required=True)
+    i.add_argument("--checkpoint", required=True)
+    i.set_defaults(fn=cmd_import_ref)
+
+    s = sub.add_parser("synth-corpus")
+    s.add_argument("--out", required=True)
+    s.add_argument("--num-utts", type=int, default=32)
+    s.set_defaults(fn=cmd_synth_corpus)
+
+    b = sub.add_parser("build-lexicon")
+    b.add_argument("--words", required=True)
+    b.add_argument("--mandarin-dat")
+    b.add_argument("--out", required=True)
+    b.set_defaults(fn=cmd_build_lexicon)
+
+    lm = sub.add_parser("train-lm")
+    lm.add_argument("--text", required=True)
+    lm.add_argument("--order", type=int, default=2)
+    lm.add_argument("--smoothing", choices=("jm", "wb"), default="jm",
+                    help="jm: fixed-weight interpolation; wb: Witten-"
+                         "Bell (persists into the file; a WB bigram "
+                         "attaches to the first-pass decoder via per-"
+                         "row backoff tables)")
+    lm.add_argument("--out", required=True)
+    lm.set_defaults(fn=cmd_train_lm)
     return p
 
 

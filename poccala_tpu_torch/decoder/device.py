@@ -39,7 +39,7 @@ gmm_log_scores_fast`: the CUDA kernel for a bank on the GPU, the plain
 version on the CPU.  Where JAX scans the frames inside one program, this
 is a Python loop over frames batched over utterances; on the GPU every op
 is an asynchronous launch on the calling thread's current stream (the
-worker thread of :class:`~poccala_tpu.serve.DecodeService` runs batches
+worker thread of :class:`~poccala_tpu_torch.serve.DecodeService` runs batches
 and stream chunks alike there), so :meth:`decode_dispatch` returns once
 the work is enqueued and :meth:`decode_collect` synchronises by copying
 the results to the host.

@@ -12,8 +12,8 @@ pin the copies to the originals:
 * :class:`Corpus`: WAV -> MFCC+Δ+ΔΔ -> VAD packing through the port's
   frontend and VAD on the corpus's device, padded into fixed-shape
   :class:`Batch`es — per utterance (``corpus.py:241-257``), or a batch at
-  a time with the WAVs decoded by the JAX package's jax-free native
-  loader (``poccala_tpu.native``, a g++-built ctypes library) and the
+  a time with the WAVs decoded by the native loader
+  (:mod:`poccala_tpu_torch.native`, a g++-built ctypes library) and the
   frontend and VAD batched (``corpus.py:259-315``);
 * the synthetic corpus the tests and benchmarks train on.
 """
@@ -25,10 +25,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from poccala_tpu.config import Config
-from poccala_tpu.io import wav as wav_io
+from poccala_tpu_torch.config import Config
+from poccala_tpu_torch.io import wav as wav_io
 from poccala_tpu_torch.ops import vad as vad_ops
 from poccala_tpu_torch.ops.frontend import Frontend
+from poccala_tpu_torch.utils.device import resolve
 from poccala_tpu_torch.utils.errors import UnitFileError
 
 # Standard Mandarin pinyin phone sets (the linguistic inventories behind
@@ -157,7 +158,8 @@ class Corpus:
     The per-utterance pipeline (``AcousticModel.__load_audio``,
     ``AcousticModel.py:463-477``): WAV → stereo merge → MFCC+Δ+ΔΔ → VAD
     packing; then padding into fixed-shape batches.  The frontend and VAD
-    run on ``device`` (the CPU when None); batches are host arrays.
+    run on ``device`` (the card when None, ``utils/device.py``); batches
+    are host arrays.
     """
 
     def __init__(self, cfg: Config, inventory: UnitInventory,
@@ -169,7 +171,7 @@ class Corpus:
                                 cfg.paths.label_file_path)
             pairs = shard_pairs(pairs, cfg.paths.env_id, cfg.train.task_num)
         self.pairs = pairs
-        self.frontend = Frontend(cfg.frontend, device=device)
+        self.frontend = Frontend(cfg.frontend, device=resolve(device))
         self._pinyin = None
         if cfg.train.label_format == "pinyin":
             from poccala_tpu_torch.lexicon.pinyin import PinYin
@@ -236,7 +238,7 @@ class Corpus:
         runs batched on the corpus's device; otherwise utterances load one
         at a time.  ``use_native=True`` without a working g++ raises."""
         if use_native is None:
-            from poccala_tpu import native
+            from poccala_tpu_torch import native
 
             use_native = native.available()
         if use_native:
@@ -262,7 +264,7 @@ class Corpus:
 
     def _batches_native(self, batch_size: int | None, drop_last: bool):
         """Native batch WAV load + batched frontend and VAD."""
-        from poccala_tpu import native
+        from poccala_tpu_torch import native
 
         fcfg = self.cfg.frontend
         bs = batch_size or self.cfg.train.batch_size

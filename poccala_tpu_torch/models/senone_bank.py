@@ -24,7 +24,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from poccala_tpu.config import ModelConfig
+from poccala_tpu_torch.config import ModelConfig
+from poccala_tpu_torch.utils.device import resolve
 from poccala_tpu_torch.utils.logmath import masked_log
 
 FIELDS = ("means", "log_var", "log_w", "log_A", "log_pi", "mix_counts",
@@ -71,10 +72,11 @@ class SenoneBank(nn.Module):
 
 def bank_from_numpy(arrays: dict, device=None) -> SenoneBank:
     """``{field: ndarray}`` (e.g. a loaded ``bank.npz``, or a JAX bank's
-    fields through ``np.asarray``) -> :class:`SenoneBank` on ``device``."""
+    fields through ``np.asarray``) -> :class:`SenoneBank` on ``device``
+    (None = the card; ``utils/device.py``)."""
     bank = SenoneBank(**{f: torch.from_numpy(np.array(arrays[f]))
                          for f in FIELDS})
-    return bank.to(device) if device is not None else bank
+    return bank.to(resolve(device))
 
 
 def bank_to_numpy(bank: SenoneBank) -> dict:
@@ -126,7 +128,9 @@ def create_bank(
     The means are drawn on the CPU from ``generator`` (seeded
     ``torch.Generator``; a fixed seed of 0 when None), so one seed gives
     one bank on every device.  The draws differ from ``jax.random``'s:
-    parity tests convert one bank with :func:`bank_from_numpy` instead."""
+    parity tests convert one bank with :func:`bank_from_numpy` instead.
+    ``device`` None means the card (``utils/device.py``)."""
+    dev = resolve(device)
     n = cfg.state_num
     emit = n - 2
     s = num_units * emit
@@ -151,7 +155,7 @@ def create_bank(
                         dtype=torch.float32)
     bank = SenoneBank(means, log_var, log_w, log_a, log_pi, mix_counts,
                       identity_senone_map(num_units, emit))
-    return bank.to(device) if device is not None else bank
+    return bank.to(dev)
 
 
 def flat_start(

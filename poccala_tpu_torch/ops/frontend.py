@@ -29,7 +29,8 @@ import math
 import numpy as np
 import torch
 
-from poccala_tpu.config import FrontendConfig
+from poccala_tpu_torch.config import FrontendConfig
+from poccala_tpu_torch.utils.device import resolve
 
 _LOG_EPS = 1e-10  # floor before log; the reference takes log(0) -> -inf
 
@@ -124,7 +125,7 @@ class Frontend:
                 f"dot_precision={cfg.dot_precision!r} has no PyTorch "
                 "counterpart; the port runs the frontend in exact float32")
         self.cfg = cfg
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve(device)
         self.frame_size = cfg.frame_size
         self.frame_step = cfg.frame_step
 

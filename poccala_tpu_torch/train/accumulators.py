@@ -35,6 +35,7 @@ from poccala_tpu_torch.models.senone_bank import SenoneBank
 from poccala_tpu_torch.models.topology import EmbeddedHMM, build_embedded_batch
 from poccala_tpu_torch.ops import hmm as hmm_ops
 from poccala_tpu_torch.ops.gmm_score import gmm_component_logpdf
+from poccala_tpu_torch.utils.device import resolve
 from poccala_tpu_torch.utils.logmath import NEG_INF, masked_log
 
 
@@ -80,7 +81,8 @@ def stats_to_numpy(stats: BwStats) -> dict:
 
 def stats_from_numpy(arrays: dict, device=None) -> BwStats:
     """``{field: ndarray}`` (e.g. a JAX ``BwStats``'s fields through
-    ``np.asarray``) -> :class:`BwStats` on ``device``."""
+    ``np.asarray``) -> :class:`BwStats` on ``device`` (None = the card)."""
+    device = resolve(device)
     return BwStats(**{f: torch.as_tensor(np.array(arrays[f], np.float32),
                                          device=device)
                       for f in STATS_FIELDS})

@@ -24,6 +24,7 @@ import torch
 
 from poccala_tpu_torch.models.senone_bank import (
     FIELDS, SenoneBank, bank_from_numpy, bank_to_numpy, identity_senone_map)
+from poccala_tpu_torch.utils.device import resolve
 from poccala_tpu_torch.utils.errors import ParameterFileError
 from poccala_tpu_torch.utils.logmath import masked_log
 
@@ -50,7 +51,9 @@ def save_checkpoint(path: str, bank: SenoneBank, manifest: dict | None = None,
 
 
 def load_checkpoint(path: str, device=None) -> tuple[SenoneBank, dict]:
-    """Load a checkpoint directory -> (bank on ``device``, manifest)."""
+    """Load a checkpoint directory -> (bank on ``device``, manifest);
+    ``device`` None means the card (``utils/device.py``)."""
+    device = resolve(device)
     manifest = {}
     man_path = os.path.join(path, "manifest.json")
     if os.path.exists(man_path):
@@ -125,7 +128,9 @@ def import_reference_layout(root: str, inventory, unit_type: str,
                             state_num: int, max_mix: int,
                             device=None) -> SenoneBank:
     """Load a reference-format parameter store into a bank on ``device``
-    (``AcousticModel.init_parameter``, ``AcousticModel.py:228-240``)."""
+    (``AcousticModel.init_parameter``, ``AcousticModel.py:228-240``);
+    ``device`` None means the card (``utils/device.py``)."""
+    device = resolve(device)
     base = os.path.join(root, unit_type)
     emit = state_num - 2
     u_total = len(inventory)

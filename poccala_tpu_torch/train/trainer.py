@@ -35,7 +35,8 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
-from poccala_tpu.config import Config
+from poccala_tpu_torch.config import Config
+from poccala_tpu_torch.utils.device import resolve
 from poccala_tpu_torch.io.corpus import Batch, UnitInventory
 from poccala_tpu_torch.models import senone_bank as sb
 from poccala_tpu_torch.ops import em as em_ops
@@ -71,7 +72,7 @@ class Trainer:
                 "Queue 1: parallel/ comes later)")
         self.cfg = cfg
         self.inventory = inventory
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve(device)
         self.log = logger or get_logger("trainer", cfg.paths.env_id)
         self.generator = generator if generator is not None else \
             torch.Generator().manual_seed(cfg.train.seed)

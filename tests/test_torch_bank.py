@@ -42,7 +42,7 @@ def assert_arrays_equal(got: dict, want: dict):
 
 def test_numpy_round_trip_is_exact():
     want = jax_arrays(jax_bank())
-    bank = tsb.bank_from_numpy(want)
+    bank = tsb.bank_from_numpy(want, device="cpu")
     assert isinstance(bank, torch.nn.Module)
     assert_arrays_equal(tsb.bank_to_numpy(bank), want)
     assert (bank.num_states, bank.max_mix, bank.dim) == (21, 4, 6)
@@ -56,7 +56,7 @@ def test_jax_checkpoint_loads(tmp_path):
     path = str(tmp_path / "ckpt")
     save_checkpoint(path, jb, manifest={"phase": "round", "round": 3},
                     units=["a", "b"], sharded=False)
-    bank, manifest = load_checkpoint(path)
+    bank, manifest = load_checkpoint(path, device="cpu")
     assert_arrays_equal(tsb.bank_to_numpy(bank), jax_arrays(jb))
     with open(f"{path}/manifest.json") as f:
         assert manifest == json.load(f)
@@ -65,10 +65,10 @@ def test_jax_checkpoint_loads(tmp_path):
 
 def test_checkpoint_errors(tmp_path):
     with pytest.raises(ParameterFileError):
-        load_checkpoint(str(tmp_path))
+        load_checkpoint(str(tmp_path), device="cpu")
     (tmp_path / "bank_orbax").mkdir()
     with pytest.raises(ParameterFileError):
-        load_checkpoint(str(tmp_path))
+        load_checkpoint(str(tmp_path), device="cpu")
 
 
 @pytest.mark.parametrize("differentiation", [True, False])
@@ -77,7 +77,8 @@ def test_create_bank_structure_matches_jax(differentiation):
                                     differentiation=differentiation))
     gen = torch.Generator().manual_seed(5)
     tb = tsb.bank_to_numpy(tsb.create_bank(7, CFG, 6, generator=gen,
-                                           differentiation=differentiation))
+                                           differentiation=differentiation,
+                                           device="cpu"))
     for f in ("log_var", "log_w", "log_A", "mix_counts", "senone_map"):
         assert tb[f].dtype == jb[f].dtype and np.array_equal(tb[f], jb[f]), f
     assert np.allclose(tb["log_pi"], jb["log_pi"], rtol=1e-7)
@@ -85,7 +86,8 @@ def test_create_bank_structure_matches_jax(differentiation):
     if differentiation:
         assert ((tb["means"] >= 0) & (tb["means"] < 1)).all()
         again = tsb.create_bank(7, CFG, 6,
-                                generator=torch.Generator().manual_seed(5))
+                                generator=torch.Generator().manual_seed(5),
+                                device="cpu")
         assert np.array_equal(again.means.numpy(), tb["means"])
     else:
         assert np.array_equal(tb["means"], jb["means"])

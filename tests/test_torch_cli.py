@@ -145,7 +145,7 @@ def test_train_resume_scheme1_with_mixture_growth(trained, capsys):
         rounds = json.load(f)
     assert len(rounds) == 1 and rounds[0]["mode"] == 1
     assert np.isfinite(rounds[0]["loglik"])
-    bank, man = ck.load_checkpoint(ckpt)
+    bank, man = ck.load_checkpoint(ckpt, device="cpu")
     assert man["round"] == 3 and man["mode"] == 1 and man["mix_level"] == 2
     assert torch.isfinite(bank.means).all()
 
@@ -235,8 +235,8 @@ def test_export_import_round_trip(trained, capsys):
     ckpt2 = os.path.join(t["root"], "ckpt2")
     tcpu(capsys, *t["args"], "--set", "model.unit_type=TESTUNITS",
          "import-ref", "--src", ref_dir, "--checkpoint", ckpt2)
-    bank1, _ = ck.load_checkpoint(t["ckpt"])
-    bank2, _ = ck.load_checkpoint(ckpt2)
+    bank1, _ = ck.load_checkpoint(t["ckpt"], device="cpu")
+    bank2, _ = ck.load_checkpoint(ckpt2, device="cpu")
     assert torch.allclose(bank1.log_A, bank2.log_A, atol=1e-5)
     # the reference layout keeps each senone's active mixtures only
     active = torch.arange(bank1.max_mix)[None] < bank1.mix_counts[:, None]

@@ -48,7 +48,7 @@ def world():
     means = rng.normal(size=np.shape(jbank.means)).astype(np.float32) * 2
     jbank = dataclasses.replace(jbank, means=jnp.asarray(means))
     tbank = tsb.bank_from_numpy({f: np.asarray(getattr(jbank, f))
-                                 for f in tsb.FIELDS})
+                                 for f in tsb.FIELDS}, device="cpu")
     words = list(BUILTIN_PINYIN)
     jl, tl = JaxLexicon(), PronunciationLexicon()
     jl.generate(words, JaxPinYin())
@@ -109,13 +109,14 @@ def separable_world(rng, d=8):
     units = ["n", "i3", "h", "ao3", "m", "a1"]
     cfg = ModelConfig(state_num=5, mix_level=1, max_mix_level=1)
     arrays = tsb.bank_to_numpy(
-        tsb.create_bank(len(units), cfg, d, differentiation=False))
+        tsb.create_bank(len(units), cfg, d, differentiation=False,
+                        device="cpu"))
     emb = rng.normal(size=(len(units), d)).astype(np.float32) * 4
     arrays["means"] = np.repeat(emb, cfg.state_num - 2, axis=0)[:, None, :]
     lex = PronunciationLexicon()
     lex.generate(["你好", "你", "马"],
                  PinYin({"你": ["ni3"], "好": ["hao3"], "马": ["ma1"]}))
-    dec = DeviceBeamDecoder(tsb.bank_from_numpy(arrays),
+    dec = DeviceBeamDecoder(tsb.bank_from_numpy(arrays, device="cpu"),
                             FlatLexicon.from_tree(lex.lexicon,
                                                   UnitInventory(units)))
 

@@ -51,14 +51,15 @@ class TestFeatures:
         cfg = FrontendConfig(**CONFIGS[name])
         sigs, n = ragged_batch()
         want, want_mask = JaxFrontend(cfg).mfcc_batch(sigs, n)
-        got, got_mask = tf.Frontend(cfg).mfcc_batch(sigs, n)
+        got, got_mask = tf.Frontend(cfg, device="cpu").mfcc_batch(sigs, n)
         assert got.shape == want.shape == (3, 79, cfg.feat_dim)
         assert np.array_equal(got_mask.numpy(), np.asarray(want_mask))
         assert np.allclose(got.numpy(), np.asarray(want), **TOL)
 
     def test_quirks_match_reference_oracle(self):
         sig = synth_speechlike(16000)
-        feats, mask = tf.Frontend(FrontendConfig(reference_quirks=True)) \
+        feats, mask = tf.Frontend(FrontendConfig(reference_quirks=True),
+                                  device="cpu") \
             .mfcc(sig)
         want = oracles.mfcc_quirk(sig.astype(np.float64), log_eps=1e-10)
         assert bool(mask.all())
@@ -70,7 +71,7 @@ class TestFeatures:
         padded = np.zeros(9000, np.float32)
         padded[:8000] = synth_speechlike(8000, seed=7)
         want, wm = JaxFrontend(cfg).mfcc(padded, n_samples=8000)
-        got, gm = tf.Frontend(cfg).mfcc(padded, n_samples=8000)
+        got, gm = tf.Frontend(cfg, device="cpu").mfcc(padded, n_samples=8000)
         assert np.array_equal(gm.numpy(), np.asarray(wm))
         assert np.allclose(got.numpy(), np.asarray(want), **TOL)
 
@@ -82,7 +83,7 @@ class TestFeatures:
 
     def test_reduced_dot_precision_raises(self):
         with pytest.raises(ValueError):
-            tf.Frontend(FrontendConfig(dot_precision="high"))
+            tf.Frontend(FrontendConfig(dot_precision="high"), device="cpu")
 
 
 def vad_features(rng, t=120, d=39, speech=((30, 60), (80, 100))):

@@ -68,26 +68,48 @@ def torch_of(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
+def one_exp_logsumexp(v):
+    """``csrc/gmm_score.cu``'s fold over the leading (mixture) axis: one
+    exponential per element, ``e = exp(-|v - mx|)``."""
+    mx, ss = v[0], torch.ones_like(v[0])
+    for vm in v[1:]:
+        e = torch.exp(-(vm - mx).abs())
+        up = vm > mx
+        ss = torch.where(up, ss * e + 1.0, ss + e)
+        mx = torch.where(up, vm, mx)
+    return mx + torch.log(ss)
+
+
 def kernel_arithmetic(x, means, log_var, log_w, normalizer, score_dtype):
     """What ``csrc/gmm_score.cu`` computes from the wrapper's packed
-    operands: per mixture ``xa @ weight[m] + bias[m]`` in fp32, folded by
-    the same online max/sum logsumexp."""
-    center = x.mean(0) if score_dtype == "bfloat16" else None
-    weight, bias, center = gk._pack_params(means, log_var, log_w,
-                                           normalizer, score_dtype,
-                                           center=center)
-    xc = x - center[None]
-    xa = torch.cat([xc * xc, xc], dim=1).to(weight.dtype).float()
-    mx = ss = None
-    for m in range(weight.shape[0]):
-        v = xa @ weight[m].float() + bias[m]
-        if m == 0:
-            mx, ss = v, torch.ones_like(v)
-        else:
-            nm = torch.maximum(mx, v)
-            ss = ss * torch.exp(mx - nm) + torch.exp(v - nm)
-            mx = nm
-    return mx + torch.log(ss)
+    operands (padded senones cut off): per mixture ``[x², x] @ W[m] +
+    bias[m]`` in fp32, folded by the one-exponential logsumexp."""
+    s, m, d = means.shape
+    if score_dtype == "float32":
+        wp = gk.pack_f32(means, log_var, log_w, normalizer)
+        assert wp.shape == (m, 2 * d + 1, -(-s // gk.S_TILE) * gk.S_TILE)
+        assert not wp[:, :, s:].any()
+        xa = torch.cat([x * x, x], dim=1)
+        v = torch.einsum("tk,mks->mts", xa, wp[:, :2 * d, :s]) \
+            + wp[:, 2 * d, None, :s]
+        return one_exp_logsumexp(v)
+    static = gk.pack_bf16_static(means, log_var, log_w, normalizer)
+    center = x.mean(0)
+    w_x, bias = gk.pack_bf16(static, means, center)
+    dp = -(-d // 8) * 8
+    assert static["w_x2"].shape == w_x.shape \
+        == (m, dp // 8, bias.shape[1], 8)
+    assert w_x.dtype == static["w_x2"].dtype == torch.bfloat16
+
+    def rows(w):  # core matrices [M, Dp/8, S_pad, 8] -> [M, Dp, S]
+        return w.float().permute(0, 1, 3, 2).reshape(m, dp, -1)[:, :, :s]
+
+    xc = torch.nn.functional.pad(x - center[None], (0, dp - d))
+    x2 = (xc * xc).to(torch.bfloat16).float()
+    x1 = xc.to(torch.bfloat16).float()
+    v = torch.einsum("tk,mks->mts", x2, rows(static["w_x2"])) \
+        + torch.einsum("tk,mks->mts", x1, rows(w_x)) + bias[:, None, :s]
+    return one_exp_logsumexp(v)
 
 
 CASES = {
@@ -200,3 +222,30 @@ class TestKernelWrapper:
         with pytest.raises(ValueError):
             gk.gmm_log_scores_cuda(*torch_of(*make_inputs(rng)))
 
+    def test_pack_cache_follows_the_bank(self, rng):
+        """One pack per bank; an in-place update (an M-step writing into
+        the bank, a regrown mixture slot) or another tensor at the same
+        address packs anew."""
+        _, means, log_var, log_w = torch_of(*make_inputs(rng))
+        calls = []
+
+        def packer(*args):
+            calls.append(1)
+            return gk.pack_f32(*args)
+
+        first = gk._cached(packer, means, log_var, log_w, "textbook")
+        assert gk._cached(packer, means, log_var, log_w, "textbook") is first
+        assert len(calls) == 1
+        assert gk._cached(packer, means, log_var, log_w, "reference") \
+            is not first
+        means.mul_(2.0)                       # in place: same tensor, same ptr
+        second = gk._cached(packer, means, log_var, log_w, "textbook")
+        assert len(calls) == 3 and not torch.equal(second, first)
+        assert torch.equal(second, gk.pack_f32(means, log_var, log_w,
+                                               "textbook"))
+        log_w[0, 0] = -1e30                   # a slot switched off in place
+        third = gk._cached(packer, means, log_var, log_w, "textbook")
+        assert len(calls) == 4 and third[0, -1, 0] < -1e29
+        clone = means.clone()                 # another tensor, equal values
+        gk._cached(packer, clone, log_var, log_w, "textbook")
+        assert len(calls) == 5

@@ -1,7 +1,7 @@
 """The PyTorch port on a CUDA device: the hand-written kernels (GMM
-scoring, banded HMM forward / backward / Viterbi) against their plain
-versions, and the GPU frontend, decoder and Baum-Welch statistics against
-the CPU.
+scoring in float32 and bfloat16, banded HMM forward / backward / Viterbi)
+against their plain versions, the GPU frontend, decoder and Baum-Welch
+statistics against the CPU, the pack cache and the default device.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The
 file imports no jax, so it also runs where jax is absent, without the
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from poccala_tpu.config import Config, ModelConfig
+from poccala_tpu_torch.config import Config, ModelConfig
 from poccala_tpu_torch.decoder.device import DeviceBeamDecoder
 from poccala_tpu_torch.io.corpus import UnitInventory
 from poccala_tpu_torch.lexicon import FlatLexicon, PinYin, PronunciationLexicon
@@ -96,13 +96,145 @@ def test_kernel_handles_empty_and_wide_inputs(cuda):
                           **F32)
 
 
+RAGGED = [dict(t=1, s=1, m=1, d=39), dict(t=130, s=65, m=1, d=39),
+          dict(t=333, s=607, m=3, d=39), dict(t=200, s=606, m=8, d=13),
+          dict(t=5000, s=100, m=2, d=7), dict(t=9000, s=130, m=4, d=40),
+          dict(t=77, s=64, m=5, d=26)]
+
+
+@pytest.mark.parametrize("score_dtype,tol", [("float32", F32),
+                                             ("bfloat16", BF16)])
+@pytest.mark.parametrize("shape", RAGGED, ids=lambda s: "t{t}s{s}m{m}d{d}"
+                         .format(**s))
+def test_kernel_ragged_shapes(cuda, shape, score_dtype, tol):
+    """T and S off the tiles (S odd, even, a multiple of 4), one mixture,
+    a mixture slot at weight -1e30, feature widths other than 39 (the
+    run-time K), both tile sizes of the float32 kernel."""
+    rng = np.random.default_rng(7)
+    x, means, log_var, log_w = scoring_inputs(rng, shape["s"], shape["m"],
+                                              shape["d"], shape["t"])
+    if shape["m"] > 1:
+        log_w[:, -1] = -1e30
+    args = [a.to(cuda) for a in (x, means, log_var, log_w)]
+    got = gk.gmm_log_scores_cuda(*args, score_dtype=score_dtype)
+    torch.cuda.synchronize()
+    want = tg.gmm_log_scores(*args, score_dtype=score_dtype)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert torch.allclose(got, want, **tol)
+
+
+@pytest.mark.parametrize("score_dtype,tol", [("float32", F32),
+                                             ("bfloat16", BF16)])
+def test_kernel_takes_unaligned_frames(cuda, score_dtype, tol):
+    """Frames that start off a 16-byte boundary (a row slice of a larger
+    tensor: 39 floats a row) score as their aligned copy does."""
+    rng = np.random.default_rng(10)
+    x, means, log_var, log_w = [a.to(cuda) for a in
+                                scoring_inputs(rng, 70, 4, 39, 301)]
+    view = x[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16
+    got = gk.gmm_log_scores_cuda(view, means, log_var, log_w,
+                                 score_dtype=score_dtype)
+    want = tg.gmm_log_scores(view.clone(), means, log_var, log_w,
+                             score_dtype=score_dtype)
+    assert torch.allclose(got, want, **tol)
+
+
+def test_pack_cache_invalidates_on_in_place_update(cuda):
+    """The packed bank is reused while the bank stands and rebuilt after
+    an in-place update, for both kernels."""
+    rng = np.random.default_rng(8)
+    x, means, log_var, log_w = [a.to(cuda) for a in
+                                scoring_inputs(rng, 70, 4, 39, 50)]
+    for dtype, tol in (("float32", F32), ("bfloat16", BF16)):
+        packs = []
+        real = {n: getattr(gk, n) for n in ("pack_f32", "pack_bf16_static")}
+
+        def counted(name):
+            def packer(*a):
+                packs.append(name)
+                return real[name](*a)
+            packer.__name__ = name
+            return packer
+
+        try:
+            for n in real:
+                setattr(gk, n, counted(n))
+            kw = dict(score_dtype=dtype)
+            first = gk.gmm_log_scores_cuda(x, means, log_var, log_w, **kw)
+            again = gk.gmm_log_scores_cuda(x, means, log_var, log_w, **kw)
+            assert len(packs) == 1 and torch.equal(first, again)
+            means.add_(0.25)                    # an M-step writing in place
+            log_w[:, -1] = -1e30                # a slot switched off
+            moved = gk.gmm_log_scores_cuda(x, means, log_var, log_w, **kw)
+            assert len(packs) == 2
+            assert not torch.allclose(moved, first, **tol)
+            assert torch.allclose(moved, tg.gmm_log_scores(
+                x, means, log_var, log_w, **kw), **tol)
+        finally:
+            for n, fn in real.items():
+                setattr(gk, n, fn)
+
+
+def test_bf16_operands_kernel_matches_torch_pack(cuda):
+    """The small kernel that builds the frame-dependent bfloat16 operands
+    on the card against :func:`pack_bf16`: weights bit-equal, bias to
+    float32 rounding of a sum taken in another order."""
+    rng = np.random.default_rng(9)
+    x, means, log_var, log_w = [a.to(cuda) for a in
+                                scoring_inputs(rng, 75, 3, 39, 40)]
+    static = gk.pack_bf16_static(means, log_var, log_w, "textbook")
+    center = x.mean(0)
+    want_w, want_b = gk.pack_bf16(static, means, center)
+    w_x, bias = torch.empty_like(want_w), torch.empty_like(want_b)
+    out = torch.empty(40, 75, device=cuda)
+    rc = gk._lib().gmm_score_bf16(
+        x.data_ptr(), center.data_ptr(), means.data_ptr(),
+        static["prec"].data_ptr(), static["const"].data_ptr(),
+        static["w_x2"].data_ptr(), w_x.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), 40, 75, want_w.shape[2], 3, 39,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(w_x.view(torch.int16), want_w.view(torch.int16))
+    assert torch.allclose(bias, want_b, rtol=1e-5, atol=1e-4)
+
+
+def test_defaults_land_on_the_card(cuda, tmp_path):
+    """``device=None`` is the card for every entry point that places
+    state."""
+    from poccala_tpu_torch.io.corpus import Corpus
+    from poccala_tpu_torch.train import checkpoint as ckpt
+    from poccala_tpu_torch.train.trainer import Trainer
+
+    cfg = Config()
+    cfg.model.mix_level = cfg.model.max_mix_level = 1
+    inv = UnitInventory(["a", "o"])
+    tr = Trainer(cfg, inv)
+    assert tr.device.type == "cuda" and tr.bank.means.is_cuda
+    assert Frontend(cfg.frontend).device.type == "cuda"
+    assert Corpus(cfg, inv, pairs=[]).frontend.device.type == "cuda"
+    bank = sb.create_bank(2, cfg.model, 4)
+    assert all(getattr(bank, f).is_cuda for f in sb.FIELDS)
+    assert sb.bank_from_numpy(sb.bank_to_numpy(bank)).means.is_cuda
+    ckpt.save_checkpoint(str(tmp_path / "c"), bank, units=inv.units)
+    assert ckpt.load_checkpoint(str(tmp_path / "c"))[0].means.is_cuda
+    ckpt.export_reference_layout(str(tmp_path / "r"), bank, inv, "XIF")
+    assert ckpt.import_reference_layout(
+        str(tmp_path / "r"), inv, "XIF", cfg.model.state_num, 1).means.is_cuda
+    stats = {f: np.zeros((2, 2), np.float32) for f in acc.STATS_FIELDS}
+    assert acc.stats_from_numpy(stats).loglik.is_cuda
+    assert sb.create_bank(2, cfg.model, 4, device="cpu").means.device.type \
+        == "cpu"
+
+
 def test_frontend_gpu_matches_cpu(cuda):
     cfg = Config().frontend
     rng = np.random.default_rng(1)
     sigs = (rng.normal(size=(3, 16000)) * 2000).astype(np.float32)
     n = np.array([16000, 11000, 5000])
     got, gm = Frontend(cfg, device=cuda).mfcc_batch(sigs, n)
-    want, wm = Frontend(cfg).mfcc_batch(sigs, n)
+    want, wm = Frontend(cfg, device="cpu").mfcc_batch(sigs, n)
     assert torch.equal(gm.cpu(), wm)
     assert torch.allclose(got.cpu(), want, rtol=2e-3, atol=2e-3)
 
@@ -111,7 +243,8 @@ def test_decoder_gpu_matches_cpu(cuda):
     cfg = ModelConfig(state_num=5, mix_level=2, max_mix_level=2)
     inv = UnitInventory.standard("XIF_tone")
     bank = sb.create_bank(len(inv), cfg, 13,
-                          generator=torch.Generator().manual_seed(2))
+                          generator=torch.Generator().manual_seed(2),
+                          device="cpu")
     lex = PronunciationLexicon()
     lex.generate(list(BUILTIN_PINYIN), PinYin())
     flat = FlatLexicon.from_tree(lex.lexicon, inv)
@@ -134,7 +267,8 @@ def decode_world(seed):
     cfg = ModelConfig(state_num=5, mix_level=2, max_mix_level=2)
     inv = UnitInventory.standard("XIF_tone")
     bank = sb.create_bank(len(inv), cfg, 13,
-                          generator=torch.Generator().manual_seed(seed))
+                          generator=torch.Generator().manual_seed(seed),
+                          device="cpu")
     feats = (np.random.default_rng(seed).normal(size=(2, 60, 13)) * 2
              ).astype(np.float32)
     return inv, bank, feats
@@ -246,11 +380,12 @@ def test_batch_stats_gpu_matches_cpu(cuda, score_dtype):
     rng = np.random.default_rng(3)
     cfg = ModelConfig(state_num=5, mix_level=4, max_mix_level=4)
     bank = sb.create_bank(20, cfg, 13,
-                          generator=torch.Generator().manual_seed(3))
+                          generator=torch.Generator().manual_seed(3),
+                          device="cpu")
     arrays = sb.bank_to_numpy(bank)
     arrays["means"] = rng.normal(size=arrays["means"].shape).astype(
         np.float32)
-    bank = sb.bank_from_numpy(arrays)
+    bank = sb.bank_from_numpy(arrays, device="cpu")
     b, t_pad, max_l = 12, 50, 6
     labels = rng.integers(0, 20, size=(b, max_l)).astype(np.int32)
     lens = rng.integers(1, max_l + 1, size=b).astype(np.int32)
@@ -343,7 +478,7 @@ def smem_world():
     cfg = Config()
     cfg.model.state_num, cfg.model.mix_level = 5, 3
     cfg.model.max_mix_level = 4
-    bank = sb.create_bank(2, cfg.model, 2, differentiation=False)
+    bank = sb.create_bank(2, cfg.model, 2, differentiation=False, device="cpu")
     s, cap, d = 6, 360, 2
     frames = np.zeros((s, cap, d), np.float32)
     means0 = np.zeros((s, 4, d), np.float32)

@@ -175,7 +175,7 @@ def banks(rng, num_units=5, state_num=5, mix=2, dim=5):
     cfg, jbank = make_bank(rng, num_units=num_units, state_num=state_num,
                            mix=mix, max_mix=mix, dim=dim)
     tbank = tsb.bank_from_numpy({f: np.asarray(getattr(jbank, f))
-                                 for f in tsb.FIELDS})
+                                 for f in tsb.FIELDS}, device="cpu")
     return cfg, jbank, tbank
 
 
@@ -236,7 +236,7 @@ def test_graft_entry_forward_step():
     want = np.asarray(fn(*args))
     jbank, labels, lens, xs, masks = args
     bank = tsb.bank_from_numpy({f: np.asarray(getattr(jbank, f))
-                                for f in tsb.FIELDS})
+                                for f in tsb.FIELDS}, device="cpu")
     xs = t(np.asarray(xs))
     b, t_pad, d = xs.shape
     scores = gmm_log_scores(xs.reshape(b * t_pad, d), bank.means,

@@ -138,7 +138,7 @@ def decoder_pair(lm=None):
     inv = jcorpus.UnitInventory.standard("XIF_tone")
     jbank = jsb.create_bank(len(inv), cfg, 13, key=jax.random.PRNGKey(2))
     tbank = bank_from_numpy({f: np.asarray(getattr(jbank, f))
-                             for f in FIELDS})
+                             for f in FIELDS}, device="cpu")
     jf, tfl = flat_pair()
     kw = dict(lm=lm, lm_weight=2.0, word_penalty=0.5)
     return JaxVector(jbank, jf, **kw), TorchVector(tbank, tfl, **kw)

@@ -1,6 +1,6 @@
 """The port's native batch loader (``Corpus.batches(use_native=True)``):
-WAVs decoded by the JAX package's jax-free C++ loader
-(``poccala_tpu.native``), then the port's batched frontend and VAD.
+WAVs decoded by the port's own copy of the C++ loader
+(``poccala_tpu_torch.native``), then the port's batched frontend and VAD.
 
 Its batches equal the port's per-utterance batches (masks and labels
 exactly, features at the frontend parity tolerance of
@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from poccala_tpu import native
+from poccala_tpu_torch import native
 from poccala_tpu.config import Config
 from poccala_tpu.io import corpus as jcorpus
 from poccala_tpu_torch.io import corpus as tcorpus
@@ -59,7 +59,7 @@ def same_batches(got, want):
 def test_native_batches_match_per_utterance_and_jax(corpus_dir, vad):
     inv, (audio, label) = corpus_dir
     cfg = config(audio, label, vad)
-    corpus = tcorpus.Corpus(cfg, inv)
+    corpus = tcorpus.Corpus(cfg, inv, device="cpu")
     nat = list(corpus.batches(use_native=True))
     assert [len(b.labels) for b in nat] == [4, 3]
     same_batches(nat, list(corpus.batches(use_native=False)))
@@ -82,7 +82,7 @@ def test_native_drop_last_and_bad_labels(corpus_dir, tmp_path):
     with open(bad / "utt00001.wav.trn", "w") as f:
         f.write("zz aa\n")
     cfg = config(audio, str(bad), vad=False)
-    corpus = tcorpus.Corpus(cfg, inv)
+    corpus = tcorpus.Corpus(cfg, inv, device="cpu")
     nat = list(corpus.batches(use_native=True))
     assert [len(b.labels) for b in nat] == [3, 3]
     py = list(corpus.batches(use_native=False))

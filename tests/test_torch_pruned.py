@@ -55,7 +55,7 @@ def world():
     means = np.repeat(emb, cfg.state_num - 2, axis=0)[:, None, :]
     jbank = dataclasses.replace(jbank, means=jnp.asarray(means))
     tbank = tsb.bank_from_numpy({f: np.asarray(getattr(jbank, f))
-                                 for f in tsb.FIELDS})
+                                 for f in tsb.FIELDS}, device="cpu")
     return dict(inv=inv, flat=flat, jflat=jflat, words=words, py=py,
                 jbank=jbank, tbank=tbank, emb=emb)
 

@@ -48,7 +48,7 @@ FIT_TOL = dict(rtol=1e-4, atol=1e-4)
 
 def carry(jbank):
     return tsb.bank_from_numpy({f: np.asarray(getattr(jbank, f))
-                                for f in tsb.FIELDS})
+                                for f in tsb.FIELDS}, device="cpu")
 
 
 def assert_banks_close(bank, jbank, **tol):
@@ -89,7 +89,7 @@ def corpus(tmp_path_factory):
 def flat_started(cfg, inv, tinv, batches):
     jtr = JaxTrainer(cfg, inv, key=jax.random.PRNGKey(0))
     jtr.flat_start(batches)
-    tr = Trainer(cfg, tinv)
+    tr = Trainer(cfg, tinv, device="cpu")
     tr.bank = carry(jtr.bank)
     return jtr, tr
 
@@ -155,7 +155,8 @@ def test_auto_realigns_and_grows_mixtures(corpus):
     stay stochastic, SMEM runs on the init round, and the next mixture
     level re-clusters where the data suffice."""
     cfg, inv, tinv, batches = corpus
-    tr = Trainer(cfg, tinv, generator=torch.Generator().manual_seed(1))
+    tr = Trainer(cfg, tinv, generator=torch.Generator().manual_seed(1),
+                 device="cpu")
     tr.flat_start(batches)
     lls = tr.auto(batches, t=2, mode=1, init=True)
     assert np.isfinite(lls).all() and lls[1] > lls[0]
@@ -175,14 +176,15 @@ def test_auto_realigns_and_grows_mixtures(corpus):
     tr.add_mix_level()              # max_mix_level caps the growth
     assert tr.mix_level == 3
     # one seed, one model
-    again = Trainer(cfg, tinv, generator=torch.Generator().manual_seed(1))
+    again = Trainer(cfg, tinv, generator=torch.Generator().manual_seed(1),
+                    device="cpu")
     again.flat_start(batches)
     assert again.auto(batches, t=2, mode=1, init=True) == lls
 
 
 def test_grow_mixtures_caps_at_max_mix(corpus):
     cfg, inv, tinv, batches = corpus
-    bank = Trainer(cfg, tinv).bank
+    bank = Trainer(cfg, tinv, device="cpu").bank
     grown = tsb.grow_mixtures(bank, bank.mix_counts + 5)
     assert grown.mix_counts.dtype == torch.int32
     assert torch.all(grown.mix_counts == bank.max_mix)
@@ -191,7 +193,7 @@ def test_grow_mixtures_caps_at_max_mix(corpus):
 
 def test_tied_bank_trains_through_scheme1(corpus):
     cfg, inv, tinv, batches = corpus
-    tr = Trainer(cfg, tinv)
+    tr = Trainer(cfg, tinv, device="cpu")
     tr.flat_start(batches)
     tr.scheme1_round(batches, init=True, smem=False)
     s_old = tr.bank.num_states
@@ -257,8 +259,10 @@ def test_reference_layout_roundtrips_with_jax(corpus, tmp_path):
                                   fix_code=2)
     kw = dict(unit_type="XIF", state_num=5, max_mix=3)
     from_port_by_jax = jckpt.import_reference_layout(tdir, inv, **kw)
-    from_jax_by_port = tckpt.import_reference_layout(jdir, tinv, **kw)
-    from_port_by_port = tckpt.import_reference_layout(tdir, tinv, **kw)
+    from_jax_by_port = tckpt.import_reference_layout(jdir, tinv, **kw,
+                                                     device="cpu")
+    from_port_by_port = tckpt.import_reference_layout(tdir, tinv, **kw,
+                                                      device="cpu")
     # the files agree; the logs of the imports to one ulp (XLA's CPU log
     # is not correctly rounded, ROADMAP.md Queue 3)
     assert_banks_close(from_jax_by_port, from_port_by_jax, rtol=2e-7, atol=0)
@@ -274,4 +278,5 @@ def test_reference_layout_roundtrips_with_jax(corpus, tmp_path):
                                bank.means.numpy()[act], rtol=1e-6)
     assert from_port_by_port.mix_counts[4] == 1
     with pytest.raises(tckpt.ParameterFileError):
-        tckpt.import_reference_layout(str(tmp_path / "none"), tinv, **kw)
+        tckpt.import_reference_layout(str(tmp_path / "none"), tinv, **kw,
+                                      device="cpu")

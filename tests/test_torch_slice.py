@@ -87,7 +87,7 @@ def test_serving_slice_matches_jax(tmp_path):
     jbank = jsb.create_bank(len(jinv), cfg.model, cfg.frontend.feat_dim,
                             key=jax.random.PRNGKey(3))
     tbank = tsb.bank_from_numpy({f: np.asarray(getattr(jbank, f))
-                                 for f in tsb.FIELDS})
+                                 for f in tsb.FIELDS}, device="cpu")
     words = list(BUILTIN_PINYIN)
     jl, tl = JaxLexicon(), PronunciationLexicon()
     jl.generate(words, JaxPinYin())
@@ -98,7 +98,7 @@ def test_serving_slice_matches_jax(tmp_path):
         jax_vad.apply_mask,
         JaxDecoder(jbank, JaxFlat.from_tree(jl.lexicon, jinv)))
     got_feats, got = serve(
-        paths, cfg, Frontend(cfg.frontend), torch_vad.vad_mask,
+        paths, cfg, Frontend(cfg.frontend, device="cpu"), torch_vad.vad_mask,
         torch_vad.apply_mask,
         DeviceBeamDecoder(tbank, FlatLexicon.from_tree(
             tl.lexicon, UnitInventory.standard("XIF_tone"))))

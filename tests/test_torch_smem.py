@@ -42,7 +42,7 @@ class _Tr:
 def world():
     jbank, cfg, frames, mask, _ = _world(np.random.default_rng(0))
     bank = tsb.bank_from_numpy({f: np.asarray(getattr(jbank, f))
-                                for f in tsb.FIELDS})
+                                for f in tsb.FIELDS}, device="cpu")
     return jbank, bank, cfg, frames, mask
 
 

@@ -48,7 +48,7 @@ def world():
     means = np.repeat(emb, cfg.state_num - 2, axis=0)[:, None, :]
     jbank = dataclasses.replace(jbank, means=jnp.asarray(means))
     tbank = tsb.bank_from_numpy({f: np.asarray(getattr(jbank, f))
-                                 for f in tsb.FIELDS})
+                                 for f in tsb.FIELDS}, device="cpu")
     jl, tl = JaxLexicon(), PronunciationLexicon()
     jl.generate(["你好", "你", "马"], JaxPinYin(TABLE))
     tl.generate(["你好", "你", "马"], PinYin(TABLE))

@@ -38,7 +38,7 @@ STATS = dict(rtol=1e-4, atol=1e-4)
 
 def to_torch(jbank):
     return tsb.bank_from_numpy({f: np.asarray(getattr(jbank, f))
-                                for f in tsb.FIELDS})
+                                for f in tsb.FIELDS}, device="cpu")
 
 
 def world(rng, dim=5, num_units=4, b=5, t_pad=30, max_l=3, mix=2):
@@ -161,7 +161,7 @@ def test_utterance_stats_and_padding(rng):
 def test_stats_numpy_roundtrip_and_fold(rng):
     cfg, jbank, tbank, batch = world(rng)
     stats, _ = tacc.batch_stats(tbank, *batch, 5, 3)
-    back = tacc.stats_from_numpy(tacc.stats_to_numpy(stats))
+    back = tacc.stats_from_numpy(tacc.stats_to_numpy(stats), device="cpu")
     for f in tacc.STATS_FIELDS:
         assert torch.equal(getattr(back, f), getattr(stats, f))
     zero = tacc.zero_stats(tbank)
@@ -182,7 +182,7 @@ def test_apply_update_matches_jax(rng, floor):
         np.linspace(0.05, 0.5, 5).astype(np.float32)
     want = jacc.apply_update(jbank, stats, c_covariance=c_cov)
     tstats = tacc.stats_from_numpy({f: np.asarray(getattr(stats, f))
-                                    for f in tacc.STATS_FIELDS})
+                                    for f in tacc.STATS_FIELDS}, device="cpu")
     got = tacc.apply_update(tbank, tstats, c_covariance=c_cov)
     for f in tsb.FIELDS:
         np.testing.assert_allclose(getattr(got, f).numpy(),

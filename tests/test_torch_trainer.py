@@ -59,7 +59,8 @@ def corpus(tmp_path_factory):
     cfg.train.proportion = 1.0
     jb = list(jcorpus.Corpus(cfg, inv).batches(use_native=False))
     tinv = tcorpus.UnitInventory.standard("XIF")
-    tb = list(tcorpus.Corpus(cfg, tinv).batches(use_native=False))
+    tb = list(tcorpus.Corpus(cfg, tinv,
+                             device="cpu").batches(use_native=False))
     return cfg, inv, tinv, jb, tb
 
 
@@ -72,7 +73,8 @@ def test_corpus_batches_match_jax(corpus):
         assert np.array_equal(g.label_lens, w.label_lens)
         np.testing.assert_allclose(g.feats, w.feats, rtol=2e-3, atol=2e-3)
     # the native loader gives the same batches (tests/test_torch_native.py)
-    for g, w in zip(tcorpus.Corpus(cfg, tinv).batches(use_native=True), tb):
+    for g, w in zip(tcorpus.Corpus(cfg, tinv,
+                                   device="cpu").batches(use_native=True), tb):
         assert np.array_equal(g.t_masks, w.t_masks)
         assert np.array_equal(g.labels, w.labels)
         np.testing.assert_allclose(g.feats, w.feats, rtol=2e-3, atol=2e-3)
@@ -85,9 +87,9 @@ def test_scheme2_auto_matches_jax(corpus, var_floor_scale):
     try:
         jtr = JaxTrainer(cfg, inv, key=jax.random.PRNGKey(0))
         jtr.flat_start(batches)
-        tr = Trainer(cfg, tinv)
+        tr = Trainer(cfg, tinv, device="cpu")
         tr.bank = tsb.bank_from_numpy({f: np.asarray(getattr(jtr.bank, f))
-                                       for f in tsb.FIELDS})
+                                       for f in tsb.FIELDS}, device="cpu")
         want = jtr.auto(batches, t=3, mode=2, init=False)
         got = tr.auto(batches, t=3, mode=2, init=False)
     finally:
@@ -112,7 +114,8 @@ def test_auto_with_flat_start(corpus):
     cfg, inv, tinv, batches, _ = corpus
     runs = []
     for _ in range(2):
-        tr = Trainer(cfg, tinv, generator=torch.Generator().manual_seed(4))
+        tr = Trainer(cfg, tinv, generator=torch.Generator().manual_seed(4),
+                     device="cpu")
         lls = tr.auto(batches, t=2, mode=2, init=True)
         runs.append((lls, tr.bank.means.clone()))
         assert lls[1] > lls[0]
@@ -123,20 +126,20 @@ def test_auto_with_flat_start(corpus):
 def test_unported_parts_raise(corpus):
     cfg, inv, tinv, batches, _ = corpus
     with pytest.raises(NotImplementedError, match="Queue 1"):
-        Trainer(cfg, tinv, mesh=object())
-    tr = Trainer(cfg, tinv)
+        Trainer(cfg, tinv, mesh=object(), device="cpu")
+    tr = Trainer(cfg, tinv, device="cpu")
     with pytest.raises(ModeError):
         tr.auto(batches, mode=3)
 
 
 def test_checkpoint_roundtrip_and_interop(corpus, tmp_path):
     cfg, inv, tinv, batches, _ = corpus
-    tr = Trainer(cfg, tinv)
+    tr = Trainer(cfg, tinv, device="cpu")
     tr.auto(batches, t=1, mode=2, init=True)
     path = str(tmp_path / "ckpt")
     tckpt.save_checkpoint(path, tr.bank, manifest={"round": 1},
                           units=tinv.units)
-    bank, man = tckpt.load_checkpoint(path)
+    bank, man = tckpt.load_checkpoint(path, device="cpu")
     for f in tsb.FIELDS:
         a, b = getattr(bank, f), getattr(tr.bank, f)
         assert a.dtype == b.dtype and torch.equal(a, b), f
