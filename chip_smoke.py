@@ -30,7 +30,16 @@ weights from a seeded ``torch.Generator``:
   batch (256 x 4 s), exact against ``active_blocks`` 8 and 4;
 * the command line (``python -m poccala_tpu_torch.cli --device cuda``):
   synth-corpus, train, align, decode, listen and serve on a small corpus,
-  train, align and decode held against ``--device cpu``.
+  train, align and decode held against ``--device cpu``;
+* recognition by a model trained on the card: 20 WAVs of separable
+  units -> ``Trainer.auto(mode=2)`` -> ``DeviceBeamDecoder`` over
+  ``export_bank()`` -> word error rate 0.0, the words equal to a
+  ``device="cpu"`` run.
+
+``--only PHASE --repeat N`` builds the kernels and runs one timed phase N
+times in one process (no result line): host-bound figures vary between
+machines and between minutes, so two checkouts are compared by
+alternating such runs on one machine.
 
 Each phase prints one line; any failure raises, so the script exits
 non-zero and prints no result.  The last lines are the kernels' JSON
@@ -45,6 +54,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -57,6 +67,7 @@ import torch
 from poccala_tpu_torch.config import Config, ModelConfig
 from poccala_tpu_torch.io import wav as wav_io
 from poccala_tpu_torch.decoder.device import DeviceBeamDecoder
+from poccala_tpu_torch.eval import evaluate_decoder
 from poccala_tpu_torch.io import corpus as corpus_io
 from poccala_tpu_torch.io.corpus import UnitInventory
 from poccala_tpu_torch.lexicon import FlatLexicon, PinYin, PronunciationLexicon
@@ -161,8 +172,45 @@ def phase_device() -> str:
     return smi
 
 
+def kernel_name(mangled: str) -> str:
+    """``forward_warp_kernel<2,5>`` from its Itanium-mangled name: the last
+    ``<length><identifier>`` component and its integer template arguments."""
+    m = re.match(r"_ZN?", mangled)
+    if not m:
+        return mangled
+    pos, name = m.end(), mangled
+    while (n := re.match(r"\d+", mangled[pos:])):
+        start = pos + n.end()
+        name, pos = mangled[start:start + int(n.group())], \
+            start + int(n.group())
+    args = re.match(r"I((?:Li\d+E)+)E", mangled[pos:])
+    if args:
+        name += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+    return name
+
+
+def ptxas_summary(log: str) -> dict:
+    """``nvcc -Xptxas -v``'s output as {kernel: [registers, spill-store
+    bytes, spill-load bytes]}."""
+    out, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = [int(m.group(1)), *spills]
+            name = None
+    return out
+
+
 def phase_build() -> None:
-    """Every kernel source compiled at once, one nvcc each."""
+    """Every kernel source compiled at once, one nvcc each.  The banded
+    DP's warp kernels must not spill in the instantiations in use."""
     def one(name):
         t0 = time.perf_counter()
         built = build.build(name)
@@ -171,11 +219,23 @@ def phase_build() -> None:
     with ThreadPoolExecutor(len(KERNEL_NAMES)) as pool:
         results = list(pool.map(one, KERNEL_NAMES))
     for name, built, secs in results:
-        ptxas = [ln.strip() for ln in built.log.splitlines()
-                 if "Used" in ln or "spill" in ln]
+        ptxas = ptxas_summary(built.log)
         say("build", kernel=name, seconds=round(secs, 3),
             compiled=built.compiled, library=str(built.path.name),
-            ptxas=ptxas)
+            ptxas_registers_spill_stores_loads=ptxas)
+        if name == "hmm_banded" and built.compiled:
+            warp = {k: v for k, v in ptxas.items() if "warp_kernel" in k}
+            check(len(warp) == 40, f"40 warp instantiations ({len(warp)})")
+            # ptxas trades a few bytes of spill for a register step in some
+            # instantiations; none in those of the training shape (K = 2)
+            # and of the default config's sentence width (K = 4), W = 5
+            used = {k: v for k, v in warp.items()
+                    if k.endswith(("<2,5>", "<4,5>"))}
+            check(len(used) == 4 and all(v[1:] == [0, 0]
+                                         for v in used.values()),
+                  f"no spills in the warp kernels in use: {used}")
+            say("build_spills", warp_kernels_with_spills={
+                k: v for k, v in warp.items() if v[1:] != [0, 0]})
 
 
 def scoring_inputs(t: int, gen: torch.Generator, floor: bool = False):
@@ -616,59 +676,125 @@ def hmm_bound(name: str, b: int, t: int, n: int, w: int) -> dict:
     return bound_ms(n_in + n_out, b * t * n * ops, "float32")
 
 
+def kernel_device_ms(fn, name: str, reps: int = 20):
+    """Mean device time of the ``name`` DP kernel (``forward_*``,
+    ``backward_*`` or ``viterbi_*`` in ``hmm_banded.cu``) over the launches
+    that ``torch.profiler`` records in ``reps`` calls of ``fn``: the kernel
+    alone, no launch gaps, no host time; "not measured" when the profiler
+    records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and f"{name}_" in e.key and "kernel" in e.key]
+    launches = sum(e.count for e in events)
+    total_us = sum(e.self_device_time_total for e in events)
+    return total_us / 1e3 / launches if launches else "not measured"
+
+
+def compare_dp(name: str, got, want) -> tuple[float, bool, dict]:
+    """A DP kernel's outputs against the plain version's: forward and
+    backward at DP_TOL, Viterbi's paths equal and scores at rtol 1e-6."""
+    if name == "viterbi":
+        tol = dict(rtol=1e-6, atol=0.0, paths="equal")
+        ok = (torch.equal(got[1], want[1])
+              and torch.allclose(got[0], want[0], rtol=1e-6, atol=0)
+              and torch.allclose(got[2], want[2], rtol=1e-6, atol=0))
+        return float((got[0] - want[0]).abs().max()), ok, tol
+    pairs = list(zip(got, want)) if name == "forward" else [(got, want)]
+    err = max(float((g - w).abs().max()) for g, w in pairs)
+    return err, all(torch.allclose(g, w, **DP_TOL) for g, w in pairs), DP_TOL
+
+
 def phase_hmm_kernels(seed: int) -> dict:
-    """Each DP kernel against its plain version at a small ragged shape and
-    bench.py's training shape; times at the training shape."""
+    """Each DP kernel against its plain version at a small ragged shape, a
+    shape with four registers a lane (N = 98, the default config's sentence
+    width) and bench.py's training shape.  Forward and backward are also
+    held bit for bit against the block kernels, which were the only kernels
+    before the warp kernels came and still take the shapes these do not.
+    Times at the last two shapes: ``ms`` one event pair around a wrapper
+    call, ``device_ms`` the kernel alone under the profiler, ``ms_b1`` /
+    ``device_ms_b1`` the same for the first utterance alone (the length of
+    the dependent chain), ``parent_ms`` / ``parent_device_ms`` the block
+    kernel on the same inputs."""
     gen = torch.Generator().manual_seed(seed)
     record = {}
-    for b, t, max_l in ((6, 23, 4), (TRAIN_B, TRAIN_T, TRAIN_L)):
+    w = TRAIN_W
+    for b, t, max_l in ((6, 23, 4), (64, TRAIN_T, 32),
+                        (TRAIN_B, TRAIN_T, TRAIN_L)):
         band, log_pi, log_b, masks = dp_inputs(gen, b, t, max_l)
-        w = TRAIN_W
-        runs = {
-            "forward": (
-                lambda: hk.forward_banded_cuda(band, log_pi, log_b, masks, w),
-                lambda: hmm_ops.forward_log_banded_plain(band, log_pi, log_b,
-                                                         masks, w)),
-            "backward": (
-                lambda: hk.backward_banded_cuda(band, log_b, masks, w),
-                lambda: hmm_ops.backward_log_banded_plain(band, log_b, masks,
-                                                          w)),
-            "viterbi": (
-                lambda: hk.viterbi_banded_cuda(band, log_pi, log_b, masks, w),
-                lambda: hmm_ops.viterbi_log_banded_plain(band, log_pi, log_b,
-                                                         masks, w)),
-        }
-        for name, (kernel, plain) in runs.items():
+        n = int(band.shape[1])
+
+        def calls(lo, hi, **kw):
+            """name -> (kernel call, plain call) on utterances lo..hi."""
+            bd, pi, lb, mk = (a[lo:hi] for a in (band, log_pi, log_b, masks))
+            return {
+                "forward": (
+                    lambda: hk.forward_banded_cuda(bd, pi, lb, mk, w, **kw),
+                    lambda: hmm_ops.forward_log_banded_plain(bd, pi, lb, mk,
+                                                             w)),
+                "backward": (
+                    lambda: hk.backward_banded_cuda(bd, lb, mk, w, **kw),
+                    lambda: hmm_ops.backward_log_banded_plain(bd, lb, mk, w)),
+                "viterbi": (
+                    lambda: hk.viterbi_banded_cuda(bd, pi, lb, mk, w),
+                    lambda: hmm_ops.viterbi_log_banded_plain(bd, pi, lb, mk,
+                                                             w)),
+            }
+
+        timed = t == TRAIN_T
+        block = calls(0, b, block=True)
+        first = calls(0, 1)
+        for name, (kernel, plain) in calls(0, b).items():
             got, want = kernel(), plain()
             torch.cuda.synchronize()
-            if name == "forward":
-                err = max(float((got[0] - want[0]).abs().max()),
-                          float((got[1] - want[1]).abs().max()))
-                ok = (torch.allclose(got[0], want[0], **DP_TOL)
-                      and torch.allclose(got[1], want[1], **DP_TOL))
-                tol = DP_TOL
-            elif name == "backward":
-                err = float((got - want).abs().max())
-                ok = torch.allclose(got, want, **DP_TOL)
-                tol = DP_TOL
-            else:
-                err = float((got[0] - want[0]).abs().max())
-                tol = dict(rtol=1e-6, atol=0.0, paths="equal")
-                ok = (torch.equal(got[1], want[1])
-                      and torch.allclose(got[0], want[0], rtol=1e-6, atol=0)
-                      and torch.allclose(got[2], want[2], rtol=1e-6, atol=0))
-            line = dict(kernel=name, b=b, t=t, n_s=int(band.shape[1]), w=w,
+            err, ok, tol = compare_dp(name, got, want)
+            line = dict(kernel=name, b=b, t=t, n_s=n, w=w,
+                        warp_kernel=name != "viterbi" and hk.takes_warp(n, w),
                         max_abs_err=err, tol=tol, ok=bool(ok))
-            if b == TRAIN_B:
-                line["ms"] = median_ms(kernel)
+            if name != "viterbi":
+                old = block[name][0]()
+                torch.cuda.synchronize()
+                if name == "forward":
+                    line["alpha_equals_block_kernel"] = torch.equal(got[0],
+                                                                    old[0])
+                    line["loglik_max_rel_diff_vs_block_kernel"] = float(
+                        ((got[1] - old[1]).abs() / old[1].abs()).max())
+                    check(torch.allclose(got[1], old[1], **DP_TOL),
+                          "warp forward loglik vs the block kernel's")
+                else:
+                    line["beta_equals_block_kernel"] = torch.equal(got, old)
+                err1, ok1, _ = compare_dp(name, first[name][0](),
+                                          first[name][1]())
+                check(ok1, f"hmm {name} kernel vs plain at B = 1 ({err1})")
+            if timed:
+                line["ms"] = median_ms(kernel, reps=21)
+                line["device_ms"] = kernel_device_ms(kernel, name)
+                line["ms_b1"] = median_ms(first[name][0], reps=21)
+                line["device_ms_b1"] = kernel_device_ms(first[name][0],
+                                                        name)
+                if name != "viterbi":
+                    line["parent_ms"] = median_ms(block[name][0], reps=21)
+                    line["parent_device_ms"] = kernel_device_ms(
+                        block[name][0], name)
                 line["plain_ms"] = median_ms(plain, reps=3)
-                line.update(hmm_bound(name, b, t, int(band.shape[1]), w))
+                line.update(hmm_bound(name, b, t, n, w))
+            if b == TRAIN_B:
                 record[name] = dict(
                     max_abs_err=err, ms=line["ms"], plain_ms=line["plain_ms"],
                     bound_ms=line["bound_ms"], bound_by=line["bound_by"],
                     library_ms=None)
             say("hmm_kernel_vs_plain", **line)
             check(ok, f"hmm kernel vs plain at {line}")
+            check(line.get("alpha_equals_block_kernel", True)
+                  and line.get("beta_equals_block_kernel", True),
+                  f"warp and block kernels bit-equal at {line}")
     torch.cuda.empty_cache()
     return record
 
@@ -1328,13 +1454,120 @@ def phase_cli(seed: int) -> None:
         dp_kernel_launches=dp, phase_seconds=time.perf_counter() - t0)
 
 
+WER_TABLE = {"你": ["ni3"], "好": ["hao3"], "马": ["ma1"]}
+WER_WORDS = {"你好": ["ni3", "hao3"], "你": ["ni3"], "马": ["ma1"]}
+WER_UNITS = ["n", "i3", "h", "ao3", "m", "a1"]
+
+
+def phase_wer_e2e(seed: int) -> None:
+    """Recognition by a model trained through the DP kernels: the corpus
+    of tests/test_full_loop_wer.py (20 WAVs of one or two of three words,
+    each unit a separable two-harmonic signature) -> Corpus ->
+    ``Trainer.auto(t=4, mode=2, init=True)`` -> ``DeviceBeamDecoder`` over
+    ``export_bank()`` -> ``evaluate_decoder``, on the card and on the CPU:
+    WER 0.0 on the card, the same words from both."""
+    t0 = time.perf_counter()
+    inv = UnitInventory(WER_UNITS)
+    pinyin = PinYin(WER_TABLE)
+    rng = np.random.default_rng(seed + 11)
+    names = list(WER_WORDS)
+    with tempfile.TemporaryDirectory() as tmp:
+        audio, label = os.path.join(tmp, "record"), os.path.join(tmp, "label")
+        os.makedirs(audio)
+        os.makedirs(label)
+        refs = []
+        for i in range(20):
+            words = [names[k] for k in rng.integers(
+                0, 3, size=rng.integers(1, 3))]
+            syllables = [s for wd in words for s in WER_WORDS[wd]]
+            ids = inv.encode([u for s in syllables
+                              for u in pinyin.syllable_to_units(s)])
+            sig = np.concatenate([corpus_io.synth_unit_signal(
+                u, 4800, 16000, rng) for u in ids])
+            wav_io.write_wav(os.path.join(audio, f"utt{i:04d}.wav"), sig,
+                             16000)
+            with open(os.path.join(label, f"utt{i:04d}.wav.trn"), "w") as f:
+                f.write(" ".join(syllables) + "\n")
+            refs.append(words)
+        cfg = Config()
+        cfg.paths.audio_file_path, cfg.paths.label_file_path = audio, label
+        cfg.train.load_line, cfg.train.label_format = 0, "pinyin"
+        cfg.frontend.vad = False
+        cfg.model.mix_level = cfg.model.max_mix_level = 2
+        cfg.train.batch_size, cfg.train.max_frames = 10, 256
+        cfg.train.max_label_len, cfg.train.proportion = 8, 1.0
+        cfg.train.step = 4
+        lex = PronunciationLexicon()
+        lex.generate(names, pinyin)
+        flat = FlatLexicon.from_tree(lex.lexicon, inv)
+
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            for kernel in hk.KERNELS.values():
+                kernel.launches = 0
+            batches = list(corpus_io.Corpus(cfg, inv, device=dev).batches())
+            tr = Trainer(cfg, inv, device=dev,
+                         generator=torch.Generator().manual_seed(seed))
+            lls = tr.auto(batches, t=4, mode=2, init=True)
+            dec = DeviceBeamDecoder(tr.export_bank(), flat)
+            utts = [(b.feats[i], refs[k * 10 + i])
+                    for k, b in enumerate(batches)
+                    for i in range(len(b.feats))]
+            n_frames = [int(m.sum()) for b in batches for m in b.t_masks]
+            result = evaluate_decoder(dec, utts, n_frames)
+            words = [list(dec.decode(f, n_frames=n, return_nbest=1)[0].words)
+                     for (f, _), n in zip(utts, n_frames)]
+            runs[dev] = dict(
+                wer=result.wer, substitutions=result.substitutions,
+                deletions=result.deletions, insertions=result.insertions,
+                ref_tokens=result.ref_tokens, logliks=lls, words=words,
+                dp_kernel_launches={k: f.launches
+                                    for k, f in hk.KERNELS.items()})
+    g, c = runs["cuda"], runs["cpu"]
+    check(len(g["words"]) == 20 and g["ref_tokens"] == sum(map(len, refs)),
+          "every utterance was scored")
+    check(g["dp_kernel_launches"]["forward"] >= 4
+          and g["dp_kernel_launches"]["backward"] >= 4,
+          f"training on the card launched the forward and backward kernels "
+          f"every epoch: {g['dp_kernel_launches']}")
+    check(not any(c["dp_kernel_launches"].values()),
+          "the CPU run launched no kernel")
+    check(g["wer"] == 0.0, f"WER of the model trained on the card: {g}")
+    check(g["words"] == c["words"], f"words on the card {g['words']} vs on "
+          f"the CPU {c['words']}")
+    say("wer_e2e", utterances=20, units=len(inv), mixtures=2,
+        gpu={k: v for k, v in g.items() if k != "words"},
+        cpu={k: v for k, v in c.items() if k != "words"},
+        words_equal=True, one_best=["".join(w) for w in g["words"][:5]],
+        phase_seconds=time.perf_counter() - t0)
+
+
+# phases that --only can run by themselves, each as f(seed, smi)
+SOLO = {
+    "hmm_kernels": lambda seed, smi: phase_hmm_kernels(seed),
+    "train_throughput": phase_train_throughput,
+    "train_scheme1": phase_train_scheme1,
+    "stream": phase_stream,
+    "pruned": phase_pruned,
+}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=sorted(SOLO), help="after the build "
+                    "run this phase alone, --repeat times, and print no "
+                    "result line: for holding two checkouts against each "
+                    "other on one machine, alternating between them")
+    ap.add_argument("--repeat", type=int, default=1)
     args = ap.parse_args(argv)
 
     smi = phase_device()
     phase_build()
+    if args.only:
+        for _ in range(args.repeat):
+            SOLO[args.only](args.seed, smi)
+        return 0
     records = phase_kernel(args.seed)
     records.update(phase_hmm_kernels(args.seed))
     phase_known_answer(args.seed)
@@ -1349,6 +1582,7 @@ def main(argv=None) -> int:
     phase_stream(args.seed, smi)
     phase_pruned(args.seed, smi)
     phase_cli(args.seed)
+    phase_wer_e2e(args.seed)
     check("jax" not in sys.modules, "jax was never imported")
     check(not [m for m in sys.modules if m.split(".")[0] == "poccala_tpu"],
           "nothing of the JAX package was imported")

@@ -176,7 +176,7 @@ def cmd_train(args):
         print(f"round {r}: loglik={lls[0]:.2f}", file=sys.stderr)
         if args.checkpoint:
             ckpt.save_checkpoint(
-                args.checkpoint, tr.bank,
+                args.checkpoint, tr.export_bank(),
                 {"round": r + 1, "mode": args.mode, "mix_level": tr.mix_level},
                 units=inv.units,
             )

@@ -9,6 +9,14 @@ operands, allocates the outputs, launches one kernel on the current CUDA
 stream, counts the launch and raises if the launch fails.  CUDA tensors
 only: :mod:`poccala_tpu_torch.ops.hmm`'s ``*_batch`` dispatchers route a
 CPU tensor to the plain version instead.
+
+Forward and backward have two kernels each, chosen by shape inside the
+library: a warp per utterance with the carry in registers where
+``N <= 128`` and ``3 <= W <= 7`` (:func:`takes_warp`), a block per
+utterance with the carry in shared memory elsewhere.  ``block=True`` sends
+a call to the block kernel whatever its shape, to hold one kernel against
+the other; both give the same ``alpha`` / ``beta`` bit for bit, and
+``loglik`` to float32 rounding (the warp kernel sums by shuffles).
 """
 
 from __future__ import annotations
@@ -36,16 +44,26 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("hmm_banded")
     lib.hmm_forward_banded.argtypes = [_P] * 6 + [_I] * 4 + [_P]
     lib.hmm_backward_banded.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+    lib.hmm_forward_banded_block.argtypes = lib.hmm_forward_banded.argtypes
+    lib.hmm_backward_banded_block.argtypes = lib.hmm_backward_banded.argtypes
     lib.hmm_viterbi_banded.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    lib.hmm_banded_takes_warp.argtypes = [_I, _I]
     for fn in (lib.hmm_forward_banded, lib.hmm_backward_banded,
+               lib.hmm_forward_banded_block, lib.hmm_backward_banded_block,
                lib.hmm_viterbi_banded, lib.hmm_banded_max_w,
-               lib.hmm_banded_max_n):
+               lib.hmm_banded_max_n, lib.hmm_banded_takes_warp):
         fn.restype = ctypes.c_int
     lib.hmm_banded_max_w.argtypes = []
     lib.hmm_banded_max_n.argtypes = []
     lib.hmm_banded_error_string.argtypes = [_I]
     lib.hmm_banded_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def takes_warp(n: int, w: int) -> bool:
+    """Whether forward and backward run ``n`` states at band width ``w``
+    on the warp kernels (else on the block kernels)."""
+    return bool(_lib().hmm_banded_takes_warp(n, w))
 
 
 def _operands(bands, log_bs, t_masks, w: int, log_pis=None):
@@ -81,7 +99,9 @@ def _operands(bands, log_bs, t_masks, w: int, log_pis=None):
     ops = dict(
         band=bands[..., :w].to(f32).contiguous(),
         log_b=log_bs.to(f32).contiguous(),
-        mask=t_masks.to(torch.uint8).contiguous(),
+        # a bool tensor is one byte (0 or 1) per element: no copy
+        mask=(t_masks.view(torch.uint8) if t_masks.dtype == torch.bool
+              else t_masks.to(torch.uint8)).contiguous(),
         log_pi=None if log_pis is None else log_pis.to(f32).contiguous(),
     )
     return lib, ops, (b, t, n)
@@ -96,14 +116,16 @@ def _launch(lib, fn, name: str, dev, *args) -> None:
                            + lib.hmm_banded_error_string(rc).decode())
 
 
-def forward_banded_cuda(bands, log_pis, log_bs, t_masks, w: int):
+def forward_banded_cuda(bands, log_pis, log_bs, t_masks, w: int, *,
+                        block: bool = False):
     """(``log_alpha [B, T, N]``, ``loglik [B]``) through the kernel."""
     lib, o, (b, t, n) = _operands(bands, log_bs, t_masks, w, log_pis)
     dev = log_bs.device
     alpha = torch.empty((b, t, n), dtype=torch.float32, device=dev)
     loglik = torch.empty((b,), dtype=torch.float32, device=dev)
     if b:
-        _launch(lib, lib.hmm_forward_banded, "forward", dev,
+        fn = lib.hmm_forward_banded_block if block else lib.hmm_forward_banded
+        _launch(lib, fn, "forward", dev,
                 o["band"].data_ptr(), o["log_pi"].data_ptr(),
                 o["log_b"].data_ptr(), o["mask"].data_ptr(),
                 alpha.data_ptr(), loglik.data_ptr(), b, t, n, w)
@@ -111,13 +133,16 @@ def forward_banded_cuda(bands, log_pis, log_bs, t_masks, w: int):
     return alpha, loglik
 
 
-def backward_banded_cuda(bands, log_bs, t_masks, w: int):
+def backward_banded_cuda(bands, log_bs, t_masks, w: int, *,
+                         block: bool = False):
     """``log_beta [B, T, N]`` through the kernel."""
     lib, o, (b, t, n) = _operands(bands, log_bs, t_masks, w)
     dev = log_bs.device
     beta = torch.empty((b, t, n), dtype=torch.float32, device=dev)
     if b:
-        _launch(lib, lib.hmm_backward_banded, "backward", dev,
+        fn = lib.hmm_backward_banded_block if block else \
+            lib.hmm_backward_banded
+        _launch(lib, fn, "backward", dev,
                 o["band"].data_ptr(), o["log_b"].data_ptr(),
                 o["mask"].data_ptr(), beta.data_ptr(), b, t, n, w)
         backward_banded_cuda.launches += 1

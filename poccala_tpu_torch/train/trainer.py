@@ -89,6 +89,13 @@ class Trainer:
         # (ModelConfig.var_floor_scale); None = the scalar c_covariance
         self._var_floor_vec: np.ndarray | None = None
 
+    def export_bank(self):
+        """The bank for checkpointing / decoding.  The JAX trainer strips
+        its state-shard padding here; this trainer is unsharded
+        (``mesh=`` raises), so the bank has none and is returned as it
+        is."""
+        return self.bank
+
     @property
     def var_floor(self):
         """Effective covariance floor: the reference's scalar

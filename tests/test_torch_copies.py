@@ -4,10 +4,11 @@ pinned to their originals, and the port's default device.
 ``poccala_tpu_torch`` imports nothing of ``poccala_tpu``
 (``tests/test_torch_no_jax.py``): it carries ``config``, ``io.wav``,
 ``io.audio_device``, ``lm.ngram``, ``native`` (with ``wavio.cpp``),
-``serve`` and the command line's parser as copies.  Each copy must keep the
-original's code (docstrings and the package's own name aside) and give the
-original's outputs on seeded numpy inputs, so that one ``Config`` object,
-one checkpoint, one WAV file and one LM file serve both packages.
+``serve``, ``eval`` and the command line's parser as copies.  Each copy
+must keep the original's code (docstrings and the package's own name
+aside) and give the original's outputs on seeded numpy inputs, so that
+one ``Config`` object, one checkpoint, one WAV file and one LM file serve
+both packages.
 
 The second half pins ``utils/device.py``: ``device=None`` means the card,
 and without one the entry points raise rather than fall to the CPU.
@@ -56,6 +57,8 @@ COPIES = {
     "lm/ngram.py": (),
     "native/__init__.py": ("_BUILD_DIR",),   # build/poccala_tpu_torch/
     "serve.py": (),
+    "eval/__init__.py": (),
+    "eval/wer.py": (),
 }
 
 

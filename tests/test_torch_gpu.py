@@ -332,16 +332,35 @@ def banded_inputs(rng, b, t_pad, n, w):
     log_b = rng.normal(size=(b, t_pad, n)) * 20 - 60
     log_b[:, :, -1] = -1e30
     lens = rng.integers(1, t_pad + 1, size=b)
-    lens[0], lens[-1] = t_pad, 1
+    lens[-1] = 1
+    lens[0] = t_pad        # a batch of one is the full utterance
     masks = np.arange(t_pad)[None] < lens[:, None]
-    masks[1] = False
+    if b > 1:
+        masks[1] = False
     f32 = [torch.tensor(a, dtype=torch.float32)
            for a in (band, log_pi, log_b)]
     return f32 + [torch.tensor(masks)]
 
 
-@pytest.mark.parametrize("b,t_pad,n,w", [(3, 1, 11, 5), (6, 37, 26, 5),
-                                         (64, 319, 50, 5), (4, 60, 300, 7)])
+# Forward and backward: a lane of the warp kernels owns K = ceil(N / 32)
+# states and log_b runs 7 frames ahead through a ring of 8; N > 128 or a
+# band width outside 3..7 goes to the block kernels.  Viterbi is a block
+# kernel at every shape.
+HMM_SHAPES = [
+    (3, 1, 11, 5), (6, 37, 26, 5), (64, 319, 50, 5),    # K = 1, 1, 2
+    (4, 60, 300, 7),                                    # block: N > 128
+    (1, 2, 32, 3), (4, 23, 32, 7),                      # K = 1, full register
+    (5, 3, 33, 7), (6, 7, 33, 4),                       # K = 2, T < 8
+    (1, 319, 50, 5), (1, 1, 50, 5), (2, 2, 50, 6),      # B = 1, T = 1, 2
+    (4, 23, 65, 3),                                     # K = 3
+    (5, 3, 98, 7), (9, 41, 98, 5), (1, 60, 98, 6),      # K = 4, partial
+    (6, 29, 128, 7), (4, 2, 128, 3),                    # K = 4, full
+    (3, 19, 129, 5), (2, 9, 1024, 16),                  # block: N > 128
+    (4, 23, 50, 9), (3, 6, 26, 16),                     # block: W > 7
+]
+
+
+@pytest.mark.parametrize("b,t_pad,n,w", HMM_SHAPES)
 def test_hmm_kernels_match_plain(cuda, b, t_pad, n, w):
     rng = np.random.default_rng(b * t_pad + n)
     band, log_pi, log_b, masks = [a.to(cuda) for a in
@@ -353,6 +372,7 @@ def test_hmm_kernels_match_plain(cuda, b, t_pad, n, w):
                                                     masks, w)
     want_b = thmm.backward_log_banded_plain(band, log_b, masks, w)
     torch.cuda.synchronize()
+    assert hk.takes_warp(n, w) == (n <= 128 and 3 <= w <= 7)
     assert torch.allclose(la, want_a, rtol=1e-5, atol=1e-5)
     assert torch.allclose(ll, want_ll, rtol=1e-5, atol=1e-5)
     assert torch.allclose(lb, want_b, rtol=1e-5, atol=1e-5)
@@ -369,6 +389,14 @@ def test_hmm_kernels_match_plain(cuda, b, t_pad, n, w):
     assert after == {"forward": before["forward"] + 1,
                      "backward": before["backward"] + 1,
                      "viterbi": before["viterbi"] + 2}
+    # both kernels do a step's arithmetic in one order: equal bit for bit;
+    # loglik sums over the states in another order (float32 rounding)
+    old_a, old_ll = hk.forward_banded_cuda(band, log_pi, log_b, masks, w,
+                                           block=True)
+    old_b = hk.backward_banded_cuda(band, log_b, masks, w, block=True)
+    torch.cuda.synchronize()
+    assert torch.equal(la, old_a) and torch.equal(lb, old_b)
+    assert torch.allclose(ll, old_ll, rtol=1e-6, atol=0.0)
 
 
 @pytest.mark.parametrize("score_dtype", ["float32", "bfloat16"])

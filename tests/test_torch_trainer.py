@@ -159,3 +159,21 @@ def test_checkpoint_roundtrip_and_interop(corpus, tmp_path):
         assert json.load(fj) == json.load(ft)
     with pytest.raises(NotImplementedError):
         tckpt.save_checkpoint(str(tmp_path / "o"), tr.bank, sharded=True)
+
+
+def test_export_bank_is_the_reference_api(corpus, tmp_path):
+    """Code written against the JAX trainer calls ``export_bank()`` on
+    unsharded trainers too (``poccala_tpu/cli.py:138``): the port's returns
+    its bank, as JAX's does without shard padding, and a checkpoint written
+    from it is the bank's."""
+    cfg, inv, tinv, _, batches = corpus
+    tr = Trainer(cfg, tinv, device="cpu")
+    jt = JaxTrainer(cfg, inv)
+    assert tr.export_bank() is tr.bank and jt.export_bank() is jt.bank
+    tr.auto(batches, t=1, mode=2, init=True)
+    assert tr.export_bank() is tr.bank
+    path = str(tmp_path / "ckpt")
+    tckpt.save_checkpoint(path, tr.export_bank(), units=tinv.units)
+    bank, _ = tckpt.load_checkpoint(path, device="cpu")
+    for f in tsb.FIELDS:
+        assert torch.equal(getattr(bank, f), getattr(tr.bank, f)), f
