@@ -34,7 +34,14 @@ weights from a seeded ``torch.Generator``:
 * recognition by a model trained on the card: 20 WAVs of separable
   units -> ``Trainer.auto(mode=2)`` -> ``DeviceBeamDecoder`` over
   ``export_bank()`` -> word error rate 0.0, the words equal to a
-  ``device="cpu"`` run.
+  ``device="cpu"`` run;
+* context-dependent units: through the command line on a
+  formant-synthesised corpus (``train`` -> ``cd-expand`` -> ``decode
+  --cd``, ``--device cuda`` held to ``--device cpu``), and at full width a
+  seeded system of the size of the JAX package's best artifact (about
+  1,091 within-word triples over XIF_tone + ``sil``, trees grown to 2,049
+  senones, 6 mixtures, 39 dims): one training epoch and one decode call
+  at 256 x 4 s, tree growing and lexicon compilation in host seconds.
 
 ``--only PHASE --repeat N`` builds the kernels and runs one timed phase N
 times in one process (no result line): host-bound figures vary between
@@ -105,6 +112,14 @@ S1_E2E_RTOL = 1e-4
 # 1.6e-6 relative on an H100; 1e-4 leaves 60x room
 CLI_TRAIN_RTOL = 1e-4
 KERNEL_NAMES = ("gmm_score", "hmm_banded")
+# the context-dependent system: triples, tied senones and mixtures of the
+# JAX package's best artifact (WER_r05_cd2k_map.json)
+CD_TRIPLES, CD_S, CD_M = 1091, 2049, 6
+# GPU vs CPU logliks of cd-expand's retrain (grouped EM from the clones, a
+# transition epoch, a Baum-Welch epoch) from one CI checkpoint
+CD_RETRAIN_RTOL = 1e-4
+# GPU vs CPU gains of the context trees' splits (see phase_cd_e2e)
+CD_GAIN_RTOL = 1e-4
 CHUNK = 25                    # stream chunk in frames (ServiceStream default)
 STREAMS = 8                   # live sessions, and the lockstep batch
 
@@ -225,20 +240,21 @@ def phase_build() -> None:
             ptxas_registers_spill_stores_loads=ptxas)
         if name == "hmm_banded" and built.compiled:
             warp = {k: v for k, v in ptxas.items() if "warp_kernel" in k}
-            check(len(warp) == 40, f"40 warp instantiations ({len(warp)})")
+            check(len(warp) == 60, f"60 warp instantiations ({len(warp)})")
             # ptxas trades a few bytes of spill for a register step in some
             # instantiations; none in those of the training shape (K = 2)
             # and of the default config's sentence width (K = 4), W = 5
             used = {k: v for k, v in warp.items()
                     if k.endswith(("<2,5>", "<4,5>"))}
-            check(len(used) == 4 and all(v[1:] == [0, 0]
+            check(len(used) == 6 and all(v[1:] == [0, 0]
                                          for v in used.values()),
                   f"no spills in the warp kernels in use: {used}")
             say("build_spills", warp_kernels_with_spills={
                 k: v for k, v in warp.items() if v[1:] != [0, 0]})
 
 
-def scoring_inputs(t: int, gen: torch.Generator, floor: bool = False):
+def scoring_inputs(t: int, gen: torch.Generator, floor: bool = False,
+                   S: int = S, M: int = M):
     """MFCC-scale inputs (a c0-style offset plus per-senone structure, as
     in tests/test_bf16_scoring.py).
 
@@ -292,14 +308,14 @@ def gmm_bound(t: int, s: int, m: int, d: int, dtype: str) -> dict:
 
 def scoring_case(gen, t, s, m, d, dead_slot=False):
     """Small-scale random inputs at an arbitrary shape, for the ragged
-    cases; ``dead_slot`` gives the last mixture slot the weight -1e30 of a
-    padded slot."""
+    cases; ``dead_slot`` gives the last mixture slot (or the last
+    ``dead_slot`` slots) the weight -1e30 of a padded slot."""
     means = torch.randn(s, m, d, generator=gen) * 2
     log_var = torch.rand(s, m, d, generator=gen) * 2.0 - 0.5
     x = torch.randn(t, d, generator=gen) * 2
     log_w = torch.log_softmax(torch.randn(s, m, generator=gen), dim=-1)
     if dead_slot:
-        log_w[:, -1] = -1e30
+        log_w[:, -int(dead_slot):] = -1e30
     return [a.cuda() for a in (x, means, log_var, log_w)]
 
 
@@ -370,12 +386,36 @@ def phase_kernel(seed: int) -> dict:
             say("kernel_vs_plain", **line)
             check(ok, f"kernel vs plain at {line}")
             del args
+    # the context-dependent bank's shape: S odd, 6 mixtures
+    for dtype in ("float32", "bfloat16"):
+        args = scoring_inputs(SLICE_T, gen, S=CD_S, M=CD_M)
+        err, ok, tol = compare_gmm(args, dtype)
+        kw = dict(score_dtype=dtype)
+        op = torch.float32 if dtype == "float32" else torch.bfloat16
+        xa = torch.randn(SLICE_T, 2 * D, device="cuda").to(op)
+        w = torch.randn(2 * D, CD_S * CD_M, device="cuda").to(op)
+        line = dict(
+            t=SLICE_T, s=CD_S, m=CD_M, d=D, score_dtype=dtype,
+            normalizer="textbook", max_abs_err=err, tol=tol, ok=ok,
+            ms=median_ms(lambda: gk.gmm_log_scores_cuda(*args, **kw)),
+            plain_ms=median_ms(lambda: gmm_log_scores(*args, **kw), reps=3),
+            library_ms=median_ms(lambda: torch.matmul(xa, w)),
+            library_call="torch.matmul, the product alone",
+            **gmm_bound(SLICE_T, CD_S, CD_M, D, dtype))
+        del xa, w, args
+        records[f"{dtype}_cd"] = {k: line[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+        say("kernel_vs_plain", **line)
+        check(ok, f"kernel vs plain at the CD shape: {line}")
+        torch.cuda.empty_cache()
     # ragged shapes: T and S off the tiles, one mixture, a padded slot,
     # other feature widths (run-time K), S odd / even / a multiple of 4
     ragged = [dict(t=1, s=1, m=1, d=39), dict(t=130, s=65, m=1, d=39),
               dict(t=333, s=607, m=3, d=39, dead_slot=True),
               dict(t=200, s=606, m=8, d=13), dict(t=5000, s=100, m=2, d=7),
-              dict(t=40000, s=130, m=4, d=40), dict(t=77, s=64, m=5, d=26)]
+              dict(t=40000, s=130, m=4, d=40), dict(t=77, s=64, m=5, d=26),
+              dict(t=333, s=CD_S, m=8, d=39, dead_slot=2)]
     for shape in ragged:
         for dtype in ("float32", "bfloat16"):
             err, ok, tol = compare_gmm(scoring_case(gen, **shape), dtype)
@@ -712,17 +752,74 @@ def compare_dp(name: str, got, want) -> tuple[float, bool, dict]:
     return err, all(torch.allclose(g, w, **DP_TOL) for g, w in pairs), DP_TOL
 
 
+def same_as_block(name: str, got, old) -> dict:
+    """A warp kernel's outputs against the block kernel's on the same
+    inputs: alpha, beta and all of Viterbi's (score, path, final delta) bit
+    for bit; forward's loglik, which the warp sums in another order, at
+    DP_TOL."""
+    if name == "forward":
+        check(torch.allclose(got[1], old[1], **DP_TOL),
+              "warp forward loglik vs the block kernel's")
+        return dict(
+            alpha_equals_block_kernel=torch.equal(got[0], old[0]),
+            loglik_max_rel_diff_vs_block_kernel=float(
+                ((got[1] - old[1]).abs() / old[1].abs()).max()))
+    if name == "backward":
+        return dict(beta_equals_block_kernel=torch.equal(got, old))
+    return dict(viterbi_equals_block_kernel=all(
+        torch.equal(g, o) for g, o in zip(got, old)))
+
+
+def viterbi_routes(gen: torch.Generator, w: int) -> None:
+    """Viterbi where the first maximum and the dispatch decide: quantised
+    scores (ties in every step and at the end), a degenerate utterance (all
+    deltas at the sentinel), ``end_states`` 0 / 1 / N, one frame, and an
+    utterance whose backpointers do not fit shared memory, which the
+    dispatch sends to the block kernel.  Each against the plain version
+    (paths equal) and warp against block bit for bit."""
+    band, log_pi, log_b, masks = dp_inputs(gen, 8, 64, TRAIN_L)
+    n = int(band.shape[1])
+    tied = torch.round(log_b / 16) * 16
+    degenerate_pi, degenerate_b = log_pi.clone(), log_b.clone()
+    degenerate_pi[2], degenerate_b[2] = -1e30, -1e30
+    long_ops = dp_inputs(gen, 4, 2000, TRAIN_L)
+    cases = [("ties", (band, log_pi, tied, masks), 0),
+             ("ties_end_1", (band, log_pi, tied, masks), 1),
+             ("ties_end_n", (band, log_pi, tied, masks), n),
+             ("degenerate", (band, degenerate_pi, degenerate_b, masks), 0),
+             ("one_frame", (band, log_pi, log_b[:, :1].contiguous(),
+                            masks[:, :1].contiguous()), 0),
+             ("long_block_route", long_ops, 0)]
+    for label, (bd, pi, lb, mk), end in cases:
+        t = int(lb.shape[1])
+        warp = hk.viterbi_takes_warp(t, int(bd.shape[1]), w)
+        check(warp == (label != "long_block_route"),
+              f"viterbi {label}: the dispatch chose warp={warp}")
+        got = hk.viterbi_banded_cuda(bd, pi, lb, mk, w, end)
+        old = hk.viterbi_banded_cuda(bd, pi, lb, mk, w, end, block=True)
+        want = hmm_ops.viterbi_log_banded_plain(bd, pi, lb, mk, w, end)
+        torch.cuda.synchronize()
+        err, ok, tol = compare_dp("viterbi", got, want)
+        equal = same_as_block("viterbi", got, old)
+        say("hmm_kernel_vs_plain", kernel="viterbi", case=label,
+            b=int(lb.shape[0]), t=t, n_s=int(bd.shape[1]), w=w,
+            end_states=end, warp_kernel=warp, max_abs_err=err, tol=tol,
+            ok=bool(ok), negative_states=int((want[1] < 0).sum()), **equal)
+        check(ok and all(equal.values()), f"viterbi {label}: kernel vs plain "
+              f"{ok}, vs block {equal}")
+
+
 def phase_hmm_kernels(seed: int) -> dict:
     """Each DP kernel against its plain version at a small ragged shape, a
     shape with four registers a lane (N = 98, the default config's sentence
-    width) and bench.py's training shape.  Forward and backward are also
-    held bit for bit against the block kernels, which were the only kernels
-    before the warp kernels came and still take the shapes these do not.
-    Times at the last two shapes: ``ms`` one event pair around a wrapper
-    call, ``device_ms`` the kernel alone under the profiler, ``ms_b1`` /
-    ``device_ms_b1`` the same for the first utterance alone (the length of
-    the dependent chain), ``parent_ms`` / ``parent_device_ms`` the block
-    kernel on the same inputs."""
+    width) and bench.py's training shape, and bit for bit against the block
+    kernels, which were the only kernels before the warp kernels came and
+    still take the shapes these do not; then Viterbi's special cases
+    (:func:`viterbi_routes`).  Times at the last two shapes: ``ms`` one
+    event pair around a wrapper call, ``device_ms`` the kernel alone under
+    the profiler, ``ms_b1`` / ``device_ms_b1`` the same for the first
+    utterance alone (the length of the dependent chain), ``parent_ms`` /
+    ``parent_device_ms`` the block kernel on the same inputs."""
     gen = torch.Generator().manual_seed(seed)
     record = {}
     w = TRAIN_W
@@ -743,7 +840,7 @@ def phase_hmm_kernels(seed: int) -> dict:
                     lambda: hk.backward_banded_cuda(bd, lb, mk, w, **kw),
                     lambda: hmm_ops.backward_log_banded_plain(bd, lb, mk, w)),
                 "viterbi": (
-                    lambda: hk.viterbi_banded_cuda(bd, pi, lb, mk, w),
+                    lambda: hk.viterbi_banded_cuda(bd, pi, lb, mk, w, **kw),
                     lambda: hmm_ops.viterbi_log_banded_plain(bd, pi, lb, mk,
                                                              w)),
             }
@@ -755,34 +852,27 @@ def phase_hmm_kernels(seed: int) -> dict:
             got, want = kernel(), plain()
             torch.cuda.synchronize()
             err, ok, tol = compare_dp(name, got, want)
-            line = dict(kernel=name, b=b, t=t, n_s=n, w=w,
-                        warp_kernel=name != "viterbi" and hk.takes_warp(n, w),
+            warp = (hk.viterbi_takes_warp(t, n, w) if name == "viterbi"
+                    else hk.takes_warp(n, w))
+            line = dict(kernel=name, b=b, t=t, n_s=n, w=w, warp_kernel=warp,
                         max_abs_err=err, tol=tol, ok=bool(ok))
-            if name != "viterbi":
-                old = block[name][0]()
-                torch.cuda.synchronize()
-                if name == "forward":
-                    line["alpha_equals_block_kernel"] = torch.equal(got[0],
-                                                                    old[0])
-                    line["loglik_max_rel_diff_vs_block_kernel"] = float(
-                        ((got[1] - old[1]).abs() / old[1].abs()).max())
-                    check(torch.allclose(got[1], old[1], **DP_TOL),
-                          "warp forward loglik vs the block kernel's")
-                else:
-                    line["beta_equals_block_kernel"] = torch.equal(got, old)
-                err1, ok1, _ = compare_dp(name, first[name][0](),
-                                          first[name][1]())
-                check(ok1, f"hmm {name} kernel vs plain at B = 1 ({err1})")
+            check(warp, f"hmm {name} at N = {n}, W = {w} takes the warp kernel")
+            old = block[name][0]()
+            torch.cuda.synchronize()
+            equal = same_as_block(name, got, old)
+            line.update(equal)
+            err1, ok1, _ = compare_dp(name, first[name][0](),
+                                      first[name][1]())
+            check(ok1, f"hmm {name} kernel vs plain at B = 1 ({err1})")
             if timed:
                 line["ms"] = median_ms(kernel, reps=21)
                 line["device_ms"] = kernel_device_ms(kernel, name)
                 line["ms_b1"] = median_ms(first[name][0], reps=21)
                 line["device_ms_b1"] = kernel_device_ms(first[name][0],
                                                         name)
-                if name != "viterbi":
-                    line["parent_ms"] = median_ms(block[name][0], reps=21)
-                    line["parent_device_ms"] = kernel_device_ms(
-                        block[name][0], name)
+                line["parent_ms"] = median_ms(block[name][0], reps=21)
+                line["parent_device_ms"] = kernel_device_ms(
+                    block[name][0], name)
                 line["plain_ms"] = median_ms(plain, reps=3)
                 line.update(hmm_bound(name, b, t, n, w))
             if b == TRAIN_B:
@@ -792,9 +882,9 @@ def phase_hmm_kernels(seed: int) -> dict:
                     library_ms=None)
             say("hmm_kernel_vs_plain", **line)
             check(ok, f"hmm kernel vs plain at {line}")
-            check(line.get("alpha_equals_block_kernel", True)
-                  and line.get("beta_equals_block_kernel", True),
+            check(all(v for k, v in equal.items() if "equals" in k),
                   f"warp and block kernels bit-equal at {line}")
+    viterbi_routes(gen, w)
     torch.cuda.empty_cache()
     return record
 
@@ -1542,6 +1632,320 @@ def phase_wer_e2e(seed: int) -> None:
         phase_seconds=time.perf_counter() - t0)
 
 
+# ----------------------------------------------------------------------
+# context-dependent units
+# ----------------------------------------------------------------------
+
+def cd_e2e_words() -> list[str]:
+    """Sixteen one-character and sixteen two-character words over the
+    first characters of the built-in G2P table."""
+    chars = list(BUILTIN_PINYIN)[:48]
+    return chars[:16] + [a + b for a, b in zip(chars[16::2], chars[17::2])]
+
+
+def phase_cd_e2e(seed: int) -> None:
+    """The context-dependent workflow through the command line, in process,
+    on a corpus from the port's formant synthesiser (120 utterances of one
+    to three of :func:`cd_e2e_words` between ``sil`` pauses; XIF_tone +
+    ``sil``, 609 CI senones, 1 of 2 mixtures, CMVN, a bigram LM of the
+    transcripts): ``train`` (four scheme-2 rounds) with ``--device cuda`` and ``--device cpu``; then
+    ``cd-expand`` of the card's CI checkpoint on both devices (triples,
+    alignment, statistics, trees, clone, retrain, MAP smoothing) and
+    ``decode --cd`` of the card's CD system on both.  Held: the two
+    sidecars have the same triples, trees, ``senone_of`` and splits in the
+    same order (gains within CD_GAIN_RTOL), the CI and
+    retrain logliks agree within 1e-4 relative, the decoded words are
+    equal, the kernels' counters rise on the card and stay at zero on the
+    CPU.  The word error rate it prints is formant-synthesised proxy
+    evidence, on the training utterances."""
+    import contextlib
+    import io
+
+    from poccala_tpu_torch import cli
+    from poccala_tpu_torch.eval import wer as corpus_wer
+    from poccala_tpu_torch.io import synth_formant
+
+    def run(device, *argv) -> list[dict]:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--device", device, *argv])
+        return [json.loads(line) for line in buf.getvalue().splitlines()]
+
+    def counters() -> dict:
+        return dict(gmm=gk.gmm_log_scores_cuda.launches,
+                    **{k: f.launches for k, f in hk.KERNELS.items()})
+
+    def reset() -> None:
+        gk.gmm_log_scores_cuda.launches = 0
+        for kernel in hk.KERNELS.values():
+            kernel.launches = 0
+
+    t0 = time.perf_counter()
+    inv = UnitInventory(UnitInventory.standard("XIF_tone").units + ["sil"])
+    vocabulary = cd_e2e_words()
+    with tempfile.TemporaryDirectory() as tmp:
+        audio, label, transcripts = synth_formant.generate_formant_corpus(
+            tmp, vocabulary, PinYin(), num_utts=120, words_per_utt=(1, 3),
+            n_speakers=4, seed=seed, sil_token="sil")
+        units = os.path.join(tmp, "units")
+        inv.save(units)
+        vocab = os.path.join(tmp, "vocab.txt")
+        with open(vocab, "w") as f:
+            f.write("\n".join(vocabulary) + "\n")
+        common = ["--units", units,
+                  "--set", f"paths.audio_file_path={audio}",
+                  "--set", f"paths.label_file_path={label}",
+                  "--set", "train.label_format=pinyin",
+                  "--set", "train.load_line=1", "--set", "frontend.vad=false",
+                  "--set", "frontend.cmvn=true", "--set", "model.mix_level=1",
+                  "--set", "model.max_mix_level=2",
+                  "--set", "model.var_floor_scale=0.01",
+                  "--set", "train.max_frames=384",
+                  "--set", "train.max_label_len=20",
+                  "--set", "train.batch_size=20", "--set", "train.step=4",
+                  "--set", "train.proportion=1.0"]
+        lex = os.path.join(tmp, "lex.pkl")
+        run("cuda", *common, "build-lexicon", "--words", vocab, "--out", lex)
+        text, lm = os.path.join(tmp, "text.txt"), os.path.join(tmp, "lm.json")
+        with open(text, "w") as f:
+            f.write("\n".join(" ".join(ws) for _, ws in transcripts) + "\n")
+        run("cuda", *common, "train-lm", "--text", text, "--out", lm)
+        wavs = [os.path.join(audio, name + ".wav")
+                for name, _ in transcripts[:24]]
+        refs = [words for _, words in transcripts[:24]]
+        ci, cd, ci_lls, cd_lls, decoded, used = {}, {}, {}, {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            reset()
+            ci[dev] = os.path.join(tmp, f"ci_{dev}")
+            hist = os.path.join(tmp, f"hist_{dev}.json")
+            run(dev, *common, "train", "--mode", "2", "--epochs", "4",
+                "--checkpoint", ci[dev], "--history", hist)
+            with open(hist) as f:
+                ci_lls[dev] = [h["loglik"] for h in json.load(f)]
+            # both devices expand the card's CI bank and decode the card's
+            # CD system
+            cd[dev] = (os.path.join(tmp, f"cd_{dev}"),
+                       os.path.join(tmp, f"cd_{dev}.json"))
+            run(dev, *common, "cd-expand", "--checkpoint", ci["cuda"],
+                "--vocab", vocab, "--out-checkpoint", cd[dev][0], "--out-cd",
+                cd[dev][1], "--target-senones", "900", "--retrain-epochs",
+                "2", "--min-occ", "8", "--map-tau", "8")
+            _, manifest = load_checkpoint(cd[dev][0], device=dev)
+            cd_lls[dev] = manifest["retrain_logliks"]
+            decoded[dev] = run(dev, *common, "decode", "--checkpoint",
+                               cd["cuda"][0], "--lexicon", lex, "--lm", lm,
+                               "--cd", cd["cuda"][1], *wavs)
+            used[dev] = counters()
+        sidecars = {}
+        for dev in ("cuda", "cpu"):
+            with open(cd[dev][1]) as f:
+                sidecars[dev] = json.load(f)
+        cd_bank, _ = load_checkpoint(cd["cuda"][0], device="cuda")
+
+    g, c = sidecars["cuda"], sidecars["cpu"]
+    for key in ("base_units", "context_free", "triples", "senone_of",
+                "n_senones", "question_names", "nodes"):
+        check(g[key] == c[key], f"cd sidecars: {key} equal on card and CPU")
+    check(len(g["splits_log"]) == len(c["splits_log"]) > 0
+          and all({**a, "gain": 0} == {**b, "gain": 0}
+                  for a, b in zip(g["splits_log"], c["splits_log"])),
+          "the same splits in the same order on card and CPU")
+    # the gains are float64, but of float32 features from two frontends
+    # (cuFFT against the CPU's FFT), and a gain is a small difference of
+    # large log-likelihoods
+    rel_gain = max(abs(a["gain"] / b["gain"] - 1)
+                   for a, b in zip(g["splits_log"], c["splits_log"]))
+    check(rel_gain < CD_GAIN_RTOL, f"split gains on card and CPU differ by "
+          f"{rel_gain} relative")
+    def rel_diff(lls):
+        """Against the largest magnitude: a loglik that passes through
+        zero between rounds is a sum of terms of that size."""
+        g, c = np.array(lls["cuda"]), np.array(lls["cpu"])
+        return float(np.max(np.abs(g - c)) / np.max(np.abs(c)))
+
+    rel_ci, rel_cd = rel_diff(ci_lls), rel_diff(cd_lls)
+    check(rel_ci < CLI_TRAIN_RTOL, f"CI logliks {ci_lls}")
+    check(all(np.isfinite(cd_lls["cuda"])) and rel_cd < CD_RETRAIN_RTOL,
+          f"CD retrain logliks {cd_lls}")
+    check(cd_bank.num_states == g["n_senones"]
+          and cd_bank.num_units == len(g["triples"]),
+          "the CD checkpoint has the sidecar's senones and triples")
+    hyps = {dev: [d["nbest"][0]["words"] if d["nbest"] else []
+                  for d in decoded[dev]] for dev in decoded}
+    check(hyps["cuda"] == hyps["cpu"], f"decode --cd words on the card "
+          f"{hyps['cuda']} vs on the CPU {hyps['cpu']}")
+    check(all(n > 0 for n in used["cuda"].values()),
+          f"the CD path launched every kernel on the card: {used['cuda']}")
+    check(not any(used["cpu"].values()),
+          f"the CPU run launched no kernel: {used['cpu']}")
+    result = corpus_wer(refs, hyps["cuda"])
+    say("cd_e2e", utterances=len(transcripts), vocabulary=len(vocabulary),
+        ci_senones=3 * len(inv), triples=len(g["triples"]),
+        cd_senones=g["n_senones"], splits=len(g["splits_log"]),
+        trees_equal=True, max_rel_gain_diff=rel_gain,
+        gain_tol_rel=CD_GAIN_RTOL, ci_logliks=ci_lls, ci_max_rel_diff=rel_ci,
+        cd_retrain_logliks=cd_lls, cd_max_rel_diff=rel_cd,
+        tol_rel=CD_RETRAIN_RTOL, decoded=len(wavs), words_equal=True,
+        wer=result.wer, wer_note="formant-synthesised proxy, on training "
+        "utterances: not a recognition result on speech",
+        kernel_launches=used, one_best=["".join(w) for w in hyps["cuda"][:5]],
+        phase_seconds=time.perf_counter() - t0)
+
+
+def cd_system(seed: int, device):
+    """A seeded context-dependent system of the size of the JAX package's
+    best artifact: two-character words of the synthetic lexicon, in a
+    seeded order, until their within-word triples over XIF_tone + ``sil``
+    number CD_TRIPLES or a few more; seeded per-triple statistics (each
+    base unit its own mean, each context an offset); trees grown to
+    exactly CD_S senones; the CD bank cloned from a seeded CI bank of
+    CD_M mixtures.
+    :returns: (cfg, inv, cd, trees, ci_bank, cd_bank, entries, seconds)"""
+    from poccala_tpu_torch.models import context as ctx
+
+    rng = np.random.default_rng(seed)
+    cfg = train_config()
+    cfg.model.mix_level = cfg.model.max_mix_level = CD_M
+    inv = UnitInventory(UnitInventory.standard("XIF_tone").units + ["sil"])
+    sil = inv.id_of["sil"]
+    _, words, py = synthetic_lexicon(inv, min_nodes=0)
+    entries, seqs, cd = [], [], None
+    for k in rng.permutation(len(words)):
+        combos = ctx.reading_combos(py, words[k], inv.id_of, cap=1)
+        if not combos:
+            continue
+        entries.append((words[k], combos[0]))
+        seqs.append([u for syl in combos[0] for u in syl])
+        if len(entries) >= 200 and len(entries) % 5 == 0:
+            cd = ctx.CDInventory.from_words(seqs, inv, context_free=[sil])
+            if len(cd) >= CD_TRIPLES:
+                break
+    n = len(cd)
+    emit = cfg.model.emit_states
+    occ = rng.integers(20, 400, size=(n, emit)).astype(np.float64)
+    mean = (rng.normal(size=(len(inv), emit, D))[cd.base_of] * 3
+            + rng.normal(size=(n, emit, D)))
+    ex2 = mean**2 + rng.uniform(0.5, 2.0, size=(n, emit, D))
+    t0 = time.perf_counter()
+    trees = ctx.grow_context_trees(cd, occ, mean, ex2, target_senones=CD_S,
+                                   min_occ=8.0)
+    grow_s = time.perf_counter() - t0
+    ci_bank = sb.create_bank(len(inv), cfg.model, D,
+                             generator=torch.Generator().manual_seed(seed),
+                             device=device)
+    cd_bank = ctx.build_cd_bank(ci_bank, cd, trees)
+    return cfg, inv, cd, trees, ci_bank, cd_bank, entries, grow_s
+
+
+def phase_cd_throughput(seed: int, smi: str, epochs: int = 4) -> dict:
+    """The context-dependent path at full width (:func:`cd_system`: ~1,091
+    triples, 2,049 senones, 6 mixtures, 39 dims) on 256 x 4 s: bench.py's
+    training epoch (MFCC -> E-step -> M-step -> Viterbi alignment) over CD
+    labels, beside the same epoch over the CI bank it was cloned from (609
+    senones) in the same process; ``grow_context_trees`` and
+    ``build_cd_lexicon`` in host seconds; a CD ``decode_batch`` in float32
+    and one in bfloat16.  Returns the kernels' launches in the timed CD
+    epochs and decode calls."""
+    from poccala_tpu_torch.models import context as ctx
+
+    phase_t0 = time.perf_counter()
+    cfg, inv, cd, trees, ci_bank, cd_bank, entries, grow_s = cd_system(
+        seed, "cuda")
+    check(trees.n_senones == CD_S and cd_bank.num_states == CD_S
+          and cd_bank.max_mix == CD_M and cd_bank.num_units == len(cd),
+          f"the CD system has {CD_S} senones of {CD_M} mixtures "
+          f"({trees.n_senones}, {tuple(cd_bank.means.shape)})")
+    t0 = time.perf_counter()
+    flat = ctx.build_cd_lexicon(entries, cd,
+                                sil_word=("<sil>", inv.id_of["sil"]))
+    lex_s = time.perf_counter() - t0
+
+    signals, n_samp, _, lens = train_batch(seed, cfg, len(inv))
+    rng = np.random.default_rng(seed + 1)
+    fe = Frontend(cfg.frontend, device="cuda")
+
+    def labels_over(n_units):
+        return torch.as_tensor(rng.integers(0, n_units, size=(
+            TRAIN_B, TRAIN_L)).astype(np.int32), device="cuda")
+
+    def epoch_rate(bank0, labels):
+        """audio-s per wall second of ``epochs`` epochs after a warm-up."""
+        def one_epoch(bank):
+            feats, masks = fe.mfcc_batch(signals, n_samp)
+            stats, _ = acc.batch_stats(bank, labels, lens, feats, masks, 5,
+                                       TRAIN_L)
+            new_bank = acc.apply_update(bank, stats)
+            scores, label_pos = align.align_batch(new_bank, labels, lens,
+                                                  feats, masks, 5, TRAIN_L)
+            return new_bank, stats.loglik + scores.sum() + label_pos.sum()
+
+        float(one_epoch(bank0)[1])
+        for kernel in hk.KERNELS.values():
+            kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bank, total = bank0, 0.0
+        for _ in range(epochs):
+            bank, probe = one_epoch(bank)
+            total = total + probe
+        total = float(total)
+        elapsed = time.perf_counter() - t0
+        check(np.isfinite(total), f"finite probe ({total})")
+        profile = device_profile(lambda: one_epoch(bank0))
+        return (TRAIN_B * 4.0 * epochs / elapsed, elapsed,
+                {k: f.launches for k, f in hk.KERNELS.items()}, profile)
+
+    ci_rate, ci_s, _, ci_profile = epoch_rate(ci_bank, labels_over(len(inv)))
+    cd_rate, cd_s, dp, cd_profile = epoch_rate(cd_bank, labels_over(len(cd)))
+    for k, n in dp.items():
+        check(n >= epochs, f"the CD epochs launched the {k} kernel ({n})")
+
+    # decode: the CD graph over the CD bank, 256 x 4 s of noise
+    feats, masks = fe.mfcc_batch(signals, n_samp)
+    n_frames = masks.sum(dim=1).cpu().numpy()
+    del signals
+    dec = DeviceBeamDecoder(cd_bank, flat)
+    dec.decode_batch(feats, n_frames)                         # warm-up
+    gk.gmm_log_scores_cuda.launches = 0
+    gk.gmm_log_scores_cuda.launches_bf16 = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hyps = dec.decode_batch(feats, n_frames)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check(all(len(h) >= 1 and np.isfinite(h[0].score) for h in hyps),
+          "every utterance decoded over the CD graph")
+    gmm = gk.gmm_log_scores_cuda.launches
+    check(gmm == 1, f"one GMM kernel launch per CD decode call ({gmm})")
+    profile = device_profile(lambda: dec.decode_batch(feats, n_frames))
+    dec16 = DeviceBeamDecoder(cd_bank, flat, score_dtype="bfloat16")
+    dec16.decode_batch(feats, n_frames)                       # warm-up
+    gk.gmm_log_scores_cuda.launches_bf16 = 0
+    hyps16 = dec16.decode_batch(feats, n_frames)
+    gmm16 = gk.gmm_log_scores_cuda.launches_bf16
+    check(gmm16 == 1 and all(len(h) >= 1 for h in hyps16),
+          f"the bfloat16 CD decode call launched its kernel once ({gmm16})")
+
+    say("cd_throughput", triples=len(cd), base_units=len(inv),
+        senones=CD_S, mixtures=CD_M, dim=D, words=len(entries),
+        splits=len(trees.splits_log), questions=len(trees.questions),
+        grow_context_trees_host_seconds=grow_s,
+        build_cd_lexicon_host_seconds=lex_s, lexicon_nodes=int(flat.n_nodes),
+        batch=TRAIN_B, utt_seconds=4.0, frames=TRAIN_T, epochs=epochs,
+        max_label_len=TRAIN_L,
+        cd_train_audio_throughput=cd_rate, cd_epoch_seconds=cd_s / epochs,
+        ci_train_audio_throughput=ci_rate, ci_epoch_seconds=ci_s / epochs,
+        ci_senones=int(ci_bank.num_states), unit="audio-s/s",
+        dp_kernel_launches=dp, cd_epoch_profile=cd_profile,
+        ci_epoch_profile=ci_profile,
+        cd_decode_audio_throughput=TRAIN_B * 4.0 / decode_s,
+        cd_decode_call_ms=decode_s * 1e3, decode_call_profile=profile,
+        gmm_launches=gmm, gmm_bf16_launches=gmm16,
+        phase_seconds=time.perf_counter() - phase_t0,
+        device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    return dict(gmm=gmm, gmm_bf16=gmm16, **dp)
+
+
 # phases that --only can run by themselves, each as f(seed, smi)
 SOLO = {
     "hmm_kernels": lambda seed, smi: phase_hmm_kernels(seed),
@@ -1549,6 +1953,8 @@ SOLO = {
     "train_scheme1": phase_train_scheme1,
     "stream": phase_stream,
     "pruned": phase_pruned,
+    "cd_e2e": lambda seed, smi: phase_cd_e2e(seed),
+    "cd_throughput": phase_cd_throughput,
 }
 
 
@@ -1583,6 +1989,8 @@ def main(argv=None) -> int:
     phase_pruned(args.seed, smi)
     phase_cli(args.seed)
     phase_wer_e2e(args.seed)
+    phase_cd_e2e(args.seed)
+    cd_launches = phase_cd_throughput(args.seed, smi)
     check("jax" not in sys.modules, "jax was never imported")
     check(not [m for m in sys.modules if m.split(".")[0] == "poccala_tpu"],
           "nothing of the JAX package was imported")
@@ -1593,9 +2001,21 @@ def main(argv=None) -> int:
                dict(name="gmm_log_scores_bf16", route="cuda",
                     source=gk.SOURCE, replaces=gk.REPLACES,
                     launches=bf16_launches, **records["bfloat16"])]
+    # the same two kernels at the context-dependent bank's shape, with
+    # their launches on the CD path
+    kernels += [dict(name="gmm_log_scores_cd", route="cuda", source=gk.SOURCE,
+                     replaces=gk.REPLACES, launches=cd_launches["gmm"],
+                     **records["float32_cd"]),
+                dict(name="gmm_log_scores_bf16_cd", route="cuda",
+                     source=gk.SOURCE, replaces=gk.REPLACES,
+                     launches=cd_launches["gmm_bf16"],
+                     **records["bfloat16_cd"])]
     kernels += [dict(name=f"hmm_{k}_banded", route="cuda", source=hk.SOURCE,
                      replaces=hk.REPLACES[k], launches=train_launches[k],
-                     **records[k]) for k in hk.KERNELS]
+                     launches_cd=cd_launches[k], **records[k])
+                for k in hk.KERNELS]
+    check(all(k["launches"] > 0 for k in kernels),
+          f"every kernel was launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,11 @@ port keeps its own copy of ``build_parser``, with its own handlers):
                    (exact or block-pruned search, ``--set
                    decoder.active_blocks=K decoder.block_size=N``), with an
                    optional n-best rescore by a higher-order LM
+* ``cd-expand``  — a trained context-independent checkpoint → tied-state
+                   context-dependent units (triples, context trees, cloned
+                   bank, retrain) as a checkpoint and a sidecar;
+                   ``decode`` / ``listen`` / ``serve --cd SIDECAR`` then
+                   search the context-dependent graph
 * ``listen``     — microphone window (or ``--wav``) → stream decode with a
                    partial 1-best per chunk
 * ``serve``      — WAV paths → :class:`~poccala_tpu_torch.serve.DecodeService`
@@ -29,8 +34,8 @@ CPU.
 Deviations while the port is partial (``ROADMAP.md`` Queue 1): ``decode``
 defaults to ``--decoder device``, where the JAX CLI defaults to the host
 ``vector`` tier, because the host tiers are not ported and ``--decoder
-vector|simple`` raise; ``cd-expand``, ``--cd`` (context-dependent units)
-and ``--distributed`` raise ``NotImplementedError`` too.
+vector|simple`` raise; ``--distributed`` raises ``NotImplementedError``
+too.
 """
 
 from __future__ import annotations
@@ -79,17 +84,39 @@ def _not_ported(what: str, item: str):
 def _check_unported(args) -> None:
     if getattr(args, "distributed", False):
         _not_ported("--distributed (the device mesh)", "6")
-    if getattr(args, "cd", None):
-        _not_ported("--cd (context-dependent decoding)", "5")
 
 
-def _load_decode_graph(args, inv):
-    """Lexicon pickle -> FlatLexicon."""
+def _load_decode_graph(args, inv, bank):
+    """Lexicon pickle -> FlatLexicon; with ``--cd`` the same pickle
+    compiles into the context-dependent graph (arcs keyed on
+    (left, unit, right)) with out-of-expansion triples registered via
+    tree back-off.  Returns (flat, bank)."""
     from poccala_tpu_torch.lexicon import FlatLexicon, PronunciationLexicon
 
     lex = PronunciationLexicon()
     lex.load(args.lexicon)
-    return FlatLexicon.from_tree(lex.lexicon, inv)
+    flat = FlatLexicon.from_tree(lex.lexicon, inv)
+    if getattr(args, "cd", None):
+        from poccala_tpu_torch.models import context as ctx_mod
+
+        cd, trees = ctx_mod.load_cd(args.cd)
+        if cd.base.units != inv.units:
+            raise SystemExit(
+                "--cd sidecar base inventory does not match --units")
+        entries = ctx_mod.cd_entries_from_flat(flat)
+        entries, skipped = ctx_mod.filter_routable_entries(cd, trees,
+                                                           entries)
+        if skipped:
+            print(f"cd: {len(set(skipped))} lexicon words use base "
+                  f"units absent from the expansion vocabulary — "
+                  f"dropped (no tying tree to route them)",
+                  file=sys.stderr)
+        cd, trees, bank = ctx_mod.extend_for_lexicon(cd, trees, bank,
+                                                     entries)
+        flat = ctx_mod.build_cd_lexicon(entries, cd)
+        print(f"cd decode graph: {flat.n_nodes} nodes / {len(cd)} "
+              f"triples", file=sys.stderr)
+    return flat, bank
 
 
 def _load_lm(args):
@@ -109,7 +136,7 @@ def _device_decoder(args, cfg, inv, dev):
     from poccala_tpu_torch.train import checkpoint as ckpt
 
     bank, _ = ckpt.load_checkpoint(args.checkpoint, device=dev)
-    flat = _load_decode_graph(args, inv)
+    flat, bank = _load_decode_graph(args, inv, bank)
     return DeviceBeamDecoder(bank, flat, beam=args.beam, lm=_load_lm(args),
                              normalizer=cfg.model.gaussian_normalizer,
                              score_dtype=cfg.model.score_dtype,
@@ -240,7 +267,129 @@ def cmd_decode(args):
 
 
 def cmd_cd_expand(args):
-    _not_ported("cd-expand (context-dependent units)", "5")
+    """Expand a trained CI checkpoint to context-dependent tied-state
+    units: enumerate within-word triples over the vocabulary, collect
+    alignment-driven context statistics, grow the phonetic-context
+    decision trees, clone the CD bank from the CI senones, retrain, and
+    write the CD checkpoint + routing sidecar.  Decode with
+    ``decode --cd <sidecar>``.  The checkpoint's manifest also keeps the
+    retrain's logliks (``retrain_logliks``), which the JAX CLI does not
+    record: a run on the card is held to a run on the CPU by them."""
+    import dataclasses
+
+    from poccala_tpu_torch.io.corpus import Corpus, UnitInventory, read_label
+    from poccala_tpu_torch.lexicon.pinyin import PinYin
+    from poccala_tpu_torch.models import context as ctx
+    from poccala_tpu_torch.train import alignment as align
+    from poccala_tpu_torch.train import checkpoint as ckpt
+    from poccala_tpu_torch.train.trainer import Trainer
+
+    dev = _device(args)
+    cfg = _load_config(args)
+    inv = _load_inventory(cfg, args)
+    bank, manifest = ckpt.load_checkpoint(args.checkpoint, device=dev)
+
+    with open(args.vocab) as f:
+        words = [w.strip() for w in f if w.strip()]
+    py = PinYin(args.table) if args.table else PinYin()
+
+    combos_of: dict[str, list[list[int]]] = {}
+    seqs = []
+    for w in words:
+        combos = ctx.reading_combos(py, w, inv.id_of)
+        if not combos:
+            continue
+        flat_combos = [[u for s in c for u in s] for c in combos]
+        combos_of[w] = flat_combos
+        seqs.extend(flat_combos)
+    cf = [inv.id_of[u] for u in ("sil",) if u in inv.id_of]
+    cd = ctx.CDInventory.from_words(seqs, inv, context_free=cf)
+    print(f"cd: {len(cd)} triples over {len(inv)} base units, "
+          f"{len(combos_of)} vocabulary words", file=sys.stderr)
+
+    corpus = Corpus(cfg, inv, device=dev)
+    emit = cfg.model.emit_states
+    acc = ctx.TripleStatsAccumulator(len(cd), emit, cfg.frontend.feat_dim)
+    cd_batches = []
+    bs = cfg.train.batch_size
+    buf, lines = [], []
+
+    def flush():
+        if not buf:
+            return
+        batch = Corpus._pack(buf, bs, cfg.train.max_frames,
+                             cfg.train.max_label_len,
+                             cfg.frontend.feat_dim)
+        cd_labels, ok = ctx.expand_labels_by_matching(
+            batch.labels, batch.label_lens, list(lines), combos_of, cd)
+        _, lp = align.align_batch(
+            bank, batch.labels, batch.label_lens, batch.feats,
+            batch.t_masks, cfg.model.state_num, cfg.train.max_label_len,
+            normalizer=cfg.model.gaussian_normalizer)
+        lp = lp.cpu().numpy()
+        ok &= align.check_alignment(lp, batch.labels, batch.label_lens)
+        acc.add(batch.feats, cd_labels, lp, utt_ok=ok)
+        if ok.any():
+            keep = np.nonzero(ok)[0]
+            cd_batches.append(dataclasses.replace(
+                batch,
+                feats=batch.feats[keep], t_masks=batch.t_masks[keep],
+                labels=cd_labels[keep],
+                label_lens=batch.label_lens[keep]))
+        if not ok.all():
+            print(f"cd-expand: {int((~ok).sum())} utterances "
+                  f"unmatched/unaligned (discarded)", file=sys.stderr)
+        buf.clear()
+        lines.clear()
+
+    for wav_path, label_path in corpus.pairs:
+        try:
+            # read the word line FIRST: if it is missing the utterance
+            # must be skipped atomically (a partial append would shift
+            # every later utterance's transcript in the batch)
+            wl = read_label(label_path, args.word_line)
+            utt = corpus.load_utterance(wav_path, label_path)
+        except (KeyError, FileNotFoundError, IndexError):
+            continue
+        buf.append(utt)
+        lines.append(wl)
+        if len(buf) == bs:
+            flush()
+    flush()
+
+    target = args.target_senones or 3 * bank.num_states
+    trees = ctx.grow_context_trees(
+        cd, acc.occ, acc.mean, acc.ex2, target_senones=target,
+        min_occ=args.min_occ)
+    cd_bank = ctx.build_cd_bank(bank, cd, trees)
+    print(f"cd: tied to {trees.n_senones} senones (target {target}, "
+          f"{len(trees.splits_log)} splits)", file=sys.stderr)
+
+    tr = Trainer(cfg, UnitInventory(ctx.cd_unit_names(cd)), device=dev)
+    tr.bank = cd_bank
+    tr.mix_level = manifest.get("mix_level", tr.mix_level)
+    # reinit=False: EM refit FROM the clones — preserves component
+    # correspondence with the CI parents (map_smooth_bank premise)
+    lls = [tr.scheme1_round(cd_batches, init=False, smem=False,
+                            reinit=False)]
+    if args.retrain_epochs > 1:
+        lls += tr.auto(cd_batches, t=args.retrain_epochs - 1, mode=2,
+                       init=False)
+    if args.map_tau > 0:
+        tr.bank = ctx.map_smooth_bank(
+            tr.export_bank(), bank, cd, trees, acc.occ,
+            tau=args.map_tau)
+        print(f"cd: MAP-smoothed toward CI parents "
+              f"(tau={args.map_tau:g} frames)", file=sys.stderr)
+    ckpt.save_checkpoint(
+        args.out_checkpoint, tr.export_bank(),
+        {"mix_level": tr.mix_level, "cd": True,
+         "cd_sidecar": os.path.abspath(args.out_cd),
+         "retrain_logliks": [float(x) for x in lls]},
+        units=ctx.cd_unit_names(cd))
+    ctx.save_cd(args.out_cd, cd, trees)
+    print(f"cd system -> {args.out_checkpoint} + {args.out_cd}",
+          file=sys.stderr)
 
 
 def cmd_listen(args):

@@ -38,7 +38,8 @@
 // that is not the chain (loads, stores, the mask, address arithmetic) off
 // it.
 //
-// Forward and backward, N <= 128 and W in 3..7 (the warp kernels):
+// N <= 128 and W in 3..7 (the warp kernels; Viterbi's notes stand at its
+// kernel):
 //
 // * A warp per utterance, the carry in registers.  Lane l owns the states
 //   at places p = l + 32 r, r = 0..K-1, K = ceil(N / 32) <= 4, so log_b
@@ -74,8 +75,13 @@
 //   decides the time; the order of the rows in the source moves it
 //   (backward walks its registers from K-1 down for that reason).
 //
-// Forward and backward at N > 128 (up to MAX_N) or another W (up to
-// MAX_W), and Viterbi at every shape (the block kernels):
+// * Viterbi's step has no expf and no logf: W adds and a first-maximum
+//   compare-select chain.  Its backpointers stay on the SM, 4 bits a state
+//   in shared memory, and the backtrace reads them there; an utterance
+//   whose T-1 frames of them do not fit goes to the block kernel.
+//
+// N > 128 (up to MAX_N), another W (up to MAX_W), or a Viterbi utterance
+// too long for shared memory (the block kernels):
 //
 // * One block per utterance, one thread per sentence state (rounded up to
 //   a warp multiple).  The carry lives in shared memory, double-buffered,
@@ -89,8 +95,9 @@
 // Both families do a step's arithmetic in the same order (terms k = 0..W-1
 // ascending, the maximum first, then the sum of expf(x - max), logf(sum) +
 // max, + b_t, the clamp at NEG_INF), so alpha and beta of a warp kernel
-// and of a block kernel are equal bit for bit.  expf/logf, no fast math:
-// the logsumexp must match the plain version.
+// and of a block kernel are equal bit for bit, and so are Viterbi's score,
+// path and final delta (adds, maxima and the smallest offset on a tie).
+// expf/logf, no fast math: the logsumexp must match the plain version.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -360,6 +367,11 @@ __device__ __forceinline__ float below(const float (&sh)[K][W], int r, int k,
   return lane >= k ? sh[r][k] : sh[r > 0 ? r - 1 : 0][k];
 }
 
+// Static shared memory of a warp kernel: its blocks' log_b rings.
+constexpr size_t ring_bytes(int K) {
+  return sizeof(float) * WARPS * RING * K * 32;
+}
+
 template <int K, int W>
 __global__ void __launch_bounds__(32 * WARPS)
 forward_warp_kernel(const float* __restrict__ band,
@@ -498,10 +510,157 @@ backward_warp_kernel(const float* __restrict__ band,
   }
 }
 
-// One instantiation per (K, W) the warp kernels take.
+// Viterbi's backpointers of one lane at one frame, 4 bits a place (an
+// offset is < W <= 7), packed into one word: a byte while a lane owns at
+// most two places, else 16 bits.
+template <int K> struct OffsWord { using type = uint16_t; };
+template <> struct OffsWord<1> { using type = uint8_t; };
+template <> struct OffsWord<2> { using type = uint8_t; };
+
+// Bytes of one utterance's backpointers in shared memory.
+__host__ __device__ inline size_t viterbi_offs_bytes(int T, int N) {
+  const size_t word = (N + 31) / 32 <= 2 ? 1 : 2;
+  return ((size_t)(T - 1) * 32 * word + 15) / 16 * 16;
+}
+
+// Viterbi with its backtrace, a warp per utterance: delta in K registers a
+// lane as alpha is in forward_warp_kernel, log_b and the mask through the
+// same FrameFeed.  A step is W adds and a first-maximum compare-select
+// chain (no expf, no logf), computed at every frame and then selected.  The
+// backpointers never leave the SM: a lane packs its K offsets of a frame
+// into one OffsWord in shared memory ((T-1) x 32 words an utterance), and
+// after a __syncwarp every lane walks the same backtrace out of shared
+// memory (the loads broadcast), keeps the state of the frames t = lane mod
+// 32, and the warp stores path 32 frames at a time.  Every value equals the
+// block kernel's bit for bit: the arithmetic is adds and maxima.
+template <int K, int W>
+__global__ void __launch_bounds__(32 * WARPS)
+viterbi_warp_kernel(const float* __restrict__ band,
+                    const float* __restrict__ log_pi,
+                    const float* __restrict__ log_b,
+                    const uint8_t* __restrict__ mask,
+                    float* __restrict__ score, int32_t* __restrict__ path,
+                    float* __restrict__ delta_last, int B, int T, int N,
+                    int end_states) {
+  using Off = typename OffsWord<K>::type;
+  __shared__ float rings[WARPS][RING][K][32];
+  extern __shared__ __align__(16) unsigned char viterbi_offs[];
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp leaves: no block barrier follows
+  Off* offs = reinterpret_cast<Off*>(
+      viterbi_offs + (threadIdx.x >> 5) * viterbi_offs_bytes(T, N));
+  const float* lb = log_b + (size_t)b * T * N + lane;
+  FrameFeed<K, true> feed{lb + N, mask + (size_t)b * T,
+                          &rings[threadIdx.x >> 5][0][0][lane], T, N, lane,
+                          0, 0};
+  feed.start();
+
+  bool live[K];
+  float bin[K][W];  // bin[r][k] = band[b, j-k, k], j = lane + 32 r
+  float d[K];       // NEG_INF in dead lanes
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    const int j = lane + 32 * r;
+    live[r] = j < N;
+#pragma unroll
+    for (int k = 0; k < W; ++k)
+      bin[r][k] = (live[r] && j - k >= 0)
+                      ? band[((size_t)b * N + (j - k)) * W + k] : 0.0f;
+    d[r] = live[r] ? log_pi[(size_t)b * N + j] + lb[32 * r] : NEG_INF;
+  }
+
+  // Two steps an iteration: the second step's copies, mask and address
+  // arithmetic fill the stalls of the first step's chain (a step took a
+  // quarter less time on the card than with one step an iteration).
+#pragma unroll 2
+  for (int i = 0; i < T - 1; ++i) {  // frame t = 1 + i
+    float b_t[K];
+    const bool m_t = feed.step(i, b_t);  // the same for every lane
+    float sh[K][W];
+    fetch_below<K, W>(d, lane, sh);
+    unsigned packed = 0;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      float best = d[r] + bin[r][0];
+      unsigned bk = 0;
+#pragma unroll
+      for (int k = 1; k < W; ++k) {
+        // below state 0 bin is 0, and the candidate exactly NEG_INF
+        const float cand = below<K, W>(sh, r, k, lane) + bin[r][k];
+        const bool better = cand > best;  // strict: the smallest offset wins
+        best = better ? cand : best;
+        bk = better ? (unsigned)k : bk;
+      }
+      const bool take = m_t && live[r];
+      d[r] = select_f32(take, fmaxf(best + b_t[r], NEG_INF), d[r]);
+      packed |= (take ? bk : 0u) << (4 * r);  // a padded frame: offset 0
+    }
+    offs[i * 32 + lane] = (Off)packed;
+  }
+  __syncwarp();  // every lane's backpointers are visible to the warp
+
+#pragma unroll
+  for (int r = 0; r < K; ++r)
+    if (live[r]) delta_last[(size_t)b * N + lane + 32 * r] = d[r];
+
+  // The first maximum over the states [lo, N): a lane's own first (its
+  // places ascend with r), then across lanes the larger value, and on equal
+  // values the lower state.
+  const int lo = end_states > 0 ? N - end_states : 0;
+  constexpr int NONE = 0x7fffffff;
+  float top = 0.0f;
+  int state = NONE;
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    const int j = lane + 32 * r;
+    if (j >= lo && j < N && (state == NONE || d[r] > top)) {
+      top = d[r];
+      state = j;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float v = __shfl_xor_sync(FULL, top, o);
+    const int j = __shfl_xor_sync(FULL, state, o);
+    if (j != NONE && (state == NONE || v > top || (v == top && j < state))) {
+      top = v;
+      state = j;
+    }
+  }
+  if (lane == 0) score[b] = top;
+
+  // The backtrace, the same in every lane.  JAX's dynamic indexing: a
+  // negative state (a degenerate utterance whose deltas all sit at the
+  // sentinel backtraces below 0) counts from the end once, then clamps.
+  int32_t* p = path + (size_t)b * T;
+  int mine = state;  // the state of the frame t = lane mod 32 of this round
+#pragma unroll 1
+  for (int t = T - 1; t >= 0; --t) {
+    if (t < T - 1) {
+      int idx = state < 0 ? state + N : state;
+      idx = idx < 0 ? 0 : (idx > N - 1 ? N - 1 : idx);
+      const unsigned word = offs[t * 32 + (idx & 31)];
+      state -= (int)((word >> (4 * (idx >> 5))) & 15u);
+    }
+    if ((t & 31) == lane) mine = state;
+    if ((t & 31) == 0 && t + lane < T) p[t + lane] = mine;
+  }
+}
+
+// One instantiation per (K, W) the warp kernels take.  SMEM_ bytes of
+// dynamic shared memory ride along (0 for forward and backward); where they
+// and the rings together pass the 48 KB a kernel gets unasked, the
+// instantiation opts in first.
 #define HMM_WARP_CASE(KERNEL, K_, W_, ...)                                  \
   case (K_) * 8 + (W_):                                                     \
-    KERNEL<K_, W_><<<blocks, 32 * WARPS, 0, stream>>>(__VA_ARGS__);         \
+    if (dyn_smem > 0 && dyn_smem + ring_bytes(K_) > 48 * 1024) {            \
+      const cudaError_t rc = cudaFuncSetAttribute(                          \
+          KERNEL<K_, W_>, cudaFuncAttributeMaxDynamicSharedMemorySize,      \
+          (int)dyn_smem);                                                   \
+      if (rc != cudaSuccess) return (int)rc;                                \
+    }                                                                       \
+    KERNEL<K_, W_><<<blocks, 32 * WARPS, dyn_smem, stream>>>(__VA_ARGS__);  \
     break;
 #define HMM_WARP_K(KERNEL, K_, ...)                                         \
   HMM_WARP_CASE(KERNEL, K_, 3, __VA_ARGS__)                                 \
@@ -509,9 +668,10 @@ backward_warp_kernel(const float* __restrict__ band,
   HMM_WARP_CASE(KERNEL, K_, 5, __VA_ARGS__)                                 \
   HMM_WARP_CASE(KERNEL, K_, 6, __VA_ARGS__)                                 \
   HMM_WARP_CASE(KERNEL, K_, 7, __VA_ARGS__)
-#define HMM_WARP_LAUNCH(KERNEL, B_, N_, W_, ...)                            \
+#define HMM_WARP_LAUNCH(KERNEL, B_, N_, W_, SMEM_, ...)                     \
   do {                                                                      \
     const int blocks = ((B_) + WARPS - 1) / WARPS;                          \
+    const size_t dyn_smem = (SMEM_);                                        \
     switch ((((N_) + 31) / 32) * 8 + (W_)) {                                \
       HMM_WARP_K(KERNEL, 1, __VA_ARGS__)                                    \
       HMM_WARP_K(KERNEL, 2, __VA_ARGS__)                                    \
@@ -524,15 +684,29 @@ bool takes_warp(int N, int W) {
   return N <= WARP_MAX_N && W >= WARP_MIN_W && W <= WARP_MAX_W;
 }
 
-__global__ void viterbi_kernel(const float* __restrict__ band,
-                               const float* __restrict__ log_pi,
-                               const float* __restrict__ log_b,
-                               const uint8_t* __restrict__ mask,
-                               uint8_t* __restrict__ offs,
-                               float* __restrict__ score,
-                               int32_t* __restrict__ path,
-                               float* __restrict__ delta_last, int T, int N,
-                               int W, int end_states) {
+// Shared memory a block may hold in all (the card's 227 KB), and what the
+// warp Viterbi kernel asks of it: the log_b rings and four utterances'
+// backpointers.  An utterance too long for that goes to the block kernel.
+constexpr size_t SMEM_PER_BLOCK = 227 * 1024;
+
+size_t viterbi_warp_smem(int T, int N) {
+  return WARPS * viterbi_offs_bytes(T, N);
+}
+
+bool viterbi_takes_warp(int T, int N, int W) {
+  return takes_warp(N, W) &&
+         viterbi_warp_smem(T, N) + ring_bytes((N + 31) / 32) <= SMEM_PER_BLOCK;
+}
+
+__global__ void viterbi_block_kernel(const float* __restrict__ band,
+                                     const float* __restrict__ log_pi,
+                                     const float* __restrict__ log_b,
+                                     const uint8_t* __restrict__ mask,
+                                     uint8_t* __restrict__ offs,
+                                     float* __restrict__ score,
+                                     int32_t* __restrict__ path,
+                                     float* __restrict__ delta_last, int T,
+                                     int N, int W, int end_states) {
   extern __shared__ float sm[];  // [2][N]
   const int b = blockIdx.x;
   const int j = threadIdx.x;
@@ -619,10 +793,11 @@ bool bad_shape(int B, int T, int N, int W) {
 
 // Plain C interface for ctypes.  Each returns cudaGetLastError() after the
 // launch (0 = cudaSuccess), or cudaErrorInvalidValue for a shape it does
-// not take; the launch is asynchronous on `stream`.  Forward and backward
-// choose their kernel by shape: the warp kernel where it takes (N, W), the
-// block kernel elsewhere; `block_only` != 0 sends every shape to the block
-// kernel (for holding one against the other).  One launch either way.
+// not take; the launch is asynchronous on `stream`.  Each recursion
+// chooses its kernel by shape: the warp kernel where it takes (N, W) (and,
+// for Viterbi, T), the block kernel elsewhere; `block_only` != 0 sends
+// every shape to the block kernel (for holding one against the other).
+// One launch either way.
 namespace {
 
 int forward_banded(const void* band_, const void* log_pi_, const void* log_b_,
@@ -637,7 +812,7 @@ int forward_banded(const void* band_, const void* log_pi_, const void* log_b_,
   float* loglik = static_cast<float*>(loglik_);
   cudaStream_t stream = (cudaStream_t)stream_;
   if (takes_warp(N, W) && !block_only)
-    HMM_WARP_LAUNCH(forward_warp_kernel, B, N, W, band, log_pi, log_b, mask,
+    HMM_WARP_LAUNCH(forward_warp_kernel, B, N, W, 0, band, log_pi, log_b, mask,
                     alpha, loglik, B, T, N);
   else
     forward_block_kernel<<<B, threads_for(N), 2 * N * sizeof(float),
@@ -656,11 +831,41 @@ int backward_banded(const void* band_, const void* log_b_, const void* mask_,
   float* beta = static_cast<float*>(beta_);
   cudaStream_t stream = (cudaStream_t)stream_;
   if (takes_warp(N, W) && !block_only)
-    HMM_WARP_LAUNCH(backward_warp_kernel, B, N, W, band, log_b, mask, beta, B,
+    HMM_WARP_LAUNCH(backward_warp_kernel, B, N, W, 0, band, log_b, mask, beta, B,
                     T, N);
   else
     backward_block_kernel<<<B, threads_for(N), 2 * N * sizeof(float),
                             stream>>>(band, log_b, mask, beta, T, N, W);
+  return (int)cudaGetLastError();
+}
+
+// `offs` is the block kernel's [B, T-1, N] uint8 scratch in device memory;
+// the warp kernel keeps its backpointers in shared memory and reads none.
+int viterbi_banded(const void* band_, const void* log_pi_, const void* log_b_,
+                   const void* mask_, void* offs_, void* score_, void* path_,
+                   void* delta_last_, int B, int T, int N, int W,
+                   int end_states, void* stream_, bool block_only) {
+  if (bad_shape(B, T, N, W) || end_states < 0 || end_states > N)
+    return (int)cudaErrorInvalidValue;
+  const float* band = static_cast<const float*>(band_);
+  const float* log_pi = static_cast<const float*>(log_pi_);
+  const float* log_b = static_cast<const float*>(log_b_);
+  const uint8_t* mask = static_cast<const uint8_t*>(mask_);
+  float* score = static_cast<float*>(score_);
+  int32_t* path = static_cast<int32_t*>(path_);
+  float* delta_last = static_cast<float*>(delta_last_);
+  cudaStream_t stream = (cudaStream_t)stream_;
+  if (viterbi_takes_warp(T, N, W) && !block_only) {
+    HMM_WARP_LAUNCH(viterbi_warp_kernel, B, N, W, viterbi_warp_smem(T, N),
+                    band, log_pi, log_b, mask, score, path, delta_last, B, T,
+                    N, end_states);
+  } else {
+    if (offs_ == nullptr && T > 1) return (int)cudaErrorInvalidValue;
+    viterbi_block_kernel<<<B, threads_for(N), 2 * N * sizeof(float),
+                           stream>>>(band, log_pi, log_b, mask,
+                                     static_cast<uint8_t*>(offs_), score,
+                                     path, delta_last, T, N, W, end_states);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -699,22 +904,29 @@ extern "C" int hmm_viterbi_banded(const void* band, const void* log_pi,
                                   void* offs, void* score, void* path,
                                   void* delta_last, int B, int T, int N,
                                   int W, int end_states, void* stream) {
-  if (bad_shape(B, T, N, W) || end_states < 0 || end_states > N)
-    return (int)cudaErrorInvalidValue;
-  viterbi_kernel<<<B, threads_for(N), 2 * N * sizeof(float),
-                   (cudaStream_t)stream>>>(
-      static_cast<const float*>(band), static_cast<const float*>(log_pi),
-      static_cast<const float*>(log_b), static_cast<const uint8_t*>(mask),
-      static_cast<uint8_t*>(offs), static_cast<float*>(score),
-      static_cast<int32_t*>(path), static_cast<float*>(delta_last), T, N, W,
-      end_states);
-  return (int)cudaGetLastError();
+  return viterbi_banded(band, log_pi, log_b, mask, offs, score, path,
+                        delta_last, B, T, N, W, end_states, stream, false);
+}
+
+extern "C" int hmm_viterbi_banded_block(const void* band, const void* log_pi,
+                                        const void* log_b, const void* mask,
+                                        void* offs, void* score, void* path,
+                                        void* delta_last, int B, int T,
+                                        int N, int W, int end_states,
+                                        void* stream) {
+  return viterbi_banded(band, log_pi, log_b, mask, offs, score, path,
+                        delta_last, B, T, N, W, end_states, stream, true);
 }
 
 extern "C" int hmm_banded_max_w() { return MAX_W; }
 extern "C" int hmm_banded_max_n() { return MAX_N; }
 // 1 where forward and backward go to the warp kernels, 0 for the block ones.
 extern "C" int hmm_banded_takes_warp(int N, int W) { return takes_warp(N, W); }
+// The same for Viterbi, whose warp kernel also has to hold T-1 frames of
+// backpointers in shared memory.
+extern "C" int hmm_viterbi_takes_warp(int T, int N, int W) {
+  return viterbi_takes_warp(T, N, W);
+}
 
 extern "C" const char* hmm_banded_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

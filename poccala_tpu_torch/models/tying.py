@@ -11,11 +11,10 @@ bank's device), merge each cluster's members into one shared senone
 bank + map.
 
 :func:`tie_by_tree` is top-down decision-tree tying with phonetic
-questions (host NumPy, copied).  The port has no question set of its own
-yet — ``models/questions.py`` comes with the context-dependent units
-(ROADMAP.md Queue 1 item 5) — so ``questions=`` must be given: objects
-with a ``name`` and a ``members`` set of unit indices, e.g. the JAX
-package's ``default_questions``.
+questions (host NumPy, copied); the questions default to
+:func:`poccala_tpu_torch.models.questions.default_questions` on the unit
+names, and ``questions=`` overrides them with objects that have a ``name``
+and a ``members`` set of unit indices.
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from poccala_tpu_torch.models import questions as q_mod
 from poccala_tpu_torch.models import senone_bank as sb
 from poccala_tpu_torch.models.senone_bank import SenoneBank
 from poccala_tpu_torch.ops import kmeans as km_ops
@@ -196,16 +196,11 @@ def tie_by_tree(
 
     :param units: the unit-name list (or a ``UnitInventory``) aligned with
         the bank's unit axis.
-    :param questions: the question list (required: the default set is not
-        ported yet).
+    :param questions: override the question list (defaults to
+        :func:`poccala_tpu_torch.models.questions.default_questions`).
     :returns: the tied bank, plus ``{position: [TreeSplit, ...]}`` when
         ``return_trees``.
     """
-    if questions is None:
-        raise NotImplementedError(
-            "tie_by_tree's default question set (models/questions.py) is "
-            "not ported yet (ROADMAP.md Queue 1 item 5, context-dependent "
-            "units); pass questions=")
     names = list(getattr(units, "units", units))
     if len(names) != bank.num_units:
         raise ValueError(
@@ -216,6 +211,8 @@ def tie_by_tree(
     occ = (np.ones(s_old) if occupancy is None
            else np.maximum(np.asarray(occupancy, np.float64), 1e-6))
     mu_s, ex2_s = _single_gaussian_moments(bank)
+    if questions is None:
+        questions = q_mod.default_questions(names)
 
     # per-senone owning-unit sets (atoms may be pre-tied groups)
     units_of = [set() for _ in range(s_old)]

@@ -10,13 +10,16 @@ stream, counts the launch and raises if the launch fails.  CUDA tensors
 only: :mod:`poccala_tpu_torch.ops.hmm`'s ``*_batch`` dispatchers route a
 CPU tensor to the plain version instead.
 
-Forward and backward have two kernels each, chosen by shape inside the
-library: a warp per utterance with the carry in registers where
-``N <= 128`` and ``3 <= W <= 7`` (:func:`takes_warp`), a block per
-utterance with the carry in shared memory elsewhere.  ``block=True`` sends
-a call to the block kernel whatever its shape, to hold one kernel against
-the other; both give the same ``alpha`` / ``beta`` bit for bit, and
-``loglik`` to float32 rounding (the warp kernel sums by shuffles).
+Each recursion has two kernels, chosen by shape inside the library: a
+warp per utterance with the carry in registers where ``N <= 128`` and
+``3 <= W <= 7`` (:func:`takes_warp`), a block per utterance with the carry
+in shared memory elsewhere.  The warp Viterbi kernel also keeps its
+backpointers in shared memory, so an utterance too long for that goes to
+the block kernel too (:func:`viterbi_takes_warp`).  ``block=True`` sends a
+call to the block kernel whatever its shape, to hold one kernel against
+the other; both give the same ``alpha`` / ``beta`` and the same Viterbi
+``score``, ``path`` and final ``delta`` bit for bit, and ``loglik`` to
+float32 rounding (the warp kernel sums by shuffles).
 """
 
 from __future__ import annotations
@@ -47,11 +50,14 @@ def _lib() -> ctypes.CDLL:
     lib.hmm_forward_banded_block.argtypes = lib.hmm_forward_banded.argtypes
     lib.hmm_backward_banded_block.argtypes = lib.hmm_backward_banded.argtypes
     lib.hmm_viterbi_banded.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    lib.hmm_viterbi_banded_block.argtypes = lib.hmm_viterbi_banded.argtypes
     lib.hmm_banded_takes_warp.argtypes = [_I, _I]
+    lib.hmm_viterbi_takes_warp.argtypes = [_I, _I, _I]
     for fn in (lib.hmm_forward_banded, lib.hmm_backward_banded,
                lib.hmm_forward_banded_block, lib.hmm_backward_banded_block,
-               lib.hmm_viterbi_banded, lib.hmm_banded_max_w,
-               lib.hmm_banded_max_n, lib.hmm_banded_takes_warp):
+               lib.hmm_viterbi_banded, lib.hmm_viterbi_banded_block,
+               lib.hmm_banded_max_w, lib.hmm_banded_max_n,
+               lib.hmm_banded_takes_warp, lib.hmm_viterbi_takes_warp):
         fn.restype = ctypes.c_int
     lib.hmm_banded_max_w.argtypes = []
     lib.hmm_banded_max_n.argtypes = []
@@ -64,6 +70,13 @@ def takes_warp(n: int, w: int) -> bool:
     """Whether forward and backward run ``n`` states at band width ``w``
     on the warp kernels (else on the block kernels)."""
     return bool(_lib().hmm_banded_takes_warp(n, w))
+
+
+def viterbi_takes_warp(t: int, n: int, w: int) -> bool:
+    """Whether Viterbi runs ``t`` frames of ``n`` states at band width
+    ``w`` on the warp kernel: :func:`takes_warp`, and ``t - 1`` frames of
+    backpointers fit the block's shared memory."""
+    return bool(_lib().hmm_viterbi_takes_warp(t, n, w))
 
 
 def _operands(bands, log_bs, t_masks, w: int, log_pis=None):
@@ -150,23 +163,28 @@ def backward_banded_cuda(bands, log_bs, t_masks, w: int, *,
 
 
 def viterbi_banded_cuda(bands, log_pis, log_bs, t_masks, w: int,
-                        end_states: int = 0):
+                        end_states: int = 0, *, block: bool = False):
     """(score ``[B]``, path ``[B, T]`` int32, final delta ``[B, N]``)
     through the kernel; the backtrace runs inside it."""
     lib, o, (b, t, n) = _operands(bands, log_bs, t_masks, w, log_pis)
     if not 0 <= end_states <= n:
         raise ValueError(f"end_states={end_states} outside [0, {n}]")
     dev = log_bs.device
-    offs = torch.empty((max(b * (t - 1) * n, 1),), dtype=torch.uint8,
-                       device=dev)
     score = torch.empty((b,), dtype=torch.float32, device=dev)
     path = torch.empty((b, t), dtype=torch.int32, device=dev)
     delta = torch.empty((b, n), dtype=torch.float32, device=dev)
     if b:
-        _launch(lib, lib.hmm_viterbi_banded, "viterbi", dev,
+        # only the block kernel keeps its backpointers in device memory
+        offs = None
+        if block or not lib.hmm_viterbi_takes_warp(t, n, w):
+            offs = torch.empty((max(b * (t - 1) * n, 1),), dtype=torch.uint8,
+                               device=dev)
+        fn = lib.hmm_viterbi_banded_block if block else lib.hmm_viterbi_banded
+        _launch(lib, fn, "viterbi", dev,
                 o["band"].data_ptr(), o["log_pi"].data_ptr(),
                 o["log_b"].data_ptr(), o["mask"].data_ptr(),
-                offs.data_ptr(), score.data_ptr(), path.data_ptr(),
+                None if offs is None else offs.data_ptr(),
+                score.data_ptr(), path.data_ptr(),
                 delta.data_ptr(), b, t, n, w, end_states)
         viterbi_banded_cuda.launches += 1
     return score, path, delta

@@ -12,6 +12,14 @@ final n-best equals ``decode``'s, ``serve`` answers in input order with
 ``decode``'s 1-best, the reference-layout export/import round-trips, the
 flags of the unported parts raise, and ``--device cuda`` without a card
 raises instead of running on the CPU.
+
+The context-dependent workflow (``tests/test_cli.py``'s ``TestCliCdExpand``
+corpus): both CLIs run ``cd-expand`` on one CI checkpoint and give the same
+triples, trees and senone count (the Viterbi alignment is exact, the
+float64 statistics see float32 features of two frontends, and a gain is a
+small difference of large log-likelihoods: gains at rtol 1e-5, ten times
+what they differed by), and each CLI decodes, with ``--cd``, the checkpoint
+and sidecar the other wrote, to the same words.
 """
 
 import json
@@ -244,6 +252,182 @@ def test_export_import_round_trip(trained, capsys):
     assert torch.allclose(bank1.means[active], bank2.means[active], atol=1e-5)
 
 
+# ----------------------------------------------------------------------
+# context-dependent units
+# ----------------------------------------------------------------------
+
+CD_UNITS = ["n", "i3", "h", "ao3", "m", "a1", "sil"]
+CD_WORDS = {"你好": ["ni3", "hao3"], "你": ["ni3"], "马": ["ma1"]}
+CD_SYLLABLES = {"ni3": ["n", "i3"], "hao3": ["h", "ao3"], "ma1": ["m", "a1"]}
+
+
+@pytest.fixture(scope="module")
+def cd_world(tmp_path_factory):
+    """14 utterances of one or two words between silences (word line 0,
+    toned-pinyin line 1); a CI checkpoint trained by the JAX CLI; then
+    ``cd-expand`` of that checkpoint through each CLI, and one lexicon."""
+    from poccala_tpu_torch.io import wav as wav_io
+    from poccala_tpu_torch.io.corpus import synth_unit_signal
+
+    wd = str(tmp_path_factory.mktemp("torch_cli_cd"))
+    units_file = os.path.join(wd, "units")
+    with open(units_file, "w") as f:
+        f.write("test units\n" + ",".join(CD_UNITS) + "\n")
+    table = os.path.join(wd, "table.dat")
+    with open(table, "w") as f:
+        f.write("4F60\tni3\n597D\thao3\n9A6C\tma1\n")
+    audio, label = os.path.join(wd, "record"), os.path.join(wd, "label")
+    os.makedirs(audio)
+    os.makedirs(label)
+    rng = np.random.default_rng(7)
+    keys = list(CD_WORDS)
+    for i in range(14):
+        ws = [keys[int(rng.integers(len(keys)))]
+              for _ in range(int(rng.integers(1, 3)))]
+        syls = [s for w in ws for s in CD_WORDS[w]]
+        us = ["sil"] + [u for s in syls for u in CD_SYLLABLES[s]] + ["sil"]
+        sig = np.concatenate([synth_unit_signal(CD_UNITS.index(u), 3200,
+                                                16000, rng) for u in us])
+        name = f"utt{i:05d}"
+        wav_io.write_wav(os.path.join(audio, name + ".wav"), sig, 16000)
+        with open(os.path.join(label, name + ".wav.trn"), "w") as f:
+            f.write(" ".join(ws) + "\n"
+                    + " ".join(["sil"] + syls + ["sil"]) + "\n")
+    args = [
+        "--units", units_file,
+        "--set", f"paths.audio_file_path={audio}",
+        "--set", f"paths.label_file_path={label}",
+        "--set", "train.label_format=pinyin",
+        "--set", "train.load_line=1",
+        "--set", "frontend.vad=false",
+        "--set", "frontend.cmvn=true",
+        "--set", "train.differentiation=false",
+        "--set", "model.mix_level=1",
+        "--set", "model.max_mix_level=2",
+        "--set", "model.var_floor_scale=0.01",
+        "--set", "train.max_frames=256",
+        "--set", "train.batch_size=7",
+        "--set", "train.proportion=1.0",
+        "--set", "train.step=4",
+    ]
+    ci = os.path.join(wd, "ckpt_ci")
+    jcli.main(args + ["train", "--mode", "2", "--epochs", "2",
+                      "--checkpoint", ci])
+    vocab = os.path.join(wd, "vocab.txt")
+    with open(vocab, "w") as f:
+        f.write("你好\n你\n马\n")
+    lex = os.path.join(wd, "lex.pkl")
+    tcli.main(["--device", "cpu"] + args + [
+        "build-lexicon", "--words", vocab, "--mandarin-dat", table,
+        "--out", lex])
+    out = dict(args=args, ci=ci, lex=lex, vocab=vocab, table=table,
+               wavs=[os.path.join(audio, f"utt{i:05d}.wav")
+                     for i in range(3)])
+    for name, main, pre in (("jax", jcli.main, []),
+                            ("torch", tcli.main, ["--device", "cpu"])):
+        out[name] = dict(ckpt=os.path.join(wd, f"ckpt_cd_{name}"),
+                         cd=os.path.join(wd, f"cd_{name}.json"))
+        main(pre + args + [
+            "cd-expand", "--checkpoint", ci, "--vocab", vocab, "--table",
+            table, "--out-checkpoint", out[name]["ckpt"], "--out-cd",
+            out[name]["cd"], "--target-senones", "60", "--retrain-epochs",
+            "2", "--min-occ", "4", "--map-tau", "8"])
+    return out
+
+
+def test_cd_expand_matches_jax(cd_world):
+    from poccala_tpu_torch.train import checkpoint as ck
+
+    with open(cd_world["jax"]["cd"]) as f:
+        want = json.load(f)
+    with open(cd_world["torch"]["cd"]) as f:
+        got = json.load(f)
+    for key in ("base_units", "context_free", "triples", "senone_of",
+                "n_senones", "question_names", "nodes"):
+        assert got[key] == want[key], key
+    assert len(got["triples"]) > len(CD_UNITS)
+    assert len(got["splits_log"]) == len(want["splits_log"]) > 0
+    for g, w in zip(got["splits_log"], want["splits_log"]):
+        assert {k: v for k, v in g.items() if k != "gain"} == \
+            {k: v for k, v in w.items() if k != "gain"}
+        assert np.isclose(g["gain"], w["gain"], rtol=1e-5)
+    ci_bank, _ = ck.load_checkpoint(cd_world["ci"], device="cpu")
+    tbank, tman = ck.load_checkpoint(cd_world["torch"]["ckpt"], device="cpu")
+    jbank, jman = ck.load_checkpoint(cd_world["jax"]["ckpt"], device="cpu")
+    assert tman["cd"] is True and jman["cd"] is True
+    assert tman["mix_level"] == jman["mix_level"]
+    assert tbank.num_states == jbank.num_states == got["n_senones"] \
+        >= ci_bank.num_states
+    assert tbank.num_units == jbank.num_units == len(got["triples"])
+    assert torch.equal(tbank.senone_map, jbank.senone_map)
+    lls = tman["retrain_logliks"]
+    assert len(lls) == 2 and all(np.isfinite(lls))
+    # two float32 retrains (grouped EM, two Baum-Welch passes, the MAP
+    # blend) of one clone on features of two frontends
+    for f in ("means", "log_var", "log_A"):
+        assert torch.allclose(getattr(tbank, f), getattr(jbank, f),
+                              rtol=1e-3, atol=1e-3), f
+
+
+def cd_decode(capsys, main, pre, cd_world, system, cmd="decode", extra=()):
+    sysd = cd_world[system]
+    out = run(capsys, main, *pre, *cd_world["args"], cmd, *extra,
+              "--checkpoint", sysd["ckpt"], "--lexicon", cd_world["lex"],
+              "--cd", sysd["cd"],
+              *(cd_world["wavs"] if cmd == "decode" else ()))
+    return [json.loads(l) for l in out.strip().splitlines()]
+
+
+@pytest.mark.parametrize("system", ["jax", "torch"])
+def test_cd_decode_matches_jax(cd_world, capsys, system):
+    """A CD checkpoint and sidecar written by either CLI, decoded by
+    both."""
+    want = cd_decode(capsys, jcli.main, [], cd_world, system,
+                     extra=["--decoder", "device"])
+    got = cd_decode(capsys, tcli.main, ["--device", "cpu"], cd_world, system)
+    assert [g["wav"] for g in got] == cd_world["wavs"]
+    assert all(g["nbest"] for g in got)
+    for g, w in zip(got, want):
+        assert [h["words"] for h in g["nbest"]] == \
+            [h["words"] for h in w["nbest"]]
+        assert np.allclose([h["score"] for h in g["nbest"]],
+                           [h["score"] for h in w["nbest"]], rtol=1e-4)
+
+
+def test_cd_systems_decode_to_the_same_words(cd_world, capsys):
+    pre = ["--device", "cpu"]
+    a = cd_decode(capsys, tcli.main, pre, cd_world, "jax")
+    b = cd_decode(capsys, tcli.main, pre, cd_world, "torch")
+    assert [x["nbest"][0]["words"] for x in a] == \
+        [x["nbest"][0]["words"] for x in b]
+
+
+def test_cd_listen_and_serve_match_decode(cd_world, capsys):
+    pre = ["--device", "cpu"]
+    solo = cd_decode(capsys, tcli.main, pre, cd_world, "torch")
+    lines = cd_decode(capsys, tcli.main, pre, cd_world, "torch", "listen",
+                      ["--wav", cd_world["wavs"][0], "--chunk-frames", "16"])
+    assert [h["words"] for h in lines[-1]["final"]] == \
+        [h["words"] for h in solo[0]["nbest"]]
+    wav_list = os.path.join(os.path.dirname(cd_world["lex"]), "wavs.txt")
+    with open(wav_list, "w") as f:
+        f.write("\n".join(cd_world["wavs"]) + "\n")
+    served = cd_decode(capsys, tcli.main, pre, cd_world, "torch", "serve",
+                       ["--list", wav_list, "--batch-size", "2",
+                        "--frame-bucket", "32"])
+    assert [s["wav"] for s in served] == cd_world["wavs"]
+    for s, d in zip(served, solo):
+        assert s["nbest"][0]["words"] == d["nbest"][0]["words"]
+
+
+def test_cd_sidecar_of_another_inventory_is_refused(cd_world, trained):
+    t = trained["torch"]
+    with pytest.raises(SystemExit, match="base inventory"):
+        tcli.main(["--device", "cpu", *t["args"], "decode", "--checkpoint",
+                   t["ckpt"], "--lexicon", t["lex"], "--cd",
+                   cd_world["torch"]["cd"], cd_world["wavs"][0]])
+
+
 @pytest.mark.parametrize("argv", [
     ["decode", "--decoder", "vector"],
     ["decode", "--decoder", "simple"],
@@ -254,7 +438,24 @@ def test_export_import_round_trip(trained, capsys):
     ["cd-expand"],
     ["train", "--distributed"],
 ], ids=lambda a: "-".join(x.strip("-") for x in a[:2]))
-def test_unported_flags_raise(trained, argv):
+def test_unported_flags_raise(trained, cd_world, capsys, argv):
+    """The flags of the parts still to port raise; ``--cd`` and
+    ``cd-expand``, which raised until the context-dependent units were
+    ported, answer."""
+    if "--cd" in argv:
+        lines = cd_decode(
+            capsys, tcli.main, ["--device", "cpu"], cd_world, "torch",
+            argv[0], ["--wav", cd_world["wavs"][0]] * (argv[0] == "listen"))
+        answer = lines[-1]["final"] if argv[0] == "listen" \
+            else lines[0]["nbest"]
+        assert answer and answer[0]["words"]
+        return
+    if argv[0] == "cd-expand":
+        sysd = cd_world["torch"]
+        assert os.path.exists(os.path.join(sysd["ckpt"], "bank.npz"))
+        with open(sysd["cd"]) as f:
+            assert json.load(f)["n_senones"] > 3 * len(CD_UNITS) - 3
+        return
     t = trained["torch"]
     model = ["--checkpoint", t["ckpt"]]
     if argv[0] in ("decode", "listen", "serve"):

@@ -3,8 +3,9 @@ pinned to their originals, and the port's default device.
 
 ``poccala_tpu_torch`` imports nothing of ``poccala_tpu``
 (``tests/test_torch_no_jax.py``): it carries ``config``, ``io.wav``,
-``io.audio_device``, ``lm.ngram``, ``native`` (with ``wavio.cpp``),
-``serve``, ``eval`` and the command line's parser as copies.  Each copy
+``io.audio_device``, ``io.synth_formant``, ``lm.ngram``,
+``models.questions``, ``native`` (with ``wavio.cpp``), ``serve``, ``eval``
+and the command line's parser as copies.  Each copy
 must keep the original's code (docstrings and the package's own name
 aside) and give the original's outputs on seeded numpy inputs, so that
 one ``Config`` object, one checkpoint, one WAV file and one LM file serve
@@ -28,14 +29,18 @@ from poccala_tpu import cli as jcli
 from poccala_tpu import config as jconfig
 from poccala_tpu import native as jnative
 from poccala_tpu import serve as jserve
+from poccala_tpu.io import synth_formant as jformant
 from poccala_tpu.io import wav as jwav
+from poccala_tpu.lexicon.pinyin import PinYin as JaxPinYin
 from poccala_tpu.lm import ngram as jngram
 from poccala_tpu_torch import cli as tcli
 from poccala_tpu_torch import config as tconfig
 from poccala_tpu_torch import native as tnative
 from poccala_tpu_torch import serve as tserve
 from poccala_tpu_torch.io import corpus as tcorpus
+from poccala_tpu_torch.io import synth_formant as tformant
 from poccala_tpu_torch.io import wav as twav
+from poccala_tpu_torch.lexicon.pinyin import PinYin
 from poccala_tpu_torch.lm import ngram as tngram
 from poccala_tpu_torch.models import senone_bank as tsb
 from poccala_tpu_torch.ops.frontend import Frontend
@@ -59,6 +64,8 @@ COPIES = {
     "serve.py": (),
     "eval/__init__.py": (),
     "eval/wer.py": (),
+    "models/questions.py": (),
+    "io/synth_formant.py": (),
 }
 
 
@@ -160,6 +167,33 @@ def test_wav_files_cross_read(tmp_path, rng, channels):
             assert np.array_equal(
                 twav.preprocess_signal(dt, drop_zeros=quirk),
                 jwav.preprocess_signal(dj, drop_zeros=quirk))
+
+
+def test_formant_corpus_files_equal(tmp_path):
+    """One seed, both packages' ``generate_formant_corpus``: byte-equal
+    WAVs and labels, the same transcripts; and the same questions."""
+    from poccala_tpu.models import questions as jq
+    from poccala_tpu_torch.models import questions as tq
+
+    words = ["你好", "马", "我", "好"]
+    kw = dict(num_utts=5, words_per_utt=(1, 3), n_speakers=2, seed=3,
+              sil_token="sil")
+    ja, jl, jt = jformant.generate_formant_corpus(
+        str(tmp_path / "j"), words, JaxPinYin(), **kw)
+    ta, tl, tt = tformant.generate_formant_corpus(
+        str(tmp_path / "t"), words, PinYin(), **kw)
+    assert tt == jt and len(tt) == 5
+    for jd, td in ((ja, ta), (jl, tl)):
+        names = sorted(p.name for p in Path(jd).iterdir())
+        assert names == sorted(p.name for p in Path(td).iterdir())
+        assert len(names) == 5
+        for n in names:
+            assert (Path(jd) / n).read_bytes() == (Path(td) / n).read_bytes()
+    units = tcorpus.standard_inventory("XIF_tone") + ["sil"]
+    got, want = tq.default_questions(units), jq.default_questions(units)
+    assert [(q.name, q.members) for q in got] == \
+        [(q.name, q.members) for q in want]
+    assert len(got) > 10 and tq.split_tone("ang2") == jq.split_tone("ang2")
 
 
 @pytest.mark.parametrize("smoothing", ["jm", "wb"])

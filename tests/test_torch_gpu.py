@@ -344,8 +344,9 @@ def banded_inputs(rng, b, t_pad, n, w):
 
 # Forward and backward: a lane of the warp kernels owns K = ceil(N / 32)
 # states and log_b runs 7 frames ahead through a ring of 8; N > 128 or a
-# band width outside 3..7 goes to the block kernels.  Viterbi is a block
-# kernel at every shape.
+# band width outside 3..7 goes to the block kernels.  Viterbi's warp kernel
+# takes the same shapes as long as T - 1 frames of backpointers fit the
+# block's shared memory.
 HMM_SHAPES = [
     (3, 1, 11, 5), (6, 37, 26, 5), (64, 319, 50, 5),    # K = 1, 1, 2
     (4, 60, 300, 7),                                    # block: N > 128
@@ -385,10 +386,15 @@ def test_hmm_kernels_match_plain(cuda, b, t_pad, n, w):
         assert torch.equal(path, wpath)
         assert torch.allclose(sc, wsc, rtol=1e-6, atol=0.0)
         assert torch.allclose(delta, wdelta, rtol=1e-6, atol=0.0)
+        old = hk.viterbi_banded_cuda(band, log_pi, log_b, masks, w,
+                                     end_states, block=True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, o) for g, o in zip((sc, path, delta), old))
+    assert hk.viterbi_takes_warp(t_pad, n, w) == hk.takes_warp(n, w)
     after = {k: f.launches for k, f in hk.KERNELS.items()}
     assert after == {"forward": before["forward"] + 1,
                      "backward": before["backward"] + 1,
-                     "viterbi": before["viterbi"] + 2}
+                     "viterbi": before["viterbi"] + 4}
     # both kernels do a step's arithmetic in one order: equal bit for bit;
     # loglik sums over the states in another order (float32 rounding)
     old_a, old_ll = hk.forward_banded_cuda(band, log_pi, log_b, masks, w,
@@ -397,6 +403,83 @@ def test_hmm_kernels_match_plain(cuda, b, t_pad, n, w):
     torch.cuda.synchronize()
     assert torch.equal(la, old_a) and torch.equal(lb, old_b)
     assert torch.allclose(ll, old_ll, rtol=1e-6, atol=0.0)
+
+
+def viterbi_three_ways(band, log_pi, log_b, masks, w, end_states):
+    """Warp (or whatever the dispatch picks), block and plain Viterbi: the
+    two kernels equal bit for bit, paths equal to the plain version's."""
+    before = hk.viterbi_banded_cuda.launches
+    got = thmm.viterbi_log_banded_batch(band, log_pi, log_b, masks, w,
+                                        end_states)
+    old = hk.viterbi_banded_cuda(band, log_pi, log_b, masks, w, end_states,
+                                 block=True)
+    want = thmm.viterbi_log_banded_plain(band, log_pi, log_b, masks, w,
+                                         end_states)
+    torch.cuda.synchronize()
+    assert hk.viterbi_banded_cuda.launches == before + 2
+    assert all(torch.equal(g, o) for g, o in zip(got, old))
+    assert torch.equal(got[1], want[1])
+    assert torch.allclose(got[0], want[0], rtol=1e-6, atol=0.0)
+    assert torch.allclose(got[2], want[2], rtol=1e-6, atol=0.0)
+    return got
+
+
+@pytest.mark.parametrize("b,t_pad,n,w", [
+    (5, 40, 31, 3), (4, 33, 50, 5), (6, 64, 65, 4), (3, 41, 98, 7),
+    (4, 39, 128, 6)], ids=lambda v: str(v))
+@pytest.mark.parametrize("end_states", [0, 1, "n"])
+def test_viterbi_ties_and_degenerate_utterances(cuda, b, t_pad, n, w,
+                                                end_states):
+    """Quantised scores tie in every step and at the end (the first maximum
+    must win in both kernels as in the plain version); one utterance has
+    dead self-loops and every delta at the sentinel, and backtraces below
+    state 0 (JAX's wrap-once-then-clamp indexing)."""
+    rng = np.random.default_rng(n * w)
+    band, log_pi, log_b, masks = banded_inputs(rng, b, t_pad, n, w)
+    band = torch.where(band > -1e29, torch.round(band), band)
+    log_b = torch.where(log_b > -1e29, torch.round(log_b / 16) * 16, log_b)
+    log_pi = torch.round(log_pi)
+    log_pi[2], log_b[2], band[2, :, 0] = -1e30, -1e30, -1e30
+    masks[2] = True
+    end = n if end_states == "n" else end_states
+    _, path, _ = viterbi_three_ways(
+        *(a.to(cuda) for a in (band, log_pi, log_b, masks)), w, end)
+    if end_states != 1:
+        assert int((path[2] < 0).sum()) > 0
+
+
+@pytest.mark.parametrize("t_pad,n,w,warp", [
+    (330, 50, 5, True),     # backpointers + rings pass 48 KB: the opt-in
+    (1700, 50, 5, True),    # near the block's 227 KB at K = 2
+    (1900, 50, 5, False),   # past it: the block kernel
+    (800, 98, 5, True), (1000, 98, 5, False),      # K = 4: 16 bits a lane
+    (64, 300, 5, False), (64, 50, 9, False)])
+def test_viterbi_dispatch_routes(cuda, t_pad, n, w, warp):
+    """One launch either way: the warp kernel while T - 1 frames of
+    backpointers fit shared memory, else the block kernel."""
+    rng = np.random.default_rng(t_pad + n)
+    ops = [a.to(cuda) for a in banded_inputs(rng, 5, t_pad, n, w)]
+    assert hk.viterbi_takes_warp(t_pad, n, w) == warp
+    viterbi_three_ways(*ops, w, 0)
+
+
+def test_gmm_kernel_at_the_cd_bank_shape(cuda):
+    """S = 2,049 (odd: a ragged last tile in both kernels), M = 6 of a
+    mixture axis padded to 8 (two dead slots), D = 39."""
+    rng = np.random.default_rng(2049)
+    x, means, log_var, log_w = scoring_inputs(rng, 2049, 8, 39, 700)
+    log_w[:, 6:] = -1e30
+    args = [a.to(cuda) for a in (x, means, log_var, log_w)]
+    six = [a.to(cuda) for a in (x, means[:, :6], log_var[:, :6],
+                                log_w[:, :6])]
+    for score_dtype, tol in (("float32", F32), ("bfloat16", BF16)):
+        # the plain version in the same operand type
+        want = tg.gmm_log_scores(*args, score_dtype=score_dtype)
+        for operands in (args, six):     # dead slots score as no slots
+            got = gk.gmm_log_scores_cuda(*operands, score_dtype=score_dtype)
+            torch.cuda.synchronize()
+            assert got.shape == (700, 2049) and torch.isfinite(got).all()
+            assert torch.allclose(got, want, **tol), score_dtype
 
 
 @pytest.mark.parametrize("score_dtype", ["float32", "bfloat16"])

@@ -149,6 +149,36 @@ SLICE = textwrap.dedent("""
     assert torch.equal(bank2.means, tr.bank.means)
     assert np.isfinite(lls1).all() and tr1.mix_level == 4, lls1
     assert "smem_accepted" in tr1.history[0], tr1.history
+
+    # context-dependent units over a formant-synthesised corpus: triples,
+    # seeded statistics, trees, the cloned bank, the CD lexicon
+    from poccala_tpu_torch.io import synth_formant
+    from poccala_tpu_torch.models import context
+    from poccala_tpu_torch.models.senone_bank import create_bank as mk_bank
+    py = PinYin()
+    cwords = ["你好", "马", "我"]
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, transcripts = synth_formant.generate_formant_corpus(
+            tmp, cwords, py, num_utts=2, words_per_utt=(1, 2), n_speakers=1)
+    assert len(transcripts) == 2
+    xinv = UnitInventory(UnitInventory.standard("XIF_tone").units + ["sil"])
+    combos = {w: context.reading_combos(py, w, xinv.id_of) for w in cwords}
+    seqs = [[u for s in c for u in s] for cs in combos.values() for c in cs]
+    cd = context.CDInventory.from_words(
+        seqs, xinv, context_free=[xinv.id_of["sil"]])
+    crng = np.random.default_rng(0)
+    cmean = crng.normal(size=(len(cd), 3, 4))
+    trees = context.grow_context_trees(
+        cd, np.full((len(cd), 3), 50.0), cmean, cmean**2 + 1.0,
+        target_senones=3 * len(cd), min_occ=4.0)
+    ccfg = Config()
+    ccfg.model.mix_level = ccfg.model.max_mix_level = 1
+    ci_bank = mk_bank(len(xinv), ccfg.model, 4, device="cpu")
+    cd_bank = context.build_cd_bank(ci_bank, cd, trees)
+    centries = [(w, c) for w, cs in combos.items() for c in cs]
+    cflat = context.build_cd_lexicon(centries, cd)
+    assert cd_bank.num_units == len(cd) and cflat.n_nodes > len(cwords)
+    assert cd_bank.num_states == trees.n_senones > 0
     assert "jax" not in sys.modules, "the port imported jax"
     loaded = [m for m in sys.modules if m.split(".")[0] == "poccala_tpu"]
     assert not loaded, f"the port imported the JAX package: {loaded}"

@@ -235,8 +235,11 @@ def test_merge_and_tree_tying_match_jax():
     assert [[s.question for s in v] for v in gtrees.values()] == \
         [[s.question for s in v] for v in wtrees.values()]
     assert_banks_close(got, want, rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        ttying.tie_by_tree(bank, units, 18)
+    # the default question set is the port's own copy of the JAX package's
+    dflt = ttying.tie_by_tree(bank, units, 18, occupancy=occ)
+    assert np.array_equal(dflt.senone_map.numpy(),
+                          np.asarray(want.senone_map))
+    assert_banks_close(dflt, want, rtol=1e-6, atol=1e-6)
 
 
 def test_reference_layout_roundtrips_with_jax(corpus, tmp_path):
