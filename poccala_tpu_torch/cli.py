@@ -31,11 +31,20 @@ the frontend and the trainer (:func:`poccala_tpu_torch.utils.device.resolve`).
 ``--device cuda`` without a CUDA device raises; nothing falls back to the
 CPU.
 
-Deviations while the port is partial (``ROADMAP.md`` Queue 1): ``decode``
+``--distributed`` (``train``, ``decode``, ``serve``) runs over the
+``(data, state)`` mesh of ``--set mesh.data_axis=… mesh.state_axis=…``:
+one process per rank, joined by ``--coordinator HOST:PORT --num-processes
+N --process-id I`` or by ``torchrun``'s environment, else a one-rank group
+in the process (:mod:`poccala_tpu_torch.parallel.mesh`).  Every rank runs
+the command on the same inputs; only rank 0 prints and writes the
+checkpoint, the others wait at a barrier.  In ``serve`` rank 0 owns the
+request loop and the other ranks follow it
+(:func:`poccala_tpu_torch.parallel.decode.follow`).
+
+Deviation while the port is partial (``ROADMAP.md`` Queue 1): ``decode``
 defaults to ``--decoder device``, where the JAX CLI defaults to the host
 ``vector`` tier, because the host tiers are not ported and ``--decoder
-vector|simple`` raise; ``--distributed`` raises ``NotImplementedError``
-too.
+vector|simple`` raise.
 """
 
 from __future__ import annotations
@@ -82,8 +91,54 @@ def _not_ported(what: str, item: str):
 
 
 def _check_unported(args) -> None:
-    if getattr(args, "distributed", False):
-        _not_ported("--distributed (the device mesh)", "6")
+    if getattr(args, "decoder", "device") != "device":
+        if getattr(args, "distributed", False):
+            raise SystemExit("--distributed requires --decoder device")
+        _not_ported(f"--decoder {args.decoder} (the host decoder tiers)",
+                    "7")
+
+
+def _maybe_mesh(cfg, args, dev):
+    """The (data, state) mesh when ``--distributed`` asks for it, from
+    ``--set mesh.data_axis/state_axis`` (the reference's operator story:
+    run the tool, get multi-machine training, ``Controller.py:108-151``).
+    ``--coordinator/--num-processes/--process-id`` join a multi-process
+    group first (``ENV_ID`` machine identity, config.ini:26), as does
+    ``torchrun``'s environment."""
+    if not getattr(args, "distributed", False):
+        return None
+    import torch.distributed as dist
+
+    from poccala_tpu_torch.parallel import mesh as pmesh
+
+    if getattr(args, "coordinator", None) or (
+            "WORLD_SIZE" in os.environ and not dist.is_initialized()):
+        pmesh.init_multihost(coordinator=args.coordinator,
+                             num_processes=args.num_processes,
+                             process_id=args.process_id, device=dev)
+        _say(f"joined process group: process {dist.get_rank()}/"
+             f"{dist.get_world_size()}")
+    mesh = pmesh.make_mesh(data_axis=cfg.mesh.data_axis,
+                           state_axis=cfg.mesh.state_axis, device=dev)
+    _say(f"mesh: {pmesh.mesh_shape(mesh)}")
+    return mesh
+
+
+def _lead() -> bool:
+    """True on rank 0, and without a process group."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _say(msg: str) -> None:
+    if _lead():
+        print(msg, file=sys.stderr)
+
+
+def _barrier(mesh) -> None:
+    if mesh is not None:
+        torch.distributed.barrier()
 
 
 def _load_decode_graph(args, inv, bank):
@@ -178,36 +233,40 @@ def cmd_train(args):
     from poccala_tpu_torch.train import checkpoint as ckpt
     from poccala_tpu_torch.train.trainer import Trainer
 
-    _check_unported(args)
     dev = _device(args)
     cfg = _load_config(args)
     inv = _load_inventory(cfg, args)
+    mesh = _maybe_mesh(cfg, args, dev)
     corpus = Corpus(cfg, inv, device=dev)
-    print(f"corpus: {len(corpus.pairs)} utterances, {len(inv)} units",
-          file=sys.stderr)
+    _say(f"corpus: {len(corpus.pairs)} utterances, {len(inv)} units")
     batches = list(corpus.batches())
-    tr = Trainer(cfg, inv, device=dev)
+    tr = Trainer(cfg, inv, device=dev, mesh=mesh)
 
     start_round = 0
     if args.resume and args.checkpoint and os.path.isdir(args.checkpoint):
-        tr.bank, manifest = ckpt.load_checkpoint(args.checkpoint, device=dev)
+        bank, manifest = ckpt.load_checkpoint(args.checkpoint, device=dev)
+        tr.use_bank(bank)
         tr.mix_level = manifest.get("mix_level", tr.mix_level)
         start_round = manifest.get("round", 0)
-        print(f"resumed at round {start_round}", file=sys.stderr)
+        _say(f"resumed at round {start_round}")
 
     init = args.init and start_round == 0
     for r in range(start_round, args.epochs):
         lls = tr.auto(batches, t=1, mode=args.mode, init=init,
                       add_mix=args.add_mix)
         init = False
-        print(f"round {r}: loglik={lls[0]:.2f}", file=sys.stderr)
+        _say(f"round {r}: loglik={lls[0]:.2f}")
         if args.checkpoint:
-            ckpt.save_checkpoint(
-                args.checkpoint, tr.export_bank(),
-                {"round": r + 1, "mode": args.mode, "mix_level": tr.mix_level},
-                units=inv.units,
-            )
-    if args.history:
+            bank = tr.export_bank()   # every rank: gathers the state shards
+            if _lead():
+                ckpt.save_checkpoint(
+                    args.checkpoint, bank,
+                    {"round": r + 1, "mode": args.mode,
+                     "mix_level": tr.mix_level},
+                    units=inv.units,
+                )
+            _barrier(mesh)
+    if args.history and _lead():
         with open(args.history, "w") as f:
             json.dump(tr.history, f, indent=2)
 
@@ -236,23 +295,26 @@ def cmd_align(args):
 
 
 def cmd_decode(args):
-    if args.decoder != "device":
-        _not_ported(f"--decoder {args.decoder} (the host decoder tiers)", "7")
     _check_unported(args)
     dev = _device(args)
     cfg = _load_config(args)
     inv = _load_inventory(cfg, args)
     dec = _device_decoder(args, cfg, inv, dev)
+    mesh = _maybe_mesh(cfg, args, dev)
     features = _features_fn(cfg, dev)
     packs = [features(path) for path in args.wavs]
-    # one batched decode
+    # one batched decode (sharded over the mesh's data axis when
+    # --distributed: every rank decodes its rows, all return every row)
     t_max = max(len(p) for p in packs)
     feats_b = np.zeros((len(packs), t_max, packs[0].shape[1]), np.float32)
     nf = np.zeros(len(packs), np.int32)
     for i, p in enumerate(packs):
         feats_b[i, : len(p)] = p
         nf[i] = len(p)
-    outs = dec.decode_batch(feats_b, nf, return_nbest=5)
+    outs = dec.decode_batch(feats_b, nf, return_nbest=5, mesh=mesh)
+    if not _lead():
+        _barrier(mesh)
+        return
     if args.rescore_lm:
         # two-pass higher-order LM: bigram decode, n-best rescore
         from poccala_tpu_torch.lm.ngram import Ngram
@@ -264,6 +326,7 @@ def cmd_decode(args):
                              dec.word_penalty)
     for path, hyps in zip(args.wavs, outs):
         _print_nbest(path, hyps)
+    _barrier(mesh)
 
 
 def cmd_cd_expand(args):
@@ -272,9 +335,7 @@ def cmd_cd_expand(args):
     alignment-driven context statistics, grow the phonetic-context
     decision trees, clone the CD bank from the CI senones, retrain, and
     write the CD checkpoint + routing sidecar.  Decode with
-    ``decode --cd <sidecar>``.  The checkpoint's manifest also keeps the
-    retrain's logliks (``retrain_logliks``), which the JAX CLI does not
-    record: a run on the card is held to a run on the CPU by them."""
+    ``decode --cd <sidecar>``."""
     import dataclasses
 
     from poccala_tpu_torch.io.corpus import Corpus, UnitInventory, read_label
@@ -370,11 +431,9 @@ def cmd_cd_expand(args):
     tr.mix_level = manifest.get("mix_level", tr.mix_level)
     # reinit=False: EM refit FROM the clones — preserves component
     # correspondence with the CI parents (map_smooth_bank premise)
-    lls = [tr.scheme1_round(cd_batches, init=False, smem=False,
-                            reinit=False)]
+    tr.scheme1_round(cd_batches, init=False, smem=False, reinit=False)
     if args.retrain_epochs > 1:
-        lls += tr.auto(cd_batches, t=args.retrain_epochs - 1, mode=2,
-                       init=False)
+        tr.auto(cd_batches, t=args.retrain_epochs - 1, mode=2, init=False)
     if args.map_tau > 0:
         tr.bank = ctx.map_smooth_bank(
             tr.export_bank(), bank, cd, trees, acc.occ,
@@ -384,8 +443,7 @@ def cmd_cd_expand(args):
     ckpt.save_checkpoint(
         args.out_checkpoint, tr.export_bank(),
         {"mix_level": tr.mix_level, "cd": True,
-         "cd_sidecar": os.path.abspath(args.out_cd),
-         "retrain_logliks": [float(x) for x in lls]},
+         "cd_sidecar": os.path.abspath(args.out_cd)},
         units=ctx.cd_unit_names(cd))
     ctx.save_cd(args.out_cd, cd, trees)
     print(f"cd system -> {args.out_checkpoint} + {args.out_cd}",
@@ -397,7 +455,6 @@ def cmd_listen(args):
     WAV via ``--wav``), run frontend + utterance-global VAD like the
     reference's serving loop (``Decoder.py:190-218``), then stream-decode
     the features chunk by chunk, printing a partial 1-best per chunk."""
-    _check_unported(args)
     dev = _device(args)
     cfg = _load_config(args)
     inv = _load_inventory(cfg, args)
@@ -435,14 +492,33 @@ def cmd_serve(args):
     """Batch serving: read WAV paths (one per line) from stdin or
     ``--list``, decode them through the double-buffered
     :class:`~poccala_tpu_torch.serve.DecodeService`, and print one JSON line
-    per WAV in input order."""
-    from poccala_tpu_torch.serve import DecodeService
-
-    _check_unported(args)
+    per WAV in input order.  With ``--distributed`` rank 0 serves through
+    a :class:`~poccala_tpu_torch.parallel.decode.DecodeLeader` and the
+    other ranks follow it."""
     dev = _device(args)
     cfg = _load_config(args)
     inv = _load_inventory(cfg, args)
     dec = _device_decoder(args, cfg, inv, dev)
+    mesh = _maybe_mesh(cfg, args, dev)
+    if mesh is not None:
+        from poccala_tpu_torch.parallel import decode as pdecode
+
+        if not _lead():
+            # rank 0 owns the request loop; run each batch it announces
+            pdecode.follow(dec, mesh)
+            return
+        dec = pdecode.DecodeLeader(dec, mesh)
+        try:
+            _serve(args, cfg, dev, dec, mesh)
+        finally:
+            dec.stop()
+        return
+    _serve(args, cfg, dev, dec, None)
+
+
+def _serve(args, cfg, dev, dec, mesh):
+    from poccala_tpu_torch.serve import DecodeService
+
     features = _features_fn(cfg, dev)
 
     if args.list:
@@ -454,7 +530,7 @@ def cmd_serve(args):
     with DecodeService(dec, batch_size=args.batch_size,
                        frame_bucket=args.frame_bucket,
                        max_wait_s=args.max_wait_ms / 1e3,
-                       return_nbest=args.nbest) as svc:
+                       return_nbest=args.nbest, mesh=mesh) as svc:
         # featurize one micro-batch of WAVs at a time, then submit them
         # back to back so batches fill, while the frontend of chunk k+1
         # still overlaps the device decode of chunk k
@@ -700,7 +776,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    started = torch.distributed.is_initialized()
+    try:
+        args.fn(args)
+    finally:
+        # a process group this command started ends with it
+        if getattr(args, "distributed", False) and not started \
+                and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

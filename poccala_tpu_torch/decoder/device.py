@@ -50,9 +50,16 @@ stable descending sort in place of ``lax.top_k`` (lower index first among
 equal values; ``torch.topk`` leaves that order unspecified).  The block
 selection depends on it: many blocks tie at ``NEG_INF``.
 
-Not ported: sharded decode (``mesh=``, ROADMAP.md Queue 1 item 6) and
-``prune_hysteresis`` (a measured negative, ``benchmarks/
-pruned_trained.json``); both raise.
+**Sharded decode** (``mesh=``, a ``(data, state)`` mesh of
+:mod:`poccala_tpu_torch.parallel.mesh`): every rank passes the same batch,
+padded to a multiple of the ``data`` axis; each rank runs the frame loop,
+and the GMM kernel, on its own contiguous block of utterances, and
+:meth:`~DeviceBeamDecoder.decode_collect` assembles the global ``seqs`` and
+``scores`` over the ``data`` group, so every rank returns the full
+hypothesis list, equal to the unsharded decode.
+
+Not ported: ``prune_hysteresis`` (a measured negative, ``benchmarks/
+pruned_trained.json``); it raises.
 """
 
 from __future__ import annotations
@@ -269,30 +276,51 @@ class DeviceBeamDecoder(VectorBeamDecoder):
                         mesh=None):
         """Enqueue one decode batch and return an opaque handle for
         :meth:`decode_collect`.  ``feats`` may be an array or a tensor on
-        any device; it is moved to the bank's device."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded decode (mesh=) is not ported yet")
-        tabs = self._prep_device()
+        any device; it is moved to the bank's device.  With ``mesh`` only
+        this rank's rows of the batch are decoded here."""
+        self._prep_device()
         b_orig = int(np.shape(feats)[0])
         if len(self._roots) == 0:
-            return (None, None, b_orig, return_nbest)
+            return (None, None, b_orig, return_nbest, None)
+        if mesh is not None:
+            from poccala_tpu_torch.parallel import mesh as pmesh
+
+            if isinstance(n_frames, torch.Tensor):
+                n_frames = n_frames.cpu().numpy()
+            (feats, n_frames), _ = pmesh.pad_batch_for_mesh(
+                (feats, np.asarray(n_frames)), mesh)
+            rows = pmesh.data_rows(mesh, feats.shape[0])
+            feats, n_frames = feats[rows], n_frames[rows]
+        seqs, scores = self._run(feats, n_frames, self._n_cand(return_nbest))
+        return (seqs, scores, b_orig, return_nbest, mesh)
+
+    def _run(self, feats, n_frames, n_cand: int):
+        """Scoring, the frame loop and the device n-best of ``[B, T, D]``:
+        ``(seqs [B, C, L] int32, scores [B, C] f32)`` on the device."""
+        tabs = self._prep_device()
         feats = torch.as_tensor(feats, dtype=torch.float32,
                                 device=self.device)
         t_pad = feats.shape[1]
         check_context_fits(t_pad, self._n_vocab)
         carry, tb_prev, tb_word = self._scan(
-            tabs, self._seed(tabs, b_orig), self._scores(feats), 0, n_frames)
-        seqs, scores = self._finalize(tabs, carry, tb_prev, tb_word,
-                                      self._n_cand(return_nbest))
-        return (seqs, scores, b_orig, return_nbest)
+            tabs, self._seed(tabs, feats.shape[0]), self._scores(feats), 0,
+            n_frames)
+        return self._finalize(tabs, carry, tb_prev, tb_word, n_cand)
 
     def decode_collect(self, handle):
         """Wait for a :meth:`decode_dispatch` handle (the host copy
-        synchronises) and map ids to vocab words."""
-        seqs, scores, b_orig, return_nbest = handle
+        synchronises) and map ids to vocab words.  A sharded handle first
+        sums each rank's rows, in zero buffers, over the ``data`` group."""
+        seqs, scores, b_orig, return_nbest, mesh = handle
         if seqs is None:
             return [[] for _ in range(b_orig)]
+        if mesh is not None:
+            from poccala_tpu_torch.parallel.mesh import gather_rows, \
+                mesh_shape
+
+            b_pad = seqs.shape[0] * mesh_shape(mesh)["data"]
+            seqs = gather_rows(seqs, mesh, b_pad)
+            scores = gather_rows(scores, mesh, b_pad)
         return self._to_hypotheses(seqs.cpu().numpy(), scores.cpu().numpy(),
                                    b_orig, return_nbest)
 

@@ -19,8 +19,15 @@ to float32 rounding, not bit for bit.  The einsum moments are true
 float32 matmuls: TF32 must stay off (the M-step's ``x²p − 2xμp``
 recentring cancels as scoring does).
 
-The state-sharded E-step (``state_axis_name``) belongs to the
-unported ``parallel/`` tier and raises.
+With ``state_axis_name`` (the state axis's process group, the
+counterpart of JAX's axis name) the bank's GMM tensors are one state
+shard, rows ``[s_offset, s_offset + S_local)``: each rank scores only the
+sentence states whose senone it owns, the ``[B, T, N_s]`` state scores
+are exchanged by ``all_reduce(MAX)`` before ``log_b`` (exactly one shard
+owns each senone, the others hold NEG_INF), the forward and backward
+kernels run unchanged on every rank, and the GMM statistics come back
+local (``[S_local]``) — ``poccala_tpu/train/accumulators.py:159-172,
+241-247`` (:mod:`poccala_tpu_torch.parallel.mesh`).
 """
 
 from __future__ import annotations
@@ -92,22 +99,49 @@ def stats_from_numpy(arrays: dict, device=None) -> BwStats:
 # E step
 # ----------------------------------------------------------------------
 
+def local_senones(bank: SenoneBank, ehmm: EmbeddedHMM,
+                  state_axis_name=None, s_offset: int = 0):
+    """Each sentence state's row in the bank's GMM tensors (clipped) and
+    whether this bank holds it: every emitting state unsharded, the
+    senones of rows ``[s_offset, s_offset + S_local)`` on a state shard.
+
+    :returns: (rows ``[B, N_s]`` int64, owned ``[B, N_s]`` bool)"""
+    s_local = bank.num_states
+    if state_axis_name is None:
+        return (torch.clamp(ehmm.senone_idx, 0, s_local - 1).long(),
+                ehmm.senone_idx >= 0)
+    lsen = ehmm.senone_idx.long() - s_offset
+    owned = (lsen >= 0) & (lsen < s_local) & (ehmm.senone_idx >= 0)
+    return torch.clamp(lsen, 0, s_local - 1), owned
+
+
 def sentence_scores(bank: SenoneBank, ehmm: EmbeddedHMM, xs: torch.Tensor,
                     normalizer: str = "textbook",
-                    score_dtype: str = "float32"):
+                    score_dtype: str = "float32", state_axis_name=None,
+                    s_offset: int = 0):
     """GMM scores of each utterance's own sentence states only (the
     gather keeps the lattice ``[B, T, N_s, M]`` instead of
     ``[B, T, S, M]``; ``accumulators.py:152-158``, ``alignment.py:62-67``).
+    With ``state_axis_name`` (a state shard's bank, see the module
+    docstring) the state scores are the max over that group.
 
     :returns: (weighted component log-probs ``[B, T, N_s, M]``, state
         scores ``[B, T, N_s]``, sentence ``log_b [B, T, N_s]``)
     """
-    sen = torch.clamp(ehmm.senone_idx, 0, bank.num_states - 1).long()
+    sen, owned = local_senones(bank, ehmm, state_axis_name, s_offset)
     comp = gmm_component_logpdf(xs, bank.means[sen], bank.log_var[sen],
                                 normalizer=normalizer,
                                 score_dtype=score_dtype)
     comp = comp + bank.log_w[sen][:, None]                 # [B, T, N_s, M]
-    scores = torch.logsumexp(comp, dim=-1)                 # [B, T, N_s]
+    if state_axis_name is not None:
+        from poccala_tpu_torch.parallel.mesh import all_reduce
+
+        comp = torch.where(owned[:, None, :, None], comp, NEG_INF)
+        # exchange the [B, T, N_s] lattice, not the bank
+        scores = all_reduce(torch.logsumexp(comp, dim=-1),
+                            torch.distributed.ReduceOp.MAX, state_axis_name)
+    else:
+        scores = torch.logsumexp(comp, dim=-1)             # [B, T, N_s]
     n_s = sen.shape[1]
     r = torch.arange(n_s, device=xs.device)[None, :]
     is_entry = r == 0
@@ -127,7 +161,8 @@ def _posterior(log_p: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
 
 def _weighted_stats(bank, ehmm, labels, xs, t_masks, weight, state_num,
                     max_label_len, normalizer, count_final_exit,
-                    bw_inner_iters, bw_converge_delta, score_dtype, mark):
+                    bw_inner_iters, bw_converge_delta, score_dtype, mark,
+                    state_axis_name=None, s_offset=0):
     """The batch's statistics with utterance ``b`` weighted by
     ``weight[b]``, and the per-utterance log-likelihoods ``[B]``."""
     emit = state_num - 2
@@ -139,7 +174,8 @@ def _weighted_stats(bank, ehmm, labels, xs, t_masks, weight, state_num,
     r = torch.arange(n_s, device=dev)[None, :]
 
     comp, scores, log_b = sentence_scores(bank, ehmm, xs, normalizer,
-                                          score_dtype)
+                                          score_dtype, state_axis_name,
+                                          s_offset)
     mark("scoring")
 
     def fb(log_pi):
@@ -196,9 +232,10 @@ def _weighted_stats(bank, ehmm, labels, xs, t_masks, weight, state_num,
     cxx_r = torch.einsum("btrm,btd->brmd", gamma_rm, xs * xs)
     occ_r = torch.where(emitting, gamma.sum(dim=1), 0.0)          # [B,N_s]
 
-    # dummy bucket s_total for virtual states
-    sen = torch.clamp(ehmm.senone_idx, 0, s_total - 1).long()
-    seg = torch.where(emitting, sen, s_total).reshape(-1)
+    # dummy bucket s_total for virtual states and (state-sharded) the
+    # senones of other shards: local statistics stay [S_local]
+    sen, owned = local_senones(bank, ehmm, state_axis_name, s_offset)
+    seg = torch.where(emitting & owned, sen, s_total).reshape(-1)
     m, d = bank.max_mix, bank.dim
 
     def scatter(rows, width):
@@ -282,7 +319,7 @@ def batch_stats(
     normalizer: str = "textbook",
     count_final_exit: bool = True,
     bw_inner_iters: int = 1,
-    state_axis_name: str | None = None,
+    state_axis_name=None,
     s_offset: int = 0,
     score_dtype: str = "float32",
     mark: Callable[[str], None] | None = None,
@@ -299,11 +336,10 @@ def batch_stats(
     See ``poccala_tpu/train/accumulators.py:utterance_stats`` for
     ``count_final_exit`` and ``bw_inner_iters`` (whose convergence delta
     is the reference's 0.64 here, as in the JAX ``batch_stats``).
+    :param state_axis_name: the state axis's process group when ``bank``
+        is one state shard starting at senone ``s_offset`` (module
+        docstring); the GMM statistics are then this shard's rows
     """
-    if state_axis_name is not None:
-        raise NotImplementedError(
-            "the state-sharded E-step (state_axis_name) belongs to "
-            "parallel/, which is not ported yet (ROADMAP.md Queue 1)")
     dev = bank.means.device
     labels = torch.as_tensor(labels, device=dev)
     label_lens = torch.as_tensor(label_lens, device=dev)
@@ -315,21 +351,18 @@ def batch_stats(
     return _weighted_stats(bank, ehmm, labels, xs, t_masks, weight,
                            state_num, max_label_len, normalizer,
                            count_final_exit, bw_inner_iters, 0.64,
-                           score_dtype, mark or _no_mark)
+                           score_dtype, mark or _no_mark, state_axis_name,
+                           s_offset)
 
 
 def utterance_stats(bank, label, label_len, x, t_mask, state_num: int,
                     max_label_len: int, normalizer: str = "textbook",
                     count_final_exit: bool = True, bw_inner_iters: int = 1,
                     bw_converge_delta: float = 0.64,
-                    state_axis_name: str | None = None, s_offset: int = 0,
+                    state_axis_name=None, s_offset: int = 0,
                     score_dtype: str = "float32"):
     """One utterance's statistics and log P(O|λ) (the batch of one of
     :func:`batch_stats`, not weighted by ``label_len > 0``)."""
-    if state_axis_name is not None:
-        raise NotImplementedError(
-            "the state-sharded E-step (state_axis_name) belongs to "
-            "parallel/, which is not ported yet (ROADMAP.md Queue 1)")
     dev = bank.means.device
     labels = torch.as_tensor(label, device=dev)[None]
     lens = torch.as_tensor(label_len, device=dev).reshape(1)
@@ -339,7 +372,7 @@ def utterance_stats(bank, label, label_len, x, t_mask, state_num: int,
     stats, ll = _weighted_stats(
         bank, ehmm, labels, xs, masks, torch.ones(1, device=dev), state_num,
         max_label_len, normalizer, count_final_exit, bw_inner_iters,
-        bw_converge_delta, score_dtype, _no_mark)
+        bw_converge_delta, score_dtype, _no_mark, state_axis_name, s_offset)
     return stats, ll[0]
 
 

@@ -4,7 +4,10 @@
 :func:`align_batch` builds each utterance's sentence HMM, scores its own
 senones and runs the banded Viterbi through
 :func:`poccala_tpu_torch.ops.hmm.viterbi_log_banded_batch` (the CUDA
-kernel on the GPU, backtrace included).  The host helpers
+kernel on the GPU, backtrace included).  With ``state_axis_name`` (the
+state axis's process group) the bank is one state shard: the sentence
+lattice is assembled by ``all_reduce(MAX)`` before the Viterbi kernel, as
+the state-sharded E-step does (JAX ``alignment.py:61-80``).  The host helpers
 (:func:`uniform_label_pos`, :func:`check_alignment`,
 :func:`group_frames_by_senone`) are NumPy code copied verbatim — the JAX
 module imports jax — and ``tests/test_torch_train.py`` pins the copies.
@@ -24,16 +27,12 @@ from poccala_tpu_torch.train.accumulators import sentence_scores
 def align_batch(bank: SenoneBank, labels, label_lens, xs, t_masks,
                 state_num: int, max_label_len: int,
                 normalizer: str = "textbook", score_dtype: str = "float32",
-                state_axis_name: str | None = None, s_offset: int = 0):
+                state_axis_name=None, s_offset: int = 0):
     """Viterbi-align a batch against its sentence HMMs.
 
     :returns: (scores ``[B]``, label_pos ``[B, T]`` int32 — per-frame
         index into the label sequence, -1 on virtual states and padding)
     """
-    if state_axis_name is not None:
-        raise NotImplementedError(
-            "state-sharded alignment (state_axis_name) belongs to "
-            "parallel/, which is not ported yet (ROADMAP.md Queue 1)")
     dev = bank.means.device
     labels = torch.as_tensor(labels, device=dev)
     label_lens = torch.as_tensor(label_lens, device=dev)
@@ -41,7 +40,8 @@ def align_batch(bank: SenoneBank, labels, label_lens, xs, t_masks,
     t_masks = torch.as_tensor(t_masks, device=dev).to(torch.bool)
     ehmm = build_embedded_batch(bank, labels, label_lens, state_num,
                                 max_label_len)
-    _, _, log_b = sentence_scores(bank, ehmm, xs, normalizer, score_dtype)
+    _, _, log_b = sentence_scores(bank, ehmm, xs, normalizer, score_dtype,
+                                  state_axis_name, s_offset)
     score, path, _ = hmm_ops.viterbi_log_banded_batch(
         ehmm.band, ehmm.log_pi, log_b, t_masks, state_num)
     emit = state_num - 2
@@ -55,7 +55,7 @@ def align_batch(bank: SenoneBank, labels, label_lens, xs, t_masks,
 def align_utterance(bank, label, label_len, x, t_mask, state_num: int,
                     max_label_len: int, normalizer: str = "textbook",
                     score_dtype: str = "float32",
-                    state_axis_name: str | None = None, s_offset: int = 0):
+                    state_axis_name=None, s_offset: int = 0):
     """One utterance: (score, label_pos ``[T]``)."""
     dev = bank.means.device
     score, lp = align_batch(

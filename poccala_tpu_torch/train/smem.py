@@ -249,23 +249,29 @@ def smem_step(params: em_ops.GmmParams, x, mask, generator: torch.Generator,
     return params, False
 
 
-def smem_pass(trainer, frames, mask, enough: np.ndarray) -> tuple:
-    """One SMEM proposal per eligible senone, dispatched on
+def smem_pass(trainer, frames, mask, enough: np.ndarray,
+              generator: torch.Generator | None = None) -> tuple:
+    """One SMEM proposal per eligible senone of ``trainer.bank`` (a state
+    shard's rows on a sharded trainer), dispatched on
     ``cfg.train.smem_impl``: ``'batched'`` (default) or ``'serial'`` (the
     oracle).  ``frames [S, F, D]`` and ``mask [S, F]`` may be host arrays
-    or tensors.
+    or tensors.  The random draws come from ``generator`` (default
+    ``trainer.generator``).
 
     :returns: (bank, number of accepted moves)
     """
     impl = getattr(trainer.cfg.train, "smem_impl", "batched")
     if impl == "serial":
-        return smem_pass_serial(trainer, frames, mask, enough)
-    return smem_pass_batched(trainer, frames, mask, enough)
+        return smem_pass_serial(trainer, frames, mask, enough, generator)
+    return smem_pass_batched(trainer, frames, mask, enough, generator)
 
 
-def smem_pass_serial(trainer, frames, mask, enough: np.ndarray) -> tuple:
+def smem_pass_serial(trainer, frames, mask, enough: np.ndarray,
+                     generator: torch.Generator | None = None) -> tuple:
     """Run one SMEM proposal per eligible senone (host-driven loop around
     device work; runs on init rounds only, ``AcousticModel.py:835``)."""
+    if generator is None:
+        generator = trainer.generator
     bank = trainer.bank
     mix = trainer.mix_level
     frames, mask = _host(frames), _host(mask)
@@ -278,7 +284,7 @@ def smem_pass_serial(trainer, frames, mask, enough: np.ndarray) -> tuple:
             continue
         params = em_ops.GmmParams(means[s], log_var[s], log_w[s])
         new_params, accepted = smem_step(
-            params, frames[s], mask[s], trainer.generator, mix,
+            params, frames[s], mask[s], generator, mix,
             c_max=trainer.cfg.train.smem_c_max,
             c_covariance=_c_covariance(trainer),
             normalizer=trainer.cfg.model.gaussian_normalizer,
@@ -480,9 +486,12 @@ def _smem_propose(means, log_var, log_w, x, mask, ijk, seed_u, jitter,
     return polished.means, polished.log_var, polished.log_w, q_new
 
 
-def smem_pass_batched(trainer, frames, mask, enough: np.ndarray) -> tuple:
+def smem_pass_batched(trainer, frames, mask, enough: np.ndarray,
+                      generator: torch.Generator | None = None) -> tuple:
     """Batched SMEM pass: the whole senone bank in two device programs
     plus host candidate selection and accept/reject."""
+    if generator is None:
+        generator = trainer.generator
     bank = trainer.bank
     mix = trainer.mix_level
     if mix < 3:
@@ -508,8 +517,8 @@ def smem_pass_batched(trainer, frames, mask, enough: np.ndarray) -> tuple:
         return bank, 0
 
     s, _, d = bank.means.shape
-    seed_u = torch.rand((s, 2), generator=trainer.generator).to(dev)
-    jitter = torch.rand((s, 2, d), generator=trainer.generator).to(dev)
+    seed_u = torch.rand((s, 2), generator=generator).to(dev)
+    jitter = torch.rand((s, 2, d), generator=generator).to(dev)
     ijk = torch.as_tensor(np.where(chosen >= 0, chosen, 0), device=dev)
     new_means, new_lv, new_lw, q_new = _smem_propose(
         bank.means, bank.log_var, bank.log_w, x, m, ijk, seed_u, jitter,

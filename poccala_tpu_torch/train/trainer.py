@@ -22,8 +22,11 @@ CUDA kernels when the bank is on the GPU, k-means / EM / SMEM as batched
 tensor programs over the senone axis.  Frame grouping and SMEM candidate
 selection run on the host, as in the JAX package.
 
-Not ported yet (ROADMAP.md Queue 1): the data-parallel / state-sharded
-mesh (``mesh=`` raises).
+With ``mesh=`` (a ``(data, state)`` mesh of
+:mod:`poccala_tpu_torch.parallel.mesh`) every rank runs the same trainer
+on the same batches: the E-step is data-parallel with summed statistics,
+and with ``state > 1`` the bank is padded and sharded over senones, so
+each rank aligns, scores, fits and updates only its own GMM rows.
 """
 
 from __future__ import annotations
@@ -48,8 +51,54 @@ from poccala_tpu_torch.utils.logging import get_logger
 from poccala_tpu_torch.utils.logmath import masked_log
 
 
+def fit_grouped(generator: torch.Generator, frames: torch.Tensor,
+                mask: torch.Tensor, means, log_var, log_w, mix_counts,
+                mix: int, reinit: bool, c_covariance=1e-6,
+                converge_delta: float = 1.28, max_iters: int = 32,
+                normalizer: str = "textbook", mark=None):
+    """k-means (re)init + grouped EM of the senones of ``frames [S, F, D]``
+    / ``mask [S, F]`` against GMMs ``means``, ``log_var``, ``log_w``,
+    ``mix_counts`` (the same S rows; ``__cal_gmm``,
+    ``AcousticModel.py:532-561``).  Senones with fewer frames than the
+    mixture count keep their old parameters (``AcousticModel.py:549-551``).
+    The k-means seeding draws from ``generator``.
+
+    :returns: (means, log_var, log_w, mix_counts, EM iterations ``[S]``,
+        enough ``[S]`` bool)"""
+    mark = mark or (lambda _: None)
+    max_mix = means.shape[1]
+    enough = mask.sum(dim=1) >= max(mix, 2)                  # [S]
+    sel3 = enough[:, None, None]
+    old = (means, log_var, log_w)
+    if reinit:
+        kres = km_ops.kmeans_grouped(generator, frames, mask, k=mix)
+
+        def pad_mix(a):  # zero-pad the mixture axis (dim 1) to max_mix
+            return torch.nn.functional.pad(
+                a, (0, 0) * (a.dim() - 2) + (0, max_mix - mix))
+
+        means = torch.where(sel3, pad_mix(kres["means"]), means)
+        log_var = torch.where(
+            sel3, pad_mix(torch.log(kres["variances"])), log_var)
+        log_w = torch.where(enough[:, None],
+                            masked_log(pad_mix(kres["alpha"])), log_w)
+    mark("kmeans")
+
+    mix_mask = (torch.arange(max_mix, device=means.device) < mix) \
+        .expand(means.shape[0], -1)
+    params, _, iters = em_ops.em_fit_grouped(
+        means, log_var, log_w, frames, mask, mix_mask,
+        c_covariance=c_covariance, converge_delta=converge_delta,
+        max_iters=max_iters, normalizer=normalizer)
+    return (torch.where(sel3, params.means, old[0]),
+            torch.where(sel3, params.log_var, old[1]),
+            torch.where(enough[:, None], params.log_w, old[2]),
+            torch.where(enough, mix, mix_counts).to(torch.int32),
+            iters, enough)
+
+
 class Trainer:
-    """Single-process trainer over a senone bank on ``device``.
+    """Trainer over a senone bank on ``device``, one per rank of ``mesh``.
 
     Randomness (the initial bank's means, the flat start's mixture
     offsets, k-means seeding, bucket shuffles, SMEM's splits) comes from
@@ -60,18 +109,24 @@ class Trainer:
     ``mark``, when given, is called with a phase name as each scheme-1
     phase has been enqueued — ``"alignment"``, ``"grouping"``,
     ``"kmeans"``, ``"em"``, ``"smem"``, ``"transmat"`` — for timing.
+
+    ``mesh``: a ``(data, state)`` mesh (:func:`poccala_tpu_torch.parallel.
+    mesh.make_mesh`); ``device`` then defaults to the mesh's.  Every rank
+    constructs the trainer with the same seed and passes it the same
+    batches.  With ``state > 1`` ``self.bank`` is this rank's padded
+    state shard and :meth:`export_bank` assembles the whole bank.
     """
 
     def __init__(self, cfg: Config, inventory: UnitInventory,
                  generator: torch.Generator | None = None,
                  logger: logging.Logger | None = None, mesh=None,
                  device=None, mark: Callable[[str], None] | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (sharded training) is not ported yet (ROADMAP.md "
-                "Queue 1: parallel/ comes later)")
         self.cfg = cfg
         self.inventory = inventory
+        if mesh is not None and device is None:
+            from poccala_tpu_torch.parallel.mesh import mesh_device
+
+            device = mesh_device(mesh)
         self.device = resolve(device)
         self.log = logger or get_logger("trainer", cfg.paths.env_id)
         self.generator = generator if generator is not None else \
@@ -88,13 +143,95 @@ class Trainer:
         # the relative per-dim variance floor, once computed from data
         # (ModelConfig.var_floor_scale); None = the scalar c_covariance
         self._var_floor_vec: np.ndarray | None = None
+        self.mesh = mesh
+        self.state_shards = 1
+        self._parallel_estep = None
+        self._sharded_align_fn = None
+        self.use_bank(self.bank)
+
+    def use_bank(self, bank) -> None:
+        """Take a whole bank (a fresh one, a loaded checkpoint): as it is
+        without a mesh; replicated from rank 0, or padded and sharded over
+        the state axis with ``state > 1``, on a mesh
+        (``trainer.py:79-110``)."""
+        self._s_orig = bank.num_states
+        if self.mesh is None:
+            self.bank = bank
+            return
+        from poccala_tpu_torch.parallel import mesh as pmesh
+
+        cfg = self.cfg
+        self.state_shards = pmesh.mesh_shape(self.mesh)["state"]
+        kw = dict(normalizer=cfg.model.gaussian_normalizer,
+                  count_final_exit=cfg.model.count_final_exit,
+                  bw_inner_iters=cfg.model.bw_inner_iters,
+                  score_dtype=cfg.model.score_dtype)
+        if self.state_shards > 1:
+            # model parallelism: the GMM tensors shard over senones
+            # (Controller.py:47-77 unit partitioning); memory and scoring
+            # scale as 1/state_shards
+            bank, self._s_orig = pmesh.pad_bank_states(bank,
+                                                       self.state_shards)
+            self.bank = pmesh.shard_bank_states(bank, self.mesh)
+            self._parallel_estep = pmesh.make_state_sharded_estep(
+                self.mesh, cfg.model.state_num, cfg.train.max_label_len, **kw)
+        else:
+            self.bank = pmesh.replicate_bank(bank, self.mesh)
+            self._parallel_estep = pmesh.make_parallel_estep(
+                self.mesh, cfg.model.state_num, cfg.train.max_label_len, **kw)
 
     def export_bank(self):
-        """The bank for checkpointing / decoding.  The JAX trainer strips
-        its state-shard padding here; this trainer is unsharded
-        (``mesh=`` raises), so the bank has none and is returned as it
-        is."""
-        return self.bank
+        """The whole bank with the state-shard padding stripped, the same
+        on every rank (for checkpointing / decoding); without state
+        shards, ``self.bank`` itself."""
+        if self.state_shards == 1:
+            return self.bank
+        from poccala_tpu_torch.parallel import mesh as pmesh
+
+        return pmesh.unpad_bank_states(
+            pmesh.unshard_bank_states(self.bank, self.mesh), self._s_orig)
+
+    def _sharded_align(self):
+        """The cached state-sharded forced-alignment function."""
+        if self._sharded_align_fn is None:
+            from poccala_tpu_torch.parallel import mesh as pmesh
+
+            self._sharded_align_fn = pmesh.make_state_sharded_align(
+                self.mesh, self.cfg.model.state_num,
+                self.cfg.train.max_label_len,
+                normalizer=self.cfg.model.gaussian_normalizer,
+                score_dtype=self.cfg.model.score_dtype)
+        return self._sharded_align_fn
+
+    def _padded_batch(self, batch: Batch):
+        """A batch's arrays padded to a multiple of the data axis, and its
+        true size."""
+        from poccala_tpu_torch.parallel.mesh import pad_batch_for_mesh
+
+        return pad_batch_for_mesh((batch.labels, batch.label_lens,
+                                   batch.feats, batch.t_masks), self.mesh)
+
+    def _mix_changed(self) -> bool:
+        """Whether any senone's mixture count differs from the level (the
+        reference's re-clustering trigger).  The state-shard padding is
+        not a senone: its ``mix_counts`` of 0 would re-seed every round,
+        as the JAX trainer does (``trainer.py:456-459``), where the
+        unpadded bank would not."""
+        counts = self.bank.mix_counts
+        if self.state_shards > 1:
+            lo = self.mesh.get_local_rank("state") * self.bank.num_states
+            counts = counts[:max(0, self._s_orig - lo)]
+        return self._any_shard(bool((counts != self.mix_level).any()))
+
+    def _any_shard(self, flag: bool) -> bool:
+        """``flag`` of any state shard (the same answer on every rank)."""
+        if self.state_shards == 1:
+            return flag
+        from poccala_tpu_torch.parallel.mesh import all_reduce
+
+        t = torch.tensor([int(flag)], device=self.bank.means.device)
+        return bool(all_reduce(t, torch.distributed.ReduceOp.MAX,
+                               self.mesh.get_group("state")).item())
 
     @property
     def var_floor(self):
@@ -177,13 +314,18 @@ class Trainer:
         mcfg = self.cfg.model
         total = acc.zero_stats(self.bank)
         for batch in batches:
-            stats, _ = acc.batch_stats(
-                self.bank, batch.labels, batch.label_lens, batch.feats,
-                batch.t_masks, self.state_num, self.cfg.train.max_label_len,
-                normalizer=mcfg.gaussian_normalizer,
-                count_final_exit=mcfg.count_final_exit,
-                bw_inner_iters=mcfg.bw_inner_iters,
-                score_dtype=mcfg.score_dtype)
+            if self._parallel_estep is not None:
+                arrays, _ = self._padded_batch(batch)
+                stats, _ = self._parallel_estep(self.bank, *arrays)
+            else:
+                stats, _ = acc.batch_stats(
+                    self.bank, batch.labels, batch.label_lens, batch.feats,
+                    batch.t_masks, self.state_num,
+                    self.cfg.train.max_label_len,
+                    normalizer=mcfg.gaussian_normalizer,
+                    count_final_exit=mcfg.count_final_exit,
+                    bw_inner_iters=mcfg.bw_inner_iters,
+                    score_dtype=mcfg.score_dtype)
             total = acc.add_stats(total, stats)
         self.bank = acc.apply_update(
             self.bank, total, c_covariance=self.var_floor,
@@ -200,12 +342,14 @@ class Trainer:
 
     def _collect_frames(self, batches: Sequence[Batch], init: bool):
         """Per-senone frame buckets from uniform segmentation (init) or
-        Viterbi alignment (re-estimation), grouped on the host.
+        Viterbi alignment (re-estimation), grouped on the host.  With state
+        shards the grouping runs over the global (padded) senones and each
+        rank keeps its own rows.
 
         :returns: (frames ``[S, cap, D]`` float32, mask ``[S, cap]``
             bool), host arrays
         """
-        num_senones = self.bank.num_states
+        num_senones = self.bank.num_states * self.state_shards
         mcfg = self.cfg.model
         all_labels, all_lens, all_pos, all_ok = [], [], [], []
         for batch in batches:
@@ -214,12 +358,19 @@ class Trainer:
                                                     batch.t_masks)
                 ok = np.ones(len(batch.feats), bool)
             else:
-                _, lp = align.align_batch(
-                    self.bank, batch.labels, batch.label_lens, batch.feats,
-                    batch.t_masks, self.state_num,
-                    self.cfg.train.max_label_len,
-                    normalizer=mcfg.gaussian_normalizer,
-                    score_dtype=mcfg.score_dtype)
+                if self.state_shards > 1:
+                    # the bank stays sharded: the score lattices are
+                    # assembled by max, the full-S tensors never exist
+                    arrays, b_true = self._padded_batch(batch)
+                    _, lp = self._sharded_align()(self.bank, *arrays)
+                    lp = lp[:b_true]
+                else:
+                    _, lp = align.align_batch(
+                        self.bank, batch.labels, batch.label_lens,
+                        batch.feats, batch.t_masks, self.state_num,
+                        self.cfg.train.max_label_len,
+                        normalizer=mcfg.gaussian_normalizer,
+                        score_dtype=mcfg.score_dtype)
                 label_pos = lp.cpu().numpy()
                 ok = align.check_alignment(label_pos, batch.labels,
                                            batch.label_lens)
@@ -251,64 +402,54 @@ class Trainer:
                 "senone frame buckets overflowed: %d frames subsampled away "
                 "(cap=%d)", dropped, cap)
         self.round_info.update(cap=cap, dropped=dropped)
+        if self.state_shards > 1:
+            s_local = self.bank.num_states
+            lo = self.mesh.get_local_rank("state") * s_local
+            frames, mask = frames[lo: lo + s_local], mask[lo: lo + s_local]
         self.mark("grouping")
         return frames, mask
 
     def fit_gmms(self, frames, mask, reinit: bool,
                  smem: bool = False) -> None:
         """k-means (re)init + grouped EM over all senones
-        (``__cal_gmm``, ``AcousticModel.py:532-561``), then optionally one
-        SMEM pass.  ``frames [S, F, D]`` / ``mask [S, F]`` are host arrays
-        or tensors; they move to the bank's device once.
-
-        Senones with fewer frames than the mixture count keep their old
-        parameters (``AcousticModel.py:549-551``)."""
-        mix = self.mix_level
+        (:func:`fit_grouped`), then optionally one SMEM pass.
+        ``frames [S, F, D]`` / ``mask [S, F]`` (this rank's rows with state
+        shards) are host arrays or tensors; they move to the bank's device
+        once."""
         bank = self.bank
         dev = bank.means.device
         frames_t = torch.as_tensor(frames, dtype=torch.float32, device=dev)
         mask_t = torch.as_tensor(mask, device=dev).to(torch.bool)
-        enough = mask_t.sum(dim=1) >= max(mix, 2)                  # [S]
-        sel3 = enough[:, None, None]
+        generator = self.generator
+        if self.state_shards > 1:
+            # independent per senone: each rank fits its own rows with its
+            # shard's generator; no collective, no full-S tensor
+            from poccala_tpu_torch.parallel.mesh import shard_generator
 
-        means, log_var, log_w = bank.means, bank.log_var, bank.log_w
-        if reinit:
-            kres = km_ops.kmeans_grouped(self.generator, frames_t, mask_t,
-                                         k=mix)
-
-            def pad_mix(a):  # zero-pad the mixture axis (dim 1) to max_mix
-                return torch.nn.functional.pad(
-                    a, (0, 0) * (a.dim() - 2) + (0, bank.max_mix - mix))
-
-            means = torch.where(sel3, pad_mix(kres["means"]), means)
-            log_var = torch.where(
-                sel3, pad_mix(torch.log(kres["variances"])), log_var)
-            log_w = torch.where(enough[:, None],
-                                masked_log(pad_mix(kres["alpha"])), log_w)
-        self.mark("kmeans")
-
-        mix_mask = (torch.arange(bank.max_mix, device=dev) < mix) \
-            .expand(bank.num_states, -1)
-        params, _, iters = em_ops.em_fit_grouped(
-            means, log_var, log_w, frames_t, mask_t, mix_mask,
+            generator = shard_generator(self.generator, self.mesh)
+        means, log_var, log_w, mix_counts, iters, enough = fit_grouped(
+            generator, frames_t, mask_t, bank.means, bank.log_var,
+            bank.log_w, bank.mix_counts, self.mix_level, reinit,
             c_covariance=self.var_floor,
             converge_delta=self.cfg.train.gmm_converge_delta,
             max_iters=self.cfg.train.max_em_iters,
-            normalizer=self.cfg.model.gaussian_normalizer)
-        self.bank = sb.replace(
-            bank,
-            means=torch.where(sel3, params.means, bank.means),
-            log_var=torch.where(sel3, params.log_var, bank.log_var),
-            log_w=torch.where(enough[:, None], params.log_w, bank.log_w),
-            mix_counts=torch.where(enough, mix, bank.mix_counts)
-            .to(torch.int32))
+            normalizer=self.cfg.model.gaussian_normalizer, mark=self.mark)
+        self.bank = sb.replace(bank, means=means, log_var=log_var,
+                               log_w=log_w, mix_counts=mix_counts)
         self.round_info.update(em_iters=int(iters.max()))
         self.mark("em")
         if smem:
             from poccala_tpu_torch.train.smem import smem_pass
 
             self.bank, n_accepted = smem_pass(self, frames_t, mask_t,
-                                              enough.cpu().numpy())
+                                              enough.cpu().numpy(),
+                                              generator=generator)
+            if self.state_shards > 1:
+                from poccala_tpu_torch.parallel.mesh import all_reduce
+
+                n_accepted = int(all_reduce(
+                    torch.tensor([n_accepted], device=dev),
+                    group=self.mesh.get_group("state")).item())
             self.round_info.update(smem_accepted=n_accepted)
             if n_accepted:
                 self.log.info("SMEM: %d split-merge moves accepted",
@@ -330,8 +471,7 @@ class Trainer:
         self.round_info = {}
         self._ensure_var_floor(batches)
         if reinit is None:
-            reinit = init or bool(
-                (self.bank.mix_counts != self.mix_level).any())
+            reinit = init or self._mix_changed()
         frames, mask = self._collect_frames(batches, init=init)
         if smem is None:
             smem = init and self.cfg.train.smem

@@ -360,8 +360,11 @@ def test_cd_expand_matches_jax(cd_world):
         >= ci_bank.num_states
     assert tbank.num_units == jbank.num_units == len(got["triples"])
     assert torch.equal(tbank.senone_map, jbank.senone_map)
-    lls = tman["retrain_logliks"]
-    assert len(lls) == 2 and all(np.isfinite(lls))
+    # the port writes the JAX CLI's manifest: the same keys, and the
+    # same values but for the sidecar's path
+    assert set(tman) == set(jman) and "retrain_logliks" not in tman
+    assert {k: v for k, v in tman.items() if k != "cd_sidecar"} == \
+        {k: v for k, v in jman.items() if k != "cd_sidecar"}
     # two float32 retrains (grouped EM, two Baum-Welch passes, the MAP
     # blend) of one clone on features of two frontends
     for f in ("means", "log_var", "log_A"):
@@ -441,7 +444,31 @@ def test_cd_sidecar_of_another_inventory_is_refused(cd_world, trained):
 def test_unported_flags_raise(trained, cd_world, capsys, argv):
     """The flags of the parts still to port raise; ``--cd`` and
     ``cd-expand``, which raised until the context-dependent units were
-    ported, answer."""
+    ported, answer, and so does ``--distributed``, which raised until the
+    parallel tier was ported: on a one-rank CPU mesh ``decode`` and
+    ``serve`` print what they print without it, and ``train`` writes its
+    checkpoint."""
+    if "--distributed" in argv:
+        t = trained["torch"]
+        wav = os.path.join(t["dirs"]["audio_dir"], "utt00000.wav")
+        if argv[0] == "train":
+            ckpt = os.path.join(t["root"], "ckpt_distributed")
+            tcpu(capsys, *t["args"], "train", "--epochs", "1",
+                 "--checkpoint", ckpt, "--distributed")
+            assert os.path.exists(os.path.join(ckpt, "bank.npz"))
+        else:
+            tail = [wav]
+            if argv[0] == "serve":
+                tail = ["--list", os.path.join(t["root"], "one_wav.txt")]
+                with open(tail[1], "w") as f:
+                    f.write(wav + "\n")
+            model = ["--checkpoint", t["ckpt"], "--lexicon", t["lex"]]
+            got = tcpu(capsys, *t["args"], argv[0], *model, *tail,
+                       "--distributed")
+            want = tcpu(capsys, *t["args"], argv[0], *model, *tail)
+            assert got == want and json.loads(got.splitlines()[0])["nbest"]
+        assert not torch.distributed.is_initialized()
+        return
     if "--cd" in argv:
         lines = cd_decode(
             capsys, tcli.main, ["--device", "cpu"], cd_world, "torch",

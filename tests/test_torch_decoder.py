@@ -147,16 +147,33 @@ def test_top_k_orders_ties_by_index():
     assert vals.tolist() == [[3.0, 3.0, 3.0, 2.0]]
 
 
-def test_unported_modes_raise(world, rng):
-    """``prune_hysteresis`` (a measured negative) and ``mesh=`` are not
-    ported; block pruning (``active_blocks``) is, in
-    tests/test_torch_pruned.py."""
+def test_unported_modes_raise(world, rng, tmp_path):
+    """``prune_hysteresis`` (a measured negative) is not ported; block
+    pruning (``active_blocks``) is, in tests/test_torch_pruned.py, and
+    ``mesh=``, which raised until the parallel tier was ported, decodes:
+    on a one-rank mesh as the unsharded call does."""
+    import torch.distributed as dist
+
+    from poccala_tpu_torch.parallel.mesh import make_mesh
+
     with pytest.raises(NotImplementedError, match="prune_hysteresis"):
         DeviceBeamDecoder(world["tbank"], world["tflat"], active_blocks=4,
                           prune_hysteresis=0.5)
     dec, utt = separable_world(rng)
-    with pytest.raises(NotImplementedError):
-        dec.decode_batch(utt([4, 5])[None], [24], mesh=object())
+    feats = np.stack([utt([4, 5]), utt([0, 1])])
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        got = dec.decode_batch(feats, [24, 24], return_nbest=3,
+                               mesh=make_mesh(device="cpu"))
+    finally:
+        dist.destroy_process_group()
+    want = dec.decode_batch(feats, [24, 24], return_nbest=3)
+    assert [[h.words for h in u] for u in got] == \
+        [[h.words for h in u] for u in want]
+    assert [u[0].words for u in got] == [("马",), ("你",)]
+    assert [[h.score for h in u] for u in got] == \
+        [[h.score for h in u] for u in want]
 
 
 def test_empty_lexicon_answers_nothing(world):

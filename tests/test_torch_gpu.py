@@ -639,3 +639,89 @@ def test_fit_gmms_keeps_bank_on_gpu(cuda):
     assert all(getattr(tr.bank, f).is_cuda for f in sb.FIELDS)
     assert torch.isfinite(tr.bank.means).all()
     assert tr.round_info["em_iters"] >= 1 and "smem_accepted" in tr.round_info
+
+
+# ----------------------------------------------------------------------
+# the parallel tier on the card
+# ----------------------------------------------------------------------
+
+def test_one_rank_nccl_mesh_matches_unsharded(cuda):
+    """``--distributed`` on one card: a one-rank NCCL mesh.  The sharded
+    E-step, alignment and decode launch the kernels and equal the
+    unsharded calls (statistics to float32 rounding: both sum with
+    atomics)."""
+    import torch.distributed as dist
+
+    from poccala_tpu_torch.parallel import mesh as pmesh
+    from poccala_tpu_torch.train import alignment as align
+
+    rng = np.random.default_rng(4)
+    cfg = ModelConfig(state_num=5, mix_level=4, max_mix_level=4)
+    arrays = sb.bank_to_numpy(sb.create_bank(
+        20, cfg, 13, generator=torch.Generator().manual_seed(4),
+        device="cpu"))
+    arrays["means"] = rng.normal(size=arrays["means"].shape).astype(
+        np.float32)
+    bank = sb.bank_from_numpy(arrays, device=cuda)
+    b, t_pad, max_l = 12, 50, 6
+    batch = (rng.integers(0, 20, size=(b, max_l)).astype(np.int32),
+             rng.integers(1, max_l + 1, size=b).astype(np.int32),
+             (rng.normal(size=(b, t_pad, 13)) * 1.5).astype(np.float32),
+             np.arange(t_pad)[None] < rng.integers(10, t_pad + 1,
+                                                   size=b)[:, None])
+    assert not dist.is_initialized()
+    try:
+        mesh = pmesh.make_mesh(device=cuda)
+        assert dist.get_backend() == "nccl"
+        for k in hk.KERNELS.values():
+            k.launches = 0
+        for make in (pmesh.make_parallel_estep,
+                     pmesh.make_state_sharded_estep):
+            got, gll = make(mesh, 5, max_l)(bank, *batch)
+            want, wll = acc.batch_stats(bank, *batch, 5, max_l)
+            torch.testing.assert_close(gll, wll, rtol=1e-5, atol=1e-5)
+            for f in acc.STATS_FIELDS:
+                torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                           **F32, msg=f)
+        scores, lp = pmesh.make_state_sharded_align(mesh, 5, max_l)(
+            bank, *batch)
+        wscores, wlp = align.align_batch(bank, *batch, 5, max_l)
+        assert torch.equal(lp, wlp) and torch.equal(scores, wscores)
+        assert all(k.launches > 0 for k in hk.KERNELS.values())
+
+        inv, dbank, feats = decode_world(5)
+        lex = PronunciationLexicon()
+        lex.generate(list(BUILTIN_PINYIN), PinYin())
+        dec = DeviceBeamDecoder(dbank.to(cuda),
+                                FlatLexicon.from_tree(lex.lexicon, inv))
+        before = gk.gmm_log_scores_cuda.launches
+        got = dec.decode_batch(feats, [60, 45], return_nbest=3, mesh=mesh)
+        assert gk.gmm_log_scores_cuda.launches == before + 1
+        want = dec.decode_batch(feats, [60, 45], return_nbest=3)
+        assert [[(h.words, h.score) for h in u] for u in got] == \
+            [[(h.words, h.score) for h in u] for u in want]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_two_gloo_ranks_with_cuda_tensors(cuda, tmp_path):
+    """Two ranks on one card over gloo (NCCL refuses two ranks on one
+    GPU): a state-sharded train step equals the one-rank step at 1e-4, the
+    sharded alignment the unsharded one exactly, and each rank launched
+    every DP kernel."""
+    import json
+
+    from .test_torch_parallel_worker import run_world
+
+    run_world("cuda_step", 2, "-", str(tmp_path), 300)
+    for r in range(2):
+        out = dict(np.load(tmp_path / f"rank{r}.npz"))
+        assert int(out["rows"]) == 32     # 63 senones padded to 64, 2 shards
+        np.testing.assert_allclose(out["ll"][0], out["ll"][1], rtol=1e-5)
+        for f in sb.FIELDS:
+            np.testing.assert_allclose(out[f"got_{f}"], out[f"want_{f}"],
+                                       rtol=1e-4, atol=1e-4, err_msg=f)
+        assert bool(out["align_equal"])
+        launches = json.loads(str(out["launches"]))
+        assert all(n > 0 for n in launches.values()), launches

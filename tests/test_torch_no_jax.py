@@ -5,8 +5,9 @@ The machine the port runs on has no jax, so ``poccala_tpu_torch`` (and
 ``poccala_tpu``, not even a module there that is jax-free: the port keeps
 its own copies.  An AST scan pins the rule statically; a subprocess runs
 the serving slice (batch and streaming), a block-pruned decode, the
-command line and small training runs of both schemes on the CPU and
-checks that neither jax nor any ``poccala_tpu`` module was loaded.
+command line, small training runs of both schemes and a rank of the
+parallel tier on the CPU and checks that neither jax nor any
+``poccala_tpu`` module was loaded.
 """
 
 import ast
@@ -179,6 +180,15 @@ SLICE = textwrap.dedent("""
     cflat = context.build_cd_lexicon(centries, cd)
     assert cd_bank.num_units == len(cd) and cflat.n_nodes > len(cwords)
     assert cd_bank.num_states == trees.n_senones > 0
+
+    # a rank of the parallel tier: the multichip dry run (state-sharded
+    # train step, config-3 scale, sharded decode) in a one-rank gloo world
+    import torch.distributed as dist
+    from poccala_tpu_torch.parallel.dryrun import dryrun_multichip
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = dryrun_multichip(1, device="cpu")
+    dist.destroy_process_group()
+    assert summary["c3_local"] == 2049 and summary["decode_words"] == [1, 1]
     assert "jax" not in sys.modules, "the port imported jax"
     loaded = [m for m in sys.modules if m.split(".")[0] == "poccala_tpu"]
     assert not loaded, f"the port imported the JAX package: {loaded}"

@@ -123,11 +123,30 @@ def test_auto_with_flat_start(corpus):
     assert torch.equal(runs[0][1], runs[1][1])
 
 
-def test_unported_parts_raise(corpus):
+def test_unported_parts_raise(corpus, tmp_path):
+    """``mesh=``, which raised until the parallel tier was ported, trains:
+    on a one-rank mesh the trainer gives the unsharded trainer's logliks
+    and bank.  An unknown scheme still raises."""
+    import torch.distributed as dist
+
+    from poccala_tpu_torch.parallel.mesh import make_mesh
+
     cfg, inv, tinv, batches, _ = corpus
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        Trainer(cfg, tinv, mesh=object(), device="cpu")
-    tr = Trainer(cfg, tinv, device="cpu")
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        tr_m = Trainer(cfg, tinv, mesh=make_mesh(device="cpu"))
+        tr = Trainer(cfg, tinv, device="cpu")
+        assert tr_m.device == torch.device("cpu")
+        lls_m = tr_m.auto(batches, t=2, mode=2)
+        lls = tr.auto(batches, t=2, mode=2)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(lls_m, lls, rtol=1e-6)
+    for f in tsb.FIELDS:
+        torch.testing.assert_close(getattr(tr_m.export_bank(), f),
+                                   getattr(tr.bank, f), rtol=1e-5,
+                                   atol=1e-5, msg=f)
     with pytest.raises(ModeError):
         tr.auto(batches, mode=3)
 
