@@ -26,15 +26,19 @@ weights from a seeded ``torch.Generator``:
   sessions fed 25-frame chunks at the rate audio arrives, one lockstep
   session of eight streams, each held to the one-shot decode, and the GMM
   kernel against its plain version at a chunk's shapes;
+* the host decoder tiers, the JAX command line's default decode, at the
+  decode width: one ``VectorBeamDecoder.decode_batch`` of 16 x 4 s (one
+  GMM launch, the rest host NumPy) and one ``BeamDecoder.decode``, each
+  held to a CPU copy of the bank;
 * block-pruned decode over a synthetic 21.6k-node lexicon at the decode
   batch (256 x 4 s), exact against ``active_blocks`` 8 and 4;
 * the command line (``python -m poccala_tpu_torch.cli --device cuda``):
-  synth-corpus, train, align, decode, listen and serve on a small corpus,
-  train, align and decode held against ``--device cpu``;
+  synth-corpus, train, align, decode (every tier), listen and serve on a
+  small corpus, train, align and decode held against ``--device cpu``;
 * recognition by a model trained on the card: 20 WAVs of separable
-  units -> ``Trainer.auto(mode=2)`` -> ``DeviceBeamDecoder`` over
-  ``export_bank()`` -> word error rate 0.0, the words equal to a
-  ``device="cpu"`` run;
+  units -> ``Trainer.auto(mode=2)`` -> ``DeviceBeamDecoder``,
+  ``VectorBeamDecoder`` and ``BeamDecoder`` over ``export_bank()`` ->
+  word error rate 0.0, the words equal to a ``device="cpu"`` run;
 * context-dependent units: through the command line on a
   formant-synthesised corpus (``train`` -> ``cd-expand`` -> ``decode
   --cd``, ``--device cuda`` held to ``--device cpu``), and at full width a
@@ -73,7 +77,9 @@ import torch
 
 from poccala_tpu_torch.config import Config, ModelConfig
 from poccala_tpu_torch.io import wav as wav_io
+from poccala_tpu_torch.decoder import BeamDecoder
 from poccala_tpu_torch.decoder.device import DeviceBeamDecoder
+from poccala_tpu_torch.decoder.vector import VectorBeamDecoder
 from poccala_tpu_torch.eval import evaluate_decoder
 from poccala_tpu_torch.io import corpus as corpus_io
 from poccala_tpu_torch.io.corpus import UnitInventory
@@ -691,6 +697,110 @@ def phase_throughput(seed: int, dec: DeviceBeamDecoder, smi: str,
                        max_rel_score_drift_vs_f32=drift),
         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
     return bf16_launches
+
+
+def phase_host_decode(seed: int, smi: str, batch: int = 16,
+                      utt_seconds: float = 4.0) -> int:
+    """The JAX command line's default decode on the card: the host tiers
+    (``VectorBeamDecoder.decode_batch``, ``BeamDecoder.decode``) at the
+    decode cell's width (XIF_tone, 606 senones, 8 mixtures, 39 dims,
+    the built-in lexicon), scoring on the card, token passing on the host.
+    The batch is ``batch`` x ``utt_seconds`` of noise (the throughput
+    phase's 256 cut to 16: the host pool grows to ~2,000 rows an utterance
+    a frame before pruning).  One vector call: its wall ms, the GMM
+    kernel's launches (exactly one) and ms, the host's share; the same
+    batch through a CPU copy of the bank (the plain scorer): every n-best
+    equal, scores at 1e-4.  One simple-tier decode of the first utterance
+    on the card and on the CPU: the same n-best.  Printed, not required:
+    how many 1-bests the device tier shares with the vector tier on this
+    noise.  Returns the GMM kernel's launches on the two host paths."""
+    t_phase = time.perf_counter()
+    dev_dec, cfg = full_width_decoder(seed, "cuda")
+    bank, flat = dev_dec.bank, dev_dec.lexicon
+    cpu_bank = sb.bank_from_numpy(sb.bank_to_numpy(bank), device="cpu")
+    fe = Frontend(cfg.frontend, device="cuda")
+    n_samples = int(utt_seconds * cfg.frontend.sample_rate)
+    rng = np.random.default_rng(seed + 1)
+    signals = torch.as_tensor(
+        (rng.normal(size=(batch, n_samples)) * 2000).astype(np.float32),
+        device="cuda")
+    feats, masks = fe.mfcc_batch(
+        signals, torch.full((batch,), n_samples, device="cuda"))
+    n_frames = masks.sum(dim=1).cpu().numpy()
+    x = feats.reshape(-1, feats.shape[-1])
+
+    # the kernel against its plain version at this call's shape
+    got = gk.gmm_log_scores_cuda(x, bank.means, bank.log_var, bank.log_w)
+    want = gmm_log_scores(x.cpu(), cpu_bank.means, cpu_bank.log_var,
+                          cpu_bank.log_w)
+    err = float((got.cpu() - want).abs().max())
+    check(bool(torch.allclose(got.cpu(), want, **F32_TOL)),
+          f"kernel vs plain at T = {x.shape[0]}: max abs err {err}")
+    kernel_ms = median_ms(lambda: gk.gmm_log_scores_cuda(
+        x, bank.means, bank.log_var, bank.log_w))
+    plain_ms = median_ms(lambda: gmm_log_scores(
+        x, bank.means, bank.log_var, bank.log_w))
+    # the product alone in one library call, as phase_kernel times it
+    xa = torch.randn(x.shape[0], 2 * D, device="cuda")
+    w = torch.randn(2 * D, S * M, device="cuda")
+    library_ms = median_ms(lambda: torch.matmul(xa, w))
+    del xa, w
+
+    vec = VectorBeamDecoder(bank, flat)
+    vec.decode_batch(feats[:2, :20], n_frames[:2].clip(max=20))  # tables
+    reset_kernel_counts()
+    hyps, wall_ms = synced_ms(lambda: vec.decode_batch(feats, n_frames))
+    vec_launches = gk.gmm_log_scores_cuda.launches
+    check(vec_launches == 1, f"one GMM launch per decode_batch: "
+          f"{vec_launches}")
+    check(all(h and np.isfinite(h[0].score) for h in hyps),
+          "every utterance has a finite 1-best")
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    vec._frame_scores(x)
+    e1.record()
+    torch.cuda.synchronize()
+    frame_scores_ms = e0.elapsed_time(e1)
+
+    cpu_vec = VectorBeamDecoder(cpu_bank, flat)
+    cpu_hyps, cpu_ms = synced_ms(
+        lambda: cpu_vec.decode_batch(feats.cpu(), n_frames))
+    for i, (g, c) in enumerate(zip(hyps, cpu_hyps)):
+        same_nbest(g, c, f"vector tier, utterance {i}, card vs CPU")
+
+    x0 = feats[0, : int(n_frames[0])].cpu().numpy()
+    simple = BeamDecoder(bank, flat)
+    reset_kernel_counts()
+    s_hyps, simple_ms = synced_ms(lambda: simple.decode(x0))
+    simple_launches = gk.gmm_log_scores_cuda.launches
+    check(simple_launches == 1, f"one GMM launch per simple decode: "
+          f"{simple_launches}")
+    c_hyps, simple_cpu_ms = synced_ms(
+        lambda: BeamDecoder(cpu_bank, flat).decode(x0))
+    same_nbest(s_hyps, c_hyps, "simple tier, card vs CPU")
+
+    device_best = dev_dec.decode_batch(feats, n_frames)
+    agree = sum(bool(d) and d[0].words == v[0].words
+                for d, v in zip(device_best, hyps))
+    say("host_decode", batch=batch, utt_seconds=utt_seconds,
+        frames=int(feats.shape[1]), lexicon_nodes=int(flat.n_nodes),
+        senones=int(bank.num_states), mixtures=int(bank.means.shape[1]),
+        vector_call_ms=wall_ms, vector_audio_s_per_s=batch * utt_seconds
+        / (wall_ms / 1e3), kernel_launches=vec_launches,
+        kernel_ms=kernel_ms, frame_scores_ms=frame_scores_ms,
+        host_share=(wall_ms - kernel_ms) / wall_ms,
+        kernel_max_abs_err=err, kernel_plain_ms=plain_ms,
+        kernel_library_ms=library_ms,
+        kernel_bound=gmm_bound(x.shape[0], S, M, D, "float32"),
+        cpu_vector_call_ms=cpu_ms,
+        nbest_equal_card_vs_cpu=batch, simple_decode_ms=simple_ms,
+        simple_cpu_decode_ms=simple_cpu_ms,
+        simple_kernel_launches=simple_launches,
+        one_best_vector_vs_device=f"{agree}/{batch}",
+        one_best=["".join(h[0].words) for h in hyps[:4]],
+        phase_seconds=time.perf_counter() - t_phase,
+        device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    return vec_launches + simple_launches
 
 
 # ----------------------------------------------------------------------
@@ -1440,14 +1550,15 @@ def phase_cli(seed: int) -> None:
     """``python -m poccala_tpu_torch.cli``, in process, on a 12-utterance
     synthetic corpus (6 units, 18 senones, 1 of 2 mixtures): with
     ``--device cuda`` synth-corpus, train (scheme 2, two rounds, CMVN),
-    align, decode --decoder device, listen --wav and serve over three
-    WAVs, where listen's and serve's 1-best must equal decode's.  Then
-    train, align and decode again with ``--device cpu``, the kernels'
-    plain versions: the CPU's logliks from its own flat start within
-    CLI_TRAIN_RTOL of the GPU's and, on the GPU's checkpoint, align's
-    frames equal and decode's n-best equal at 1e-4 relative.  Last the
-    GMM kernel against its plain version on the trained bank at the
-    decode's frames."""
+    align, decode on every tier (``--decoder device``, no ``--decoder``:
+    the default ``vector``, and ``--decoder simple``), listen --wav and
+    serve over three WAVs, where listen's and serve's 1-best must equal
+    the device tier's decode.  Then train, align and decode again with
+    ``--device cpu``, the kernels' plain versions: the CPU's logliks from
+    its own flat start within CLI_TRAIN_RTOL of the GPU's and, on the GPU's
+    checkpoint, align's frames equal and each tier's n-best equal at 1e-4
+    relative.  Last the GMM kernel against its plain version on the
+    trained bank at the decode's frames."""
     import contextlib
     import io
 
@@ -1484,6 +1595,7 @@ def phase_cli(seed: int) -> None:
         wavs = [os.path.join(dirs["audio_dir"], f"utt{i:05d}.wav")
                 for i in range(3)]
         ckpt, logliks, aligned, decoded = {}, {}, {}, {}
+        host = {"vector": {}, "simple": {}}
         for dev in ("cuda", "cpu"):
             ckpt[dev] = os.path.join(tmp, f"ckpt_{dev}")
             hist = os.path.join(tmp, f"hist_{dev}.json")
@@ -1497,6 +1609,10 @@ def phase_cli(seed: int) -> None:
             decoded[dev] = run(dev, *common, "decode", "--decoder", "device",
                                "--checkpoint", ckpt["cuda"], "--lexicon",
                                lex, *wavs)
+            model = ["--checkpoint", ckpt["cuda"], "--lexicon", lex, *wavs]
+            host["vector"][dev] = run(dev, *common, "decode", *model)
+            host["simple"][dev] = run(dev, *common, "decode", "--decoder",
+                                      "simple", *model)
             if dev == "cuda":
                 model = ["--checkpoint", ckpt["cuda"], "--lexicon", lex]
                 listened = run("cuda", *common, "listen", *model, "--wav",
@@ -1550,6 +1666,19 @@ def phase_cli(seed: int) -> None:
         check(np.allclose([h["score"] for h in got],
                           [h["score"] for h in want], rtol=1e-4, atol=0.0),
               f"decode {g['wav']}: GPU scores {got} vs CPU {want}")
+    for tier, runs in host.items():
+        check(all(d["nbest"] for d in runs["cuda"]),
+              f"decode --decoder {tier} answered every WAV")
+        for g, c in zip(runs["cuda"], runs["cpu"]):
+            got, want = g["nbest"], c["nbest"]
+            check([h["words"] for h in got] == [h["words"] for h in want],
+                  f"decode --decoder {tier} {g['wav']}: GPU n-best {got} vs "
+                  f"CPU {want}")
+            check(np.allclose([h["score"] for h in got],
+                              [h["score"] for h in want], rtol=1e-4,
+                              atol=0.0),
+                  f"decode --decoder {tier} {g['wav']}: GPU scores {got} vs "
+                  f"CPU {want}")
     final = listened[-1]["final"]
     dec0 = decoded["cuda"][0]["nbest"]
     check(bool(final) and final[0]["words"] == dec0[0]["words"],
@@ -1569,6 +1698,8 @@ def phase_cli(seed: int) -> None:
         decode_equal_rtol=1e-4, kernel_frames=int(x.shape[0]),
         kernel_max_abs_err=err, kernel_tol=F32_TOL,
         one_best=[d["nbest"][0]["words"] for d in decoded["cuda"]],
+        one_best_host={t: [d["nbest"][0]["words"] for d in r["cuda"]]
+                       for t, r in host.items()},
         listen_partials=len(listened) - 1, gmm_launches=gmm,
         dp_kernel_launches=dp, phase_seconds=time.perf_counter() - t0)
 
@@ -1582,9 +1713,11 @@ def phase_wer_e2e(seed: int) -> None:
     """Recognition by a model trained through the DP kernels: the corpus
     of tests/test_full_loop_wer.py (20 WAVs of one or two of three words,
     each unit a separable two-harmonic signature) -> Corpus ->
-    ``Trainer.auto(t=4, mode=2, init=True)`` -> ``DeviceBeamDecoder`` over
-    ``export_bank()`` -> ``evaluate_decoder``, on the card and on the CPU:
-    WER 0.0 on the card, the same words from both."""
+    ``Trainer.auto(t=4, mode=2, init=True)`` -> ``DeviceBeamDecoder``,
+    ``VectorBeamDecoder`` and ``BeamDecoder(candidate=3, max_tokens=48)``
+    over ``export_bank()`` -> ``evaluate_decoder``, on the card and on the
+    CPU: WER 0.0 on the card on every tier, the host tiers give the device
+    tier's words, and the card the CPU's."""
     t0 = time.perf_counter()
     inv = UnitInventory(WER_UNITS)
     pinyin = PinYin(WER_TABLE)
@@ -1642,6 +1775,17 @@ def phase_wer_e2e(seed: int) -> None:
                 ref_tokens=result.ref_tokens, logliks=lls, words=words,
                 dp_kernel_launches={k: f.launches
                                     for k, f in hk.KERNELS.items()})
+            # the host tiers over the same bank (tests/test_full_loop_wer.py
+            # decodes with the simple one)
+            for tier, cls in (("vector", VectorBeamDecoder),
+                              ("simple", BeamDecoder)):
+                host = cls(dec.bank, flat, candidate=3, max_tokens=48)
+                res = evaluate_decoder(host, utts, n_frames)
+                runs[dev][tier] = dict(
+                    wer=res.wer, words=[
+                        list(host.decode(f, n_frames=n,
+                                         return_nbest=1)[0].words)
+                        for (f, _), n in zip(utts, n_frames)])
     g, c = runs["cuda"], runs["cpu"]
     check(len(g["words"]) == 20 and g["ref_tokens"] == sum(map(len, refs)),
           "every utterance was scored")
@@ -1654,9 +1798,18 @@ def phase_wer_e2e(seed: int) -> None:
     check(g["wer"] == 0.0, f"WER of the model trained on the card: {g}")
     check(g["words"] == c["words"], f"words on the card {g['words']} vs on "
           f"the CPU {c['words']}")
+    for tier in ("vector", "simple"):
+        check(g[tier]["wer"] == 0.0, f"{tier} tier WER on the card: "
+              f"{g[tier]}")
+        check(g[tier]["words"] == g["words"] == c[tier]["words"],
+              f"{tier} tier words: card {g[tier]['words']}, device tier "
+              f"{g['words']}, CPU {c[tier]['words']}")
+    tiers = ("words", "vector", "simple")
     say("wer_e2e", utterances=20, units=len(inv), mixtures=2,
-        gpu={k: v for k, v in g.items() if k != "words"},
-        cpu={k: v for k, v in c.items() if k != "words"},
+        gpu={k: v for k, v in g.items() if k not in tiers},
+        cpu={k: v for k, v in c.items() if k not in tiers},
+        host_tiers_wer={t: [g[t]["wer"], c[t]["wer"]]
+                        for t in ("vector", "simple")},
         words_equal=True, one_best=["".join(w) for w in g["words"][:5]],
         phase_seconds=time.perf_counter() - t0)
 
@@ -1751,9 +1904,9 @@ def phase_cd_e2e(seed: int) -> None:
                 "--vocab", vocab, "--out-checkpoint", cd[dev][0], "--out-cd",
                 cd[dev][1], "--target-senones", "900", "--retrain-epochs",
                 "2", "--min-occ", "8", "--map-tau", "8")
-            decoded[dev] = run(dev, *common, "decode", "--checkpoint",
-                               cd["cuda"][0], "--lexicon", lex, "--lm", lm,
-                               "--cd", cd["cuda"][1], *wavs)
+            decoded[dev] = run(dev, *common, "decode", "--decoder", "device",
+                               "--checkpoint", cd["cuda"][0], "--lexicon",
+                               lex, "--lm", lm, "--cd", cd["cuda"][1], *wavs)
             used[dev] = kernel_counts()
         sidecars = {}
         for dev in ("cuda", "cpu"):
@@ -2316,6 +2469,7 @@ def phase_parallel(seed: int, smi: str) -> dict:
 # phases that --only can run by themselves, each as f(seed, smi)
 SOLO = {
     "hmm_kernels": lambda seed, smi: phase_hmm_kernels(seed),
+    "host_decode": phase_host_decode,
     "train_throughput": phase_train_throughput,
     "train_scheme1": phase_train_scheme1,
     "stream": phase_stream,
@@ -2356,6 +2510,7 @@ def main(argv=None) -> int:
     bf16_launches = phase_throughput(args.seed, dec, smi)
     del dec
     torch.cuda.empty_cache()
+    host_launches = phase_host_decode(args.seed, smi)
     train_launches = phase_train_throughput(args.seed, smi)
     phase_train_e2e(args.seed)
     phase_train_scheme1(args.seed, smi)
@@ -2373,6 +2528,7 @@ def main(argv=None) -> int:
 
     kernels = [dict(name="gmm_log_scores", route="cuda", source=gk.SOURCE,
                     replaces=gk.REPLACES, launches=launches,
+                    launches_host=host_launches,
                     launches_parallel=par_launches["gmm"],
                     **records["float32"]),
                dict(name="gmm_log_scores_bf16", route="cuda",

@@ -12,13 +12,18 @@ and ``tests/test_torch_lexicon.py``.  Its entry points put their state on
 the card unless the caller passes ``device="cpu"``
 (:mod:`~poccala_tpu_torch.utils.device`).
 
-Ported so far:
+Ported: everything the JAX package does, on one card or a one-card
+process group —
 
-* the decode-serving slice — WAV -> MFCC frontend -> VAD ->
+* decode serving — WAV -> MFCC frontend -> VAD ->
   :class:`~poccala_tpu_torch.serve.DecodeService` ->
-  :class:`~poccala_tpu_torch.decoder.device.DeviceBeamDecoder`, whose GMM
-  scoring runs hand-written CUDA kernels (``csrc/gmm_score.cu``: exact
-  float32 FMA, and bfloat16 on the tensor cores);
+  :class:`~poccala_tpu_torch.decoder.device.DeviceBeamDecoder` (exact or
+  block-pruned search, streaming), and the host decoder tiers
+  (:class:`~poccala_tpu_torch.decoder.vector.VectorBeamDecoder`, the
+  command line's default, and :class:`~poccala_tpu_torch.decoder.beam.
+  BeamDecoder`); the GMM scoring of every tier runs hand-written CUDA
+  kernels (``csrc/gmm_score.cu``: exact float32 FMA, and bfloat16 on the
+  tensor cores);
 * scheme-2 training — corpus batching, flat start, embedded Baum-Welch
   (:mod:`~poccala_tpu_torch.train.accumulators`), Viterbi forced
   alignment and :class:`~poccala_tpu_torch.train.trainer.Trainer`, whose
@@ -28,9 +33,25 @@ Ported so far:
   or realignment, grouped k-means and EM (:mod:`~poccala_tpu_torch.ops.
   kmeans`, :mod:`~poccala_tpu_torch.ops.em`), split-and-merge EM
   (:mod:`~poccala_tpu_torch.train.smem`), mixture growth — plus k-means
-  state tying and the reference's per-unit parameter layout.
+  state tying and the reference's per-unit parameter layout;
+* context-dependent units (:mod:`~poccala_tpu_torch.models.context`), the
+  parallel tier over ``torch.distributed``
+  (:mod:`~poccala_tpu_torch.parallel`), the command line
+  (:mod:`~poccala_tpu_torch.cli`) and the leaf modules (distances,
+  hierarchical clustering, SOM and PSO, the experiment-dataset loader,
+  profiling).
 
 On the GPU each kernel launches; on the CPU its plain PyTorch version runs.
 """
 
 __version__ = "0.1.0"
+
+from poccala_tpu_torch.config import Config, FrontendConfig, ModelConfig, TrainConfig
+
+__all__ = [
+    "Config",
+    "FrontendConfig",
+    "ModelConfig",
+    "TrainConfig",
+    "__version__",
+]

@@ -9,9 +9,13 @@ port keeps its own copy of ``build_parser``, with its own handlers):
 * ``train``      — ``Trainer.auto`` (schemes 1/2, mixture growth,
                    round-granular checkpoint/resume)
 * ``align``      — Viterbi forced alignment over a corpus
-* ``decode``     — WAV(s) → word hypotheses via the device decoder
-                   (exact or block-pruned search, ``--set
-                   decoder.active_blocks=K decoder.block_size=N``), with an
+* ``decode``     — WAV(s) → word hypotheses via one of three decoder
+                   tiers: ``--decoder vector`` (the default: batched host
+                   token passing), ``simple`` (the dict-based host
+                   reference, one utterance at a time) or ``device`` (the
+                   on-device search, exact or block-pruned: ``--set
+                   decoder.active_blocks=K decoder.block_size=N``); the
+                   GMM scores run on ``--device`` for every tier; with an
                    optional n-best rescore by a higher-order LM
 * ``cd-expand``  — a trained context-independent checkpoint → tied-state
                    context-dependent units (triples, context trees, cloned
@@ -40,11 +44,6 @@ the command on the same inputs; only rank 0 prints and writes the
 checkpoint, the others wait at a barrier.  In ``serve`` rank 0 owns the
 request loop and the other ranks follow it
 (:func:`poccala_tpu_torch.parallel.decode.follow`).
-
-Deviation while the port is partial (``ROADMAP.md`` Queue 1): ``decode``
-defaults to ``--decoder device``, where the JAX CLI defaults to the host
-``vector`` tier, because the host tiers are not ported and ``--decoder
-vector|simple`` raise.
 """
 
 from __future__ import annotations
@@ -82,20 +81,6 @@ def _device(args) -> torch.device:
     from poccala_tpu_torch.utils.device import resolve
 
     return resolve(args.device)
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to poccala_tpu_torch yet (ROADMAP.md "
-        f"Queue 1 item {item}); use python -m poccala_tpu.cli")
-
-
-def _check_unported(args) -> None:
-    if getattr(args, "decoder", "device") != "device":
-        if getattr(args, "distributed", False):
-            raise SystemExit("--distributed requires --decoder device")
-        _not_ported(f"--decoder {args.decoder} (the host decoder tiers)",
-                    "7")
 
 
 def _maybe_mesh(cfg, args, dev):
@@ -184,20 +169,27 @@ def _load_lm(args):
     return lm
 
 
-def _device_decoder(args, cfg, inv, dev):
-    """Checkpoint + lexicon + LM -> :class:`DeviceBeamDecoder` on ``dev``,
-    with the block-pruning knobs from ``cfg.decoder``."""
-    from poccala_tpu_torch.decoder.device import DeviceBeamDecoder
+def _load_decoder(args, cfg, inv, dev, tier: str = "device"):
+    """Checkpoint + lexicon + LM -> the decoder of ``tier`` (``device``,
+    ``vector`` or ``simple``) with its bank on ``dev``, built as the JAX
+    CLI builds it (``cmd_decode``): the block-pruning knobs of
+    ``cfg.decoder`` and ``score_dtype`` go to the device tier only."""
+    from poccala_tpu_torch.decoder import BeamDecoder, DeviceBeamDecoder
+    from poccala_tpu_torch.decoder.vector import VectorBeamDecoder
     from poccala_tpu_torch.train import checkpoint as ckpt
 
     bank, _ = ckpt.load_checkpoint(args.checkpoint, device=dev)
     flat, bank = _load_decode_graph(args, inv, bank)
-    return DeviceBeamDecoder(bank, flat, beam=args.beam, lm=_load_lm(args),
-                             normalizer=cfg.model.gaussian_normalizer,
-                             score_dtype=cfg.model.score_dtype,
-                             block_size=cfg.decoder.block_size,
-                             active_blocks=cfg.decoder.active_blocks or None,
-                             prune_hysteresis=cfg.decoder.prune_hysteresis)
+    kw = {}
+    if tier == "device":
+        kw.update(block_size=cfg.decoder.block_size,
+                  active_blocks=cfg.decoder.active_blocks or None,
+                  prune_hysteresis=cfg.decoder.prune_hysteresis,
+                  score_dtype=cfg.model.score_dtype)
+    cls = {"device": DeviceBeamDecoder, "vector": VectorBeamDecoder,
+           "simple": BeamDecoder}[tier]
+    return cls(bank, flat, beam=args.beam, lm=_load_lm(args),
+               normalizer=cfg.model.gaussian_normalizer, **kw)
 
 
 def _features_fn(cfg, dev):
@@ -295,23 +287,31 @@ def cmd_align(args):
 
 
 def cmd_decode(args):
-    _check_unported(args)
+    if args.distributed and args.decoder != "device":
+        # before any process group or mesh is made
+        raise SystemExit("--distributed requires --decoder device")
     dev = _device(args)
     cfg = _load_config(args)
     inv = _load_inventory(cfg, args)
-    dec = _device_decoder(args, cfg, inv, dev)
+    dec = _load_decoder(args, cfg, inv, dev, args.decoder)
     mesh = _maybe_mesh(cfg, args, dev)
     features = _features_fn(cfg, dev)
     packs = [features(path) for path in args.wavs]
-    # one batched decode (sharded over the mesh's data axis when
-    # --distributed: every rank decodes its rows, all return every row)
-    t_max = max(len(p) for p in packs)
-    feats_b = np.zeros((len(packs), t_max, packs[0].shape[1]), np.float32)
-    nf = np.zeros(len(packs), np.int32)
-    for i, p in enumerate(packs):
-        feats_b[i, : len(p)] = p
-        nf[i] = len(p)
-    outs = dec.decode_batch(feats_b, nf, return_nbest=5, mesh=mesh)
+    if args.decoder == "simple":
+        outs = [dec.decode(p) for p in packs]
+    else:
+        # one batched decode (sharded over the mesh's data axis when
+        # --distributed: every rank decodes its rows, all return every
+        # row)
+        t_max = max(len(p) for p in packs)
+        feats_b = np.zeros((len(packs), t_max, packs[0].shape[1]),
+                           np.float32)
+        nf = np.zeros(len(packs), np.int32)
+        for i, p in enumerate(packs):
+            feats_b[i, : len(p)] = p
+            nf[i] = len(p)
+        kwargs = {"mesh": mesh} if mesh is not None else {}
+        outs = dec.decode_batch(feats_b, nf, return_nbest=5, **kwargs)
     if not _lead():
         _barrier(mesh)
         return
@@ -458,7 +458,7 @@ def cmd_listen(args):
     dev = _device(args)
     cfg = _load_config(args)
     inv = _load_inventory(cfg, args)
-    dec = _device_decoder(args, cfg, inv, dev)
+    dec = _load_decoder(args, cfg, inv, dev)
 
     path = args.wav
     if not path:
@@ -498,7 +498,7 @@ def cmd_serve(args):
     dev = _device(args)
     cfg = _load_config(args)
     inv = _load_inventory(cfg, args)
-    dec = _device_decoder(args, cfg, inv, dev)
+    dec = _load_decoder(args, cfg, inv, dev)
     mesh = _maybe_mesh(cfg, args, dev)
     if mesh is not None:
         from poccala_tpu_torch.parallel import decode as pdecode
@@ -620,8 +620,7 @@ COMMANDS = {
 def build_parser() -> argparse.ArgumentParser:
     """The JAX CLI's flag set (``poccala_tpu/cli.py:build_parser``, copied;
     ``tests/test_torch_cli.py`` pins the two together) with the port's
-    handlers, the global ``--device`` and ``decode``'s default tier set to
-    ``device``."""
+    handlers and the global ``--device``."""
     p = argparse.ArgumentParser(prog="poccala-tpu-torch")
     p.add_argument("--device", default="cuda",
                    help="torch device of the bank, frontend and trainer "
@@ -674,10 +673,9 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--rescore-order", type=int, default=3)
     d.add_argument("--beam", type=float, default=0.85)
     d.add_argument("--decoder", choices=("vector", "device", "simple"),
-                   default="device",
-                   help="decoder tier: the on-device search (default); "
-                        "the host tiers vector and simple are not "
-                        "ported yet and raise")
+                   default="vector",
+                   help="decoder tier: vectorized host (default), "
+                        "on-device scan, or the simple reference path")
     d.add_argument("wavs", nargs="+")
     add_dist_flags(d)
     d.set_defaults(fn=cmd_decode)

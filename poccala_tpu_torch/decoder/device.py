@@ -34,9 +34,9 @@ the carry and the traceback rows persist across feature chunks on the
 bank's device; traceback pointers are absolute frame indices, so a
 chunked decode equals the one-shot decode of the concatenated features.
 
-Scoring goes through :func:`~poccala_tpu_torch.ops.cuda.gmm_score_cuda.
-gmm_log_scores_fast`: the CUDA kernel for a bank on the GPU, the plain
-version on the CPU.  Where JAX scans the frames inside one program, this
+Scoring goes through :func:`~poccala_tpu_torch.ops.gmm_score.
+gmm_log_scores_batch`, one call of the dispatcher over all ``B·T`` frames:
+the CUDA kernel for a bank on the GPU, the plain version on the CPU.  Where JAX scans the frames inside one program, this
 is a Python loop over frames batched over utterances; on the GPU every op
 is an asynchronous launch on the calling thread's current stream (the
 worker thread of :class:`~poccala_tpu_torch.serve.DecodeService` runs batches
@@ -72,7 +72,7 @@ import torch.nn.functional as F
 
 from poccala_tpu_torch.decoder.beam import Hypothesis
 from poccala_tpu_torch.decoder.vector import VectorBeamDecoder
-from poccala_tpu_torch.ops.cuda.gmm_score_cuda import gmm_log_scores_fast
+from poccala_tpu_torch.ops.gmm_score import gmm_log_scores_batch
 from poccala_tpu_torch.utils.logmath import NEG_INF
 
 
@@ -435,12 +435,9 @@ class DeviceBeamDecoder(VectorBeamDecoder):
 
     def _scores(self, feats: torch.Tensor) -> torch.Tensor:
         """All-frames × all-senones GMM scores ``[B, T, S]``."""
-        b, t, d = feats.shape
-        s = gmm_log_scores_fast(
-            feats.reshape(b * t, d), self.bank.means, self.bank.log_var,
-            self.bank.log_w, normalizer=self.normalizer,
-            score_dtype=self.score_dtype)
-        return s.reshape(b, t, -1)
+        return gmm_log_scores_batch(
+            feats, None, self.bank.means, self.bank.log_var, self.bank.log_w,
+            normalizer=self.normalizer, score_dtype=self.score_dtype)[0]
 
     def _lm(self, tabs: _Tables, l_r: torch.Tensor,
             w_r: torch.Tensor) -> torch.Tensor:
@@ -547,8 +544,11 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         entry_ctx = torch.where(use_restart, re_ctx[:, None], flow_ctx)
         return entry, entry_ctx, prev_row, word_row
 
-    def _step(self, tabs: _Tables, carry, frame_scores, ti: int, active):
-        """One frame of the exact search for the whole batch.  The carry
+    def _frame_step(self, tabs: _Tables, carry, frame_scores, ti: int,
+                    active):
+        """One frame of the exact search for the whole batch (named apart
+        from the host tiers' :meth:`BeamDecoder._step`, which this class
+        inherits unchanged, as in JAX).  The carry
         is ``(deltas, ctx)``, each ``[B, N, Ns]``; ``frame_scores`` is
         ``[B, S]`` and ``active`` ``[B]``.  Returns the new carry and this
         frame's traceback row ``(prev_row, word_row)``, each ``[B]``."""
@@ -580,7 +580,7 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         ``step_pruned``) on the compact carry ``(kb [B, K], d_act
         [B, K, blk, Ns], c_act, entry [B, N], entry_ctx [B, N])``: only the
         K active blocks' token scores are carried, plus the global entry
-        row.  Same returns as :meth:`_step`."""
+        row.  Same returns as :meth:`_frame_step`."""
         kb, d_act, c_act, entry, entry_ctx = carry
         b, k_act = kb.shape
         blk, n_blk = self.block_size, self._n_blocks
@@ -699,7 +699,7 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         tb_word = torch.full((b, t_c), -1, dtype=torch.int32, device=dev)
         actives = (torch.arange(t_c)[None]
                    < torch.as_tensor(n_valid)[:, None]).to(dev)
-        step = self._step_pruned if self._prune_on else self._step
+        step = self._step_pruned if self._prune_on else self._frame_step
         # frames past every utterance's end are frozen no-ops: stop there
         for i in range(int(min(t_c, n_valid.max(initial=0)))):
             carry, prev_row, word_row = step(tabs, carry, scores[:, i],

@@ -128,6 +128,10 @@ def embedded_log_b(scores: torch.Tensor, ehmm: EmbeddedHMM) -> torch.Tensor:
     return torch.where(ehmm.state_mask[:, None, :], log_b, NEG_INF)
 
 
+# JAX's ``jax.vmap(embedded_log_b)``: here the gather is batched already
+embedded_log_b_batch = embedded_log_b
+
+
 def states_to_labels(path: torch.Tensor, ehmm: EmbeddedHMM,
                      labels: torch.Tensor, state_num: int):
     """Sentence-state Viterbi paths ``[B, T]`` -> per-frame (label_pos,

@@ -1,2 +1,3 @@
 """Compute ops tier: frontend, VAD, GMM scoring, HMM dynamic programming,
-grouped k-means and EM, and the CUDA kernels."""
+grouped k-means and EM, distances, hierarchical clustering, SOM and PSO,
+and the CUDA kernels."""

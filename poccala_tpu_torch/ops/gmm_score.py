@@ -118,6 +118,27 @@ def gmm_log_scores(
     return scores
 
 
+def gmm_log_scores_batch(x, x_mask, means, log_var, log_w,
+                         normalizer: str = "textbook",
+                         score_dtype: str = "float32"):
+    """Batched scoring: ``x [B, T, D]`` -> ``([B, T, S], x_mask)``; padded
+    frames are scored but the mask is passed through for downstream DP
+    kernels.  The ``B·T`` frames go through one call of
+    :func:`~poccala_tpu_torch.ops.cuda.gmm_score_cuda.gmm_log_scores_fast`:
+    one kernel launch for a CUDA tensor, the plain version for a CPU one.
+    In bfloat16 the operands are centred on the mean of all ``B·T`` frames,
+    where JAX's ``vmap`` centres each utterance on its own: both stay within
+    the bfloat16 tolerance of the float32 scores."""
+    # imported here: the wrapper module imports this one
+    from poccala_tpu_torch.ops.cuda.gmm_score_cuda import gmm_log_scores_fast
+
+    b, t, d = x.shape
+    scores = gmm_log_scores_fast(
+        x.reshape(b * t, d).contiguous(), means, log_var, log_w,
+        normalizer=normalizer, score_dtype=score_dtype)
+    return scores.reshape(b, t, -1), x_mask
+
+
 def mixture_mask(mix_counts: torch.Tensor, max_mix: int) -> torch.Tensor:
     """``[S, M]`` bool — True for active mixture slots."""
     slots = torch.arange(max_mix, device=mix_counts.device)

@@ -31,9 +31,13 @@ from poccala_tpu_torch.utils.logmath import masked_log
 
 def save_checkpoint(path: str, bank: SenoneBank, manifest: dict | None = None,
                     units: list[str] | None = None,
-                    sharded: bool | None = None) -> None:
+                    sharded: bool | None = None,
+                    async_save: bool = False) -> None:
     """Write ``bank.npz`` + ``manifest.json`` under ``path``.  The bank is
-    copied to the host; ``sharded=True`` (orbax) raises."""
+    copied to the host; ``sharded=True`` (orbax) raises.  ``async_save``
+    is JAX's keyword for the orbax format's background commit: the npz
+    write is synchronous whatever it says, so :func:`wait_for_save` has
+    nothing to wait for."""
     if sharded:
         raise NotImplementedError(
             "the orbax sharded checkpoint format needs jax; the PyTorch "
@@ -48,6 +52,12 @@ def save_checkpoint(path: str, bank: SenoneBank, manifest: dict | None = None,
     man["format"] = "npz"
     with open(os.path.join(path, "manifest.json"), "w") as f:
         json.dump(man, f, indent=2)
+
+
+def wait_for_save() -> None:
+    """Block until any in-flight :func:`save_checkpoint`
+    (``async_save=True``) has committed: a no-op, since every npz write
+    has committed when ``save_checkpoint`` returns."""
 
 
 def load_checkpoint(path: str, device=None) -> tuple[SenoneBank, dict]:

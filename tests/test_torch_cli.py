@@ -6,12 +6,13 @@ normalisation (CMVN without the variance part: with it, the second
 epoch's loglik sums to about -47 from terms of thousands, and its
 relative error says nothing) and a deterministic flat start: the
 scheme-2 ``--history`` logliks agree within 1e-4 relative,
-``align`` gives the JAX CLI's frames on the same checkpoint, and
-``decode --decoder device`` its words (scores at rtol 1e-4).  ``listen``'s
-final n-best equals ``decode``'s, ``serve`` answers in input order with
-``decode``'s 1-best, the reference-layout export/import round-trips, the
-flags of the unported parts raise, and ``--device cuda`` without a card
-raises instead of running on the CPU.
+``align`` gives the JAX CLI's frames on the same checkpoint, and ``decode``
+its words on every tier (``--decoder device``, ``vector`` -- the default
+of both CLIs -- and ``simple``; scores at rtol 1e-4).  ``listen``'s final
+n-best equals the device tier's ``decode``, ``serve`` answers in input
+order with its 1-best, the reference-layout export/import round-trips,
+the flags that raised while their parts were unported answer, and
+``--device cuda`` without a card raises instead of running on the CPU.
 
 The context-dependent workflow (``tests/test_cli.py``'s ``TestCliCdExpand``
 corpus): both CLIs run ``cd-expand`` on one CI checkpoint and give the same
@@ -196,6 +197,37 @@ def test_decode_matches_jax(trained, capsys, prune):
                            [h["score"] for h in w["nbest"]], rtol=1e-4)
 
 
+@pytest.mark.parametrize("tier", ["vector", "simple", "default"])
+def test_host_tier_decode_matches_jax(trained, capsys, tier):
+    """``decode --decoder vector|simple`` of both CLIs on the JAX CLI's
+    checkpoint, with the bigram LM and ``--rescore-lm``: the same n-best
+    words, scores at rtol 1e-4.  Without ``--decoder`` both CLIs print
+    what ``--decoder vector`` prints."""
+    j = trained["jax"]
+    wavs = [os.path.join(j["dirs"]["audio_dir"], f"utt{i:05d}.wav")
+            for i in range(3)]
+    flag = [] if tier == "default" else ["--decoder", tier]
+    argv = [*j["args"], "decode", *flag, "--checkpoint", j["ckpt"],
+            "--lexicon", j["lex"], "--lm", j["lm"], "--rescore-lm", j["lm"],
+            *wavs]
+    want = [json.loads(l) for l in
+            run(capsys, jcli.main, *argv).strip().splitlines()]
+    got = [json.loads(l) for l in tcpu(capsys, *argv).strip().splitlines()]
+    assert [g["wav"] for g in got] == wavs
+    assert all(g["nbest"] for g in got)
+    for g, w in zip(got, want):
+        assert [h["words"] for h in g["nbest"]] == \
+            [h["words"] for h in w["nbest"]]
+        assert np.allclose([h["score"] for h in g["nbest"]],
+                           [h["score"] for h in w["nbest"]], rtol=1e-4)
+    if tier == "default":
+        argv[argv.index("decode") + 1:argv.index("decode") + 1] = \
+            ["--decoder", "vector"]
+        vector = [json.loads(l) for l in tcpu(capsys, *argv).strip()
+                  .splitlines()]
+        assert vector == got
+
+
 def test_listen_and_serve_match_decode(trained, capsys):
     t = trained["torch"]
     base = [*t["args"]]
@@ -204,7 +236,8 @@ def test_listen_and_serve_match_decode(trained, capsys):
     wavs = [os.path.join(t["dirs"]["audio_dir"], f"utt{i:05d}.wav")
             for i in range(3)]
     solo = [json.loads(l) for l in tcpu(
-        capsys, *base, "decode", *model, *wavs).strip().splitlines()]
+        capsys, *base, "decode", "--decoder", "device", *model,
+        *wavs).strip().splitlines()]
     assert all(s["nbest"] for s in solo)
 
     lines = [json.loads(l) for l in tcpu(
@@ -385,9 +418,10 @@ def cd_decode(capsys, main, pre, cd_world, system, cmd="decode", extra=()):
 def test_cd_decode_matches_jax(cd_world, capsys, system):
     """A CD checkpoint and sidecar written by either CLI, decoded by
     both."""
-    want = cd_decode(capsys, jcli.main, [], cd_world, system,
-                     extra=["--decoder", "device"])
-    got = cd_decode(capsys, tcli.main, ["--device", "cpu"], cd_world, system)
+    device = ["--decoder", "device"]
+    want = cd_decode(capsys, jcli.main, [], cd_world, system, extra=device)
+    got = cd_decode(capsys, tcli.main, ["--device", "cpu"], cd_world, system,
+                    extra=device)
     assert [g["wav"] for g in got] == cd_world["wavs"]
     assert all(g["nbest"] for g in got)
     for g, w in zip(got, want):
@@ -398,16 +432,17 @@ def test_cd_decode_matches_jax(cd_world, capsys, system):
 
 
 def test_cd_systems_decode_to_the_same_words(cd_world, capsys):
-    pre = ["--device", "cpu"]
-    a = cd_decode(capsys, tcli.main, pre, cd_world, "jax")
-    b = cd_decode(capsys, tcli.main, pre, cd_world, "torch")
+    pre, device = ["--device", "cpu"], ["--decoder", "device"]
+    a = cd_decode(capsys, tcli.main, pre, cd_world, "jax", extra=device)
+    b = cd_decode(capsys, tcli.main, pre, cd_world, "torch", extra=device)
     assert [x["nbest"][0]["words"] for x in a] == \
         [x["nbest"][0]["words"] for x in b]
 
 
 def test_cd_listen_and_serve_match_decode(cd_world, capsys):
     pre = ["--device", "cpu"]
-    solo = cd_decode(capsys, tcli.main, pre, cd_world, "torch")
+    solo = cd_decode(capsys, tcli.main, pre, cd_world, "torch",
+                     extra=["--decoder", "device"])
     lines = cd_decode(capsys, tcli.main, pre, cd_world, "torch", "listen",
                       ["--wav", cd_world["wavs"][0], "--chunk-frames", "16"])
     assert [h["words"] for h in lines[-1]["final"]] == \
@@ -442,12 +477,22 @@ def test_cd_sidecar_of_another_inventory_is_refused(cd_world, trained):
     ["train", "--distributed"],
 ], ids=lambda a: "-".join(x.strip("-") for x in a[:2]))
 def test_unported_flags_raise(trained, cd_world, capsys, argv):
-    """The flags of the parts still to port raise; ``--cd`` and
-    ``cd-expand``, which raised until the context-dependent units were
-    ported, answer, and so does ``--distributed``, which raised until the
-    parallel tier was ported: on a one-rank CPU mesh ``decode`` and
-    ``serve`` print what they print without it, and ``train`` writes its
-    checkpoint."""
+    """The flags that raised while their parts were unported answer:
+    ``--cd`` and ``cd-expand`` (context-dependent units), ``--distributed``
+    (the parallel tier: on a one-rank CPU mesh ``decode --decoder device``
+    and ``serve`` print what they print without it, and ``train`` writes
+    its checkpoint) and ``--decoder vector|simple`` (the host decoder
+    tiers: every WAV gets a non-empty n-best)."""
+    if "--decoder" in argv:
+        t = trained["torch"]
+        wavs = [os.path.join(t["dirs"]["audio_dir"], f"utt{i:05d}.wav")
+                for i in range(2)]
+        lines = [json.loads(l) for l in tcpu(
+            capsys, *t["args"], *argv, "--checkpoint", t["ckpt"],
+            "--lexicon", t["lex"], *wavs).strip().splitlines()]
+        assert [l["wav"] for l in lines] == wavs
+        assert all(l["nbest"] and l["nbest"][0]["words"] for l in lines)
+        return
     if "--distributed" in argv:
         t = trained["torch"]
         wav = os.path.join(t["dirs"]["audio_dir"], "utt00000.wav")
@@ -463,6 +508,8 @@ def test_unported_flags_raise(trained, cd_world, capsys, argv):
                 with open(tail[1], "w") as f:
                     f.write(wav + "\n")
             model = ["--checkpoint", t["ckpt"], "--lexicon", t["lex"]]
+            if argv[0] == "decode":
+                model += ["--decoder", "device"]
             got = tcpu(capsys, *t["args"], argv[0], *model, *tail,
                        "--distributed")
             want = tcpu(capsys, *t["args"], argv[0], *model, *tail)
@@ -510,7 +557,7 @@ def test_device_cuda_without_a_card_raises(trained, monkeypatch):
 def test_parser_is_the_jax_flag_set_with_port_handlers():
     """The port reuses the JAX CLI's parser: every subcommand and option
     string is JAX's, apart from the global ``--device``; every handler is
-    the port's, and ``decode`` defaults to the device tier."""
+    the port's, and ``decode`` defaults to JAX's ``vector`` tier."""
     import argparse
 
     def subcommands(parser):
@@ -530,7 +577,7 @@ def test_parser_is_the_jax_flag_set_with_port_handlers():
         assert sp.get_default("fn") is tcli.COMMANDS[name], name
         assert sp.get_default("fn").__module__ == "poccala_tpu_torch.cli"
     assert tp.parse_args(["decode", "--checkpoint", "c", "--lexicon", "l",
-                          "a.wav"]).decoder == "device"
+                          "a.wav"]).decoder == "vector"
     assert jp.parse_args(["decode", "--checkpoint", "c", "--lexicon", "l",
                           "a.wav"]).decoder == "vector"
     assert tp.parse_args(["align", "--checkpoint", "c"]).device == "cuda"

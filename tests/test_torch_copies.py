@@ -3,9 +3,10 @@ pinned to their originals, and the port's default device.
 
 ``poccala_tpu_torch`` imports nothing of ``poccala_tpu``
 (``tests/test_torch_no_jax.py``): it carries ``config``, ``io.wav``,
-``io.audio_device``, ``io.synth_formant``, ``lm.ngram``,
-``models.questions``, ``native`` (with ``wavio.cpp``), ``serve``, ``eval``
-and the command line's parser as copies.  Each copy
+``io.audio_device``, ``io.synth_formant``, ``io.dataset``, ``lm.ngram``,
+``models.questions``, ``native`` (with ``wavio.cpp``), ``ops.hierarchical``,
+``serve``, ``eval``, ``utils.errors`` and the command line's parser as
+copies.  Each copy
 must keep the original's code (docstrings and the package's own name
 aside) and give the original's outputs on seeded numpy inputs, so that
 one ``Config`` object, one checkpoint, one WAV file and one LM file serve
@@ -66,6 +67,9 @@ COPIES = {
     "eval/wer.py": (),
     "models/questions.py": (),
     "io/synth_formant.py": (),
+    "io/dataset.py": (),
+    "utils/errors.py": (),
+    "ops/hierarchical.py": (),
 }
 
 
@@ -266,13 +270,12 @@ def parser_shape(parser, skip=()):
 
 def test_parser_is_the_jax_parser_plus_device():
     """Flags, defaults, choices and positionals of every subcommand; the
-    port adds ``--device`` and defaults ``decode`` to the device tier."""
+    port adds ``--device``.  ``decode``'s default tier is JAX's."""
     j = parser_shape(jcli.build_parser())
     t = parser_shape(tcli.build_parser())
     assert t[""].pop("--device") == ("cuda", None, False, None)
-    assert t["decode"]["--decoder"][0] == "device"
+    assert t["decode"]["--decoder"] == j["decode"]["--decoder"]
     assert j["decode"]["--decoder"][0] == "vector"
-    t["decode"]["--decoder"] = j["decode"]["--decoder"]
     assert t == j
 
 

@@ -1,7 +1,8 @@
 """The PyTorch port on a CUDA device: the hand-written kernels (GMM
 scoring in float32 and bfloat16, banded HMM forward / backward / Viterbi)
-against their plain versions, the GPU frontend, decoder and Baum-Welch
-statistics against the CPU, the pack cache and the default device.
+against their plain versions, the GPU frontend, decoders (the device tier
+and the host tiers) and Baum-Welch statistics against the CPU, the pack
+cache, the profiling ledger and the default device.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The
 file imports no jax, so it also runs where jax is absent, without the
@@ -639,6 +640,105 @@ def test_fit_gmms_keeps_bank_on_gpu(cuda):
     assert all(getattr(tr.bank, f).is_cuda for f in sb.FIELDS)
     assert torch.isfinite(tr.bank.means).all()
     assert tr.round_info["em_iters"] >= 1 and "smem_accepted" in tr.round_info
+
+
+# ----------------------------------------------------------------------
+# the host decoder tiers, batched scoring, the profiling ledger
+# ----------------------------------------------------------------------
+
+def separable_world(seed=6, d=8):
+    """Six units whose senone means are per-unit embeddings, the lexicon
+    你好 / 你 / 马 over them, and three utterances drawn around the
+    embeddings (tests/test_streaming_decode.py's world)."""
+    rng = np.random.default_rng(seed)
+    units = ["n", "i3", "h", "ao3", "m", "a1"]
+    inv = UnitInventory(units)
+    cfg = ModelConfig(state_num=5, mix_level=1, max_mix_level=1)
+    emb = rng.normal(size=(len(units), d)).astype(np.float32) * 4
+    arrays = sb.bank_to_numpy(sb.create_bank(len(units), cfg, d,
+                                             differentiation=False,
+                                             device="cpu"))
+    arrays["means"] = np.repeat(emb, 3, axis=0)[:, None, :]
+    lex = PronunciationLexicon()
+    lex.generate(["你好", "你", "马"],
+                 PinYin({"你": ["ni3"], "好": ["hao3"], "马": ["ma1"]}))
+    flat = FlatLexicon.from_tree(lex.lexicon, inv)
+    utts = [np.concatenate([emb[u] + rng.normal(size=(10, d)) * 0.4
+                            for u in seq]).astype(np.float32)
+            for seq in ([0, 1, 2, 3], [4, 5], [0, 1, 2, 3, 4, 5])]
+    feats = np.zeros((3, 60, d), np.float32)
+    for i, x in enumerate(utts):
+        feats[i, : len(x)] = x
+    return arrays, flat, feats, np.array([len(x) for x in utts])
+
+
+def same_nbest(got, want):
+    assert [h.words for h in got] == [h.words for h in want]
+    assert np.allclose([h.score for h in got], [h.score for h in want],
+                       rtol=1e-4, atol=0.0)
+
+
+def test_host_tiers_gpu_match_cpu(cuda):
+    """The vector and simple tiers with the bank on the card: the CPU's
+    n-best (words, scores at 1e-4), one GMM launch per ``decode_batch``
+    and per simple ``decode``, for features given as an array or as a
+    tensor on the card."""
+    from poccala_tpu_torch.decoder import BeamDecoder
+    from poccala_tpu_torch.decoder.vector import VectorBeamDecoder
+
+    arrays, flat, feats, n = separable_world()
+    gbank = sb.bank_from_numpy(arrays, device=cuda)
+    cbank = sb.bank_from_numpy(arrays, device="cpu")
+    want = VectorBeamDecoder(cbank, flat).decode_batch(feats, n)
+    gvec = VectorBeamDecoder(gbank, flat)
+    for x in (feats, torch.as_tensor(feats, device=cuda)):
+        before = gk.gmm_log_scores_cuda.launches
+        got = gvec.decode_batch(x, n)
+        assert gk.gmm_log_scores_cuda.launches == before + 1
+        assert [g[0].words for g in got] == [("你好",), ("马",),
+                                             ("你好", "马")]
+        for g, w in zip(got, want):
+            same_nbest(g, w)
+    gsim = BeamDecoder(gbank, flat, candidate=3)
+    csim = BeamDecoder(cbank, flat, candidate=3)
+    for i in range(3):
+        before = gk.gmm_log_scores_cuda.launches
+        got = gsim.decode(feats[i, : n[i]])
+        assert gk.gmm_log_scores_cuda.launches == before + 1
+        same_nbest(got, csim.decode(feats[i, : n[i]]))
+
+
+def test_gmm_log_scores_batch_launches_once(cuda):
+    rng = np.random.default_rng(8)
+    x, means, log_var, log_w = scoring_inputs(rng, 70, 4, 13, 3 * 40)
+    x = x.reshape(3, 40, 13)
+    mask = torch.ones(3, 40, dtype=torch.bool)
+    before = gk.gmm_log_scores_cuda.launches
+    got, gmask = tg.gmm_log_scores_batch(
+        x.to(cuda), mask, means.to(cuda), log_var.to(cuda), log_w.to(cuda))
+    assert gk.gmm_log_scores_cuda.launches == before + 1
+    want, _ = tg.gmm_log_scores_batch(x, mask, means, log_var, log_w)
+    assert gmask is mask and got.shape == (3, 40, 70)
+    assert torch.allclose(got.cpu(), want, **F32)
+
+
+def test_optimer_timeit_synchronises(cuda, monkeypatch):
+    """``timeit`` waits for the card after the warm-up and after the timed
+    calls, and returns with the work done."""
+    from poccala_tpu_torch.utils.profiling import OpTimer
+
+    synced = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: (synced.append(device),
+                                             real(device))[1])
+    a = torch.randn(2048, 2048, device=cuda)
+    timer = OpTimer()
+    out, dt = timer.timeit("mm", torch.matmul, a, a, iters=5,
+                           flops=2 * 2048.0 ** 3)
+    assert len(synced) == 2 and all(d == a.device for d in synced)
+    assert torch.cuda.current_stream(cuda).query() and dt > 0
+    assert timer.records["mm"]["calls"] == 5 and "TFLOP/s" in timer.report()
 
 
 # ----------------------------------------------------------------------

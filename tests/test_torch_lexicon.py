@@ -61,6 +61,15 @@ VERBATIM = {
                                        TorchVector._prep_tables),
     "BeamDecoder.__init__": (JaxBeamDecoder.__init__,
                              TorchBeamDecoder.__init__),
+    "BeamDecoder._log_b": (JaxBeamDecoder._log_b, TorchBeamDecoder._log_b),
+    "BeamDecoder._step": (JaxBeamDecoder._step, TorchBeamDecoder._step),
+    "BeamDecoder._exit_scores": (JaxBeamDecoder._exit_scores,
+                                 TorchBeamDecoder._exit_scores),
+    "BeamDecoder.decode": (JaxBeamDecoder.decode, TorchBeamDecoder.decode),
+    "VectorBeamDecoder._lm_lookup": (JaxVector._lm_lookup,
+                                     TorchVector._lm_lookup),
+    "VectorBeamDecoder._step_rows": (JaxVector._step_rows,
+                                     TorchVector._step_rows),
     "DeviceBeamDecoder._to_hypotheses": (JaxDevice._to_hypotheses,
                                          TorchDevice._to_hypotheses),
     "reference_words": (jbuild.reference_words, tbuild.reference_words),
@@ -76,6 +85,7 @@ def test_copied_source_is_verbatim(name):
 
 
 def test_tables_and_inventories_equal():
+    assert TorchVector.restart_top == JaxVector.restart_top
     assert ttable.BUILTIN_PINYIN == jtable.BUILTIN_PINYIN
     assert Path(tbuild.DEFAULT_DAT).parts[-2:] == \
         Path(jbuild.DEFAULT_DAT).parts[-2:]

@@ -4,8 +4,8 @@ The machine the port runs on has no jax, so ``poccala_tpu_torch`` (and
 ``chip_smoke.py``, which drives it there) imports nothing of
 ``poccala_tpu``, not even a module there that is jax-free: the port keeps
 its own copies.  An AST scan pins the rule statically; a subprocess runs
-the serving slice (batch and streaming), a block-pruned decode, the
-command line, small training runs of both schemes and a rank of the
+the serving slice (batch and streaming), a block-pruned decode, the host
+decoder tiers, the leaf modules, the command line, small training runs of both schemes and a rank of the
 parallel tier on the CPU and checks that neither jax nor any
 ``poccala_tpu`` module was loaded.
 """
@@ -95,6 +95,41 @@ SLICE = textwrap.dedent("""
     pruned = DeviceBeamDecoder(bank, big, block_size=64, active_blocks=2)
     out = pruned.decode_batch(packed[None, :n], [n])
     assert pruned._prune_on and len(out[0]) == 1, out
+
+    # the host decoder tiers: one batched vector call, one simple decode
+    from poccala_tpu_torch.decoder import BeamDecoder
+    from poccala_tpu_torch.decoder.vector import VectorBeamDecoder
+    vec = VectorBeamDecoder(bank, dec.lexicon).decode_batch(
+        np.stack([packed, packed]), [n, n // 2])
+    simple = BeamDecoder(bank, dec.lexicon).decode(packed[:n])
+    assert len(vec) == 2 and vec[0] and simple, (vec, simple)
+
+    # the leaf modules
+    from poccala_tpu_torch.io.dataset import load_experiment_csv
+    from poccala_tpu_torch.ops import distance, hierarchical, som
+    from poccala_tpu_torch.ops.gmm_score import gmm_log_scores_batch
+    from poccala_tpu_torch.utils import logsumexp, profiling
+    pts = rng.normal(size=(12, 2))
+    _, clusters = hierarchical.layercluster(pts, 3)
+    assert len(clusters) == 3
+    assert hierarchical.binning(pts, 2)[0].shape == (2, 2)
+    w, _ = som.p_som(torch.Generator().manual_seed(0),
+                     torch.as_tensor(pts, dtype=torch.float32), 2,
+                     pso_iters=5, steps=20)
+    assert distance.pairwise_euclidean(pts, w).shape == (12, 2)
+    sc, _ = gmm_log_scores_batch(
+        torch.as_tensor(np.stack([packed[:n]] * 2)), None, bank.means,
+        bank.log_var, bank.log_w)
+    assert torch.isfinite(logsumexp(sc, axis=-1)).all()
+    timer = profiling.OpTimer()
+    timer.timeit("scores", gmm_log_scores_batch, sc[..., :39], None,
+                 bank.means, bank.log_var, bank.log_w, iters=1)
+    assert "scores" in timer.report()
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, "toy.csv")
+        with open(csv, "w") as f:
+            f.write("toy\\n2 2 1 -1 -1\\nred,white\\nwhite,red\\n")
+        assert load_experiment_csv(csv).encoded().tolist() == [[0, 1], [1, 0]]
 
     # the command line: checkpoint + lexicon pickle + WAV -> decode
     import contextlib, io, json

@@ -460,8 +460,8 @@ def cli_world(tmp_path_factory):
 
     trained = ranks("train", "--mode", "2", "--epochs", "2",
                     "--checkpoint", ckpt)
-    decoded = ranks("decode", "--checkpoint", ckpt, "--lexicon", lex_path,
-                    *wavs)
+    decoded = ranks("decode", "--decoder", "device", "--checkpoint", ckpt,
+                    "--lexicon", lex_path, *wavs)
     wav_list = str(tmp / "wavs.txt")
     with open(wav_list, "w") as f:
         f.write("\n".join(wavs) + "\n")
@@ -530,8 +530,8 @@ def test_cli_decode_and_serve_distributed(cli_world, capsys):
     assert [l["wav"] for l in lines] == cli_world["wavs"]
     assert all(cli_world["decoded"][r] == "" for r in (1, 2, 3))
     tcli.main(["--device", "cpu", *cli_world["common"], "decode",
-               "--checkpoint", cli_world["ckpt"], "--lexicon",
-               cli_world["lex"], *cli_world["wavs"]])
+               "--decoder", "device", "--checkpoint", cli_world["ckpt"],
+               "--lexicon", cli_world["lex"], *cli_world["wavs"]])
     solo = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
     for g, w in zip(lines, solo):
         assert g["nbest"] and [h["words"] for h in g["nbest"]] == \

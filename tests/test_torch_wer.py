@@ -7,11 +7,13 @@ or two of three words, every unit a separable two-harmonic signature
 (``synth_unit_signal``).  Each package loads the same WAVs with its own
 ``Corpus``, trains its own ``Trainer.auto(t=4, mode=2, init=True)`` (the
 port through the plain versions of its DP kernels, on the CPU) and decodes
-with its own ``DeviceBeamDecoder`` over ``export_bank()``.  The port's WER
-is 0.0, as the JAX test asserts of the JAX pipeline, and both pipelines
-give the same words for every utterance (words, not scores: two float32
-trainings of four epochs are not held to each other here,
-``tests/test_torch_trainer.py`` does that with CMVN).
+with its own ``DeviceBeamDecoder`` over ``export_bank()``, and with the
+host tiers (``VectorBeamDecoder`` and ``BeamDecoder(candidate=3,
+max_tokens=48)``, as ``tests/test_full_loop_wer.py`` decodes).  The port's
+WER is 0.0 on every tier, as the JAX test asserts of the JAX pipeline, and
+both pipelines give the same words for every utterance on each tier
+(words, not scores: two float32 trainings of four epochs are not held to
+each other here, ``tests/test_torch_trainer.py`` does that with CMVN).
 
 ``edit_distance`` / ``wer`` / ``evaluate_decoder`` of the port's copy equal
 the original's on seeded random token lists (integers: exact).
@@ -25,14 +27,18 @@ import pytest
 import torch
 
 from poccala_tpu.config import Config
+from poccala_tpu.decoder import BeamDecoder as JaxBeamDecoder
 from poccala_tpu.decoder.device import DeviceBeamDecoder as JaxDecoder
+from poccala_tpu.decoder.vector import VectorBeamDecoder as JaxVector
 from poccala_tpu.io import corpus as jcorpus
 from poccala_tpu.lexicon import FlatLexicon as JaxFlatLexicon
 from poccala_tpu.lexicon import PinYin as JaxPinYin
 from poccala_tpu.lexicon import PronunciationLexicon as JaxLexicon
 from poccala_tpu.train.trainer import Trainer as JaxTrainer
 from poccala_tpu_torch import eval as teval
+from poccala_tpu_torch.decoder import BeamDecoder
 from poccala_tpu_torch.decoder.device import DeviceBeamDecoder
+from poccala_tpu_torch.decoder.vector import VectorBeamDecoder
 from poccala_tpu_torch.io import corpus as tcorpus
 from poccala_tpu_torch.io import wav as wav_io
 from poccala_tpu_torch.lexicon import FlatLexicon, PinYin, PronunciationLexicon
@@ -124,7 +130,8 @@ def port(world):
 
 
 @pytest.fixture(scope="module")
-def jax_words(world):
+def jax_side(world):
+    """The JAX pipeline's trained bank, lexicon and utterances."""
     cfg, refs = world
     inv = jcorpus.UnitInventory(UNITS)
     batches = list(jcorpus.Corpus(cfg, inv).batches())
@@ -132,9 +139,14 @@ def jax_words(world):
     tr.auto(batches, t=4, mode=2, init=True)
     lex = JaxLexicon()
     lex.generate(WORDS, JaxPinYin(TABLE))
-    dec = JaxDecoder(tr.export_bank(),
-                     JaxFlatLexicon.from_tree(lex.lexicon, inv))
-    return decoded_words(dec, *utterances(batches, refs))
+    return (tr.export_bank(), JaxFlatLexicon.from_tree(lex.lexicon, inv),
+            *utterances(batches, refs))
+
+
+@pytest.fixture(scope="module")
+def jax_words(jax_side):
+    bank, flat, utts, n_frames = jax_side
+    return decoded_words(JaxDecoder(bank, flat), utts, n_frames)
 
 
 def test_port_trained_model_has_zero_wer(world, port):
@@ -154,6 +166,26 @@ def test_port_pipeline_gives_the_jax_pipelines_words(world, port, jax_words):
     dec, utts, n_frames, _ = port
     got = decoded_words(dec, utts, n_frames)
     assert got == jax_words
+    assert got == [list(r) for r in world[1]]
+
+
+HOST_KW = dict(candidate=3, max_tokens=48)   # tests/test_full_loop_wer.py:85
+
+
+@pytest.mark.parametrize("tier", ["vector", "simple"])
+def test_port_host_tiers_have_zero_wer_and_the_jax_words(world, port,
+                                                         jax_side, tier):
+    """The port-trained bank through the host tiers: WER 0.0, and the
+    words JAX's pipeline decodes with the same tier."""
+    dec, utts, n_frames, _ = port
+    tcls, jcls = {"vector": (VectorBeamDecoder, JaxVector),
+                  "simple": (BeamDecoder, JaxBeamDecoder)}[tier]
+    host = tcls(dec.bank, dec.lexicon, **HOST_KW)
+    result = teval.evaluate_decoder(host, utts, n_frames)
+    assert result.wer == 0.0 and result.sentence_errors == 0, vars(result)
+    jbank, jflat, jutts, jn = jax_side
+    got = decoded_words(host, utts, n_frames)
+    assert got == decoded_words(jcls(jbank, jflat, **HOST_KW), jutts, jn)
     assert got == [list(r) for r in world[1]]
 
 
