@@ -3,8 +3,11 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the hand-written CUDA kernels from ``poccala_tpu_torch/csrc`` (the
-GMM scorer in float32 and bfloat16 and the banded HMM forward / backward /
-Viterbi), holds each against its plain PyTorch version, computes each one's
+GMM scorer in float32 and bfloat16, the banded HMM forward / backward /
+Viterbi and the device decoder's frame scan), holds each against its plain
+PyTorch version (the frame scan bit for bit at the decode cell's size with
+no LM, a flat and a sparse bigram LM, at a stream chunk's, the CD graph's
+and the 21,589-node lexicon's), computes each one's
 bound (bytes over the memory rate or operations over the peak rate), and
 drives both halves of the port's main path at full model width with random
 weights from a seeded ``torch.Generator``:
@@ -91,6 +94,7 @@ from poccala_tpu_torch.models.topology import build_embedded_batch
 from poccala_tpu_torch.ops import hmm as hmm_ops
 from poccala_tpu_torch.ops import vad as vad_ops
 from poccala_tpu_torch.ops.cuda import build
+from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
 from poccala_tpu_torch.ops.cuda import gmm_score_cuda as gk
 from poccala_tpu_torch.ops.cuda import hmm_banded_cuda as hk
 from poccala_tpu_torch.ops.frontend import Frontend
@@ -117,7 +121,7 @@ S1_E2E_RTOL = 1e-4
 # GPU vs CPU logliks of the CLI's two scheme-2 rounds: they differed by
 # 1.6e-6 relative on an H100; 1e-4 leaves 60x room
 CLI_TRAIN_RTOL = 1e-4
-KERNEL_NAMES = ("gmm_score", "hmm_banded")
+KERNEL_NAMES = ("gmm_score", "hmm_banded", "decoder_scan")
 # the context-dependent system: triples, tied senones and mixtures of the
 # JAX package's best artifact (WER_r05_cd2k_map.json)
 CD_TRIPLES, CD_S, CD_M = 1091, 2049, 6
@@ -187,13 +191,15 @@ def synced_ms(fn, reps: int = 1):
 
 def kernel_counts() -> dict:
     return dict(gmm=gk.gmm_log_scores_cuda.launches,
-                **{k: f.launches for k, f in hk.KERNELS.items()})
+                **{k: f.launches for k, f in hk.KERNELS.items()},
+                scan=dk.decoder_scan_cuda.launches)
 
 
 def reset_kernel_counts() -> None:
     gk.gmm_log_scores_cuda.launches = 0
     for kernel in hk.KERNELS.values():
         kernel.launches = 0
+    dk.decoder_scan_cuda.launches = 0
 
 
 def pct(values, q) -> float:
@@ -220,7 +226,8 @@ def phase_device() -> str:
 
 def kernel_name(mangled: str) -> str:
     """``forward_warp_kernel<2,5>`` from its Itanium-mangled name: the last
-    ``<length><identifier>`` component and its integer template arguments."""
+    ``<length><identifier>`` component and its integer (or bool) template
+    arguments."""
     m = re.match(r"_ZN?", mangled)
     if not m:
         return mangled
@@ -229,9 +236,9 @@ def kernel_name(mangled: str) -> str:
         start = pos + n.end()
         name, pos = mangled[start:start + int(n.group())], \
             start + int(n.group())
-    args = re.match(r"I((?:Li\d+E)+)E", mangled[pos:])
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
     if args:
-        name += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+        name += "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
     return name
 
 
@@ -254,6 +261,9 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
+PTXAS: dict = {}    # kernel source -> ptxas_summary of this run's build
+
+
 def phase_build() -> None:
     """Every kernel source compiled at once, one nvcc each.  The banded
     DP's warp kernels must not spill in the instantiations in use."""
@@ -266,6 +276,7 @@ def phase_build() -> None:
         results = list(pool.map(one, KERNEL_NAMES))
     for name, built, secs in results:
         ptxas = ptxas_summary(built.log)
+        PTXAS[name] = ptxas
         say("build", kernel=name, seconds=round(secs, 3),
             compiled=built.compiled, library=str(built.path.name),
             ptxas_registers_spill_stores_loads=ptxas)
@@ -520,10 +531,10 @@ def synthetic_speech(rng, rate: int, seconds: float) -> np.ndarray:
     return np.concatenate(out)[: int(seconds * rate)]
 
 
-def phase_serve(seed: int, n_req: int = 16) -> tuple[int, DeviceBeamDecoder]:
+def phase_serve(seed: int, n_req: int = 16) -> tuple[dict, DeviceBeamDecoder]:
     """cli.py:cmd_serve's composition: WAV -> frontend -> VAD -> packed
     features -> DecodeService(batch 8) -> the port's decoder on the GPU.
-    Returns the kernel launches of this run."""
+    Returns the GMM and frame-scan kernels' launches of this run."""
     rng = np.random.default_rng(seed)
     dec, cfg = full_width_decoder(seed, "cuda")
     fe = Frontend(cfg.frontend, device="cuda")
@@ -546,6 +557,7 @@ def phase_serve(seed: int, n_req: int = 16) -> tuple[int, DeviceBeamDecoder]:
             return packed[: int(n)]
 
         gk.gmm_log_scores_cuda.launches = 0
+        dk.decoder_scan_cuda.launches = 0
         with DecodeService(dec, batch_size=8) as svc:
             feats, futs = [], []
             for lo in range(0, n_req, 8):
@@ -553,15 +565,22 @@ def phase_serve(seed: int, n_req: int = 16) -> tuple[int, DeviceBeamDecoder]:
                 feats += chunk
                 futs += [svc.submit(f) for f in chunk]
             results = [f.result(timeout=600) for f in futs]
-        launches = gk.gmm_log_scores_cuda.launches
+        launches = dict(gmm=gk.gmm_log_scores_cuda.launches,
+                        scan=dk.decoder_scan_cuda.launches)
     stats = svc.stats
     for i, hyps in enumerate(results):
         check(len(hyps) >= 1 and np.isfinite(hyps[0].score),
               f"request {i} answered with a finite 1-best")
-    check(launches > 0, "the served decodes launched the CUDA kernel")
+    check(launches["gmm"] > 0, "the served decodes launched the CUDA kernel")
+    check(launches["scan"] == stats.batches,
+          f"one frame-scan launch per served batch: {launches}")
+    n_min = min(len(f) for f in feats[:8])
+    busy = device_profile(lambda: dec.decode_batch(
+        np.stack([f[:n_min] for f in feats[:8]]), [n_min] * 8))
     say("serve", requests=stats.requests, batches=stats.batches,
         frames=stats.frames, kept_frames=[len(f) for f in feats],
-        kernel_launches=launches,
+        kernel_launches=launches["gmm"], scan_kernel_launches=launches["scan"],
+        batch_of_8_decode_call_profile=busy,
         one_best=["".join(r[0].words) for r in results],
         latency=stats.latency_summary())
 
@@ -613,6 +632,13 @@ def device_profile(fn) -> dict:
                      for e in top])
 
 
+def profiled(fn):
+    """``fn()``'s result and the :func:`device_profile` of that call."""
+    out = []
+    profile = device_profile(lambda: out.append(fn()))
+    return out[0], profile
+
+
 def phase_throughput(seed: int, dec: DeviceBeamDecoder, smi: str,
                      batch: int = 256, utt_seconds: float = 4.0,
                      calls: int = 3) -> int:
@@ -642,6 +668,7 @@ def phase_throughput(seed: int, dec: DeviceBeamDecoder, smi: str,
     warm_s = time.perf_counter() - t0
 
     torch.cuda.synchronize()
+    dk.decoder_scan_cuda.launches = 0
     t0 = time.perf_counter()
     pending = None
     for _ in range(calls):
@@ -652,7 +679,10 @@ def phase_throughput(seed: int, dec: DeviceBeamDecoder, smi: str,
         pending = handle
     hyps = dec.decode_collect(pending)
     elapsed = time.perf_counter() - t0
+    scan_launches = dk.decoder_scan_cuda.launches
     check(all(len(h) >= 1 for h in hyps), "every utterance decoded")
+    check(scan_launches == calls, f"one frame-scan launch per decode call "
+          f"({scan_launches} in {calls})")
 
     busy = device_profile(
         lambda: dec.decode_collect(dec.decode_dispatch(feats, n_frames)))
@@ -692,7 +722,7 @@ def phase_throughput(seed: int, dec: DeviceBeamDecoder, smi: str,
         breakdown_ms=dict(frontend=ev[0].elapsed_time(ev[1]),
                           scoring=ev[1].elapsed_time(ev[2]),
                           decode_call_with_scoring=ev[2].elapsed_time(ev[3])),
-        decode_call_profile=busy,
+        decode_call_profile=busy, scan_kernel_launches=scan_launches,
         bf16_call=dict(wall_ms=bf16_ms, kernel_launches=bf16_launches,
                        max_rel_score_drift_vs_f32=drift),
         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
@@ -1340,7 +1370,7 @@ def same_nbest(got, want, what: str) -> None:
           f"{[h.score for h in want]}")
 
 
-def phase_stream(seed: int, smi: str) -> None:
+def phase_stream(seed: int, smi: str) -> int:
     """Streaming decode at the decode width (XIF_tone, 606 senones, 8
     mixtures, 39 dims, built-in lexicon): eight ``ServiceStream`` sessions
     of one 4 s utterance each, fed 25-frame chunks at the rate the audio
@@ -1358,6 +1388,7 @@ def phase_stream(seed: int, smi: str) -> None:
     lock = np.stack([f[:n_min] for f in feats])
 
     gk.gmm_log_scores_cuda.launches = 0
+    dk.decoder_scan_cuda.launches = 0
     done_at = {}
     with DecodeService(dec, batch_size=8) as svc:
         sessions = [svc.open_stream(chunk_frames=CHUNK, max_frames=c)
@@ -1386,8 +1417,12 @@ def phase_stream(seed: int, smi: str) -> None:
         lock_finals = lockstep.result(return_nbest=2).result(timeout=600)
         stats = svc.stats
     launches = gk.gmm_log_scores_cuda.launches
+    scan_launches = dk.decoder_scan_cuda.launches
     latency = [done_at[i] - last_feed[i] for i in range(STREAMS)]
     check(launches > 0, "the stream path launched the GMM kernel")
+    check(scan_launches == stats.stream_chunks,
+          f"one frame-scan launch per chunk ({scan_launches} for "
+          f"{stats.stream_chunks} chunks)")
 
     for i, f in enumerate(feats):
         same_nbest(finals[i], dec.decode_batch(f[None], [len(f)], 2)[0],
@@ -1454,7 +1489,7 @@ def phase_stream(seed: int, smi: str) -> None:
             dec.lexicon.n_nodes),
         live_chunks=live_chunks, all_chunks=stats.stream_chunks,
         lockstep_frames=n_min,
-        kernel_launches=launches,
+        kernel_launches=launches, scan_kernel_launches=scan_launches,
         gmm_launches_per_chunk=launches / stats.stream_chunks,
         chunk_advance_ms=dict(p50=pct(one_ms, 50), p90=pct(one_ms, 90)),
         lockstep_chunk_advance_ms=dict(p50=pct(lock_ms, 50),
@@ -1467,10 +1502,11 @@ def phase_stream(seed: int, smi: str) -> None:
         one_best=["".join(f[0].words) for f in finals],
         phase_seconds=time.perf_counter() - phase_t0,
         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    return scan_launches
 
 
 def phase_pruned(seed: int, smi: str, batch: int = 256,
-                 utt_seconds: float = 4.0) -> None:
+                 utt_seconds: float = 4.0) -> int:
     """Block-pruned search at the decode batch (bench.py's 256 x 4 s of
     noise through the frontend) over the synthetic ~21.6k-node lexicon
     standing in for Mandarin.dat: exact, then block_size 256 with 8 and 4
@@ -1509,17 +1545,26 @@ def phase_pruned(seed: int, smi: str, batch: int = 256,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         gk.gmm_log_scores_cuda.launches = 0
+        dk.decoder_scan_cuda.launches = 0
         t0 = time.perf_counter()
         outs[name] = dec.decode_batch(feats, n_frames)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         check(gk.gmm_log_scores_cuda.launches == 1,
               f"{name}: one GMM kernel launch per decode call")
+        scan = dk.decoder_scan_cuda.launches
+        check(scan == (0 if kw else 1), f"{name}: {scan} frame-scan "
+              "launches (one for the exact call, none pruned)")
         check(all(len(h) >= 1 for h in outs[name]),
               f"{name}: every utterance decoded")
         runs[name] = dict(wall_ms=wall_ms, table_prep_seconds=prep_s,
                           peak_mem_bytes=torch.cuda.max_memory_allocated(),
-                          blocks=getattr(dec, "_n_blocks", None))
+                          blocks=getattr(dec, "_n_blocks", None),
+                          scan_kernel_launches=scan)
+        if not kw:
+            exact_launches = scan
+            runs[name]["decode_call_profile"] = device_profile(
+                lambda: dec.decode_batch(feats, n_frames))
         del dec
     for name in ("k8", "k4"):
         agree, worst = 0, 0.0
@@ -1544,6 +1589,7 @@ def phase_pruned(seed: int, smi: str, batch: int = 256,
         frames=int(feats.shape[1]), block_size=256, runs=runs,
         stream_equals_one_shot=True, phase_seconds=time.perf_counter()
         - phase_t0, device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    return exact_launches
 
 
 def phase_cli(seed: int) -> None:
@@ -1594,7 +1640,7 @@ def phase_cli(seed: int) -> None:
         run("cuda", *common, "build-lexicon", "--words", words, "--out", lex)
         wavs = [os.path.join(dirs["audio_dir"], f"utt{i:05d}.wav")
                 for i in range(3)]
-        ckpt, logliks, aligned, decoded = {}, {}, {}, {}
+        ckpt, logliks, aligned, decoded, profile = {}, {}, {}, {}, {}
         host = {"vector": {}, "simple": {}}
         for dev in ("cuda", "cpu"):
             ckpt[dev] = os.path.join(tmp, f"ckpt_{dev}")
@@ -1606,9 +1652,9 @@ def phase_cli(seed: int) -> None:
             # both devices align and decode with the GPU's bank
             aligned[dev] = run(dev, *common, "align", "--checkpoint",
                                ckpt["cuda"])
-            decoded[dev] = run(dev, *common, "decode", "--decoder", "device",
-                               "--checkpoint", ckpt["cuda"], "--lexicon",
-                               lex, *wavs)
+            decoded[dev], profile[dev] = profiled(lambda: run(
+                dev, *common, "decode", "--decoder", "device",
+                "--checkpoint", ckpt["cuda"], "--lexicon", lex, *wavs))
             model = ["--checkpoint", ckpt["cuda"], "--lexicon", lex, *wavs]
             host["vector"][dev] = run(dev, *common, "decode", *model)
             host["simple"][dev] = run(dev, *common, "decode", "--decoder",
@@ -1625,6 +1671,7 @@ def phase_cli(seed: int) -> None:
                              "--frame-bucket", "32")
                 dp = {k: f.launches for k, f in hk.KERNELS.items()}
                 gmm = gk.gmm_log_scores_cuda.launches
+                scan = dk.decoder_scan_cuda.launches
 
         # the GMM kernel at the CLI's S, M, D on the trained bank
         cfg = Config()
@@ -1688,8 +1735,8 @@ def phase_cli(seed: int) -> None:
         check(s["nbest"][0]["words"] == d["nbest"][0]["words"],
               f"serve's 1-best {s['nbest'][0]} vs decode's {d['nbest'][0]}")
     check(gmm > 0 and dp["forward"] > 0 and dp["backward"] > 0
-          and dp["viterbi"] > 0, f"the CLI launched the kernels: gmm {gmm}, "
-          f"dp {dp}")
+          and dp["viterbi"] > 0 and scan > 0, f"the CLI launched the "
+          f"kernels: gmm {gmm}, dp {dp}, frame scan {scan}")
     say("cli", commands=["synth-corpus", "build-lexicon", "train", "align",
                          "decode", "listen", "serve"],
         senones=int(bank.num_states), mixtures=int(bank.means.shape[1]),
@@ -1701,7 +1748,9 @@ def phase_cli(seed: int) -> None:
         one_best_host={t: [d["nbest"][0]["words"] for d in r["cuda"]]
                        for t, r in host.items()},
         listen_partials=len(listened) - 1, gmm_launches=gmm,
-        dp_kernel_launches=dp, phase_seconds=time.perf_counter() - t0)
+        dp_kernel_launches=dp, scan_kernel_launches=scan,
+        device_decode_command_profile=profile["cuda"],
+        phase_seconds=time.perf_counter() - t0)
 
 
 WER_TABLE = {"你": ["ni3"], "好": ["hao3"], "马": ["ma1"]}
@@ -1755,8 +1804,7 @@ def phase_wer_e2e(seed: int) -> None:
 
         runs = {}
         for dev in ("cuda", "cpu"):
-            for kernel in hk.KERNELS.values():
-                kernel.launches = 0
+            reset_kernel_counts()
             batches = list(corpus_io.Corpus(cfg, inv, device=dev).batches())
             tr = Trainer(cfg, inv, device=dev,
                          generator=torch.Generator().manual_seed(seed))
@@ -1766,7 +1814,8 @@ def phase_wer_e2e(seed: int) -> None:
                     for k, b in enumerate(batches)
                     for i in range(len(b.feats))]
             n_frames = [int(m.sum()) for b in batches for m in b.t_masks]
-            result = evaluate_decoder(dec, utts, n_frames)
+            result, profile = profiled(
+                lambda: evaluate_decoder(dec, utts, n_frames))
             words = [list(dec.decode(f, n_frames=n, return_nbest=1)[0].words)
                      for (f, _), n in zip(utts, n_frames)]
             runs[dev] = dict(
@@ -1774,7 +1823,9 @@ def phase_wer_e2e(seed: int) -> None:
                 deletions=result.deletions, insertions=result.insertions,
                 ref_tokens=result.ref_tokens, logliks=lls, words=words,
                 dp_kernel_launches={k: f.launches
-                                    for k, f in hk.KERNELS.items()})
+                                    for k, f in hk.KERNELS.items()},
+                scan_kernel_launches=dk.decoder_scan_cuda.launches,
+                evaluate_decoder_profile=profile)
             # the host tiers over the same bank (tests/test_full_loop_wer.py
             # decodes with the simple one)
             for tier, cls in (("vector", VectorBeamDecoder),
@@ -1793,8 +1844,10 @@ def phase_wer_e2e(seed: int) -> None:
           and g["dp_kernel_launches"]["backward"] >= 4,
           f"training on the card launched the forward and backward kernels "
           f"every epoch: {g['dp_kernel_launches']}")
-    check(not any(c["dp_kernel_launches"].values()),
-          "the CPU run launched no kernel")
+    check(not any(c["dp_kernel_launches"].values())
+          and c["scan_kernel_launches"] == 0, "the CPU run launched no kernel")
+    check(g["scan_kernel_launches"] > 0, "the device tier on the card "
+          f"launched the frame-scan kernel ({g['scan_kernel_launches']})")
     check(g["wer"] == 0.0, f"WER of the model trained on the card: {g}")
     check(g["words"] == c["words"], f"words on the card {g['words']} vs on "
           f"the CPU {c['words']}")
@@ -1887,7 +1940,7 @@ def phase_cd_e2e(seed: int) -> None:
         wavs = [os.path.join(audio, name + ".wav")
                 for name, _ in transcripts[:24]]
         refs = [words for _, words in transcripts[:24]]
-        ci, cd, ci_lls, decoded, used = {}, {}, {}, {}, {}
+        ci, cd, ci_lls, decoded, used, profile = {}, {}, {}, {}, {}, {}
         for dev in ("cuda", "cpu"):
             reset_kernel_counts()
             ci[dev] = os.path.join(tmp, f"ci_{dev}")
@@ -1904,9 +1957,10 @@ def phase_cd_e2e(seed: int) -> None:
                 "--vocab", vocab, "--out-checkpoint", cd[dev][0], "--out-cd",
                 cd[dev][1], "--target-senones", "900", "--retrain-epochs",
                 "2", "--min-occ", "8", "--map-tau", "8")
-            decoded[dev] = run(dev, *common, "decode", "--decoder", "device",
-                               "--checkpoint", cd["cuda"][0], "--lexicon",
-                               lex, "--lm", lm, "--cd", cd["cuda"][1], *wavs)
+            decoded[dev], profile[dev] = profiled(lambda: run(
+                dev, *common, "decode", "--decoder", "device", "--checkpoint",
+                cd["cuda"][0], "--lexicon", lex, "--lm", lm, "--cd",
+                cd["cuda"][1], *wavs))
             used[dev] = kernel_counts()
         sidecars = {}
         for dev in ("cuda", "cpu"):
@@ -1969,7 +2023,8 @@ def phase_cd_e2e(seed: int) -> None:
         decoded=len(wavs), words_equal=True,
         wer=result.wer, wer_note="formant-synthesised proxy, on training "
         "utterances: not a recognition result on speech",
-        kernel_launches=used, one_best=["".join(w) for w in hyps["cuda"][:5]],
+        kernel_launches=used, device_decode_command_profile=profile["cuda"],
+        one_best=["".join(w) for w in hyps["cuda"][:5]],
         phase_seconds=time.perf_counter() - t0)
 
 
@@ -2089,6 +2144,7 @@ def phase_cd_throughput(seed: int, smi: str, epochs: int = 4) -> dict:
     dec.decode_batch(feats, n_frames)                         # warm-up
     gk.gmm_log_scores_cuda.launches = 0
     gk.gmm_log_scores_cuda.launches_bf16 = 0
+    dk.decoder_scan_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     hyps = dec.decode_batch(feats, n_frames)
@@ -2097,7 +2153,12 @@ def phase_cd_throughput(seed: int, smi: str, epochs: int = 4) -> dict:
     check(all(len(h) >= 1 and np.isfinite(h[0].score) for h in hyps),
           "every utterance decoded over the CD graph")
     gmm = gk.gmm_log_scores_cuda.launches
+    scan = dk.decoder_scan_cuda.launches
     check(gmm == 1, f"one GMM kernel launch per CD decode call ({gmm})")
+    check(scan == 1, f"one frame-scan launch per CD decode call ({scan})")
+    # the frame-scan kernel at the CD graph's size against its plain loop
+    say("decoder_scan", case="cd", **scan_case(dec, dec._scores(feats),
+                                                n_frames))
     profile = device_profile(lambda: dec.decode_batch(feats, n_frames))
     dec16 = DeviceBeamDecoder(cd_bank, flat, score_dtype="bfloat16")
     dec16.decode_batch(feats, n_frames)                       # warm-up
@@ -2121,10 +2182,10 @@ def phase_cd_throughput(seed: int, smi: str, epochs: int = 4) -> dict:
         ci_epoch_profile=ci_profile,
         cd_decode_audio_throughput=TRAIN_B * 4.0 / decode_s,
         cd_decode_call_ms=decode_s * 1e3, decode_call_profile=profile,
-        gmm_launches=gmm, gmm_bf16_launches=gmm16,
+        gmm_launches=gmm, gmm_bf16_launches=gmm16, scan_kernel_launches=scan,
         phase_seconds=time.perf_counter() - phase_t0,
         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
-    return dict(gmm=gmm, gmm_bf16=gmm16, **dp)
+    return dict(gmm=gmm, gmm_bf16=gmm16, scan=scan, **dp)
 
 
 # ----------------------------------------------------------------------
@@ -2242,6 +2303,8 @@ def phase_parallel_one_rank(seed: int, data: dict) -> dict:
     reset_kernel_counts()
     got = run(True)
     launches = kernel_counts()
+    decode_profile = device_profile(lambda: dec.decode_batch(
+        data["feats"], n_frames, mesh=mesh))
     want = run(False)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -2287,6 +2350,7 @@ def phase_parallel_one_rank(seed: int, data: dict) -> dict:
             statistics_buffer=stats_bytes, logliks=4 * TRAIN_B,
             lattice=4 * TRAIN_B * TRAIN_T * (3 * TRAIN_L + 2)),
         kernel_launches_sharded=launches,
+        sharded_decode_call_profile=decode_profile,
         phase_seconds=time.perf_counter() - t_phase)
     return dict(stats=acc.stats_to_numpy(want["stats"]),
                 logliks=want["logliks"].cpu().numpy(),
@@ -2467,6 +2531,172 @@ def phase_parallel(seed: int, smi: str) -> dict:
 
 
 # phases that --only can run by themselves, each as f(seed, smi)
+# ----------------------------------------------------------------------
+# the device decoder's frame scan (csrc/decoder_scan.cu)
+def noise_features(seed: int, batch: int = 256, utt_seconds: float = 4.0):
+    """bench_decode's batch: noise audio through the frontend on the card;
+    features ``[B, T, D]`` on the card and the host frame counts."""
+    cfg = Config()
+    n_samples = int(utt_seconds * cfg.frontend.sample_rate)
+    rng = np.random.default_rng(seed)
+    signals = torch.as_tensor(
+        (rng.normal(size=(batch, n_samples)) * 2000).astype(np.float32),
+        device="cuda")
+    feats, masks = Frontend(cfg.frontend, device="cuda").mfcc_batch(
+        signals, torch.full((batch,), n_samples, device="cuda"))
+    return feats, masks.sum(dim=1).cpu().numpy()
+
+
+class TableLM:
+    """An LM object without ``bigram_tables_backoff``: the decoder builds
+    the flat ``[(V+1) V]`` table through ``logprob`` calls."""
+
+    def __init__(self, lm):
+        self.lm = lm
+
+    def logprob(self, word, context):
+        return self.lm.logprob(word, context)
+
+
+def builtin_bigram(seed: int):
+    """A bigram LM over the built-in lexicon's words, from seeded text."""
+    from poccala_tpu_torch.lm.ngram import Ngram
+
+    rng = np.random.default_rng(seed)
+    words = list(BUILTIN_PINYIN)
+    lm = Ngram(2)
+    lm.train([list(rng.choice(words, size=8)) for _ in range(400)])
+    return lm
+
+
+def scan_bound(tabs, b: int, t_c: int, s: int, frames: int) -> dict:
+    """The frame scan's least time: the scores ``[B, Tc, S]`` and
+    ``n_valid`` read once, the carry (deltas float32 and ctx int32,
+    ``[B, N, Ns]``) read and written once, the rows ``[B, Tc]`` int32
+    written once, the tables read once; (2W + 4) float32 operations per
+    token state and valid frame (the advance's W adds and W compares, the
+    emission score's add and clamp, the exit's share).  ``frames`` counts
+    the valid frames of this run's data.  ``carry_round_trip_ms`` is the
+    device-memory design's own floor: the carry read and written every
+    frame."""
+    n, n_s, w = tabs.bands.shape
+    q = tabs.node_slot.shape[0]
+    n_bytes = (4 * b * t_c * s + 4 * b + 2 * 8 * b * n * n_s + 8 * b * t_c
+               + 4 * n * n_s * (w + 1) + 5 * n + 9 * q)
+    out = bound_ms(n_bytes, frames * n * n_s * (2 * w + 4), "float32")
+    out["carry_round_trip_ms"] = frames * n * n_s * 16 / PEAK_BYTES_S * 1e3
+    return out
+
+
+def scan_case(dec: DeviceBeamDecoder, scores, n_valid, t0: int = 0,
+              carry=None, rows_before=None, reps: int = 11,
+              plain_reps: int = 1) -> dict:
+    """The frame-scan kernel (``dec._scan`` on the card) against its plain
+    version (``dec._scan_plain``, the loop of ``_frame_step``) on the same
+    scores and carry: carry, traceback rows and the n-best of each (over
+    ``rows_before``, the earlier frames' rows, when ``t0`` > 0) must be
+    equal bit for bit, or this raises.  ``ms``: one event pair around a
+    wrapper call (median of ``reps``); ``kernel_ms``: the kernel alone under
+    the profiler; ``plain_ms``: host ms of the plain loop, synchronised."""
+    tabs = dec._prep_device()
+    b, t_c, s = scores.shape
+    if carry is None:
+        carry = dec._seed(tabs, b)
+
+    def kernel():
+        return dec._scan(tabs, carry, scores, t0, n_valid)
+
+    def plain():
+        return dec._scan_plain(tabs, carry, scores, t0, n_valid)
+
+    def nbest(out):
+        carry, prev, word = out
+        if rows_before is not None:
+            prev = torch.cat([rows_before[0], prev], 1)
+            word = torch.cat([rows_before[1], word], 1)
+        return dec._finalize(tabs, carry, prev, word, 8)
+
+    before = dk.decoder_scan_cuda.launches
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    g_n, w_n = nbest(got), nbest(want)
+    pairs = dict(deltas=(got[0][0], want[0][0]), ctx=(got[0][1], want[0][1]),
+                 tb_prev=(got[1], want[1]), tb_word=(got[2], want[2]),
+                 nbest_words=(g_n[0], w_n[0]), nbest_scores=(g_n[1], w_n[1]))
+    equal = {k: bool(torch.equal(a, b)) for k, (a, b) in pairs.items()}
+    n, n_s, w = tabs.bands.shape
+    lm = ("none" if dec.lm is None else
+          "sparse" if tabs.lm_sparse is not None else "flat")
+    line = dict(b=b, t_c=t_c, t0=t0, n_nodes=n, n_s=n_s, w=w, s=s,
+                slots=int(tabs.node_slot.shape[0]), lm=lm,
+                carry_in_smem=dk.carry_in_smem(n, n_s, s), equal=equal,
+                max_abs_err=float((got[0][0] - want[0][0]).abs().max()),
+                words_emitted=int((got[2] >= 0).sum()))
+    check(all(equal.values()), f"frame-scan kernel vs plain loop: {line}")
+    line.update(ms=median_ms(kernel, reps=reps),
+                kernel_ms=kernel_device_ms(kernel, "decoder_scan", reps=5),
+                plain_ms=synced_ms(plain, reps=plain_reps)[1],
+                library_ms=None,
+                **scan_bound(tabs, b, t_c, s,
+                             int(np.clip(np.asarray(n_valid), 0, t_c).sum())))
+    line["launches"] = dk.decoder_scan_cuda.launches - before
+    return line
+
+
+def scan_record(line: dict) -> dict:
+    """A :func:`scan_case` line's fields of the ``kernels`` JSON record."""
+    return {k: line[k] for k in ("max_abs_err", "ms", "kernel_ms",
+                                 "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "carry_round_trip_ms")}
+
+
+def phase_decoder_scan(seed: int, smi: str) -> dict:
+    """The frame-scan kernel against its plain loop, bit for bit, at the
+    decode cell's size (XIF_tone, 606 senones, 8 mixtures, the built-in
+    125-node lexicon, 256 x 4 s of noise through the frontend: B = 256,
+    Tc = 319) with no LM, a flat and a sparse bigram LM; at a 25-frame
+    stream chunk from an earlier chunk's carry (t0 = 25) at B = 1 and 8;
+    and over the 21,589-node ``synthetic_lexicon`` (the carry in device
+    memory).  Returns the ``kernels`` records of the shared-memory and the
+    device-memory instantiation."""
+    phase_t0 = time.perf_counter()
+    dec, _ = full_width_decoder(seed, "cuda")
+    tabs = dec._prep_device()
+    feats, n_frames = noise_features(seed)
+    scores = dec._scores(feats)
+    lines = {"decode": scan_case(dec, scores, n_frames)}
+    lm = builtin_bigram(seed)
+    for kind, the_lm in (("flat", TableLM(lm)), ("sparse", lm)):
+        lm_dec = DeviceBeamDecoder(dec.bank, dec.lexicon, lm=the_lm,
+                                   lm_weight=3.0, word_penalty=1.0)
+        lines[f"decode_{kind}_lm"] = scan_case(lm_dec, scores, n_frames)
+    for b in (1, STREAMS):
+        carry, *rows = dec._scan(tabs, dec._seed(tabs, b),
+                                 scores[:b, :CHUNK].contiguous(), 0,
+                                 n_frames[:b])
+        lines[f"stream_chunk_b{b}"] = scan_case(
+            dec, scores[:b, CHUNK:2 * CHUNK].contiguous(),
+            np.clip(n_frames[:b] - CHUNK, 0, CHUNK), t0=CHUNK, carry=carry,
+            rows_before=rows, reps=21, plain_reps=5)
+    flat, _, _ = synthetic_lexicon(UnitInventory.standard("XIF_tone"))
+    lines["exact_21k"] = scan_case(DeviceBeamDecoder(dec.bank, flat), scores,
+                                   n_frames, reps=3)
+    for name, line in lines.items():
+        say("decoder_scan", case=name, **line)
+    check(lines["decode"]["carry_in_smem"]
+          and not lines["exact_21k"]["carry_in_smem"],
+          "the 125-node carry in shared memory, the 21,589-node one not")
+    say("decoder_scan_summary", source=dk.SOURCE, replaces=dk.REPLACES,
+        ptxas_registers_spill_stores_loads=PTXAS.get("decoder_scan",
+                                                     "not rebuilt"),
+        phase_seconds=time.perf_counter() - phase_t0,
+        device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    del scores, feats
+    torch.cuda.empty_cache()
+    return dict(exact=scan_record(lines["decode"]),
+                exact_global=scan_record(lines["exact_21k"]))
+
+
 SOLO = {
     "hmm_kernels": lambda seed, smi: phase_hmm_kernels(seed),
     "host_decode": phase_host_decode,
@@ -2477,6 +2707,7 @@ SOLO = {
     "cd_e2e": lambda seed, smi: phase_cd_e2e(seed),
     "cd_throughput": phase_cd_throughput,
     "parallel": phase_parallel,
+    "decoder_scan": phase_decoder_scan,
 }
 
 
@@ -2505,6 +2736,7 @@ def main(argv=None) -> int:
         return 0
     records = phase_kernel(args.seed)
     records.update(phase_hmm_kernels(args.seed))
+    records.update(phase_decoder_scan(args.seed, smi))
     phase_known_answer(args.seed)
     launches, dec = phase_serve(args.seed)
     bf16_launches = phase_throughput(args.seed, dec, smi)
@@ -2515,8 +2747,8 @@ def main(argv=None) -> int:
     phase_train_e2e(args.seed)
     phase_train_scheme1(args.seed, smi)
     phase_scheme1_e2e(args.seed)
-    phase_stream(args.seed, smi)
-    phase_pruned(args.seed, smi)
+    stream_launches = phase_stream(args.seed, smi)
+    global_launches = phase_pruned(args.seed, smi)
     phase_cli(args.seed)
     phase_wer_e2e(args.seed)
     phase_cd_e2e(args.seed)
@@ -2527,7 +2759,7 @@ def main(argv=None) -> int:
           "nothing of the JAX package was imported")
 
     kernels = [dict(name="gmm_log_scores", route="cuda", source=gk.SOURCE,
-                    replaces=gk.REPLACES, launches=launches,
+                    replaces=gk.REPLACES, launches=launches["gmm"],
                     launches_host=host_launches,
                     launches_parallel=par_launches["gmm"],
                     **records["float32"]),
@@ -2548,6 +2780,23 @@ def main(argv=None) -> int:
                      launches_cd=cd_launches[k],
                      launches_parallel=par_launches[k], **records[k])
                 for k in hk.KERNELS]
+    # the frame scan: the shared-memory instantiation on the decode, stream,
+    # CD and parallel paths; the device-memory one on the 21,589-node call
+    kernels += [dict(name="decoder_scan_exact", route="cuda",
+                     source=dk.SOURCE, replaces=dk.REPLACES,
+                     launches=launches["scan"],
+                     launches_stream=stream_launches,
+                     launches_cd=cd_launches["scan"],
+                     launches_parallel=par_launches["scan"],
+                     **records["exact"]),
+                dict(name="decoder_scan_exact_global", route="cuda",
+                     source=dk.SOURCE, replaces=dk.REPLACES,
+                     launches=global_launches, **records["exact_global"])]
+    check(kernels[-2]["launches_stream"] > 0
+          and kernels[-2]["launches_cd"] > 0
+          and kernels[-2]["launches_parallel"] > 0,
+          f"the frame scan ran on the stream, CD and parallel paths: "
+          f"{kernels[-2]}")
     check(all(k["launches"] > 0 for k in kernels),
           f"every kernel was launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -36,13 +36,19 @@ chunked decode equals the one-shot decode of the concatenated features.
 
 Scoring goes through :func:`~poccala_tpu_torch.ops.gmm_score.
 gmm_log_scores_batch`, one call of the dispatcher over all ``B·T`` frames:
-the CUDA kernel for a bank on the GPU, the plain version on the CPU.  Where JAX scans the frames inside one program, this
-is a Python loop over frames batched over utterances; on the GPU every op
-is an asynchronous launch on the calling thread's current stream (the
-worker thread of :class:`~poccala_tpu_torch.serve.DecodeService` runs batches
-and stream chunks alike there), so :meth:`decode_dispatch` returns once
-the work is enqueued and :meth:`decode_collect` synchronises by copying
-the results to the host.
+the CUDA kernel for a bank on the GPU, the plain version on the CPU.  Where
+JAX scans the frames inside one program, :meth:`DeviceBeamDecoder._scan`
+runs the exact search's frames on the GPU as one launch of the CUDA kernel
+``csrc/decoder_scan.cu`` (:mod:`poccala_tpu_torch.ops.cuda.
+decoder_scan_cuda`), and on the CPU as its plain version, a Python loop of
+:meth:`DeviceBeamDecoder._frame_step` over frames batched over utterances;
+the two agree bit for bit.  The block-pruned step is a Python loop on both
+devices.  On the GPU every op is an asynchronous launch on the calling
+thread's current stream (the worker thread of
+:class:`~poccala_tpu_torch.serve.DecodeService` runs batches and stream
+chunks alike there), so :meth:`decode_dispatch` returns once the work is
+enqueued and :meth:`decode_collect` synchronises by copying the results to
+the host.
 
 Tie order follows the JAX version: strict ``>`` in every compare-select
 (the smaller band offset wins a tie), first-index ``argmax``, and a
@@ -72,6 +78,7 @@ import torch.nn.functional as F
 
 from poccala_tpu_torch.decoder.beam import Hypothesis
 from poccala_tpu_torch.decoder.vector import VectorBeamDecoder
+from poccala_tpu_torch.ops.cuda.decoder_scan_cuda import decoder_scan_cuda
 from poccala_tpu_torch.ops.gmm_score import gmm_log_scores_batch
 from poccala_tpu_torch.utils.logmath import NEG_INF
 
@@ -520,14 +527,18 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         tot = torch.where(r_sc > NEG_INF / 2, r_sc + lm_r, NEG_INF)
         return tot, r_ix, c_r
 
+    def _r_top(self, tabs: _Tables) -> int:
+        """Acoustic candidates of a frame's word emission: with no LM
+        adding a constant keeps the argmax, so one; else the top 16."""
+        return 1 if self.lm is None else int(min(tabs.node_slot.shape[0], 16))
+
     def _enter(self, tabs: _Tables, ex, ex_ctx, ti: int):
         """The frame's best word emission and the new entry row from the
         flat exits ``ex``/``ex_ctx`` ``[B, N]``: ``(entry, entry_ctx)``
         ``[B, N]`` and the traceback row ``(prev_row, word_row)`` ``[B]``."""
         v = self._n_vocab
         vp1 = v + 1
-        r_top = 1 if self.lm is None else int(min(tabs.node_slot.shape[0], 16))
-        tot, r_ix, c_r = self._candidates(tabs, ex, ex_ctx, r_top)
+        tot, r_ix, c_r = self._candidates(tabs, ex, ex_ctx, self._r_top(tabs))
         rb = torch.argmax(tot, dim=1, keepdim=True)
         e_score = tot.gather(1, rb)[:, 0]
         slot = r_ix.gather(1, rb)[:, 0]
@@ -689,7 +700,23 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         """Advance ``carry`` over the frames of ``scores`` ``[B, Tc, S]``,
         whose first frame has the absolute index ``t0``; frames at or past
         ``n_valid`` ``[B]`` are frozen.  Returns ``(carry, tb_prev,
-        tb_word)``, the rows ``[B, Tc]`` int32 (-1 where no word)."""
+        tb_word)``, the rows ``[B, Tc]`` int32 (-1 where no word).
+
+        The exact search on a CUDA tensor is one launch of the frame-scan
+        kernel (it raises if it cannot launch); a CPU tensor, and the
+        block-pruned search on either device, take :meth:`_scan_plain`."""
+        if scores.is_cuda and not self._prune_on:
+            return decoder_scan_cuda(
+                tabs, carry, scores.contiguous(), t0, n_valid,
+                n_vocab=self._n_vocab, r_top=self._r_top(tabs),
+                penalty=-float(self.word_penalty))
+        return self._scan_plain(tabs, carry, scores, t0, n_valid)
+
+    def _scan_plain(self, tabs: _Tables, carry, scores: torch.Tensor,
+                    t0: int, n_valid):
+        """:meth:`_scan` as a loop of :meth:`_frame_step` (or, pruned,
+        :meth:`_step_pruned`) over frames, on any device: the frame-scan
+        kernel's plain version."""
         b, t_c, _ = scores.shape
         dev = scores.device
         if isinstance(n_valid, torch.Tensor):

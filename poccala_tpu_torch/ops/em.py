@@ -34,10 +34,10 @@ class GmmParams(NamedTuple):
     log_w: torch.Tensor    # [G, M]
 
 
-def floor_tensor(c_covariance, device) -> torch.Tensor:
-    """The covariance floor (a scalar or a ``[D]`` vector) as a float32
-    tensor on ``device``."""
-    return torch.as_tensor(c_covariance, dtype=torch.float32, device=device)
+def floor_tensor(c_covariance, device, dtype) -> torch.Tensor:
+    """The covariance floor (a scalar or a ``[D]`` vector) as a tensor of
+    the frames' ``dtype`` on ``device``."""
+    return torch.as_tensor(c_covariance, dtype=dtype, device=device)
 
 
 def e_step(params: GmmParams, x: torch.Tensor, mask: torch.Tensor,
@@ -74,14 +74,14 @@ def m_step(log_gamma: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
            floor: torch.Tensor, mix_mask: torch.Tensor) -> GmmParams:
     """Maximization (``Clustering.maximization``, ``Clustering.py:624-651``)
     in linear domain; ``floor`` from :func:`floor_tensor`."""
-    gamma = torch.exp(log_gamma) * mask[..., None].to(torch.float32)
+    gamma = torch.exp(log_gamma) * mask[..., None].to(x.dtype)
     nk = gamma.sum(dim=-2)                                        # [G, M]
     nk_safe = torch.clamp(nk, min=1e-10)[..., None]
     gamma_t = gamma.transpose(-1, -2)
     means = (gamma_t @ x) / nk_safe
     sq = (gamma_t @ (x * x)) / nk_safe
     var = torch.maximum(sq - means * means, floor)
-    n_valid = torch.clamp(mask.sum(dim=-1).to(torch.float32), min=1.0)
+    n_valid = torch.clamp(mask.sum(dim=-1).to(x.dtype), min=1.0)
     alpha = nk / n_valid[:, None]
     log_w = torch.where(mix_mask, torch.log(torch.clamp(alpha, min=1e-30)),
                         NEG_INF)
@@ -105,11 +105,11 @@ def em_fit_grouped(
     :param mix_mask: ``[G, M]`` active mixture slots
     :returns: (GmmParams, final Q ``[G]``, iterations run ``[G]`` int32)
     """
-    floor = floor_tensor(c_covariance, x.device)
+    floor = floor_tensor(c_covariance, x.device, x.dtype)
     p = GmmParams(means, log_var, log_w)
     g = means.shape[0]
-    q = torch.full((g,), -float("inf"), device=x.device)
-    dq = torch.full((g,), float("inf"), device=x.device)
+    q = torch.full((g,), -float("inf"), dtype=x.dtype, device=x.device)
+    dq = torch.full((g,), float("inf"), dtype=x.dtype, device=x.device)
     it = torch.zeros((g,), dtype=torch.int32, device=x.device)
     # the E-step of the current parameters, carried from the previous
     # iteration's Q evaluation (the vmapped loop recomputes it)

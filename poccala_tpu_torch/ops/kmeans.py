@@ -74,7 +74,7 @@ def kmeans_plusplus_init(x: torch.Tensor, mask: torch.Tensor, k: int,
     :returns: ``[G, k, D]`` initial centres
     """
     g, f, d = x.shape
-    maskf = mask.to(torch.float32)
+    maskf = mask.to(x.dtype)
     p0 = maskf / torch.clamp(maskf.sum(dim=-1, keepdim=True), min=1.0)
     centers = torch.zeros((g, k, d), dtype=x.dtype, device=x.device)
     centers[:, 0] = _take(x, _choice(u[:, 0], p0))
@@ -96,7 +96,7 @@ def _assign(x, centers, maskf, k):
     counts ``[G, k]``, sums ``[G, k, D]``)."""
     dist = _pairwise_sq_dist(x, centers)
     assign = torch.argmin(dist, dim=-1)
-    onehot = torch.nn.functional.one_hot(assign, k).to(torch.float32) \
+    onehot = torch.nn.functional.one_hot(assign, k).to(x.dtype) \
         * maskf[..., None]
     counts = onehot.sum(dim=-2)
     sums = onehot.transpose(-1, -2) @ x
@@ -113,7 +113,7 @@ def lloyd(centers: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
         ``assign [G, F]`` (int32, -1 where masked) and ``counts [G, k]``
     """
     k = centers.shape[-2]
-    maskf = mask.to(torch.float32)
+    maskf = mask.to(x.dtype)
     n_valid = torch.clamp(maskf.sum(dim=-1, keepdim=True), min=1.0)
     for _ in range(iters):
         dist, _, _, counts, sums = _assign(x, centers, maskf, k)

@@ -402,8 +402,8 @@ def _smem_propose(means, log_var, log_w, x, mask, ijk, seed_u, jitter,
     :returns: (polished means, log_var, log_w, candidate Q ``[S]``)
     """
     s, m_cap, d = means.shape
-    floor = em_ops.floor_tensor(c_covariance, x.device)
-    maskf = mask.to(torch.float32)
+    floor = em_ops.floor_tensor(c_covariance, x.device, x.dtype)
+    maskf = mask.to(x.dtype)
     lg, _ = em_ops.e_step(em_ops.GmmParams(means, log_var, log_w), x, mask,
                           normalizer)
     gamma = torch.exp(lg[..., :mix]) * maskf[..., None]
@@ -411,7 +411,7 @@ def _smem_propose(means, log_var, log_w, x, mask, ijk, seed_u, jitter,
 
     ii, jj, kk = ijk.long().unbind(-1)
     oh_i, oh_j, oh_k = (torch.nn.functional.one_hot(v, m_cap)
-                        .to(torch.float32) for v in (ii, jj, kk))
+                        .to(x.dtype) for v in (ii, jj, kk))
     w = torch.exp(log_w)                                        # [S, M]
     var = torch.exp(log_var)                                    # [S, M, D]
 

@@ -825,3 +825,150 @@ def test_two_gloo_ranks_with_cuda_tensors(cuda, tmp_path):
         assert bool(out["align_equal"])
         launches = json.loads(str(out["launches"]))
         assert all(n > 0 for n in launches.values()), launches
+
+
+# ----------------------------------------------------------------------
+# the device decoder's frame scan (csrc/decoder_scan.cu) against its plain
+# version, the loop of DeviceBeamDecoder._frame_step, on the same card:
+# bit for bit in the carry, the traceback rows and the n-best
+
+
+class _TableLM:
+    """An LM object without ``bigram_tables_backoff``: the decoder builds
+    the flat ``[(V+1) V]`` table through ``logprob`` calls."""
+
+    def __init__(self, lm):
+        self.lm = lm
+
+    def logprob(self, word, context):
+        return self.lm.logprob(word, context)
+
+
+def scan_decoder(cuda, lm_kind="none", flat=None, seed=7, penalty=0.0):
+    """A random XIF_tone bank on the card over ``flat`` (the built-in
+    lexicon by default) with no LM, a flat or a sparse bigram LM."""
+    from poccala_tpu_torch.lm.ngram import Ngram
+
+    inv, bank, _ = decode_world(seed)
+    words = list(BUILTIN_PINYIN)
+    if flat is None:
+        lex = PronunciationLexicon()
+        lex.generate(words, PinYin())
+        flat = FlatLexicon.from_tree(lex.lexicon, inv)
+    rng = np.random.default_rng(seed)
+    ngram = Ngram(2)
+    ngram.train([list(rng.choice(words, size=6)) for _ in range(200)])
+    lm = {"none": None, "flat": _TableLM(ngram), "sparse": ngram}[lm_kind]
+    return DeviceBeamDecoder(bank.to(cuda), flat, lm=lm, lm_weight=3.0,
+                             word_penalty=penalty)
+
+
+def scan_both(dec, scores, n_valid, t0=0, carry=None, rows_before=None):
+    """The kernel's and the plain loop's ``_scan`` of ``scores`` from
+    ``carry`` (the seed by default), held equal bit for bit, and the n-best
+    each carry gives over ``rows_before`` (the earlier frames' traceback
+    rows, ``(tb_prev, tb_word)``; none when ``t0`` is 0) and the new rows;
+    returns the kernel's."""
+    from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
+
+    tabs = dec._prep_device()
+    if carry is None:
+        carry = dec._seed(tabs, scores.shape[0])
+    before = dk.decoder_scan_cuda.launches
+    got = dec._scan(tabs, carry, scores, t0, n_valid)
+    assert dk.decoder_scan_cuda.launches == before + 1
+    want = dec._scan_plain(tabs, carry, scores, t0, n_valid)
+    for name, g, w in zip(("deltas", "ctx"), got[0], want[0]):
+        assert torch.equal(g, w), name
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert (rows_before is None) == (t0 == 0)
+
+    def nbest(out):
+        carry, prev, word = out
+        if rows_before is not None:
+            prev = torch.cat([rows_before[0], prev], 1)
+            word = torch.cat([rows_before[1], word], 1)
+        return dec._finalize(tabs, carry, prev, word, 8)
+
+    (g_seqs, g_sc), (w_seqs, w_sc) = nbest(got), nbest(want)
+    assert torch.equal(g_seqs, w_seqs) and torch.equal(g_sc, w_sc)
+    return got
+
+
+@pytest.mark.parametrize("b", [1, 7, 256])
+@pytest.mark.parametrize("lm_kind", ["none", "flat", "sparse"])
+def test_decoder_scan_matches_plain_loop(cuda, lm_kind, b):
+    """The 125-node built-in lexicon, 64 frames, rows frozen from random
+    frame counts (one at 0 where B > 1)."""
+    dec = scan_decoder(cuda, lm_kind, penalty=1.5)
+    rng = np.random.default_rng(b)
+    feats = torch.tensor((rng.normal(size=(b, 64, 13)) * 2)
+                         .astype(np.float32), device=cuda)
+    n_valid = rng.integers(1, 65, size=b)
+    n_valid[0] = 64
+    if b > 1:
+        n_valid[1] = 0
+    _, tb_prev, tb_word = scan_both(dec, dec._scores(feats), n_valid)
+    assert (tb_word[0] >= 0).any()
+    for u, n in enumerate(n_valid):
+        assert (tb_prev[u, n:] == -1).all() and (tb_word[u, n:] == -1).all()
+
+
+@pytest.mark.parametrize("lm_kind", ["none", "flat", "sparse"])
+def test_decoder_scan_ties(cuda, lm_kind):
+    """Scores rounded to multiples of 8: paths, exits and word emissions
+    tie everywhere, and the kernel must break every tie as the plain loop
+    does (the smaller band offset, the lower slot, the first candidate)."""
+    dec = scan_decoder(cuda, lm_kind)
+    rng = np.random.default_rng(3)
+    feats = torch.tensor((rng.normal(size=(5, 48, 13)) * 2)
+                         .astype(np.float32), device=cuda)
+    scores = torch.round(dec._scores(feats) / 8) * 8
+    scan_both(dec, scores, np.array([48, 48, 40, 31, 9]))
+
+
+def test_decoder_scan_stream_chunks(cuda):
+    """Three 25-frame chunks (t0 = 0, 25, 50; some rows end inside a
+    chunk) through the kernel equal the one-shot scan of the 75 frames,
+    each chunk held to the plain loop from the same carry."""
+    dec = scan_decoder(cuda, "sparse", seed=8)
+    rng = np.random.default_rng(8)
+    feats = torch.tensor((rng.normal(size=(3, 75, 13)) * 2)
+                         .astype(np.float32), device=cuda)
+    scores = dec._scores(feats)
+    n = np.array([75, 60, 33])
+    whole = scan_both(dec, scores, n)
+    carry, prev, word = None, [], []
+    for t0 in (0, 25, 50):
+        before = (torch.cat(prev, 1), torch.cat(word, 1)) if t0 else None
+        carry, p, w = scan_both(dec, scores[:, t0:t0 + 25].contiguous(),
+                                np.clip(n - t0, 0, 25), t0, carry, before)
+        prev.append(p)
+        word.append(w)
+    assert torch.equal(carry[0], whole[0][0])
+    assert torch.equal(carry[1], whole[0][1])
+    assert torch.equal(torch.cat(prev, 1), whole[1])
+    assert torch.equal(torch.cat(word, 1), whole[2])
+
+
+@pytest.mark.parametrize("min_nodes,in_smem", [(875, True), (None, False)])
+def test_decoder_scan_large_lexicons(cuda, min_nodes, in_smem):
+    """An 875-node lexicon (the CD graph's size: the carry in shared memory
+    past the 48 KB a block gets unasked) and the 21,589-node synthetic
+    lexicon (the carry in device memory)."""
+    from poccala_tpu_torch.lexicon.build import FULL_VOCAB_NODES, \
+        synthetic_lexicon
+    from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
+
+    inv = UnitInventory.standard("XIF_tone")
+    flat, _, _ = synthetic_lexicon(
+        inv, min_nodes=min_nodes or FULL_VOCAB_NODES,
+        n_chars=12 if min_nodes else None)
+    dec = scan_decoder(cuda, "sparse", flat=flat, seed=9)
+    tabs = dec._prep_device()
+    n_nodes, n_s, _ = tabs.bands.shape
+    assert dk.carry_in_smem(n_nodes, n_s, dec.bank.num_states) == in_smem
+    rng = np.random.default_rng(9)
+    feats = torch.tensor((rng.normal(size=(3, 40, 13)) * 2)
+                         .astype(np.float32), device=cuda)
+    scan_both(dec, dec._scores(feats), np.array([40, 27, 40]))
