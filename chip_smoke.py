@@ -4,13 +4,16 @@
 
 Builds the hand-written CUDA kernels from ``poccala_tpu_torch/csrc`` (the
 GMM scorer in float32 and bfloat16, the banded HMM forward / backward /
-Viterbi and the device decoder's frame scan), holds each against its plain
-PyTorch version (the frame scan bit for bit at the decode cell's size with
-no LM, a flat and a sparse bigram LM, at a stream chunk's, the CD graph's
-and the 21,589-node lexicon's), computes each one's
-bound (bytes over the memory rate or operations over the peak rate), and
-drives both halves of the port's main path at full model width with random
-weights from a seeded ``torch.Generator``:
+Viterbi, the device decoder's frame scan and its n-best), holds each
+against its plain PyTorch version (the frame scan bit for bit at the decode
+cell's size with no LM, a flat and a sparse bigram LM, at a stream chunk's,
+the CD graph's and the 21,589-node lexicon's; the n-best bit for bit at the
+decode cell with each LM form at ``return_nbest`` 1 and 5, and at 21,589
+nodes; the shapes the kernels' first designs refused: 18 token states a
+node, a bank of 29,500 senones, 1,100 sentence states), computes each
+one's bound (bytes over the memory rate or operations over the peak rate),
+and drives both halves of the port's main path at full model width with
+random weights from a seeded ``torch.Generator``:
 
 * decode serving (WAV -> MFCC -> VAD -> DecodeService ->
   DeviceBeamDecoder): the XIF_tone inventory (202 units, 606 senones),
@@ -192,7 +195,8 @@ def synced_ms(fn, reps: int = 1):
 def kernel_counts() -> dict:
     return dict(gmm=gk.gmm_log_scores_cuda.launches,
                 **{k: f.launches for k, f in hk.KERNELS.items()},
-                scan=dk.decoder_scan_cuda.launches)
+                scan=dk.decoder_scan_cuda.launches,
+                fin=dk.decoder_finalize_cuda.launches)
 
 
 def reset_kernel_counts() -> None:
@@ -200,6 +204,7 @@ def reset_kernel_counts() -> None:
     for kernel in hk.KERNELS.values():
         kernel.launches = 0
     dk.decoder_scan_cuda.launches = 0
+    dk.decoder_finalize_cuda.launches = 0
 
 
 def pct(values, q) -> float:
@@ -534,7 +539,8 @@ def synthetic_speech(rng, rate: int, seconds: float) -> np.ndarray:
 def phase_serve(seed: int, n_req: int = 16) -> tuple[dict, DeviceBeamDecoder]:
     """cli.py:cmd_serve's composition: WAV -> frontend -> VAD -> packed
     features -> DecodeService(batch 8) -> the port's decoder on the GPU.
-    Returns the GMM and frame-scan kernels' launches of this run."""
+    Returns the GMM, frame-scan and n-best kernels' launches of this
+    run."""
     rng = np.random.default_rng(seed)
     dec, cfg = full_width_decoder(seed, "cuda")
     fe = Frontend(cfg.frontend, device="cuda")
@@ -556,8 +562,7 @@ def phase_serve(seed: int, n_req: int = 16) -> tuple[dict, DeviceBeamDecoder]:
             packed, n = vad_ops.apply_mask(feats, keep)
             return packed[: int(n)]
 
-        gk.gmm_log_scores_cuda.launches = 0
-        dk.decoder_scan_cuda.launches = 0
+        reset_kernel_counts()
         with DecodeService(dec, batch_size=8) as svc:
             feats, futs = [], []
             for lo in range(0, n_req, 8):
@@ -566,20 +571,23 @@ def phase_serve(seed: int, n_req: int = 16) -> tuple[dict, DeviceBeamDecoder]:
                 futs += [svc.submit(f) for f in chunk]
             results = [f.result(timeout=600) for f in futs]
         launches = dict(gmm=gk.gmm_log_scores_cuda.launches,
-                        scan=dk.decoder_scan_cuda.launches)
+                        scan=dk.decoder_scan_cuda.launches,
+                        fin=dk.decoder_finalize_cuda.launches)
     stats = svc.stats
     for i, hyps in enumerate(results):
         check(len(hyps) >= 1 and np.isfinite(hyps[0].score),
               f"request {i} answered with a finite 1-best")
     check(launches["gmm"] > 0, "the served decodes launched the CUDA kernel")
-    check(launches["scan"] == stats.batches,
-          f"one frame-scan launch per served batch: {launches}")
+    check(launches["scan"] == stats.batches == launches["fin"],
+          f"one frame-scan and one n-best launch per served batch: "
+          f"{launches}")
     n_min = min(len(f) for f in feats[:8])
     busy = device_profile(lambda: dec.decode_batch(
         np.stack([f[:n_min] for f in feats[:8]]), [n_min] * 8))
     say("serve", requests=stats.requests, batches=stats.batches,
         frames=stats.frames, kept_frames=[len(f) for f in feats],
         kernel_launches=launches["gmm"], scan_kernel_launches=launches["scan"],
+        finalize_kernel_launches=launches["fin"],
         batch_of_8_decode_call_profile=busy,
         one_best=["".join(r[0].words) for r in results],
         latency=stats.latency_summary())
@@ -605,11 +613,12 @@ def phase_serve(seed: int, n_req: int = 16) -> tuple[dict, DeviceBeamDecoder]:
     return launches, dec
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, events: bool = False):
     """One call of ``fn`` under ``torch.profiler``: wall time, summed
     kernel time, the device's busy share of the wall time, the kernel
     count and the costliest kernels.  The device numbers read "not
-    measured" when the profiler records no device time."""
+    measured" when the profiler records no device time.  With ``events``
+    also every device event's name and count, as a second result."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -622,14 +631,17 @@ def device_profile(fn) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    names = [(e.key[:60], e.count) for e in kernels]
     if kernel_ms <= 0:
-        return dict(wall_ms=wall_ms, busy_share="not measured")
+        out = dict(wall_ms=wall_ms, busy_share="not measured")
+        return (out, names) if events else out
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return dict(wall_ms=wall_ms, kernel_ms=kernel_ms,
-                busy_share=kernel_ms / wall_ms,
-                kernels=sum(e.count for e in kernels),
-                top=[(e.key[:60], e.count, e.self_device_time_total / 1e3)
-                     for e in top])
+    out = dict(wall_ms=wall_ms, kernel_ms=kernel_ms,
+               busy_share=kernel_ms / wall_ms,
+               kernels=sum(e.count for e in kernels),
+               top=[(e.key[:60], e.count, e.self_device_time_total / 1e3)
+                    for e in top])
+    return (out, names) if events else out
 
 
 def profiled(fn):
@@ -645,8 +657,8 @@ def phase_throughput(seed: int, dec: DeviceBeamDecoder, smi: str,
     """bench.py:bench_decode's shape: frontend + scoring + frame loop +
     n-best per call, double-buffered dispatch/collect, host work inside
     the timed region.  Then one call of the same batch through a decoder
-    with ``score_dtype="bfloat16"``; returns the bfloat16 kernel's launches
-    in it."""
+    with ``score_dtype="bfloat16"``.  Returns the n-best kernel's launches
+    in the timed calls and the bfloat16 kernel's in its call."""
     cfg = Config()
     fe = Frontend(cfg.frontend, device="cuda")
     rate = cfg.frontend.sample_rate
@@ -669,6 +681,7 @@ def phase_throughput(seed: int, dec: DeviceBeamDecoder, smi: str,
 
     torch.cuda.synchronize()
     dk.decoder_scan_cuda.launches = 0
+    dk.decoder_finalize_cuda.launches = 0
     t0 = time.perf_counter()
     pending = None
     for _ in range(calls):
@@ -680,9 +693,11 @@ def phase_throughput(seed: int, dec: DeviceBeamDecoder, smi: str,
     hyps = dec.decode_collect(pending)
     elapsed = time.perf_counter() - t0
     scan_launches = dk.decoder_scan_cuda.launches
+    fin_launches = dk.decoder_finalize_cuda.launches
     check(all(len(h) >= 1 for h in hyps), "every utterance decoded")
-    check(scan_launches == calls, f"one frame-scan launch per decode call "
-          f"({scan_launches} in {calls})")
+    check(scan_launches == calls == fin_launches, f"one frame-scan and one "
+          f"n-best launch per decode call ({scan_launches}, {fin_launches} "
+          f"in {calls})")
 
     busy = device_profile(
         lambda: dec.decode_collect(dec.decode_dispatch(feats, n_frames)))
@@ -722,11 +737,14 @@ def phase_throughput(seed: int, dec: DeviceBeamDecoder, smi: str,
         breakdown_ms=dict(frontend=ev[0].elapsed_time(ev[1]),
                           scoring=ev[1].elapsed_time(ev[2]),
                           decode_call_with_scoring=ev[2].elapsed_time(ev[3])),
-        decode_call_profile=busy, scan_kernel_launches=scan_launches,
+        decode_call_profile=busy,
+        decode_call_launches=busy.get("kernels", "not measured"),
+        scan_kernel_launches=scan_launches,
+        finalize_kernel_launches=fin_launches,
         bf16_call=dict(wall_ms=bf16_ms, kernel_launches=bf16_launches,
                        max_rel_score_drift_vs_f32=drift),
         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
-    return bf16_launches
+    return dict(fin=fin_launches, bf16=bf16_launches)
 
 
 def phase_host_decode(seed: int, smi: str, batch: int = 16,
@@ -882,25 +900,29 @@ def hmm_bound(name: str, b: int, t: int, n: int, w: int) -> dict:
 
 
 def kernel_device_ms(fn, name: str, reps: int = 20):
-    """Mean device time of the ``name`` DP kernel (``forward_*``,
-    ``backward_*`` or ``viterbi_*`` in ``hmm_banded.cu``) over the launches
+    """Mean device time of the ``name`` kernel (``forward_*``,
+    ``backward_*`` or ``viterbi_*`` in ``hmm_banded.cu``, ``decoder_scan_*``
+    or ``decoder_finalize_*`` in ``decoder_scan.cu``) over the launches
     that ``torch.profiler`` records in ``reps`` calls of ``fn``: the kernel
-    alone, no launch gaps, no host time; "not measured" when the profiler
-    records none."""
+    alone, no launch gaps, no host time.  A profile that kept no device
+    event is taken once more; "not measured" when neither did."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and f"{name}_" in e.key and "kernel" in e.key]
-    launches = sum(e.count for e in events)
-    total_us = sum(e.self_device_time_total for e in events)
-    return total_us / 1e3 / launches if launches else "not measured"
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and f"{name}_" in e.key and "kernel" in e.key]
+        launches = sum(e.count for e in events)
+        if launches:
+            total_us = sum(e.self_device_time_total for e in events)
+            return total_us / 1e3 / launches
+    return "not measured"
 
 
 def compare_dp(name: str, got, want) -> tuple[float, bool, dict]:
@@ -1378,7 +1400,9 @@ def phase_stream(seed: int, smi: str) -> int:
     against the one-shot decode on the card.  Then the chunk advance alone
     (host clock after a synchronise), its device profile, and the GMM
     kernel against its plain version at one chunk (T = 25) and a lockstep
-    chunk (T = 200)."""
+    chunk (T = 200); then the first ``stream_result`` of a fresh process
+    (:func:`first_stream_result`, a subprocess) beside its warm ones.
+    Returns the frame-scan and n-best kernels' launches of the sessions."""
     phase_t0 = time.perf_counter()
     dec, cfg = full_width_decoder(seed, "cuda")
     feats = speech_features(seed, cfg, STREAMS, 4.0)
@@ -1387,8 +1411,7 @@ def phase_stream(seed: int, smi: str) -> int:
     n_min = min(len(f) for f in feats)
     lock = np.stack([f[:n_min] for f in feats])
 
-    gk.gmm_log_scores_cuda.launches = 0
-    dk.decoder_scan_cuda.launches = 0
+    reset_kernel_counts()
     done_at = {}
     with DecodeService(dec, batch_size=8) as svc:
         sessions = [svc.open_stream(chunk_frames=CHUNK, max_frames=c)
@@ -1418,11 +1441,14 @@ def phase_stream(seed: int, smi: str) -> int:
         stats = svc.stats
     launches = gk.gmm_log_scores_cuda.launches
     scan_launches = dk.decoder_scan_cuda.launches
+    fin_launches = dk.decoder_finalize_cuda.launches
     latency = [done_at[i] - last_feed[i] for i in range(STREAMS)]
     check(launches > 0, "the stream path launched the GMM kernel")
     check(scan_launches == stats.stream_chunks,
           f"one frame-scan launch per chunk ({scan_launches} for "
           f"{stats.stream_chunks} chunks)")
+    check(fin_launches == STREAMS + 1, f"one n-best launch per stream "
+          f"result ({fin_launches} for {STREAMS + 1} results)")
 
     for i, f in enumerate(feats):
         same_nbest(finals[i], dec.decode_batch(f[None], [len(f)], 2)[0],
@@ -1448,6 +1474,12 @@ def phase_stream(seed: int, smi: str) -> int:
     st1 = dec.stream_init(batch=1, max_frames=CHUNK)
     chunk_profile = device_profile(lambda: dec.stream_feed(st1, one[:, :CHUNK]))
     result_ms = median_ms(lambda: dec.stream_result(st))
+    _, result_host_ms = synced_ms(lambda: dec.stream_result(st), reps=5)
+    result_profile = device_profile(lambda: dec.stream_result(st))
+    fresh = json.loads(subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--first-result",
+         "--seed", str(seed)], capture_output=True, text=True, check=True,
+        timeout=300).stdout.strip().splitlines()[-1])
 
     gen = torch.Generator().manual_seed(seed)
     for t in (CHUNK, STREAMS * CHUNK):
@@ -1498,11 +1530,55 @@ def phase_stream(seed: int, smi: str) -> int:
         lockstep_real_time_factor=pct(lock_ms, 50) / 1e3 / chunk_s / STREAMS,
         final_result_latency_ms=dict(p50=pct(latency, 50) * 1e3,
                                      p90=pct(latency, 90) * 1e3),
-        stream_result_ms=result_ms, chunk_profile=chunk_profile,
+        finalize_kernel_launches=fin_launches,
+        stream_result_ms=result_ms, stream_result_host_ms=result_host_ms,
+        stream_result_profile=result_profile,
+        fresh_process_stream_result=fresh, chunk_profile=chunk_profile,
         one_best=["".join(f[0].words) for f in finals],
         phase_seconds=time.perf_counter() - phase_t0,
         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
-    return scan_launches
+    return dict(scan=scan_launches, fin=fin_launches)
+
+
+def first_stream_result(seed: int) -> None:
+    """Run in a fresh process by ``phase_stream``: one 4 s utterance
+    streamed in 25-frame chunks at the decode width, then the host ms of
+    its first ``stream_result`` (every kernel the result runs loads on
+    first use) and of five warm ones; prints one JSON line."""
+    dec, cfg = full_width_decoder(seed, "cuda")
+    x = speech_features(seed, cfg, 1, 4.0)[0]
+    st = dec.stream_init(batch=1, max_frames=-(-len(x) // CHUNK) * CHUNK)
+    for lo in range(0, len(x), CHUNK):
+        dec.stream_feed(st, x[lo:lo + CHUNK])
+    first, first_ms = synced_ms(lambda: dec.stream_result(st, 2))
+    _, warm_ms = synced_ms(lambda: dec.stream_result(st, 2), reps=5)
+    check(len(first) == 1 and len(first[0]) >= 1, "a fresh process's "
+          "stream result holds a hypothesis")
+    print(json.dumps(dict(first_ms=first_ms, warm_ms_median_of_5=warm_ms,
+                          chunks=len(st.tb_prev),
+                          finalize_kernel_launches=dk.decoder_finalize_cuda
+                          .launches)), flush=True)
+
+
+def pruned_bound(dec: DeviceBeamDecoder, b: int, t_c: int, s: int,
+                 frames: int) -> dict:
+    """The block-pruned scan's least time (``step_pruned``, an eager loop
+    still): the scores ``[B, Tc, S]`` read once, the compact carry
+    (deltas float32 and ctx int32, ``[B, K, blk, Ns]``) and the entry row
+    (score and ctx, ``[B, N]``) read and written once, the rows ``[B, Tc]``
+    written once; operations: the lookahead's max over every token state
+    of every node (N Ns a valid frame) and the K active blocks' advance
+    ((2W + 4) a token state).  ``lookahead_traffic_ms``: the plain loop's
+    lookahead as it is built, ``[B, N, Ns]`` float32 written and read back
+    every frame."""
+    n, n_s, w = dec._prep_device().bands.shape
+    k, blk = dec.active_blocks, dec.block_size
+    n_bytes = (4 * b * t_c * s + 2 * 8 * b * k * blk * n_s + 2 * 8 * b * n
+               + 8 * b * t_c)
+    out = bound_ms(n_bytes, frames * (n * n_s + k * blk * n_s * (2 * w + 4)),
+                   "float32")
+    out["lookahead_traffic_ms"] = frames * n * n_s * 8 / PEAK_BYTES_S * 1e3
+    return out
 
 
 def phase_pruned(seed: int, smi: str, batch: int = 256,
@@ -1512,7 +1588,8 @@ def phase_pruned(seed: int, smi: str, batch: int = 256,
     standing in for Mandarin.dat: exact, then block_size 256 with 8 and 4
     active blocks, each timed after a warm-up call and a synchronise, with
     its peak device memory; then one pruned stream session against the
-    one-shot pruned decode."""
+    one-shot pruned decode.  Returns the frame-scan kernel's launches in
+    the exact call and the n-best kernel's in the three calls."""
     phase_t0 = time.perf_counter()
     cfg = Config()
     cfg.model.mix_level = cfg.model.max_mix_level = M
@@ -1532,7 +1609,7 @@ def phase_pruned(seed: int, smi: str, batch: int = 256,
     n_frames = masks.sum(dim=1).cpu().numpy()
     del signals
 
-    runs, outs = {}, {}
+    runs, outs, fin_launches = {}, {}, 0
     for name, kw in (("exact", {}),
                      ("k8", dict(block_size=256, active_blocks=8)),
                      ("k4", dict(block_size=256, active_blocks=4))):
@@ -1544,8 +1621,7 @@ def phase_pruned(seed: int, smi: str, batch: int = 256,
         dec.decode_batch(feats, n_frames)                     # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        gk.gmm_log_scores_cuda.launches = 0
-        dk.decoder_scan_cuda.launches = 0
+        reset_kernel_counts()
         t0 = time.perf_counter()
         outs[name] = dec.decode_batch(feats, n_frames)
         torch.cuda.synchronize()
@@ -1555,12 +1631,20 @@ def phase_pruned(seed: int, smi: str, batch: int = 256,
         scan = dk.decoder_scan_cuda.launches
         check(scan == (0 if kw else 1), f"{name}: {scan} frame-scan "
               "launches (one for the exact call, none pruned)")
+        fin = dk.decoder_finalize_cuda.launches
+        check(fin == 1, f"{name}: one n-best launch per decode call ({fin})")
+        fin_launches += fin
         check(all(len(h) >= 1 for h in outs[name]),
               f"{name}: every utterance decoded")
         runs[name] = dict(wall_ms=wall_ms, table_prep_seconds=prep_s,
                           peak_mem_bytes=torch.cuda.max_memory_allocated(),
                           blocks=getattr(dec, "_n_blocks", None),
-                          scan_kernel_launches=scan)
+                          scan_kernel_launches=scan,
+                          finalize_kernel_launches=fin)
+        if kw:
+            runs[name]["bound"] = pruned_bound(
+                dec, batch, int(feats.shape[1]), int(bank.num_states),
+                int(n_frames.sum()))
         if not kw:
             exact_launches = scan
             runs[name]["decode_call_profile"] = device_profile(
@@ -1589,7 +1673,7 @@ def phase_pruned(seed: int, smi: str, batch: int = 256,
         frames=int(feats.shape[1]), block_size=256, runs=runs,
         stream_equals_one_shot=True, phase_seconds=time.perf_counter()
         - phase_t0, device=torch.cuda.get_device_name(0), nvidia_smi=smi)
-    return exact_launches
+    return dict(scan=exact_launches, fin=fin_launches)
 
 
 def phase_cli(seed: int) -> None:
@@ -1672,6 +1756,7 @@ def phase_cli(seed: int) -> None:
                 dp = {k: f.launches for k, f in hk.KERNELS.items()}
                 gmm = gk.gmm_log_scores_cuda.launches
                 scan = dk.decoder_scan_cuda.launches
+                fin = dk.decoder_finalize_cuda.launches
 
         # the GMM kernel at the CLI's S, M, D on the trained bank
         cfg = Config()
@@ -1749,6 +1834,7 @@ def phase_cli(seed: int) -> None:
                        for t, r in host.items()},
         listen_partials=len(listened) - 1, gmm_launches=gmm,
         dp_kernel_launches=dp, scan_kernel_launches=scan,
+        finalize_kernel_launches=fin,
         device_decode_command_profile=profile["cuda"],
         phase_seconds=time.perf_counter() - t0)
 
@@ -1825,6 +1911,7 @@ def phase_wer_e2e(seed: int) -> None:
                 dp_kernel_launches={k: f.launches
                                     for k, f in hk.KERNELS.items()},
                 scan_kernel_launches=dk.decoder_scan_cuda.launches,
+                finalize_kernel_launches=dk.decoder_finalize_cuda.launches,
                 evaluate_decoder_profile=profile)
             # the host tiers over the same bank (tests/test_full_loop_wer.py
             # decodes with the simple one)
@@ -2145,6 +2232,7 @@ def phase_cd_throughput(seed: int, smi: str, epochs: int = 4) -> dict:
     gk.gmm_log_scores_cuda.launches = 0
     gk.gmm_log_scores_cuda.launches_bf16 = 0
     dk.decoder_scan_cuda.launches = 0
+    dk.decoder_finalize_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     hyps = dec.decode_batch(feats, n_frames)
@@ -2155,7 +2243,9 @@ def phase_cd_throughput(seed: int, smi: str, epochs: int = 4) -> dict:
     gmm = gk.gmm_log_scores_cuda.launches
     scan = dk.decoder_scan_cuda.launches
     check(gmm == 1, f"one GMM kernel launch per CD decode call ({gmm})")
+    fin = dk.decoder_finalize_cuda.launches
     check(scan == 1, f"one frame-scan launch per CD decode call ({scan})")
+    check(fin == 1, f"one n-best launch per CD decode call ({fin})")
     # the frame-scan kernel at the CD graph's size against its plain loop
     say("decoder_scan", case="cd", **scan_case(dec, dec._scores(feats),
                                                 n_frames))
@@ -2183,9 +2273,10 @@ def phase_cd_throughput(seed: int, smi: str, epochs: int = 4) -> dict:
         cd_decode_audio_throughput=TRAIN_B * 4.0 / decode_s,
         cd_decode_call_ms=decode_s * 1e3, decode_call_profile=profile,
         gmm_launches=gmm, gmm_bf16_launches=gmm16, scan_kernel_launches=scan,
+        finalize_kernel_launches=fin,
         phase_seconds=time.perf_counter() - phase_t0,
         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
-    return dict(gmm=gmm, gmm_bf16=gmm16, scan=scan, **dp)
+    return dict(gmm=gmm, gmm_bf16=gmm16, scan=scan, fin=fin, **dp)
 
 
 # ----------------------------------------------------------------------
@@ -2569,21 +2660,25 @@ def builtin_bigram(seed: int):
     return lm
 
 
-def scan_bound(tabs, b: int, t_c: int, s: int, frames: int) -> dict:
-    """The frame scan's least time: the scores ``[B, Tc, S]`` and
-    ``n_valid`` read once, the carry (deltas float32 and ctx int32,
-    ``[B, N, Ns]``) read and written once, the rows ``[B, Tc]`` int32
-    written once, the tables read once; (2W + 4) float32 operations per
-    token state and valid frame (the advance's W adds and W compares, the
-    emission score's add and clamp, the exit's share).  ``frames`` counts
-    the valid frames of this run's data.  ``carry_round_trip_ms`` is the
-    device-memory design's own floor: the carry read and written every
+def scan_bound(tabs, b: int, t_c: int, frames: int) -> dict:
+    """The frame scan's least time: of the scores ``[B, Tc, S]`` only the
+    senones the lexicon's emitting states name, on this run's ``frames``
+    valid frames (frozen frames read none), and ``n_valid`` read once; the
+    carry (deltas float32 and ctx int32, ``[B, N, Ns]``) read and written
+    once, the rows ``[B, Tc]`` int32 written once, the tables read once;
+    (2W + 4) float32 operations per token state and valid frame (the
+    advance's W adds and W compares, the emission score's add and clamp,
+    the exit's share).  Bytes are the elements' own, not rounded up to the
+    32-byte sectors a scattered read moves.  ``carry_round_trip_ms`` is
+    the device-memory design's own floor: the carry read and written every
     frame."""
     n, n_s, w = tabs.bands.shape
     q = tabs.node_slot.shape[0]
-    n_bytes = (4 * b * t_c * s + 4 * b + 2 * 8 * b * n * n_s + 8 * b * t_c
-               + 4 * n * n_s * (w + 1) + 5 * n + 9 * q)
+    n_sen = int(torch.unique(tabs.senone[tabs.emitting]).numel())
+    n_bytes = (4 * frames * n_sen + 4 * b + 2 * 8 * b * n * n_s
+               + 8 * b * t_c + 4 * n * n_s * (w + 1) + 5 * n + 9 * q)
     out = bound_ms(n_bytes, frames * n * n_s * (2 * w + 4), "float32")
+    out["senones_read"] = n_sen
     out["carry_round_trip_ms"] = frames * n * n_s * 16 / PEAK_BYTES_S * 1e3
     return out
 
@@ -2637,8 +2732,16 @@ def scan_case(dec: DeviceBeamDecoder, scores, n_valid, t0: int = 0,
                 kernel_ms=kernel_device_ms(kernel, "decoder_scan", reps=5),
                 plain_ms=synced_ms(plain, reps=plain_reps)[1],
                 library_ms=None,
-                **scan_bound(tabs, b, t_c, s,
+                **scan_bound(tabs, b, t_c,
                              int(np.clip(np.asarray(n_valid), 0, t_c).sum())))
+    if line["kernel_ms"] == "not measured":
+        # the profiler kept no device event: the kernel's time from CUDA
+        # events around back-to-back launches (n_valid already on the card,
+        # so no copy orders the host behind the card between them)
+        nv = torch.as_tensor(np.asarray(n_valid), dtype=torch.int32,
+                             device=scores.device)
+        line["kernel_ms_back_to_back"] = loop_ms(
+            lambda: dec._scan(tabs, carry, scores, t0, nv), n=reps)
     line["launches"] = dk.decoder_scan_cuda.launches - before
     return line
 
@@ -2697,6 +2800,324 @@ def phase_decoder_scan(seed: int, smi: str) -> dict:
                 exact_global=scan_record(lines["exact_21k"]))
 
 
+# ----------------------------------------------------------------------
+# the device decoder's n-best (decoder_finalize in csrc/decoder_scan.cu)
+def finalize_bound(tabs, seqs: torch.Tensor) -> dict:
+    """The n-best's least time: of the carry (deltas float32 and ctx int32,
+    ``[B, N, Ns]``) only the exit states (``min(W - 1, Ns - 1)`` a node) of
+    the nodes the valid slots name, with their band entries; the slots'
+    node, word and flag once; of the traceback rows (``[B, T]`` int32,
+    two) only the entries the chase follows, counted as each utterance's
+    longest chain (its candidates share the rest); ``seqs [B, C, L]``
+    int32 and ``scores [B, C]`` written once.  Bytes are the elements'
+    own.  Operations: the slots' exits (2 W a slot) and a linear pass of
+    the selection over the Q slots — bytes bound it by far.
+    ``latency_floor`` is the chase's dependent loads."""
+    n, n_s, w = tabs.bands.shape
+    b, c, max_words = seqs.shape
+    q = int(tabs.node_slot.shape[0])
+    named = int(torch.unique(tabs.node_slot[tabs.slot_valid]).numel())
+    n_exit = min(w - 1, n_s - 1)
+    chased = int(((seqs >= 0).sum(2) - 1).clamp(min=0).amax(1).sum()) \
+        if c else 0
+    n_bytes = (8 * b * named * n_exit + 4 * named * n_exit + 9 * q
+               + 8 * chased + 4 * b * c * max_words + 4 * b * c)
+    out = bound_ms(n_bytes, b * q * (2 * w + 2), "float32")
+    out.update(named_nodes=named, rows_entries_chased=chased)
+    out["latency_floor"] = f"{max_words - 1} dependent loads a candidate"
+    return out
+
+
+def finalize_case(dec: DeviceBeamDecoder, carry, prev, word, nbest: int,
+                  reps: int = 21, plain_reps: int = 3) -> dict:
+    """The n-best kernel (``dec._finalize`` on the card) against its plain
+    version (``dec._finalize_plain``) on the same carry and rows: ``seqs``
+    and ``scores`` must be equal bit for bit, or this raises.  ``ms``: one
+    event pair around a wrapper call (median of ``reps``); ``kernel_ms``:
+    the kernel alone under the profiler; ``plain_ms``: host ms of the plain
+    version, synchronised."""
+    tabs = dec._prep_device()
+    n_cand = dec._n_cand(nbest)
+    b, t = prev.shape
+
+    def kernel():
+        return dec._finalize(tabs, carry, prev, word, n_cand)
+
+    def plain():
+        return dec._finalize_plain(tabs, carry, prev, word, n_cand)
+
+    before = dk.decoder_finalize_cuda.launches
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    equal = dict(seqs=bool(torch.equal(got[0], want[0])),
+                 scores=bool(torch.equal(got[1], want[1])))
+    q = int(tabs.node_slot.shape[0])
+    c, r = dk.finalize_sizes(q, n_cand)
+    lm = ("none" if dec.lm is None else
+          "sparse" if tabs.lm_sparse is not None else "flat")
+    line = dict(b=b, t=t, n_nodes=int(tabs.bands.shape[0]), slots=q, lm=lm,
+                return_nbest=nbest, n_cand=c, r_fin=r,
+                max_words=dec.max_words, pruned=dec._prune_on,
+                rows_in_smem=dk.finalize_rows_in_smem(q, t, n_cand), equal=equal,
+                max_abs_err=float((got[1] - want[1]).abs().max()),
+                valid_candidates=int((got[1] > -1e30 / 2).sum()),
+                words=int((got[0] >= 0).sum()))
+    check(all(equal.values()), f"n-best kernel vs plain version: {line}")
+    line.update(ms=median_ms(kernel, reps=reps),
+                kernel_ms=kernel_device_ms(kernel, "decoder_finalize"),
+                plain_ms=synced_ms(plain, reps=plain_reps)[1],
+                library_ms=None,
+                **finalize_bound(tabs, got[0]))
+    line["launches"] = dk.decoder_finalize_cuda.launches - before
+    return line
+
+
+def phase_finalize(seed: int, smi: str) -> dict:
+    """The n-best kernel against its plain version, bit for bit, at the
+    decode cell (XIF_tone, 606 senones, 8 mixtures, the built-in 125-node
+    lexicon, 256 x 4 s of noise: B = 256, T = 319) with no LM, a flat and a
+    sparse bigram LM, each at ``return_nbest`` 1 and 5; and over the
+    21,589-node ``synthetic_lexicon``.  Then one decode call at the decode
+    cell under the profiler: its launches and where its time goes.
+    Returns the ``kernels`` record of the decode cell's case."""
+    phase_t0 = time.perf_counter()
+    dec, _ = full_width_decoder(seed, "cuda")
+    tabs = dec._prep_device()
+    feats, n_frames = noise_features(seed)
+    scores = dec._scores(feats)
+    lm = builtin_bigram(seed)
+    lines = {}
+    for kind, the_lm in (("none", None), ("flat", TableLM(lm)),
+                         ("sparse", lm)):
+        d = dec if the_lm is None else DeviceBeamDecoder(
+            dec.bank, dec.lexicon, lm=the_lm, lm_weight=3.0,
+            word_penalty=1.0)
+        t = d._prep_device()
+        carry, prev, word = d._scan(t, d._seed(t, scores.shape[0]), scores,
+                                    0, n_frames)
+        for nbest in (1, 5):
+            lines[f"decode_{kind}_n{nbest}"] = finalize_case(
+                d, carry, prev, word, nbest)
+    flat, _, _ = synthetic_lexicon(UnitInventory.standard("XIF_tone"))
+    big = DeviceBeamDecoder(dec.bank, flat)
+    t = big._prep_device()
+    carry, prev, word = big._scan(t, big._seed(t, scores.shape[0]), scores,
+                                  0, n_frames)
+    lines["exact_21k_n1"] = finalize_case(big, carry, prev, word, 1, reps=5)
+    del carry, prev, word, big
+    for name, line in lines.items():
+        say("decoder_finalize", case=name, **line)
+    reset_kernel_counts()
+    profile, events = device_profile(
+        lambda: dec.decode_batch(feats, n_frames), events=True)
+    check(dk.decoder_finalize_cuda.launches == 1
+          and dk.decoder_scan_cuda.launches == 1,
+          f"one scan and one n-best launch in a decode call: "
+          f"{kernel_counts()}")
+    # where a decode call's wall goes: the host's enqueue, the wait for the
+    # card, the copies of seqs and scores, the host's id -> word mapping
+    marks = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        handle = dec.decode_dispatch(feats, n_frames)
+        t.append(time.perf_counter())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        seqs, sc = handle[0].cpu().numpy(), handle[1].cpu().numpy()
+        t.append(time.perf_counter())
+        dec._to_hypotheses(seqs, sc, handle[2], handle[3])
+        t.append(time.perf_counter())
+        marks.append(np.diff(t) * 1e3)
+    split = dict(zip(("dispatch_host_ms", "device_wait_ms", "copy_ms",
+                      "to_hypotheses_ms"), np.median(marks, axis=0).tolist()))
+    say("decoder_finalize_summary", source=dk.SOURCE,
+        replaces=dk.FINALIZE_REPLACES,
+        decode_call_profile=profile, decode_call_events=events,
+        decode_call_split_median_of_5=split,
+        decode_call_launches=profile.get("kernels", "not measured"),
+        phase_seconds=time.perf_counter() - phase_t0,
+        device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    del scores, feats
+    torch.cuda.empty_cache()
+    line = lines["decode_none_n1"]
+    return {"finalize": {k: line[k] for k in (
+        "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}}
+
+
+# ----------------------------------------------------------------------
+# the shapes past the kernels' first designs
+SHAPES_STATE_NUM = 10       # 18 token states a node, 1,616 senones
+SHAPES_S = 29500       # scores rows past the scan's shared memory
+SHAPES_MAX_L = 366       # N = 2 + 366 * 3 = 1,100 sentence states
+
+
+def widened_bank(bank: sb.SenoneBank, n_senones: int, seed: int):
+    """``bank`` with its senones spread over ``n_senones`` (the rest random
+    copies of them), the highest one in use: each frame's scores row is
+    past the frame scan's shared memory, and the senones read reach its
+    end."""
+    arrays = sb.bank_to_numpy(bank)
+    rng = np.random.default_rng(seed)
+    s = arrays["means"].shape[0]
+    ids = np.sort(rng.choice(n_senones, size=s, replace=False))
+    ids[-1] = n_senones - 1
+    src = rng.integers(0, s, size=n_senones)
+    src[ids] = np.arange(s)
+    for f in ("means", "log_var", "log_w", "mix_counts"):
+        arrays[f] = arrays[f][src]
+    arrays["senone_map"] = ids[arrays["senone_map"]].astype(np.int32)
+    return sb.bank_from_numpy(arrays, device="cuda")
+
+
+def shapes_decode(dec: DeviceBeamDecoder, feats, n_frames, name: str) -> dict:
+    """One decode call and one 25-frame stream chunk with its result through
+    ``dec``: the scan and n-best kernels' launches, the 1-best."""
+    reset_kernel_counts()
+    hyps, wall_ms = synced_ms(lambda: dec.decode_batch(feats, n_frames))
+    st = dec.stream_init(batch=1, max_frames=CHUNK)
+    dec.stream_feed(st, feats[:1, :CHUNK])
+    chunk_hyps = dec.stream_result(st, 1)
+    launches = kernel_counts()
+    check(launches["scan"] == 2 and launches["fin"] == 2,
+          f"{name}: the decode call and the stream chunk ran the frame scan "
+          f"and the n-best on the card: {launches}")
+    check(all(len(h) >= 1 and np.isfinite(h[0].score) for h in hyps)
+          and len(chunk_hyps[0]) >= 1, f"{name}: every utterance decoded")
+    return dict(decode_call_ms=wall_ms, scan_launches=launches["scan"],
+                finalize_launches=launches["fin"],
+                one_best=["".join(h[0].words) for h in hyps[:4]])
+
+
+def phase_shapes(seed: int, smi: str) -> dict:
+    """The kernels at the shapes their first designs refused, each held to
+    its plain version on the card: the frame scan at ``state_num = 10`` (18
+    token states a node: the states in place in the carry) at the decode
+    cell's width (256 x 4 s, 8 mixtures, 39 dims, the built-in lexicon),
+    and over a bank of 29,500 senones (each frame's scores row read from
+    device memory; 32 x 4 s); a decode call and a stream chunk through
+    each; and forward, backward and Viterbi at N = 1,100 sentence states
+    (the block kernels' loop instantiations; labels of up to 366 units,
+    64 x 4 s), timed, with
+    their launches in one E-step and one alignment at that length.
+    Returns the ``kernels`` records."""
+    phase_t0 = time.perf_counter()
+    cfg = Config()
+    cfg.model.state_num = SHAPES_STATE_NUM
+    cfg.model.mix_level = cfg.model.max_mix_level = M
+    inv = UnitInventory.standard("XIF_tone")
+    bank = sb.create_bank(len(inv), cfg.model, D,
+                          generator=torch.Generator().manual_seed(seed),
+                          device="cuda")
+    lex = PronunciationLexicon()
+    lex.generate(list(BUILTIN_PINYIN), PinYin())
+    flat = FlatLexicon.from_tree(lex.lexicon, inv)
+    feats, n_frames = noise_features(seed)
+    dec = DeviceBeamDecoder(bank, flat)
+    tabs = dec._prep_device()
+    n, n_s, w = tabs.bands.shape
+    check(n_s == 18 and not dk.states_in_regs(n_s, w),
+          f"state_num = 10: {n_s} token states, in place in the carry")
+    lines = {"state_num_10": scan_case(dec, dec._scores(feats), n_frames)}
+    paths = {"state_num_10": shapes_decode(dec, feats, n_frames, "state_num 10")}
+    del dec, bank
+
+    cfg = Config()
+    cfg.model.mix_level = cfg.model.max_mix_level = M
+    base = sb.create_bank(len(inv), cfg.model, D,
+                          generator=torch.Generator().manual_seed(seed),
+                          device="cuda")
+    wide = widened_bank(base, SHAPES_S, seed)
+    dec = DeviceBeamDecoder(wide, flat)
+    tabs = dec._prep_device()
+    n, n_s, _ = tabs.bands.shape
+    check(not dk.rows_in_smem(n, n_s, SHAPES_S)
+          and dk.carry_in_smem(n, n_s, SHAPES_S),
+          "29,500 senones: the scores rows in device memory, the carry not")
+    b = 32
+    x, nf = feats[:b].contiguous(), n_frames[:b]
+    lines["s29500"] = scan_case(dec, dec._scores(x), nf)
+    paths["s29500"] = shapes_decode(dec, x, nf, "29,500 senones")
+    del dec, wide, base
+    for name, line in lines.items():
+        say("shapes_decoder_scan", case=name, **line, **paths[name])
+
+    gen = torch.Generator().manual_seed(seed)
+    band, log_pi, log_b, masks = dp_inputs(gen, 64, TRAIN_T, SHAPES_MAX_L)
+    b, t, n = (int(v) for v in log_b.shape)
+    check(n == 1100 and n > 1024, f"N = {n} sentence states")
+    calls = {
+        "forward": (lambda: hk.forward_banded_cuda(band, log_pi, log_b, masks,
+                                                   TRAIN_W),
+                    lambda: hmm_ops.forward_log_banded_plain(
+                        band, log_pi, log_b, masks, TRAIN_W)),
+        "backward": (lambda: hk.backward_banded_cuda(band, log_b, masks,
+                                                     TRAIN_W),
+                     lambda: hmm_ops.backward_log_banded_plain(
+                         band, log_b, masks, TRAIN_W)),
+        "viterbi": (lambda: hk.viterbi_banded_cuda(band, log_pi, log_b, masks,
+                                                   TRAIN_W),
+                    lambda: hmm_ops.viterbi_log_banded_plain(
+                        band, log_pi, log_b, masks, TRAIN_W)),
+    }
+    dp = {}
+    for name, (kernel, plain) in calls.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err, ok, tol = compare_dp(name, got, want)
+        exact = (all(torch.equal(g, w_) for g, w_ in zip(got, want))
+                 if name == "viterbi" else None)
+        check(ok and exact is not False, f"{name} loop instantiation vs plain at "
+              f"N = {n}: {err}")
+        dp[name] = dict(kernel=name, b=b, t=t, n_s=n, w=TRAIN_W,
+                        max_abs_err=err, tol=tol, ok=bool(ok),
+                        viterbi_bit_equal=exact,
+                        ms=median_ms(kernel, reps=11),
+                        kernel_ms=kernel_device_ms(kernel, name, reps=10),
+                        plain_ms=median_ms(plain, reps=3), library_ms=None,
+                        **hmm_bound(name, b, t, n, TRAIN_W))
+        say("shapes_hmm_kernel_vs_plain", **dp[name])
+    del band, log_pi, log_b, masks
+    # the training path at that label length: one E-step and one alignment
+    tcfg = train_config()
+    tbank = sb.create_bank(len(UnitInventory.standard("XIF")), tcfg.model, D,
+                           generator=gen, device="cuda")
+    labels = torch.randint(0, tbank.num_units, (16, SHAPES_MAX_L),
+                           generator=gen).cuda()
+    lens = torch.full((16,), SHAPES_MAX_L, dtype=torch.int32).cuda()
+    xs = (torch.randn(16, TRAIN_T, D, generator=gen) * 2).cuda()
+    tm = torch.ones(16, TRAIN_T, dtype=torch.bool, device="cuda")
+    reset_kernel_counts()
+    stats, _ = acc.batch_stats(tbank, labels, lens, xs, tm, 5, SHAPES_MAX_L)
+    sc, _ = align.align_batch(tbank, labels, lens, xs, tm, 5, SHAPES_MAX_L)
+    check(bool(torch.isfinite(stats.loglik).all())
+          and bool(torch.isfinite(sc).all()),
+          "finite logliks and alignment scores at N = 1,100")
+    train_launches = {k: f.launches for k, f in hk.KERNELS.items()}
+    check(all(v > 0 for v in train_launches.values()),
+          f"the training path at N = 1,100 ran every DP kernel: "
+          f"{train_launches}")
+    say("shapes_summary", dp_launches_training_path=train_launches,
+        dp_max_n=hk._lib().hmm_banded_max_n(),
+        ptxas_registers_spill_stores_loads=dict(
+            scan=PTXAS.get("decoder_scan", "not rebuilt"),
+            dp={k: v for k, v in PTXAS.get("hmm_banded", {}).items()
+                if "block_kernel" in k}),
+        phase_seconds=time.perf_counter() - phase_t0,
+        device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    torch.cuda.empty_cache()
+    records = {f"scan_{k}": dict(scan_record(v),
+                                 launches=paths[k]["scan_launches"])
+               for k, v in lines.items()}
+    for k, v in dp.items():
+        records[f"{k}_loop"] = dict(
+            launches=train_launches[k],
+            **{f: v[f] for f in ("max_abs_err", "ms", "kernel_ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")})
+    return records
+
+
 SOLO = {
     "hmm_kernels": lambda seed, smi: phase_hmm_kernels(seed),
     "host_decode": phase_host_decode,
@@ -2708,6 +3129,8 @@ SOLO = {
     "cd_throughput": phase_cd_throughput,
     "parallel": phase_parallel,
     "decoder_scan": phase_decoder_scan,
+    "finalize": phase_finalize,
+    "shapes": phase_shapes,
 }
 
 
@@ -2723,9 +3146,15 @@ def main(argv=None) -> int:
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dir", help=argparse.SUPPRESS)
+    # the stream phase's fresh process
+    ap.add_argument("--first-result", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.rank is not None:
         parallel_rank(args.rank, args.port, args.dir, args.seed)
+        return 0
+    if args.first_result:
+        first_stream_result(args.seed)
         return 0
 
     smi = phase_device()
@@ -2737,9 +3166,11 @@ def main(argv=None) -> int:
     records = phase_kernel(args.seed)
     records.update(phase_hmm_kernels(args.seed))
     records.update(phase_decoder_scan(args.seed, smi))
+    records.update(phase_finalize(args.seed, smi))
+    records.update(phase_shapes(args.seed, smi))
     phase_known_answer(args.seed)
     launches, dec = phase_serve(args.seed)
-    bf16_launches = phase_throughput(args.seed, dec, smi)
+    tp_launches = phase_throughput(args.seed, dec, smi)
     del dec
     torch.cuda.empty_cache()
     host_launches = phase_host_decode(args.seed, smi)
@@ -2748,7 +3179,7 @@ def main(argv=None) -> int:
     phase_train_scheme1(args.seed, smi)
     phase_scheme1_e2e(args.seed)
     stream_launches = phase_stream(args.seed, smi)
-    global_launches = phase_pruned(args.seed, smi)
+    pruned_launches = phase_pruned(args.seed, smi)
     phase_cli(args.seed)
     phase_wer_e2e(args.seed)
     phase_cd_e2e(args.seed)
@@ -2765,7 +3196,7 @@ def main(argv=None) -> int:
                     **records["float32"]),
                dict(name="gmm_log_scores_bf16", route="cuda",
                     source=gk.SOURCE, replaces=gk.REPLACES,
-                    launches=bf16_launches, **records["bfloat16"])]
+                    launches=tp_launches["bf16"], **records["bfloat16"])]
     # the same two kernels at the context-dependent bank's shape, with
     # their launches on the CD path
     kernels += [dict(name="gmm_log_scores_cd", route="cuda", source=gk.SOURCE,
@@ -2785,18 +3216,43 @@ def main(argv=None) -> int:
     kernels += [dict(name="decoder_scan_exact", route="cuda",
                      source=dk.SOURCE, replaces=dk.REPLACES,
                      launches=launches["scan"],
-                     launches_stream=stream_launches,
+                     launches_stream=stream_launches["scan"],
                      launches_cd=cd_launches["scan"],
                      launches_parallel=par_launches["scan"],
                      **records["exact"]),
                 dict(name="decoder_scan_exact_global", route="cuda",
                      source=dk.SOURCE, replaces=dk.REPLACES,
-                     launches=global_launches, **records["exact_global"])]
+                     launches=pruned_launches["scan"],
+                     **records["exact_global"])]
     check(kernels[-2]["launches_stream"] > 0
           and kernels[-2]["launches_cd"] > 0
           and kernels[-2]["launches_parallel"] > 0,
           f"the frame scan ran on the stream, CD and parallel paths: "
           f"{kernels[-2]}")
+    # the n-best: one launch per decode call or stream result, every path
+    kernels.append(dict(
+        name="decoder_finalize", route="cuda", source=dk.SOURCE,
+        replaces=dk.FINALIZE_REPLACES, launches=launches["fin"],
+        launches_throughput=tp_launches["fin"],
+        launches_stream=stream_launches["fin"],
+        launches_cd=cd_launches["fin"],
+        launches_parallel=par_launches["fin"],
+        launches_pruned=pruned_launches["fin"], **records["finalize"]))
+    check(all(v > 0 for k, v in kernels[-1].items()
+              if k.startswith("launches")),
+          f"the n-best kernel ran on every path: {kernels[-1]}")
+    # the instantiations for those shapes, with their launches on their paths
+    # (a decode call and a stream chunk; one E-step and one alignment)
+    kernels += [
+        dict(name="decoder_scan_exact_state_num_10", route="cuda",
+             source=dk.SOURCE, replaces=dk.REPLACES,
+             **records["scan_state_num_10"]),
+        dict(name="decoder_scan_exact_rows_global", route="cuda",
+             source=dk.SOURCE, replaces=dk.REPLACES,
+             **records["scan_s29500"])]
+    kernels += [dict(name=f"hmm_{k}_banded_loop", route="cuda",
+                     source=hk.SOURCE, replaces=hk.REPLACES[k],
+                     **records[f"{k}_loop"]) for k in hk.KERNELS]
     check(all(k["launches"] > 0 for k in kernels),
           f"every kernel was launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}), flush=True)

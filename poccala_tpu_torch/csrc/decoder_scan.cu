@@ -63,14 +63,23 @@
 //   after a barrier.
 // * Carry and exits live in shared memory where they fit in the 227 KB a
 //   block may opt into (the built-in lexicon: 9 KB; the CD lexicon of 875
-//   nodes: 63 KB), else in device memory (the same kernel, CARRY_SMEM =
-//   false): two instantiations of one source.
+//   nodes: 63 KB), else in device memory (CARRY_SMEM = false).
 // * The frame's scores row is copied into shared memory one frame ahead
-//   by cp.async, double-buffered.
-// * Ns and W are runtime values up to NS_MAX and W_MAX: every loop over
-//   them is unrolled to the maximum with the bound as a predicate, so the
-//   node's states stay in registers (an index into a register array must
-//   be a compile-time constant).
+//   by cp.async, double-buffered, where the two rows fit (2 S 4 bytes
+//   within SMEM_LIMIT: S up to ~28,900 senones); a larger bank reads each
+//   frame's row straight from device memory (ROWS_SMEM = false).  The
+//   rows come first: the carry goes to shared memory only in what they
+//   leave.
+// * Ns and W are runtime values.  Up to NS_MAX and W_MAX (REGS) every
+//   loop over them is unrolled to the maximum with the bound as a
+//   predicate, so the node's states stay in registers (an index into a
+//   register array must be a compile-time constant).  Past either (Ns =
+//   2 + 2 (state_num - 2) > 16 from state_num 10 on; W = the widest live
+//   transition, up to state_num) the advance runs in place on the carry
+//   where it lives, shared or device memory, with runtime loops: the same
+//   compares in the same order (states Ns-1 down, offsets k up, strict >).
+// * The three choices make eight instantiations of one source, chosen at
+//   launch (scan_plan, states_in_regs).
 // * The emission is R passes of a block argmax under the total order
 //   (value descending, slot ascending), each pass taking the best slot
 //   after the previous pass's winner: lax.top_k's order exactly, with no
@@ -97,6 +106,7 @@ constexpr size_t SMEM_LIMIT = 232448 - 1024;
 // double, rounded to float32.
 #define NEG_INF_F ((float)(-1e30))
 #define NEG_INF_HALF_F ((float)(-1e30 / 2.0))
+constexpr unsigned FULL = 0xffffffffu;
 
 }  // namespace
 
@@ -166,6 +176,17 @@ __device__ __forceinline__ float lm_term(const ScanTables& tb, int l_r,
   return tb.penalty;
 }
 
+// Warp-wide first-in-order (value, slot) pair; every lane gets it (a
+// butterfly: the order is total, so any pairing gives the same winner).
+__device__ __forceinline__ void warp_best(float& v, int& q) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(FULL, v, off);
+    const int oq = __shfl_xor_sync(FULL, q, off);
+    if (before(ov, oq, v, q)) { v = ov; q = oq; }
+  }
+}
+
 // Block-wide first-in-order (value, slot) pair; every thread gets it.
 // red_v / red_q hold one pair per warp.
 __device__ __forceinline__ void block_best(float& v, int& q, float* red_v,
@@ -187,7 +208,28 @@ __device__ __forceinline__ void block_best(float& v, int& q, float* red_v,
   __syncthreads();   // red_* free for the next pass
 }
 
-template <bool CARRY_SMEM>
+// The exit of node n from its states d / c (the node's carry at n Ns):
+// device.py's _exit_of, k = 1..W-1 ascending, strict >, from NEG_INF and
+// context V.  Returns the exit score; *ectx its packed context.
+__device__ __forceinline__ float node_exit(const ScanTables& tb,
+                                           const float* d, const int32_t* c,
+                                           int n, int* ectx) {
+  const int Ns = tb.n_states, W = tb.band_w;
+  const size_t base = (size_t)n * Ns;
+  const float* bn = tb.bands + base * W;
+  float e = NEG_INF_F;
+  int ec = tb.n_vocab;
+  for (int k = 1; k < W; ++k) {
+    const int rr = Ns - 1 - k;
+    if (rr < 0) break;
+    const float cand = d[base + rr] + __ldg(bn + rr * W + k);
+    if (cand > e) { e = cand; ec = c[base + rr]; }
+  }
+  *ectx = ec;
+  return e;
+}
+
+template <bool CARRY_SMEM, bool ROWS_SMEM, bool REGS>
 __global__ void __launch_bounds__(MAX_THREADS)
 decoder_scan_kernel(const ScanTables tb, const float* __restrict__ scores,
                     const int32_t* __restrict__ n_valid,
@@ -212,15 +254,15 @@ decoder_scan_kernel(const ScanTables tb, const float* __restrict__ scores,
   const int vp1 = V + 1;
   const size_t carry_n = (size_t)N * Ns;
 
-  // shared memory: scores rows [2][S] | (CARRY_SMEM) ex [N] | ex_ctx [N] |
-  // deltas [N Ns] | ctx [N Ns]
+  // shared memory: (ROWS_SMEM) scores rows [2][S] | (CARRY_SMEM) ex [N] |
+  // ex_ctx [N] | deltas [N Ns] | ctx [N Ns]
   float* srow = reinterpret_cast<float*>(smem_raw);
   float* ex;
   int32_t* exc;
   float* dc;
   int32_t* cc;
   if (CARRY_SMEM) {
-    ex = srow + 2 * S;
+    ex = srow + (ROWS_SMEM ? 2 * S : 0);
     exc = reinterpret_cast<int32_t*>(ex + N);
     dc = reinterpret_cast<float*>(exc + N);
     cc = reinterpret_cast<int32_t*>(dc + carry_n);
@@ -241,68 +283,98 @@ decoder_scan_kernel(const ScanTables tb, const float* __restrict__ scores,
 
   const int nv = min(Tc, max(n_valid[b], 0));
   const float* sc_b = scores + (size_t)b * Tc * S;
-  if (nv > 0)
-    for (int j = tid; j < S; j += nthr) cp_async_f32(srow + j, sc_b + j);
-  cp_async_commit();
+  if (ROWS_SMEM) {
+    if (nv > 0)
+      for (int j = tid; j < S; j += nthr) cp_async_f32(srow + j, sc_b + j);
+    cp_async_commit();
+  }
 
   for (int i = 0; i < nv; ++i) {
-    float* row = srow + (i & 1) * S;
-    if (i + 1 < nv) {
-      float* next = srow + ((i + 1) & 1) * S;
-      const float* src = sc_b + (size_t)(i + 1) * S;
-      for (int j = tid; j < S; j += nthr) cp_async_f32(next + j, src + j);
+    const float* row;
+    if (ROWS_SMEM) {
+      row = srow + (i & 1) * S;
+      if (i + 1 < nv) {
+        float* next = srow + ((i + 1) & 1) * S;
+        const float* src = sc_b + (size_t)(i + 1) * S;
+        for (int j = tid; j < S; j += nthr) cp_async_f32(next + j, src + j);
+      }
+      cp_async_commit();   // an empty group past the end keeps the count
+      cp_async_wait_one(); // frame i's row has landed (this thread's part)
+    } else {
+      row = sc_b + (size_t)i * S;
     }
-    cp_async_commit();   // an empty group past the end keeps the count
-    cp_async_wait_one(); // frame i's row has landed (this thread's part)
     __syncthreads();     // ... and every thread's; last frame's entry done
 
-    // 1-2. advance, emission scores, exits: node-local, in registers
+    // 1-2. advance, emission scores, exits: node-local
     for (int n = tid; n < N; n += nthr) {
-      float d[NS_MAX];
-      int c[NS_MAX];
       const size_t base = (size_t)n * Ns;
-#pragma unroll
-      for (int s = 0; s < NS_MAX; ++s)
-        if (s < Ns) { d[s] = dc[base + s]; c[s] = cc[base + s]; }
       const float* bn = tb.bands + base * W;
       const int32_t* sn = tb.senone + base;
-#pragma unroll
-      for (int s = NS_MAX - 1; s >= 0; --s) {
-        if (s >= Ns) continue;
-        float best = NEG_INF_F;
-        int bctx = V;
-#pragma unroll
-        for (int k = 0; k < W_MAX && k <= s; ++k) {
-          if (k >= W) break;
-          const float cand = d[s - k] + __ldg(bn + (s - k) * W + k);
-          if (cand > best) { best = cand; bctx = c[s - k]; }
-        }
-        float lb = 0.0f;
-        if (s > 0) {
-          const int sen = __ldg(sn + s);
-          lb = sen >= 0 ? row[sen] : NEG_INF_F;
-        }
-        const float x = best + lb;
-        d[s] = x < NEG_INF_F ? NEG_INF_F : x;   // torch.clamp(min=NEG_INF)
-        c[s] = bctx;
-      }
       float e = NEG_INF_F;
       int ectx = V;
+      if constexpr (REGS) {   // the node's states in registers
+        float d[NS_MAX];
+        int c[NS_MAX];
 #pragma unroll
-      for (int k = 1; k < W_MAX; ++k) {
-        if (k >= W) break;
-        const int rr = Ns - 1 - k;
+        for (int s = 0; s < NS_MAX; ++s)
+          if (s < Ns) { d[s] = dc[base + s]; c[s] = cc[base + s]; }
 #pragma unroll
-        for (int s = 0; s < NS_MAX; ++s) {
-          if (s == rr) {
-            const float cand = d[s] + __ldg(bn + s * W + k);
-            if (cand > e) { e = cand; ectx = c[s]; }
+        for (int s = NS_MAX - 1; s >= 0; --s) {
+          if (s >= Ns) continue;
+          float best = NEG_INF_F;
+          int bctx = V;
+#pragma unroll
+          for (int k = 0; k < W_MAX && k <= s; ++k) {
+            if (k >= W) break;
+            const float cand = d[s - k] + __ldg(bn + (s - k) * W + k);
+            if (cand > best) { best = cand; bctx = c[s - k]; }
+          }
+          float lb = 0.0f;
+          if (s > 0) {
+            const int sen = __ldg(sn + s);
+            lb = sen >= 0 ? row[sen] : NEG_INF_F;
+          }
+          const float x = best + lb;
+          d[s] = x < NEG_INF_F ? NEG_INF_F : x;   // torch.clamp(min=NEG_INF)
+          c[s] = bctx;
+        }
+#pragma unroll
+        for (int k = 1; k < W_MAX; ++k) {
+          if (k >= W) break;
+          const int rr = Ns - 1 - k;
+#pragma unroll
+          for (int s = 0; s < NS_MAX; ++s) {
+            if (s == rr) {
+              const float cand = d[s] + __ldg(bn + s * W + k);
+              if (cand > e) { e = cand; ectx = c[s]; }
+            }
           }
         }
-      }
 #pragma unroll
-      for (int s = 1; s < NS_MAX; ++s)
-        if (s < Ns) { dc[base + s] = d[s]; cc[base + s] = c[s]; }
+        for (int s = 1; s < NS_MAX; ++s)
+          if (s < Ns) { dc[base + s] = d[s]; cc[base + s] = c[s]; }
+      } else {   // in place where the carry lives (state 0's advanced
+                 // value too: the entry phase overwrites it)
+        float* d = dc + base;
+        int32_t* c = cc + base;
+        for (int s = Ns - 1; s >= 0; --s) {
+          float best = NEG_INF_F;
+          int bctx = V;
+          for (int k = 0; k < W && k <= s; ++k) {
+            const float cand = d[s - k] + __ldg(bn + (s - k) * W + k);
+            if (cand > best) { best = cand; bctx = c[s - k]; }
+          }
+          float lb = 0.0f;
+          if (s > 0) {
+            const int sen = __ldg(sn + s);
+            lb = sen >= 0 ? row[sen] : NEG_INF_F;
+          }
+          const float x = best + lb;
+          d[s] = x < NEG_INF_F ? NEG_INF_F : x;   // torch.clamp(min=NEG_INF)
+          c[s] = bctx;
+        }
+        e = node_exit(tb, dc, cc, n, &ectx);
+      }
       ex[n] = e;
       exc[n] = ectx;
     }
@@ -371,7 +443,7 @@ decoder_scan_kernel(const ScanTables tb, const float* __restrict__ scores,
       cc[(size_t)n * Ns] = use_restart ? re_ctx : flow_ctx;
     }
   }
-  cp_async_wait_all();
+  if (ROWS_SMEM) cp_async_wait_all();
   for (int i = nv + tid; i < Tc; i += nthr) {
     tb_prev[(size_t)b * Tc + i] = -1;
     tb_word[(size_t)b * Tc + i] = -1;
@@ -387,25 +459,208 @@ decoder_scan_kernel(const ScanTables tb, const float* __restrict__ scores,
   }
 }
 
-int threads_for(int N) {
-  const int t = (N + 31) / 32 * 32;
+// ----------------------------------------------------------------------
+// The n-best of a decode call or a stream result.
+//
+// Replaces `finalize` of DeviceBeamDecoder._build_finalize
+// (poccala_tpu/decoder/device.py:638-692), whose pointer chase is a
+// lax.scan of max_words - 1 steps (:670-676).  Its plain version,
+// DeviceBeamDecoder._finalize_plain, is ~10 eager ops a chase step: ~630
+// launches a call, for work of a few microseconds.  Here one block per
+// utterance does all of it in one launch:
+//   1. the exit of each slot's node from the final carry (node_exit) and
+//      the slot's acoustic score ac[q] (NEG_INF where the slot is not valid
+//      or the exit is at or below NEG_INF / 2);
+//   2. the top R = min(Q, max(32, 2 C)) slots in _top_k's order (value
+//      descending, the lower slot first among equals): R block argmaxes,
+//      each taking the best slot after the previous winner, as the frame
+//      scan's emission does;
+//   3. each of the R candidates' LM term on (its exit context % (V + 1),
+//      its word) and its total (one float add, NEG_INF where the acoustic
+//      score is at or below NEG_INF / 2);
+//   4. the top C of the R totals in the same order, by one warp;
+//   5. one thread per candidate chases max_words - 1 traceback pointers
+//      through (tb_prev, tb_word), writes the newest-first words into its
+//      seqs row (all -1 for an invalid candidate), counts them and reverses
+//      the row's first `lens` entries in place: _finalize_plain's `rev`,
+//      `lens` and gather.
+// Compares, one float add per candidate and integer work only, so seqs and
+// scores equal the plain version's bit for bit.
+//
+// What bounds it: the bytes, ~1 us at the decode cell (the rows [B, T]
+// int32 twice, the slots' carry, seqs), and the latency of its dependent
+// steps: R + C selection passes and the chase's max_words - 1 dependent
+// loads.  The utterance's rows are staged in shared memory when their T 8
+// bytes fit beside the selection's arrays (ROWS_SMEM), so a chase step is
+// a shared-memory load; else it reads device memory.  ac[Q] sits in shared
+// memory where it fits beside those, else in a [B, Q] device scratch.
+template <bool ROWS_SMEM>
+__global__ void __launch_bounds__(MAX_THREADS)
+decoder_finalize_kernel(const ScanTables tb, const float* __restrict__ deltas,
+                        const int32_t* __restrict__ ctx,
+                        const int32_t* __restrict__ tb_prev,
+                        const int32_t* __restrict__ tb_word, float* ac_global,
+                        int32_t* __restrict__ seqs,
+                        float* __restrict__ scores, int T, int C, int R,
+                        int L, int ac_in_smem) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float red_v[MAX_WARPS];
+  __shared__ int red_q[MAX_WARPS];
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int Q = tb.n_slots, vp1 = tb.n_vocab + 1;
+  const size_t carry_n = (size_t)tb.n_nodes * tb.n_states;
+  const float* d_b = deltas + (size_t)b * carry_n;
+  const int32_t* c_b = ctx + (size_t)b * carry_n;
+
+  // shared memory: top_v [R] | top_q [R] | tot [R] | cr [R] | pick [C] |
+  // (ROWS_SMEM) prev [T] | word [T] | (ac_in_smem) ac [Q]
+  float* top_v = reinterpret_cast<float*>(smem_raw);
+  int* top_q = reinterpret_cast<int*>(top_v + R);
+  float* tot = reinterpret_cast<float*>(top_q + R);
+  int* cr = reinterpret_cast<int*>(tot + R);
+  int* pick = cr + R;
+  int32_t* rows = pick + C;
+  const int32_t* prev = tb_prev + (size_t)b * T;
+  const int32_t* word = tb_word + (size_t)b * T;
+  if (ROWS_SMEM) {
+    for (int i = tid; i < T; i += nthr) {
+      rows[i] = prev[i];
+      rows[T + i] = word[i];
+    }
+    prev = rows;
+    word = rows + T;
+  }
+  float* ac = ac_in_smem
+                  ? reinterpret_cast<float*>(rows + (ROWS_SMEM ? 2 * T : 0))
+                  : ac_global + (size_t)b * Q;
+
+  // 1. the slots' acoustic scores
+  for (int q = tid; q < Q; q += nthr) {
+    int unused;
+    const float x =
+        node_exit(tb, d_b, c_b, __ldg(tb.node_slot + q), &unused);
+    ac[q] = (__ldg(tb.slot_valid + q) && x > NEG_INF_HALF_F) ? x : NEG_INF_F;
+  }
+  __syncthreads();
+
+  // 2. the top R slots: R ordered block argmaxes
+  float pv = 0.0f;
+  int pq = -1;
+  for (int r = 0; r < R; ++r) {
+    float bv = -INFINITY;   // below every slot's value (>= NEG_INF)
+    int bq = 0x7fffffff;
+    for (int q = tid; q < Q; q += nthr) {
+      const float a = ac[q];
+      const bool after = r == 0 || before(pv, pq, a, q);
+      if (after && before(a, q, bv, bq)) { bv = a; bq = q; }
+    }
+    block_best(bv, bq, red_v, red_q);
+    if (tid == 0) { top_v[r] = bv; top_q[r] = bq; }
+    pv = bv;
+    pq = bq;
+  }
+  __syncthreads();
+
+  // 3. their LM terms and totals
+  for (int r = tid; r < R; r += nthr) {
+    const int slot = top_q[r];
+    int c;
+    node_exit(tb, d_b, c_b, __ldg(tb.node_slot + slot), &c);
+    const float lm = lm_term(tb, c % vp1, __ldg(tb.word_slot + slot));
+    const float r_sc = top_v[r];
+    tot[r] = r_sc > NEG_INF_HALF_F ? r_sc + lm : NEG_INF_F;
+    cr[r] = c;
+  }
+  __syncthreads();
+
+  // 4. the top C totals, by the first warp
+  if (tid < 32) {
+    float pt = 0.0f;
+    int pi = -1;
+    for (int c = 0; c < C; ++c) {
+      float bv = -INFINITY;
+      int bi = 0x7fffffff;
+      for (int r = tid; r < R; r += 32) {
+        const float x = tot[r];
+        const bool after = c == 0 || before(pt, pi, x, r);
+        if (after && before(x, r, bv, bi)) { bv = x; bi = r; }
+      }
+      warp_best(bv, bi);
+      if (tid == 0) {
+        pick[c] = bi;
+        scores[(size_t)b * C + c] = bv;
+      }
+      pt = bv;
+      pi = bi;
+    }
+  }
+  __syncthreads();
+
+  // 5. the chase, one thread per candidate, then the reversal
+  for (int c = tid; c < C; c += nthr) {
+    const int r = pick[c];
+    const bool valid = tot[r] > NEG_INF_HALF_F;
+    int32_t* out = seqs + ((size_t)b * C + c) * L;
+    int ptr = cr[r] / vp1 - 1;
+    const int last = __ldg(tb.word_slot + top_q[r]);
+    int w = valid ? last : -1;
+    out[0] = w;
+    int lens = w >= 0;
+    for (int j = 1; j < L; ++j) {
+      int nx = -1;
+      w = -1;
+      if (ptr >= 0) {
+        const int p = min(ptr, T - 1);
+        w = word[p];
+        nx = prev[p];
+      }
+      ptr = nx;
+      w = valid ? w : -1;
+      out[j] = w;
+      lens += w >= 0;
+    }
+    for (int j = 0, k = lens - 1; j < k; ++j, --k) {
+      const int32_t x = out[j];
+      out[j] = out[k];
+      out[k] = x;
+    }
+    for (int j = lens; j < L; ++j) out[j] = -1;
+  }
+}
+
+int threads_for(int n) {
+  const int t = (n + 31) / 32 * 32;
   return t < 64 ? 64 : (t > MAX_THREADS ? MAX_THREADS : t);
 }
 
-size_t smem_bytes(bool carry_smem, int N, int Ns, int S) {
-  size_t bytes = 2 * (size_t)S * sizeof(float);
-  if (carry_smem)
-    bytes += 2 * (size_t)N * 4 + 2 * (size_t)N * Ns * 4;
-  return bytes;
+// Where the frame scan keeps its scores rows and its carry: the rows in
+// shared memory when the two fit SMEM_LIMIT, the carry (exits, deltas,
+// ctx) in what they leave.
+struct ScanPlan {
+  bool rows_smem, carry_smem;
+  size_t smem;
+};
+
+ScanPlan scan_plan(int N, int Ns, int S) {
+  const size_t rows = 2 * (size_t)S * sizeof(float);
+  const size_t carry = 2 * (size_t)N * 4 + 2 * (size_t)N * Ns * 4;
+  ScanPlan p;
+  p.rows_smem = rows <= SMEM_LIMIT;
+  const size_t room = SMEM_LIMIT - (p.rows_smem ? rows : 0);
+  p.carry_smem = carry <= room;
+  p.smem = (p.rows_smem ? rows : 0) + (p.carry_smem ? carry : 0);
+  return p;
 }
 
-bool carry_fits(int N, int Ns, int S) {
-  return smem_bytes(true, N, Ns, S) <= SMEM_LIMIT;
-}
+// A node's states in registers (unrolled to NS_MAX, W_MAX), else in place
+// in the carry.
+bool states_in_regs(int Ns, int W) { return Ns <= NS_MAX && W <= W_MAX; }
 
 // Opt into the dynamic shared memory past 48 KB, then launch one block of
 // `threads` per utterance.
-template <bool CARRY_SMEM>
+template <bool CARRY_SMEM, bool ROWS_SMEM, bool REGS>
 int launch(int B, int threads, size_t smem, cudaStream_t stream,
            const ScanTables& tb, const float* scores, const int32_t* n_valid,
            const float* d_in, const int32_t* c_in, float* d_out,
@@ -413,14 +668,68 @@ int launch(int B, int threads, size_t smem, cudaStream_t stream,
            int32_t* tb_word, int Tc, int S, int t0) {
   if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        decoder_scan_kernel<CARRY_SMEM>,
+        decoder_scan_kernel<CARRY_SMEM, ROWS_SMEM, REGS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (rc != cudaSuccess) return (int)rc;
   }
-  decoder_scan_kernel<CARRY_SMEM><<<B, threads, smem, stream>>>(
+  decoder_scan_kernel<CARRY_SMEM, ROWS_SMEM, REGS><<<B, threads, smem, stream>>>(
       tb, scores, n_valid, d_in, c_in, d_out, c_out, ex, exc, tb_prev,
       tb_word, Tc, S, t0);
   return (int)cudaGetLastError();
+}
+
+using LaunchFn = int (*)(int, int, size_t, cudaStream_t, const ScanTables&,
+                         const float*, const int32_t*, const float*,
+                         const int32_t*, float*, int32_t*, float*, int32_t*,
+                         int32_t*, int32_t*, int, int, int);
+// indexed by carry_smem * 4 + rows_smem * 2 + states_in_regs
+constexpr LaunchFn LAUNCH[8] = {
+    launch<false, false, false>, launch<false, false, true>,
+    launch<false, true, false>,  launch<false, true, true>,
+    launch<true, false, false>,  launch<true, false, true>,
+    launch<true, true, false>,   launch<true, true, true>};
+
+// What the n-best kernel keeps in shared memory: the selection's arrays,
+// then the traceback rows where they fit, then ac where it fits.
+struct FinalizePlan {
+  bool rows_smem, ac_smem;
+  size_t smem;
+};
+
+FinalizePlan finalize_plan(int Q, int T, int C, int R) {
+  const size_t base = 16 * (size_t)R + 4 * (size_t)C;
+  const size_t rows = 8 * (size_t)T, ac = 4 * (size_t)Q;
+  FinalizePlan p;
+  p.rows_smem = base + rows <= SMEM_LIMIT;
+  const size_t used = base + (p.rows_smem ? rows : 0);
+  p.ac_smem = used + ac <= SMEM_LIMIT;
+  p.smem = used + (p.ac_smem ? ac : 0);
+  return p;
+}
+
+template <bool ROWS_SMEM>
+int launch_finalize(int B, int threads, size_t smem, cudaStream_t stream,
+                    const ScanTables& tb, const float* deltas,
+                    const int32_t* ctx, const int32_t* tb_prev,
+                    const int32_t* tb_word, float* ac, int32_t* seqs,
+                    float* scores, int T, int C, int R, int L,
+                    int ac_in_smem) {
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        decoder_finalize_kernel<ROWS_SMEM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  decoder_finalize_kernel<ROWS_SMEM><<<B, threads, smem, stream>>>(
+      tb, deltas, ctx, tb_prev, tb_word, ac, seqs, scores, T, C, R, L,
+      ac_in_smem);
+  return (int)cudaGetLastError();
+}
+
+bool bad_tables(const ScanTables& tb) {
+  return tb.n_nodes < 1 || tb.n_states < 1 || tb.band_w < 1 ||
+         tb.n_slots < 1 || tb.lm_mode < 0 || tb.lm_mode > 2 ||
+         (tb.lm_mode > 0 && tb.n_vocab < 1);
 }
 
 }  // namespace
@@ -440,47 +749,83 @@ extern "C" int decoder_scan_exact(const ScanTables* tables,
                                   void* tb_word, int B, int Tc, int S, int t0,
                                   void* stream_) {
   const ScanTables tb = *tables;
-  if (B < 1 || Tc < 1 || S < 1 || tb.n_nodes < 1 || tb.n_states < 1 ||
-      tb.n_states > NS_MAX || tb.band_w < 1 || tb.band_w > W_MAX ||
-      tb.n_slots < 1 || tb.r_top < 1 || tb.r_top > R_MAX ||
-      tb.r_top > tb.n_slots || tb.lm_mode < 0 || tb.lm_mode > 2 ||
-      (tb.lm_mode > 0 && tb.n_vocab < 1) || t0 < 0)
+  if (B < 1 || Tc < 1 || S < 1 || bad_tables(tb) || tb.r_top < 1 ||
+      tb.r_top > R_MAX || tb.r_top > tb.n_slots || t0 < 0)
     return (int)cudaErrorInvalidValue;
   const int N = tb.n_nodes, Ns = tb.n_states;
-  const bool in_smem = carry_fits(N, Ns, S);
-  const size_t smem = smem_bytes(in_smem, N, Ns, S);
-  if (smem > SMEM_LIMIT || (!in_smem && (ex_scratch == nullptr ||
-                                          exc_scratch == nullptr)))
+  const ScanPlan plan = scan_plan(N, Ns, S);
+  if (!plan.carry_smem && (ex_scratch == nullptr || exc_scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_;
-  const int threads = in_smem ? threads_for(N) : MAX_THREADS;
-  const auto* sc = static_cast<const float*>(scores);
-  const auto* nvalid = static_cast<const int32_t*>(n_valid);
-  const auto* din = static_cast<const float*>(d_in);
-  const auto* cin = static_cast<const int32_t*>(c_in);
-  auto* dout = static_cast<float*>(d_out);
-  auto* cout = static_cast<int32_t*>(c_out);
-  auto* exs = static_cast<float*>(ex_scratch);
-  auto* excs = static_cast<int32_t*>(exc_scratch);
-  auto* tbp = static_cast<int32_t*>(tb_prev);
-  auto* tbw = static_cast<int32_t*>(tb_word);
-  return in_smem
-             ? launch<true>(B, threads, smem, stream, tb, sc, nvalid, din,
-                            cin, dout, cout, exs, excs, tbp, tbw, Tc, S, t0)
-             : launch<false>(B, threads, smem, stream, tb, sc, nvalid, din,
-                             cin, dout, cout, exs, excs, tbp, tbw, Tc, S, t0);
+  const int threads = plan.carry_smem ? threads_for(N) : MAX_THREADS;
+  const int which = plan.carry_smem * 4 + plan.rows_smem * 2 +
+                    states_in_regs(Ns, tb.band_w);
+  return LAUNCH[which](
+      B, threads, plan.smem, (cudaStream_t)stream_, tb,
+      static_cast<const float*>(scores), static_cast<const int32_t*>(n_valid),
+      static_cast<const float*>(d_in), static_cast<const int32_t*>(c_in),
+      static_cast<float*>(d_out), static_cast<int32_t*>(c_out),
+      static_cast<float*>(ex_scratch), static_cast<int32_t*>(exc_scratch),
+      static_cast<int32_t*>(tb_prev), static_cast<int32_t*>(tb_word), Tc, S,
+      t0);
 }
 
 // 1 where the carry of an N-node, Ns-state lexicon at S senones stays in
 // shared memory, 0 where it goes to device memory (and the exits to the
 // scratch the caller passes).
 extern "C" int decoder_scan_carry_in_smem(int N, int Ns, int S) {
-  return carry_fits(N, Ns, S);
+  return scan_plan(N, Ns, S).carry_smem;
 }
-extern "C" int decoder_scan_max_states() { return NS_MAX; }
-extern "C" int decoder_scan_max_w() { return W_MAX; }
+// 1 where the frame's scores row is staged in shared memory, 0 where the
+// kernel reads it from device memory.
+extern "C" int decoder_scan_rows_in_smem(int N, int Ns, int S) {
+  return scan_plan(N, Ns, S).rows_smem;
+}
+// 1 where a node's states live in registers, 0 where the advance runs in
+// place in the carry.
+extern "C" int decoder_scan_states_in_regs(int Ns, int W) {
+  return states_in_regs(Ns, W);
+}
 extern "C" int decoder_scan_max_r() { return R_MAX; }
 
+// The n-best of B utterances from their final carry (deltas, ctx
+// [B, N, Ns]) and traceback rows (tb_prev, tb_word [B, T]): seqs [B, C, L]
+// int32 and scores [B, C] float32, written whole.  C = min(n_cand, Q)
+// candidates out of R = min(Q, max(32, 2 C)) acoustic ones, L = max_words.
+// ac_scratch ([B, Q] float32) is read only where
+// decoder_finalize_ac_in_smem returns 0.  Returns as decoder_scan_exact.
+extern "C" int decoder_finalize(const ScanTables* tables, const void* deltas,
+                                const void* ctx, const void* tb_prev,
+                                const void* tb_word, void* ac_scratch,
+                                void* seqs, void* scores, int B, int T,
+                                int C, int R, int L, void* stream_) {
+  const ScanTables tb = *tables;
+  if (B < 1 || T < 0 || bad_tables(tb) || C < 1 || C > R ||
+      R > tb.n_slots || L < 1)
+    return (int)cudaErrorInvalidValue;
+  const FinalizePlan plan = finalize_plan(tb.n_slots, T, C, R);
+  if (plan.smem > SMEM_LIMIT || (!plan.ac_smem && ac_scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const auto fn =
+      plan.rows_smem ? &launch_finalize<true> : &launch_finalize<false>;
+  return fn(B, threads_for(tb.n_slots), plan.smem, (cudaStream_t)stream_, tb,
+            static_cast<const float*>(deltas),
+            static_cast<const int32_t*>(ctx),
+            static_cast<const int32_t*>(tb_prev),
+            static_cast<const int32_t*>(tb_word),
+            static_cast<float*>(ac_scratch), static_cast<int32_t*>(seqs),
+            static_cast<float*>(scores), T, C, R, L, plan.ac_smem);
+}
+
+// 1 where the n-best kernel stages the traceback rows in shared memory, 0
+// where its chase reads device memory.
+extern "C" int decoder_finalize_rows_in_smem(int Q, int T, int C, int R) {
+  return finalize_plan(Q, T, C, R).rows_smem;
+}
+// 1 where the slots' acoustic scores stay in shared memory, 0 where they
+// go to the [B, Q] scratch the caller passes.
+extern "C" int decoder_finalize_ac_in_smem(int Q, int T, int C, int R) {
+  return finalize_plan(Q, T, C, R).ac_smem;
+}
 extern "C" const char* decoder_scan_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -80,8 +80,10 @@
 //   in shared memory, and the backtrace reads them there; an utterance
 //   whose T-1 frames of them do not fit goes to the block kernel.
 //
-// N > 128 (up to MAX_N), another W (up to MAX_W), or a Viterbi utterance
-// too long for shared memory (the block kernels):
+// N > 128 (up to BLOCK_MAX_N = 1,024), another W (up to MAX_W), or a
+// Viterbi utterance too long for shared memory (the block kernels'
+// <false> instantiations; past 1,024 states, up to MAX_N, their <true>
+// instantiations, which loop over the states):
 //
 // * One block per utterance, one thread per sentence state (rounded up to
 //   a warp multiple).  The carry lives in shared memory, double-buffered,
@@ -107,7 +109,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_W = 16;
-constexpr int MAX_N = 1024;
+constexpr int BLOCK_MAX_N = 1024;   // the block kernels: a thread a state
 
 __device__ __forceinline__ float lse_of(const float* x, int w) {
   float mx = x[0];
@@ -131,111 +133,169 @@ __device__ float row_lse(const float* row, int n) {
   return logf(s) + mx;
 }
 
+// Thread 0's Viterbi backtrace from the last frame's deltas `last` [N] and
+// one utterance's offsets `off` [T-1, N]: the first maximum over the
+// states [N - end_states, N) (all where end_states is 0), then T-1 steps.
+__device__ void viterbi_backtrace(const float* last, const uint8_t* off,
+                                  int T, int N, int end_states,
+                                  float* score, int32_t* p) {
+  const int lo = end_states > 0 ? N - end_states : 0;
+  int state = lo;
+  for (int s = lo + 1; s < N; ++s)
+    if (last[s] > last[state]) state = s;  // first maximum
+  *score = last[state];
+  p[T - 1] = state;
+  for (int t = T - 2; t >= 0; --t) {
+    // JAX's dynamic indexing: a negative state (a degenerate utterance
+    // whose deltas all sit at the sentinel backtraces below 0) counts
+    // from the end once, then clamps
+    int idx = state < 0 ? state + N : state;
+    idx = idx < 0 ? 0 : (idx > N - 1 ? N - 1 : idx);
+    state -= off[(size_t)t * N + idx];
+    p[t] = state;
+  }
+}
+
+// The block kernels' launch shapes: one thread a state up to BLOCK_MAX_N
+// states (LOOP = false), past that LOOP_THREADS threads each looping over
+// the states j = tid, tid + LOOP_THREADS, ... (LOOP = true, the carry still
+// in shared memory; see "Loop instantiations" below).  One body a
+// recursion: where LOOP is false a thread's band entries, its state's
+// value and its next log_b live in registers, where it is true they are
+// read from memory each frame; the arithmetic is the same term for term.
+constexpr int LOOP_THREADS = 512;
+
+// f(j) for each state j of this thread: its one state, where it has one
+// (LOOP = false), or j = tid, tid + blockDim.x, ... (LOOP = true).
+template <bool LOOP, class F>
+__device__ __forceinline__ void for_states(int N, F&& f) {
+  const int tid = threadIdx.x;
+  if (LOOP) {
+    for (int j = tid; j < N; j += blockDim.x) f(j);
+  } else if (tid < N) {
+    f(tid);
+  }
+}
+
+template <bool LOOP>
 __global__ void forward_block_kernel(const float* __restrict__ band,
-                               const float* __restrict__ log_pi,
-                               const float* __restrict__ log_b,
-                               const uint8_t* __restrict__ mask,
-                               float* __restrict__ alpha,
-                               float* __restrict__ loglik, int T, int N,
-                               int W) {
+                     const float* __restrict__ log_pi,
+                     const float* __restrict__ log_b,
+                     const uint8_t* __restrict__ mask,
+                     float* __restrict__ alpha, float* __restrict__ loglik,
+                     int T, int N, int W) {
   extern __shared__ float sm[];  // [2][N]
   const int b = blockIdx.x;
-  const int j = threadIdx.x;
-  const bool live = j < N;
+  const int tid = threadIdx.x;
+  const bool live = tid < N;
   const float* lb = log_b + (size_t)b * T * N;
+  const float* bd = band + (size_t)b * N * W;
   const uint8_t* mk = mask + (size_t)b * T;
   float* out = alpha + (size_t)b * T * N;
 
-  float bin[MAX_W];  // bin[k] = band[b, j-k, k]
+  float bin[MAX_W];  // !LOOP: bin[k] = band[b, j-k, k] of the thread's j
+  if (!LOOP) {
 #pragma unroll
-  for (int k = 0; k < MAX_W; ++k)
-    bin[k] = (live && k < W && j - k >= 0)
-                 ? band[((size_t)b * N + (j - k)) * W + k] : 0.0f;
+    for (int k = 0; k < MAX_W; ++k)
+      bin[k] = (live && k < W && tid - k >= 0)
+                   ? band[((size_t)b * N + (tid - k)) * W + k] : 0.0f;
+  }
 
   float a = 0.0f;
-  if (live) {
+  for_states<LOOP>(N, [&](int j) {
     a = log_pi[(size_t)b * N + j] + lb[j];
     sm[j] = a;
     out[j] = a;
-  }
-  float b_next = (live && T > 1) ? lb[N + j] : 0.0f;
+  });
+  float b_next = (!LOOP && live && T > 1) ? lb[N + tid] : 0.0f;
   uint8_t m_next = T > 1 ? mk[1] : 0;
   __syncthreads();
 
   int cur = 0;
   for (int t = 1; t < T; ++t) {
-    const float b_t = b_next;
+    const float b_reg = b_next;
     const uint8_t m_t = m_next;
     if (t + 1 < T) {
-      if (live) b_next = lb[(size_t)(t + 1) * N + j];
+      if (!LOOP && live) b_next = lb[(size_t)(t + 1) * N + tid];
       m_next = mk[t + 1];
     }
-    if (m_t && live) {
-      const float* prev = sm + cur * N;
-      float x[MAX_W];
+    const float* prev = sm + cur * N;
+    for_states<LOOP>(N, [&](int j) {
+      if (LOOP) a = prev[j];
+      if (m_t) {
+        float x[MAX_W];
 #pragma unroll
-      for (int k = 0; k < MAX_W; ++k)
-        x[k] = (k < W && j - k >= 0) ? prev[j - k] + bin[k] : NEG_INF;
-      a = fmaxf(lse_of(x, W) + b_t, NEG_INF);
-    }
-    if (live) {
+        for (int k = 0; k < MAX_W; ++k)
+          x[k] = (k < W && j - k >= 0)
+                     ? prev[j - k]
+                           + (LOOP ? bd[(size_t)(j - k) * W + k] : bin[k])
+                     : NEG_INF;
+        const float b_t = LOOP ? lb[(size_t)t * N + j] : b_reg;
+        a = fmaxf(lse_of(x, W) + b_t, NEG_INF);
+      }
       sm[(cur ^ 1) * N + j] = a;
       out[(size_t)t * N + j] = a;
-    }
+    });
     cur ^= 1;
     __syncthreads();
   }
-  if (j == 0) loglik[b] = row_lse(sm + cur * N, N);
+  if (tid == 0) loglik[b] = row_lse(sm + cur * N, N);
 }
 
+template <bool LOOP>
 __global__ void backward_block_kernel(const float* __restrict__ band,
-                                const float* __restrict__ log_b,
-                                const uint8_t* __restrict__ mask,
-                                float* __restrict__ beta, int T, int N,
-                                int W) {
+                      const float* __restrict__ log_b,
+                      const uint8_t* __restrict__ mask,
+                      float* __restrict__ beta, int T, int N, int W) {
   extern __shared__ float sm[];  // [2][N] of s = b_{t+1} + beta_{t+1}
   const int b = blockIdx.x;
-  const int j = threadIdx.x;
-  const bool live = j < N;
+  const int tid = threadIdx.x;
+  const bool live = tid < N;
   const float* lb = log_b + (size_t)b * T * N;
+  const float* bd = band + (size_t)b * N * W;
   const uint8_t* mk = mask + (size_t)b * T;
   float* out = beta + (size_t)b * T * N;
 
-  float bout[MAX_W];  // bout[k] = band[b, j, k]
+  float bout[MAX_W];  // !LOOP: bout[k] = band[b, j, k] of the thread's j
+  if (!LOOP) {
 #pragma unroll
-  for (int k = 0; k < MAX_W; ++k)
-    bout[k] = (live && k < W) ? band[((size_t)b * N + j) * W + k] : 0.0f;
+    for (int k = 0; k < MAX_W; ++k)
+      bout[k] = (live && k < W) ? band[((size_t)b * N + tid) * W + k] : 0.0f;
+  }
 
-  if (live) {
+  for_states<LOOP>(N, [&](int j) {
     out[(size_t)(T - 1) * N + j] = 0.0f;
     sm[j] = lb[(size_t)(T - 1) * N + j] + 0.0f;
-  }
-  float b_here = (live && T > 1) ? lb[(size_t)(T - 2) * N + j] : 0.0f;
+  });
+  float b_here = (!LOOP && live && T > 1) ? lb[(size_t)(T - 2) * N + tid]
+                                          : 0.0f;
   uint8_t m_here = T > 1 ? mk[T - 1] : 0;
   __syncthreads();
 
   int cur = 0;
   for (int t = T - 2; t >= 0; --t) {
-    const float b_t = b_here;
+    const float b_reg = b_here;
     const uint8_t m_next = m_here;  // validity of frame t+1
     if (t >= 1) {
-      if (live) b_here = lb[(size_t)(t - 1) * N + j];
+      if (!LOOP && live) b_here = lb[(size_t)(t - 1) * N + tid];
       m_here = mk[t];
     }
-    float bt = 0.0f;
-    if (m_next && live) {
-      const float* s = sm + cur * N;
-      float x[MAX_W];
+    const float* s = sm + cur * N;
+    for_states<LOOP>(N, [&](int j) {
+      float bt = 0.0f;
+      if (m_next) {
+        float x[MAX_W];
 #pragma unroll
-      for (int k = 0; k < MAX_W; ++k)
-        x[k] = (k < W) ? bout[k] + ((j + k < N) ? s[j + k] : NEG_INF)
-                       : NEG_INF;
-      bt = fmaxf(lse_of(x, W), NEG_INF);
-    }
-    if (live) {
+        for (int k = 0; k < MAX_W; ++k)
+          x[k] = (k < W) ? (LOOP ? bd[(size_t)j * W + k] : bout[k])
+                               + ((j + k < N) ? s[j + k] : NEG_INF)
+                         : NEG_INF;
+        bt = fmaxf(lse_of(x, W), NEG_INF);
+      }
+      const float b_t = LOOP ? lb[(size_t)t * N + j] : b_reg;
       out[(size_t)t * N + j] = bt;
       sm[(cur ^ 1) * N + j] = b_t + bt;
-    }
+    });
     cur ^= 1;
     __syncthreads();
   }
@@ -698,95 +758,118 @@ bool viterbi_takes_warp(int T, int N, int W) {
          viterbi_warp_smem(T, N) + ring_bytes((N + 31) / 32) <= SMEM_PER_BLOCK;
 }
 
+template <bool LOOP>
 __global__ void viterbi_block_kernel(const float* __restrict__ band,
-                                     const float* __restrict__ log_pi,
-                                     const float* __restrict__ log_b,
-                                     const uint8_t* __restrict__ mask,
-                                     uint8_t* __restrict__ offs,
-                                     float* __restrict__ score,
-                                     int32_t* __restrict__ path,
-                                     float* __restrict__ delta_last, int T,
-                                     int N, int W, int end_states) {
+                     const float* __restrict__ log_pi,
+                     const float* __restrict__ log_b,
+                     const uint8_t* __restrict__ mask,
+                     uint8_t* __restrict__ offs, float* __restrict__ score,
+                     int32_t* __restrict__ path,
+                     float* __restrict__ delta_last, int T, int N, int W,
+                     int end_states) {
   extern __shared__ float sm[];  // [2][N]
   const int b = blockIdx.x;
-  const int j = threadIdx.x;
-  const bool live = j < N;
+  const int tid = threadIdx.x;
+  const bool live = tid < N;
   const float* lb = log_b + (size_t)b * T * N;
+  const float* bd = band + (size_t)b * N * W;
   const uint8_t* mk = mask + (size_t)b * T;
   uint8_t* off = offs + (size_t)b * (T - 1) * N;
 
-  float bin[MAX_W];  // bin[k] = band[b, j-k, k]
+  float bin[MAX_W];  // !LOOP: bin[k] = band[b, j-k, k] of the thread's j
+  if (!LOOP) {
 #pragma unroll
-  for (int k = 0; k < MAX_W; ++k)
-    bin[k] = (live && k < W && j - k >= 0)
-                 ? band[((size_t)b * N + (j - k)) * W + k] : 0.0f;
+    for (int k = 0; k < MAX_W; ++k)
+      bin[k] = (live && k < W && tid - k >= 0)
+                   ? band[((size_t)b * N + (tid - k)) * W + k] : 0.0f;
+  }
 
   float d = 0.0f;
-  if (live) {
+  for_states<LOOP>(N, [&](int j) {
     d = log_pi[(size_t)b * N + j] + lb[j];
     sm[j] = d;
-  }
-  float b_next = (live && T > 1) ? lb[N + j] : 0.0f;
+  });
+  float b_next = (!LOOP && live && T > 1) ? lb[N + tid] : 0.0f;
   uint8_t m_next = T > 1 ? mk[1] : 0;
   __syncthreads();
 
   int cur = 0;
   for (int t = 1; t < T; ++t) {
-    const float b_t = b_next;
+    const float b_reg = b_next;
     const uint8_t m_t = m_next;
     if (t + 1 < T) {
-      if (live) b_next = lb[(size_t)(t + 1) * N + j];
+      if (!LOOP && live) b_next = lb[(size_t)(t + 1) * N + tid];
       m_next = mk[t + 1];
     }
-    uint8_t bk = 0;
-    if (m_t && live) {
-      const float* prev = sm + cur * N;
-      float best = prev[j] + bin[0];
+    const float* prev = sm + cur * N;
+    for_states<LOOP>(N, [&](int j) {
+      if (LOOP) d = prev[j];
+      uint8_t bk = 0;
+      if (m_t) {
+        float best = prev[j] + (LOOP ? bd[(size_t)j * W] : bin[0]);
 #pragma unroll
-      for (int k = 1; k < MAX_W; ++k) {
-        if (k < W) {
-          const float cand = (j - k >= 0) ? prev[j - k] + bin[k] : NEG_INF;
-          if (cand > best) {  // strict: the smallest offset wins a tie
-            best = cand;
-            bk = (uint8_t)k;
+        for (int k = 1; k < MAX_W; ++k) {
+          if (k < W) {
+            const float cand =
+                (j - k >= 0)
+                    ? prev[j - k]
+                          + (LOOP ? bd[(size_t)(j - k) * W + k] : bin[k])
+                    : NEG_INF;
+            if (cand > best) {  // strict: the smallest offset wins a tie
+              best = cand;
+              bk = (uint8_t)k;
+            }
           }
         }
+        const float b_t = LOOP ? lb[(size_t)t * N + j] : b_reg;
+        d = fmaxf(best + b_t, NEG_INF);
       }
-      d = fmaxf(best + b_t, NEG_INF);
-    }
-    if (live) {
       sm[(cur ^ 1) * N + j] = d;
       off[(size_t)(t - 1) * N + j] = bk;
-    }
+    });
     cur ^= 1;
     __syncthreads();  // also publishes this block's offsets in global memory
   }
-  if (live) delta_last[(size_t)b * N + j] = d;
-  if (j == 0) {
-    const float* last = sm + cur * N;
-    const int lo = end_states > 0 ? N - end_states : 0;
-    int state = lo;
-    for (int s = lo + 1; s < N; ++s)
-      if (last[s] > last[state]) state = s;  // first maximum
-    score[b] = last[state];
-    int32_t* p = path + (size_t)b * T;
-    p[T - 1] = state;
-    for (int t = T - 2; t >= 0; --t) {
-      // JAX's dynamic indexing: a negative state (a degenerate utterance
-      // whose deltas all sit at the sentinel backtraces below 0) counts
-      // from the end once, then clamps
-      int idx = state < 0 ? state + N : state;
-      idx = idx < 0 ? 0 : (idx > N - 1 ? N - 1 : idx);
-      state -= off[(size_t)t * N + idx];
-      p[t] = state;
-    }
-  }
+  for_states<LOOP>(N, [&](int j) {
+    delta_last[(size_t)b * N + j] = LOOP ? sm[cur * N + j] : d;
+  });
+  if (tid == 0)
+    viterbi_backtrace(sm + cur * N, off, T, N, end_states, score + b,
+                      path + (size_t)b * T);
 }
+
+// ----------------------------------------------------------------------
+// Loop instantiations: BLOCK_MAX_N < N <= MAX_N
+// ----------------------------------------------------------------------
+//
+// LOOP = false gives each state a thread, so it stops at a block's 1,024
+// threads.  Past that the <true> instantiations run LOOP_THREADS threads
+// over the states.  The double-buffered carry [2][N] stays in shared
+// memory (opting in past 48 KB), which sets MAX_N; the band entries and
+// log_b are read where they are, each frame, since a thread's share of
+// them no longer fits its registers.
+
+constexpr int MAX_N = (int)(SMEM_PER_BLOCK / (2 * sizeof(float)));
 
 int threads_for(int N) { return ((N + 31) / 32) * 32; }
 
 bool bad_shape(int B, int T, int N, int W) {
   return B < 1 || T < 1 || N < 1 || N > MAX_N || W < 1 || W > MAX_W;
+}
+
+// A loop kernel's launch: its carry [2][N] in dynamic shared memory,
+// opted into past 48 KB.
+template <class Kernel, class... Args>
+int launch_loop(Kernel kernel, int B, int N, cudaStream_t stream,
+                Args... args) {
+  const size_t smem = 2 * (size_t)N * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  kernel<<<B, LOOP_THREADS, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -814,8 +897,11 @@ int forward_banded(const void* band_, const void* log_pi_, const void* log_b_,
   if (takes_warp(N, W) && !block_only)
     HMM_WARP_LAUNCH(forward_warp_kernel, B, N, W, 0, band, log_pi, log_b, mask,
                     alpha, loglik, B, T, N);
+  else if (N > BLOCK_MAX_N)
+    return launch_loop(forward_block_kernel<true>, B, N, stream, band,
+                       log_pi, log_b, mask, alpha, loglik, T, N, W);
   else
-    forward_block_kernel<<<B, threads_for(N), 2 * N * sizeof(float),
+    forward_block_kernel<false><<<B, threads_for(N), 2 * N * sizeof(float),
                            stream>>>(band, log_pi, log_b, mask, alpha,
                                      loglik, T, N, W);
   return (int)cudaGetLastError();
@@ -833,8 +919,11 @@ int backward_banded(const void* band_, const void* log_b_, const void* mask_,
   if (takes_warp(N, W) && !block_only)
     HMM_WARP_LAUNCH(backward_warp_kernel, B, N, W, 0, band, log_b, mask, beta, B,
                     T, N);
+  else if (N > BLOCK_MAX_N)
+    return launch_loop(backward_block_kernel<true>, B, N, stream, band,
+                       log_b, mask, beta, T, N, W);
   else
-    backward_block_kernel<<<B, threads_for(N), 2 * N * sizeof(float),
+    backward_block_kernel<false><<<B, threads_for(N), 2 * N * sizeof(float),
                             stream>>>(band, log_b, mask, beta, T, N, W);
   return (int)cudaGetLastError();
 }
@@ -861,7 +950,11 @@ int viterbi_banded(const void* band_, const void* log_pi_, const void* log_b_,
                     N, end_states);
   } else {
     if (offs_ == nullptr && T > 1) return (int)cudaErrorInvalidValue;
-    viterbi_block_kernel<<<B, threads_for(N), 2 * N * sizeof(float),
+    if (N > BLOCK_MAX_N)
+      return launch_loop(viterbi_block_kernel<true>, B, N, stream, band,
+                         log_pi, log_b, mask, static_cast<uint8_t*>(offs_),
+                         score, path, delta_last, T, N, W, end_states);
+    viterbi_block_kernel<false><<<B, threads_for(N), 2 * N * sizeof(float),
                            stream>>>(band, log_pi, log_b, mask,
                                      static_cast<uint8_t*>(offs_), score,
                                      path, delta_last, T, N, W, end_states);

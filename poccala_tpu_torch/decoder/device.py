@@ -42,8 +42,10 @@ runs the exact search's frames on the GPU as one launch of the CUDA kernel
 ``csrc/decoder_scan.cu`` (:mod:`poccala_tpu_torch.ops.cuda.
 decoder_scan_cuda`), and on the CPU as its plain version, a Python loop of
 :meth:`DeviceBeamDecoder._frame_step` over frames batched over utterances;
-the two agree bit for bit.  The block-pruned step is a Python loop on both
-devices.  On the GPU every op is an asynchronous launch on the calling
+the two agree bit for bit.  The n-best (:meth:`DeviceBeamDecoder.
+_finalize`) is likewise one launch of the same source's ``decoder_finalize``
+kernel on the GPU and :meth:`DeviceBeamDecoder._finalize_plain` on the CPU.
+The block-pruned step is a Python loop on both devices.  On the GPU every op is an asynchronous launch on the calling
 thread's current stream (the worker thread of
 :class:`~poccala_tpu_torch.serve.DecodeService` runs batches and stream
 chunks alike there), so :meth:`decode_dispatch` returns once the work is
@@ -78,7 +80,8 @@ import torch.nn.functional as F
 
 from poccala_tpu_torch.decoder.beam import Hypothesis
 from poccala_tpu_torch.decoder.vector import VectorBeamDecoder
-from poccala_tpu_torch.ops.cuda.decoder_scan_cuda import decoder_scan_cuda
+from poccala_tpu_torch.ops.cuda.decoder_scan_cuda import \
+    decoder_finalize_cuda, decoder_scan_cuda
 from poccala_tpu_torch.ops.gmm_score import gmm_log_scores_batch
 from poccala_tpu_torch.utils.logmath import NEG_INF
 
@@ -738,7 +741,26 @@ class DeviceBeamDecoder(VectorBeamDecoder):
     def _finalize(self, tabs: _Tables, carry, tb_prev, tb_word, n_cand: int):
         """Device n-best: final exits -> top emissions over the static
         (node, word) slots -> pointer-chase backtrace.  Returns
-        ``(seqs [B, C, L] int32, scores [B, C] f32)``."""
+        ``(seqs [B, C, L] int32, scores [B, C] f32)``.
+
+        On a CUDA tensor this is one launch of the n-best kernel (it raises
+        if it cannot launch), on the full carry (the pruned search's
+        compact carry is expanded first, in PyTorch); a CPU tensor takes
+        :meth:`_finalize_plain`."""
+        if tb_prev.is_cuda:
+            deltas, ctx = self._expand(tabs, carry)
+            return decoder_finalize_cuda(
+                tabs, (deltas.contiguous(), ctx.contiguous()),
+                tb_prev.contiguous(), tb_word.contiguous(), n_cand,
+                n_vocab=self._n_vocab, r_top=self._r_top(tabs),
+                penalty=-float(self.word_penalty), max_words=self.max_words)
+        return self._finalize_plain(tabs, carry, tb_prev, tb_word, n_cand)
+
+    def _finalize_plain(self, tabs: _Tables, carry, tb_prev, tb_word,
+                        n_cand: int):
+        """:meth:`_finalize` in eager PyTorch ops on any device (the
+        pointer chase is ``max_words - 1`` steps of gathers): the n-best
+        kernel's plain version."""
         vp1 = self._n_vocab + 1
         q = tabs.node_slot.shape[0]
         l_max = self.max_words

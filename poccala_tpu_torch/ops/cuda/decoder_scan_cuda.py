@@ -15,7 +15,22 @@ The decoder's tables (``_Tables``) are packed once per table object
 emitting mask folded into ``senone`` (-1 where not emitting) and
 ``has_parent`` into ``parent`` (-1 where none).  CUDA tensors only: the
 wrapper raises on a CPU tensor and on an operand of the wrong dtype, and
-when the kernel does not launch.
+when the kernel does not launch.  Any token-state count, band width and
+bank size launches: the source chooses among eight instantiations (states
+in registers or in place in the carry; carry and scores rows in shared or
+device memory), see :func:`states_in_regs`, :func:`carry_in_smem` and
+:func:`rows_in_smem`.
+
+The same source holds the device decoder's n-best, wrapped by
+:func:`decoder_finalize_cuda`.  That kernel replaces ``finalize`` of
+``DeviceBeamDecoder._build_finalize`` (``FINALIZE_REPLACES``) and its
+pointer chase, a ``lax.scan`` of ``max_words - 1`` steps.  One launch takes
+every utterance of a decode call or a stream result from its final carry
+and traceback rows to ``(seqs [B, C, L] int32, scores [B, C] float32)``;
+its plain version is :meth:`poccala_tpu_torch.decoder.device.
+DeviceBeamDecoder._finalize_plain`, which ``DeviceBeamDecoder._finalize``
+runs for a CPU tensor.  The two agree bit for bit.  It uses the frame
+scan's packed tables and raises as the frame scan's wrapper does.
 """
 
 from __future__ import annotations
@@ -32,6 +47,7 @@ from poccala_tpu_torch.ops.cuda import build
 
 SOURCE = "poccala_tpu_torch/csrc/decoder_scan.cu"
 REPLACES = "poccala_tpu/decoder/device.py:423"
+FINALIZE_REPLACES = "poccala_tpu/decoder/device.py:638-692"
 LM_NONE, LM_FLAT, LM_SPARSE = 0, 1, 2
 _CACHE_SIZE = 8      # packed table sets kept
 
@@ -117,17 +133,25 @@ def _cached(tabs, n_vocab: int, r_top: int, penalty: float):
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a library built from ``decoder_scan.cu``."""
+    """Declare the C interface of a library built from ``decoder_scan.cu``:
+    the frame scan and the n-best (``decoder_finalize``)."""
     lib.decoder_scan_exact.argtypes = [ctypes.POINTER(_ScanTables)] \
         + [_P] * 10 + [_I] * 4 + [_P]
-    lib.decoder_scan_carry_in_smem.argtypes = [_I, _I, _I]
+    lib.decoder_finalize.argtypes = [ctypes.POINTER(_ScanTables)] \
+        + [_P] * 7 + [_I] * 5 + [_P]
+    for fn in (lib.decoder_scan_carry_in_smem, lib.decoder_scan_rows_in_smem):
+        fn.argtypes = [_I, _I, _I]
+    lib.decoder_scan_states_in_regs.argtypes = [_I, _I]
+    lib.decoder_scan_max_r.argtypes = []
+    for fn in (lib.decoder_finalize_rows_in_smem,
+               lib.decoder_finalize_ac_in_smem):
+        fn.argtypes = [_I] * 4
     for fn in (lib.decoder_scan_exact, lib.decoder_scan_carry_in_smem,
-               lib.decoder_scan_max_states, lib.decoder_scan_max_w,
-               lib.decoder_scan_max_r):
+               lib.decoder_scan_rows_in_smem, lib.decoder_scan_states_in_regs,
+               lib.decoder_scan_max_r, lib.decoder_finalize,
+               lib.decoder_finalize_rows_in_smem,
+               lib.decoder_finalize_ac_in_smem):
         fn.restype = ctypes.c_int
-    for fn in (lib.decoder_scan_max_states, lib.decoder_scan_max_w,
-               lib.decoder_scan_max_r):
-        fn.argtypes = []
     lib.decoder_scan_error_string.argtypes = [_I]
     lib.decoder_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -140,9 +164,23 @@ def _lib() -> ctypes.CDLL:
 
 def carry_in_smem(n_nodes: int, n_states: int, n_senones: int) -> bool:
     """Whether the kernel keeps the carry of this lexicon in shared memory
-    (else it runs the device-memory instantiation)."""
+    (else it runs a device-memory instantiation)."""
     return bool(_lib().decoder_scan_carry_in_smem(n_nodes, n_states,
                                                   n_senones))
+
+
+def rows_in_smem(n_nodes: int, n_states: int, n_senones: int) -> bool:
+    """Whether the kernel stages each frame's scores row in shared memory
+    (else it reads the row from device memory: banks past ~28,900
+    senones)."""
+    return bool(_lib().decoder_scan_rows_in_smem(n_nodes, n_states,
+                                                 n_senones))
+
+
+def states_in_regs(n_states: int, band_w: int) -> bool:
+    """Whether a node's states live in registers (``Ns <= 16`` and
+    ``W <= 8``; else the advance runs in place in the carry)."""
+    return bool(_lib().decoder_scan_states_in_regs(n_states, band_w))
 
 
 def _check(name: str, a: torch.Tensor, device, dtype, shape) -> None:
@@ -183,10 +221,6 @@ def decoder_scan_cuda(tabs, carry, scores: torch.Tensor, t0: int, n_valid,
                          "DeviceBeamDecoder._scan runs the plain loop on "
                          "the CPU")
     lib = _lib()
-    if n_s > lib.decoder_scan_max_states() or w > lib.decoder_scan_max_w():
-        raise ValueError(f"{n_s} token states of band width {w} exceed the "
-                         f"kernel's {lib.decoder_scan_max_states()} / "
-                         f"{lib.decoder_scan_max_w()}")
     if not 1 <= r_top <= min(lib.decoder_scan_max_r(),
                              tabs.node_slot.shape[0]):
         raise ValueError(f"r_top={r_top} outside [1, min(16, slots)]")
@@ -225,3 +259,77 @@ def decoder_scan_cuda(tabs, carry, scores: torch.Tensor, t0: int, n_valid,
 
 
 decoder_scan_cuda.launches = 0
+
+
+def finalize_sizes(n_slots: int, n_cand: int) -> tuple[int, int]:
+    """``(C, R)``: the candidates kept, ``min(n_cand, Q)``, and the
+    acoustic ones ranked before the LM, ``min(Q, max(32, 2 C))``, as
+    ``_finalize_plain`` takes them."""
+    c = min(int(n_cand), int(n_slots))
+    return c, min(int(n_slots), max(32, 2 * c))
+
+
+def finalize_rows_in_smem(n_slots: int, n_frames: int, n_cand: int) -> bool:
+    """Whether the kernel stages an utterance's traceback rows in shared
+    memory (else its chase reads them from device memory)."""
+    c, r = finalize_sizes(n_slots, n_cand)
+    return bool(_lib().decoder_finalize_rows_in_smem(n_slots, n_frames, c,
+                                                     r))
+
+
+def decoder_finalize_cuda(tabs, carry, tb_prev: torch.Tensor,
+                          tb_word: torch.Tensor, n_cand: int, *,
+                          n_vocab: int, r_top: int, penalty: float,
+                          max_words: int):
+    """The n-best of the full carry ``(deltas [B, N, Ns] float32, ctx
+    [B, N, Ns] int32)`` over the traceback rows ``tb_prev`` / ``tb_word``
+    ``[B, T]`` int32: ``(seqs [B, C, max_words] int32, scores [B, C]
+    float32)`` with ``C = min(n_cand, Q)``, as
+    ``DeviceBeamDecoder._finalize_plain`` computes them.  ``n_vocab``,
+    ``r_top`` and ``penalty`` select the frame scan's packed tables."""
+    deltas, ctx = carry
+    dev = deltas.device
+    if deltas.ndim != 3 or tb_prev.ndim != 2:
+        raise ValueError(f"deltas {tuple(deltas.shape)} and tb_prev "
+                         f"{tuple(tb_prev.shape)}: expected (B, N, Ns) and "
+                         "(B, T)")
+    b, t = tb_prev.shape
+    n, n_s, w = tabs.bands.shape
+    _check("deltas", deltas, dev, torch.float32, (b, n, n_s))
+    _check("ctx", ctx, dev, torch.int32, (b, n, n_s))
+    _check("tb_prev", tb_prev, dev, torch.int32, (b, t))
+    _check("tb_word", tb_word, dev, torch.int32, (b, t))
+    _check("bands", tabs.bands, dev, torch.float32, (n, n_s, w))
+    if not deltas.is_cuda:
+        raise ValueError("decoder_finalize_cuda takes CUDA tensors; "
+                         "DeviceBeamDecoder._finalize runs the plain "
+                         "version on the CPU")
+    if max_words < 1 or n_cand < 1:
+        raise ValueError(f"max_words={max_words} and n_cand={n_cand} must "
+                         "be positive")
+    q = int(tabs.node_slot.shape[0])
+    c, r = finalize_sizes(q, n_cand)
+    lib = _lib()
+    _, struct = _cached(tabs, n_vocab, r_top, penalty)
+    seqs = torch.empty((b, c, max_words), dtype=torch.int32, device=dev)
+    scores = torch.empty((b, c), dtype=torch.float32, device=dev)
+    if b == 0:
+        return seqs, scores
+    ac = None
+    if not lib.decoder_finalize_ac_in_smem(q, t, c, r):
+        ac = torch.empty((b, q), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.decoder_finalize(
+            ctypes.byref(struct), deltas.data_ptr(), ctx.data_ptr(),
+            tb_prev.data_ptr(), tb_word.data_ptr(),
+            None if ac is None else ac.data_ptr(), seqs.data_ptr(),
+            scores.data_ptr(), b, t, c, r, int(max_words),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("decoder_finalize kernel launch failed: "
+                           + lib.decoder_scan_error_string(rc).decode())
+    decoder_finalize_cuda.launches += 1
+    return seqs, scores
+
+
+decoder_finalize_cuda.launches = 0

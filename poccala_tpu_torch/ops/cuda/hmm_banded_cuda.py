@@ -10,10 +10,12 @@ stream, counts the launch and raises if the launch fails.  CUDA tensors
 only: :mod:`poccala_tpu_torch.ops.hmm`'s ``*_batch`` dispatchers route a
 CPU tensor to the plain version instead.
 
-Each recursion has two kernels, chosen by shape inside the library: a
+Each recursion has three kernels, chosen by shape inside the library: a
 warp per utterance with the carry in registers where ``N <= 128`` and
 ``3 <= W <= 7`` (:func:`takes_warp`), a block per utterance with the carry
-in shared memory elsewhere.  The warp Viterbi kernel also keeps its
+in shared memory elsewhere, a thread a state up to ``N = 1024`` and, past
+that, 512 threads looping over the states (up to
+``hmm_banded_max_n()``, 29,056 states: the carry in shared memory).  The warp Viterbi kernel also keeps its
 backpointers in shared memory, so an utterance too long for that goes to
 the block kernel too (:func:`viterbi_takes_warp`).  ``block=True`` sends a
 call to the block kernel whatever its shape, to hold one kernel against
@@ -42,9 +44,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("hmm_banded")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from ``hmm_banded.cu``."""
     lib.hmm_forward_banded.argtypes = [_P] * 6 + [_I] * 4 + [_P]
     lib.hmm_backward_banded.argtypes = [_P] * 4 + [_I] * 4 + [_P]
     lib.hmm_forward_banded_block.argtypes = lib.hmm_forward_banded.argtypes
@@ -64,6 +65,11 @@ def _lib() -> ctypes.CDLL:
     lib.hmm_banded_error_string.argtypes = [_I]
     lib.hmm_banded_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return bind(build.load("hmm_banded"))
 
 
 def takes_warp(n: int, w: int) -> bool:
@@ -104,8 +110,9 @@ def _operands(bands, log_bs, t_masks, w: int, log_pis=None):
         raise ValueError(f"band width {w} outside [1, "
                          f"{lib.hmm_banded_max_w()}]")
     if n > lib.hmm_banded_max_n():
-        raise ValueError(f"{n} sentence states exceed the kernel's "
-                         f"{lib.hmm_banded_max_n()} threads per block")
+        raise ValueError(f"{n} sentence states exceed the kernels' "
+                         f"{lib.hmm_banded_max_n()} (their carry in a "
+                         "block's shared memory)")
     if t < 1:
         raise ValueError("the kernels need at least one frame")
     f32 = torch.float32

@@ -14,10 +14,16 @@ chunks with ``t0 > 0`` and rows that end inside a chunk; a chunked
 two packages' GMM scores differ by float32 rounding), with no LM, a flat
 and a sparse bigram LM; and the kernel's own source, compiled with g++
 against ``tests/cuda_emu/cuda_runtime.h`` (one thread per CUDA thread),
-equals the plain loop bit for bit in both instantiations.
+equals the plain loop bit for bit in its instantiations.  At
+``state_num = 10`` (18 token states a node, past the kernel's registers)
+and with skip transitions (band width 10), the plain loop equals JAX's
+``step`` and a decode gives JAX's words; the kernel's source runs the
+instantiations that keep the states in the carry, and those that read the
+scores rows from device memory, bit for bit as the plain loop.
 """
 
 import ctypes
+import dataclasses
 import re
 import shutil
 import subprocess
@@ -29,9 +35,20 @@ import numpy as np
 import pytest
 import torch
 
+from poccala_tpu.config import ModelConfig
 from poccala_tpu.decoder.device import DeviceBeamDecoder as JaxDecoder
+from poccala_tpu.io.corpus import UnitInventory as JaxInventory
+from poccala_tpu.lexicon import FlatLexicon as JaxFlat
+from poccala_tpu.lexicon import PinYin as JaxPinYin
+from poccala_tpu.lexicon import PronunciationLexicon as JaxLexicon
+from poccala_tpu.lexicon.builtin_table import BUILTIN_PINYIN
+from poccala_tpu.lm.ngram import Ngram
+from poccala_tpu.models import senone_bank as jsb
 from poccala_tpu_torch.decoder import device as tdev
 from poccala_tpu_torch.decoder.device import DeviceBeamDecoder
+from poccala_tpu_torch.io.corpus import UnitInventory
+from poccala_tpu_torch.lexicon import FlatLexicon, PinYin, PronunciationLexicon
+from poccala_tpu_torch.models import senone_bank as tsb
 from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
 
 from .test_torch_decoder import world  # noqa: F401  (module fixture)
@@ -246,9 +263,9 @@ def emulated_source(smem_limit=None) -> str:
     src = src.replace(
         "extern __shared__ __align__(16) unsigned char smem_raw[];",
         "unsigned char* smem_raw = emu_dyn_smem;")
-    src, n = re.subn(r"(decoder_scan_kernel<CARRY_SMEM>)<<<([^>]*)>>>\(",
+    src, n = re.subn(r"(decoder_\w+_kernel<[^<>]*>)<<<([^>]*)>>>\(",
                      r"emu_launch(\1, \2, ", src)
-    assert n == 1
+    assert n == 2   # the frame scan's launch and the n-best's
     if smem_limit is not None:
         old = "constexpr size_t SMEM_LIMIT = 232448 - 1024;"
         assert old in src
@@ -256,23 +273,27 @@ def emulated_source(smem_limit=None) -> str:
     return '#include "cuda_runtime.h"\n' + src
 
 
+def emulated_library(tmp, smem_limit=None) -> ctypes.CDLL:
+    """:func:`emulated_source` compiled with g++ into ``tmp`` and bound."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernel's source for the CPU")
+    name = f"limit{smem_limit}"
+    cpp, so = tmp / f"{name}.cpp", tmp / f"lib{name}.so"
+    cpp.write_text(emulated_source(smem_limit))
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                    "-pthread", f"-I{EMU}", "-o", str(so), str(cpp)],
+                   check=True, capture_output=True)
+    return dk.bind(ctypes.CDLL(str(so)))
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """Both instantiations' libraries: the 125-node carry in the block's
     shared memory, and (the limit cut to 8,000 bytes) in device memory."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernel's source for the CPU")
     tmp = tmp_path_factory.mktemp("decoder_scan_emu")
-    libs = {}
-    for name, limit in (("smem", None), ("global", 8000)):
-        cpp, so = tmp / f"{name}.cpp", tmp / f"lib{name}.so"
-        cpp.write_text(emulated_source(limit))
-        subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                        "-pthread", f"-I{EMU}", "-o", str(so), str(cpp)],
-                       check=True, capture_output=True)
-        libs[name] = dk.bind(ctypes.CDLL(str(so)))
-    return libs
+    return {"smem": emulated_library(tmp),
+            "global": emulated_library(tmp, 8000)}
 
 
 def emulated_scan(lib, dec, tabs, carry, scores, t0, n_valid):
@@ -320,6 +341,161 @@ def test_kernel_source_on_cpu_is_the_plain_loop(world, emulated, lm_kind,
         nv = np.clip(n_frames - t0, 0, 12)
         got, g_prev, g_word = emulated_scan(emulated[inst], dec, tabs, got,
                                             part, t0, nv)
+        want, w_prev, w_word = dec._scan_plain(tabs, want, part, t0, nv)
+        for g, w in zip((*got, g_prev, g_word), (*want, w_prev, w_word)):
+            assert torch.equal(g, w)
+    assert (g_word >= 0).any()
+
+
+# ----------------------------------------------------------------------
+# past the kernel's registers: 18 token states (state_num = 10), band
+# width 10 (skip transitions), scores rows in device memory
+
+def make_world(state_num, n_words=None, skips=False, seed=11):
+    """``tests/test_torch_decoder.py``'s world at another ``state_num``:
+    a JAX XIF_tone bank with random means (and, with ``skips``, every
+    left-to-right transition of each unit live, so the decoder's band is
+    ``state_num`` wide), its port copy, the built-in lexicon (or its first
+    ``n_words`` words) in both packages, a bigram LM, features."""
+    rng = np.random.default_rng(seed)
+    cfg = ModelConfig(state_num=state_num, mix_level=2, max_mix_level=2)
+    jinv = JaxInventory.standard("XIF_tone")
+    jbank = jsb.create_bank(len(jinv), cfg, 13, key=jax.random.PRNGKey(1))
+    means = rng.normal(size=np.shape(jbank.means)).astype(np.float32) * 2
+    jbank = dataclasses.replace(jbank, means=jnp.asarray(means))
+    if skips:
+        log_a = np.array(jbank.log_A)
+        n = state_num
+        for row in range(n - 1):
+            p = rng.dirichlet(np.ones(n - max(row, 1)))
+            log_a[:, row] = -1e30
+            log_a[:, row, max(row, 1):] = np.log(p)
+        jbank = dataclasses.replace(jbank, log_A=jnp.asarray(
+            log_a.astype(np.float32)))
+    tbank = tsb.bank_from_numpy({f: np.asarray(getattr(jbank, f))
+                                 for f in tsb.FIELDS}, device="cpu")
+    words = list(BUILTIN_PINYIN)[:n_words]
+    jl, tl = JaxLexicon(), PronunciationLexicon()
+    jl.generate(words, JaxPinYin())
+    tl.generate(words, PinYin())
+    lm = Ngram(2)
+    lm.train([list(rng.choice(words, size=6)) for _ in range(200)])
+    feats = (rng.normal(size=(3, 48, 13)) * 2).astype(np.float32)
+    return dict(jbank=jbank, tbank=tbank,
+                jflat=JaxFlat.from_tree(jl.lexicon, jinv),
+                tflat=FlatLexicon.from_tree(tl.lexicon,
+                                            UnitInventory.standard()),
+                lm=lm, feats=feats, n_frames=np.array([48, 37, 20]))
+
+
+@pytest.fixture(scope="module")
+def worlds():
+    made = {}
+
+    def get(state_num, n_words=None, skips=False):
+        key = (state_num, n_words, skips)
+        if key not in made:
+            made[key] = make_world(state_num, n_words, skips)
+        return made[key]
+    return get
+
+
+@pytest.mark.parametrize("skips,lm_kind", [(False, "sparse"), (True, "none"),
+                                           (True, "flat")])
+def test_plain_scan_at_state_num_10_is_jax_step(worlds, skips, lm_kind):
+    """18 token states a node (band width 2, or 10 with skips): the plain
+    loop's carry and rows equal JAX's ``step`` bit for bit on tied scores,
+    in two chunks."""
+    w10 = worlds(10, skips=skips)
+    jd, td = decoders(w10, lm_kind)
+    jd._prep_device()
+    tabs = td._prep_device()
+    assert tuple(tabs.bands.shape[1:]) == (18, 10 if skips else 2)
+    rng = np.random.default_rng(10)
+    b = 4
+    scores = (np.round(rng.normal(size=(b, 32, td.bank.num_states)) * 30 / 8)
+              * 8).astype(np.float32)
+    n = np.array([32, 27, 16, 5])
+    jcarry, tcarry = None, td._seed(tabs, b)
+    for t0 in (0, 16):
+        part = scores[:, t0:t0 + 16]
+        nv = np.clip(n - t0, 0, 16)
+        jcarry, jprev, jword = jax_scan(jd, part, t0, nv, jcarry)
+        tcarry, tprev, tword = td._scan_plain(tabs, tcarry,
+                                              torch.as_tensor(part), t0, nv)
+        np.testing.assert_array_equal(tprev.numpy(), jprev)
+        np.testing.assert_array_equal(tword.numpy(), jword)
+        for g, w in zip(tcarry, jcarry):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (tword.numpy() >= 0).any()
+
+
+@pytest.mark.parametrize("skips", [False, True])
+def test_decode_at_state_num_10_gives_jax_words(worlds, skips):
+    """``decode_batch`` at ``state_num = 10`` with a sparse bigram LM: the
+    n-best words of JAX, scores at rtol 1e-4."""
+    w10 = worlds(10, skips=skips)
+    jd, td = decoders(w10, "sparse")
+    want = jd.decode_batch(w10["feats"], w10["n_frames"], return_nbest=3)
+    got = td.decode_batch(w10["feats"], w10["n_frames"], return_nbest=3)
+    for g, w in zip(got, want):
+        assert len(g) >= 1
+        assert [h.words for h in g] == [h.words for h in w]
+        assert np.allclose([h.score for h in g], [h.score for h in w],
+                           rtol=1e-4, atol=0.0)
+
+
+# (state_num, words, skips, LM, cut shared memory, carry in shared memory,
+#  rows in shared memory, states in registers)
+SHAPE_CASES = [
+    (10, None, False, "sparse", None, True, True, False),
+    (10, None, True, "none", 12000, False, False, False),
+    (10, 6, False, "flat", 10000, True, False, False),
+    (5, None, False, "none", 4000, False, False, True),
+    (5, 6, False, "sparse", 4000, True, False, True),
+]
+
+
+@pytest.fixture(scope="module")
+def emulated_limits(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("decoder_scan_shapes")
+    libs = {}
+
+    def get(limit):
+        if limit not in libs:
+            libs[limit] = emulated_library(tmp, limit)
+        return libs[limit]
+    return get
+
+
+@pytest.mark.parametrize(
+    "state_num,n_words,skips,lm_kind,limit,carry,rows,regs", SHAPE_CASES,
+    ids=[f"s{c[0]}w{c[1]}{'skip' if c[2] else ''}{c[3]}lim{c[4]}"
+         for c in SHAPE_CASES])
+def test_kernel_source_on_cpu_takes_every_shape(
+        worlds, emulated_limits, state_num, n_words, skips, lm_kind, limit,
+        carry, rows, regs):
+    """The instantiations past the kernel's registers (18 states, band
+    width 10) and those that read each frame's scores row from device
+    memory (the shared-memory limit cut so that the rows do not fit), with
+    the carry in shared or device memory: carry and rows equal the plain
+    loop's bit for bit over two chunks of tied scores."""
+    lib = emulated_limits(limit)
+    wd = worlds(state_num, n_words, skips)
+    _, dec = decoders(wd, lm_kind)
+    tabs = dec._prep_device()
+    n, n_s, w = tabs.bands.shape
+    s = dec.bank.num_states
+    assert (lib.decoder_scan_carry_in_smem(n, n_s, s),
+            lib.decoder_scan_rows_in_smem(n, n_s, s),
+            lib.decoder_scan_states_in_regs(n_s, w)) == (carry, rows, regs)
+    scores = torch.round(dec._scores(torch.as_tensor(wd["feats"])) / 8) * 8
+    n_frames = np.minimum(wd["n_frames"], 24)
+    got = want = dec._seed(tabs, 3)
+    for t0 in (0, 12):
+        part = scores[:, t0:t0 + 12].contiguous()
+        nv = np.clip(n_frames - t0, 0, 12)
+        got, g_prev, g_word = emulated_scan(lib, dec, tabs, got, part, t0, nv)
         want, w_prev, w_word = dec._scan_plain(tabs, want, part, t0, nv)
         for g, w in zip((*got, g_prev, g_word), (*want, w_prev, w_word)):
             assert torch.equal(g, w)

@@ -263,9 +263,9 @@ def test_decoder_gpu_matches_cpu(cuda):
             assert g[0].words == w[0].words
 
 
-def decode_world(seed):
+def decode_world(seed, state_num=5):
     """A random XIF_tone bank (13 dims, 2 mixtures) and noise features."""
-    cfg = ModelConfig(state_num=5, mix_level=2, max_mix_level=2)
+    cfg = ModelConfig(state_num=state_num, mix_level=2, max_mix_level=2)
     inv = UnitInventory.standard("XIF_tone")
     bank = sb.create_bank(len(inv), cfg, 13,
                           generator=torch.Generator().manual_seed(seed),
@@ -844,12 +844,17 @@ class _TableLM:
         return self.lm.logprob(word, context)
 
 
-def scan_decoder(cuda, lm_kind="none", flat=None, seed=7, penalty=0.0):
+def scan_decoder(cuda, lm_kind="none", flat=None, seed=7, penalty=0.0,
+                 state_num=5, bank_fn=None, **kw):
     """A random XIF_tone bank on the card over ``flat`` (the built-in
-    lexicon by default) with no LM, a flat or a sparse bigram LM."""
+    lexicon by default) with no LM, a flat or a sparse bigram LM;
+    ``bank_fn`` rewrites the bank's arrays first."""
     from poccala_tpu_torch.lm.ngram import Ngram
 
-    inv, bank, _ = decode_world(seed)
+    inv, bank, _ = decode_world(seed, state_num)
+    if bank_fn is not None:
+        bank = sb.bank_from_numpy(bank_fn(sb.bank_to_numpy(bank)),
+                                  device="cpu")
     words = list(BUILTIN_PINYIN)
     if flat is None:
         lex = PronunciationLexicon()
@@ -860,7 +865,7 @@ def scan_decoder(cuda, lm_kind="none", flat=None, seed=7, penalty=0.0):
     ngram.train([list(rng.choice(words, size=6)) for _ in range(200)])
     lm = {"none": None, "flat": _TableLM(ngram), "sparse": ngram}[lm_kind]
     return DeviceBeamDecoder(bank.to(cuda), flat, lm=lm, lm_weight=3.0,
-                             word_penalty=penalty)
+                             word_penalty=penalty, **kw)
 
 
 def scan_both(dec, scores, n_valid, t0=0, carry=None, rows_before=None):
@@ -972,3 +977,225 @@ def test_decoder_scan_large_lexicons(cuda, min_nodes, in_smem):
     feats = torch.tensor((rng.normal(size=(3, 40, 13)) * 2)
                          .astype(np.float32), device=cuda)
     scan_both(dec, dec._scores(feats), np.array([40, 27, 40]))
+
+
+# ----------------------------------------------------------------------
+# the frame scan past its registers (18 token states, band width 10)
+# and past shared memory (29,500 senones); the DP kernels past 1,024
+# states
+
+def with_skips(arrays, seed=10):
+    """Every left-to-right transition of each unit live: the decoder's band
+    is ``state_num`` wide."""
+    rng = np.random.default_rng(seed)
+    log_a = arrays["log_A"].copy()
+    n = log_a.shape[1]
+    for row in range(n - 1):
+        lo = max(row, 1)
+        log_a[:, row] = -1e30
+        log_a[:, row, lo:] = np.log(rng.dirichlet(np.ones(n - lo),
+                                                  size=log_a.shape[0]))
+    return dict(arrays, log_A=log_a.astype(np.float32))
+
+
+def widened(arrays, n_senones=29500, seed=11):
+    """The bank's senones spread over ``n_senones`` (the rest random
+    copies): each frame's scores row no longer fits the scan's shared
+    memory, and the senones in use reach past it."""
+    rng = np.random.default_rng(seed)
+    s = arrays["means"].shape[0]
+    ids = np.sort(rng.choice(n_senones, size=s, replace=False))
+    ids[-1] = n_senones - 1
+    src = rng.integers(0, s, size=n_senones)
+    src[ids] = np.arange(s)
+    out = {f: arrays[f][src] for f in ("means", "log_var", "log_w",
+                                        "mix_counts")}
+    return dict(arrays, **out, senone_map=ids[arrays["senone_map"]]
+                .astype(np.int32))
+
+
+@pytest.mark.parametrize("skips,lm_kind", [(False, "none"), (False, "sparse"),
+                                           (True, "flat")])
+def test_decoder_scan_at_state_num_10(cuda, skips, lm_kind):
+    """18 token states a node (band width 2, or 10 with skips): the
+    kernel's in-place instantiation against the plain loop, bit for bit,
+    in one call and in three stream chunks."""
+    from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
+
+    dec = scan_decoder(cuda, lm_kind, seed=10, penalty=1.5, state_num=10,
+                       bank_fn=with_skips if skips else None)
+    tabs = dec._prep_device()
+    assert tuple(tabs.bands.shape[1:]) == (18, 10 if skips else 2)
+    assert not dk.states_in_regs(18, tabs.bands.shape[2])
+    rng = np.random.default_rng(10)
+    feats = torch.tensor((rng.normal(size=(7, 75, 13)) * 2)
+                         .astype(np.float32), device=cuda)
+    scores = torch.round(dec._scores(feats) / 8) * 8
+    n = rng.integers(1, 76, size=7)
+    n[0] = 75
+    whole = scan_both(dec, scores, n)
+    carry, prev, word = None, [], []
+    for t0 in (0, 25, 50):
+        before = (torch.cat(prev, 1), torch.cat(word, 1)) if t0 else None
+        carry, p, w = scan_both(dec, scores[:, t0:t0 + 25].contiguous(),
+                                np.clip(n - t0, 0, 25), t0, carry, before)
+        prev.append(p)
+        word.append(w)
+    assert torch.equal(carry[0], whole[0][0])
+    assert torch.equal(torch.cat(word, 1), whole[2])
+    hyps = dec.decode_batch(feats, n, 2)
+    assert len(hyps) == 7 and len(hyps[0]) >= 1
+
+
+def test_decoder_scan_past_shared_memory(cuda):
+    """A bank of 29,500 senones: each frame's scores row is read from
+    device memory, bit for bit with the plain loop, and a decode runs the
+    GMM kernel and the scan on it."""
+    from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
+
+    dec = scan_decoder(cuda, "sparse", seed=12, penalty=1.5,
+                       bank_fn=widened)
+    tabs = dec._prep_device()
+    n_nodes, n_s, w = tabs.bands.shape
+    assert dec.bank.num_states == 29500
+    assert int(tabs.senone.max()) == 29499
+    assert not dk.rows_in_smem(n_nodes, n_s, 29500)
+    assert dk.carry_in_smem(n_nodes, n_s, 29500)
+    rng = np.random.default_rng(12)
+    feats = torch.tensor((rng.normal(size=(3, 40, 13)) * 2)
+                         .astype(np.float32), device=cuda)
+    scan_both(dec, dec._scores(feats), np.array([40, 31, 12]))
+    before = dk.decoder_scan_cuda.launches
+    assert all(len(h) >= 1 for h in dec.decode_batch(feats, [40, 31, 12]))
+    assert dk.decoder_scan_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("b,t_pad", [(3, 41), (1, 2)])
+def test_hmm_kernels_past_1024_states(cuda, b, t_pad):
+    """N = 1,100 sentence states: forward, backward and Viterbi run the
+    loop kernels; alpha, beta and Viterbi's outputs against the plain
+    versions (Viterbi bit for bit, tied scores), one launch each."""
+    rng = np.random.default_rng(1100 + b)
+    n, w = 1100, 5
+    band, log_pi, log_b, masks = [a.to(cuda) for a in
+                                  banded_inputs(rng, b, t_pad, n, w)]
+    log_b = torch.where(log_b > -1e29, torch.round(log_b / 8) * 8, log_b)
+    assert hk._lib().hmm_banded_max_n() == 29056
+    before = {k: f.launches for k, f in hk.KERNELS.items()}
+    la, ll = thmm.forward_log_banded_batch(band, log_pi, log_b, masks, w)
+    lb = thmm.backward_log_banded_batch(band, log_b, masks, w)
+    got = thmm.viterbi_log_banded_batch(band, log_pi, log_b, masks, w, 3)
+    want_a, want_ll = thmm.forward_log_banded_plain(band, log_pi, log_b,
+                                                    masks, w)
+    want_b = thmm.backward_log_banded_plain(band, log_b, masks, w)
+    want = thmm.viterbi_log_banded_plain(band, log_pi, log_b, masks, w, 3)
+    torch.cuda.synchronize()
+    assert {k: f.launches - before[k] for k, f in hk.KERNELS.items()} == \
+        {"forward": 1, "backward": 1, "viterbi": 1}
+    assert torch.allclose(la, want_a, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(ll, want_ll, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(lb, want_b, rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+
+
+# ----------------------------------------------------------------------
+# the device decoder's n-best (decoder_finalize in csrc/decoder_scan.cu)
+# against its plain version, DeviceBeamDecoder._finalize_plain, bit for bit
+
+def finalize_both(dec, carry, prev, word, n_cand):
+    """``dec._finalize`` (one kernel launch) against ``_finalize_plain`` on
+    the same carry and rows; returns the kernel's ``(seqs, scores)``."""
+    from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
+
+    tabs = dec._prep_device()
+    before = dk.decoder_finalize_cuda.launches
+    got = dec._finalize(tabs, carry, prev, word, n_cand)
+    assert dk.decoder_finalize_cuda.launches == before + 1
+    want = dec._finalize_plain(tabs, carry, prev, word, n_cand)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return got
+
+
+@pytest.mark.parametrize("nbest", [1, 5])
+@pytest.mark.parametrize("b", [1, 7, 256])
+@pytest.mark.parametrize("lm_kind", ["none", "flat", "sparse"])
+def test_decoder_finalize_matches_plain(cuda, lm_kind, b, nbest):
+    """The 125-node built-in lexicon, 64 frames of tied scores, one row with
+    no frame where B > 1 (no valid candidate)."""
+    dec = scan_decoder(cuda, lm_kind, penalty=1.5)
+    tabs = dec._prep_device()
+    rng = np.random.default_rng(b + nbest)
+    feats = torch.tensor((rng.normal(size=(b, 64, 13)) * 2)
+                         .astype(np.float32), device=cuda)
+    n = rng.integers(1, 65, size=b)
+    n[0] = 64
+    if b > 1:
+        n[1] = 0
+    scores = torch.round(dec._scores(feats) / 8) * 8
+    carry, prev, word = dec._scan(tabs, dec._seed(tabs, b), scores, 0, n)
+    seqs, sc = finalize_both(dec, carry, prev, word, dec._n_cand(nbest))
+    assert (sc[0] > -1e30 / 2).any()
+    if b > 1:
+        assert (sc[1] <= -1e30 / 2).all() and (seqs[1] == -1).all()
+
+
+def test_decoder_finalize_cuts_chains(cuda):
+    """``max_words = 3`` under a word bonus: chains cut at three words."""
+    dec = scan_decoder(cuda, "sparse", penalty=-20.0, max_words=3)
+    tabs = dec._prep_device()
+    rng = np.random.default_rng(3)
+    feats = torch.tensor((rng.normal(size=(5, 48, 13)) * 2)
+                         .astype(np.float32), device=cuda)
+    carry, prev, word = dec._scan(tabs, dec._seed(tabs, 5),
+                                  dec._scores(feats), 0, [48] * 5)
+    seqs, _ = finalize_both(dec, carry, prev, word, 8)
+    assert seqs.shape[2] == 3 and bool((seqs >= 0).all(dim=2).any())
+
+
+def test_decoder_finalize_after_stream_chunks(cuda):
+    """``stream_result`` after three 25-frame chunks: the kernel over the
+    concatenated rows against the plain version, and against the one-shot
+    decode's words."""
+    dec = scan_decoder(cuda, "sparse", seed=8, penalty=1.5)
+    tabs = dec._prep_device()
+    rng = np.random.default_rng(8)
+    feats = (rng.normal(size=(3, 75, 13)) * 2).astype(np.float32)
+    n = np.array([75, 60, 33])
+    st = dec.stream_init(batch=3, max_frames=75)
+    for t0 in (0, 25, 50):
+        dec.stream_feed(st, feats[:, t0:t0 + 25], np.clip(n - t0, 0, 25))
+    for nbest in (1, 5):
+        finalize_both(dec, st.carry, torch.cat(st.tb_prev, 1),
+                      torch.cat(st.tb_word, 1), dec._n_cand(nbest))
+    got = dec.stream_result(st, 3)
+    want = dec.decode_batch(feats, n, 3)
+    for g, w in zip(got, want):
+        assert [h.words for h in g] == [h.words for h in w]
+
+
+@pytest.mark.parametrize("min_nodes", [875, None])
+def test_decoder_finalize_large_lexicons(cuda, min_nodes):
+    """The 875-node lexicon (the CD graph's size) and the 21,589-node
+    synthetic one, exact and (at 21,589) block-pruned: the compact carry
+    is expanded in PyTorch, then one launch."""
+    from poccala_tpu_torch.lexicon.build import FULL_VOCAB_NODES, \
+        synthetic_lexicon
+
+    inv = UnitInventory.standard("XIF_tone")
+    flat, _, _ = synthetic_lexicon(
+        inv, min_nodes=min_nodes or FULL_VOCAB_NODES,
+        n_chars=12 if min_nodes else None)
+    rng = np.random.default_rng(9)
+    feats = torch.tensor((rng.normal(size=(3, 40, 13)) * 2)
+                         .astype(np.float32), device=cuda)
+    n = np.array([40, 27, 40])
+    kws = [{}] if min_nodes else [{}, dict(block_size=256, active_blocks=4)]
+    for kw in kws:
+        dec = scan_decoder(cuda, "sparse", flat=flat, seed=9, penalty=1.5,
+                           **kw)
+        tabs = dec._prep_device()
+        assert dec._prune_on == bool(kw)
+        carry, prev, word = dec._scan(tabs, dec._seed(tabs, 3),
+                                      dec._scores(feats), 0, n)
+        for nbest in (1, 5):
+            finalize_both(dec, carry, prev, word, dec._n_cand(nbest))

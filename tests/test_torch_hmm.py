@@ -7,8 +7,19 @@ runs): alphas, betas, logliks and Viterbi scores agree at rtol = atol =
 1e-5 (the bar of ``tests/test_gmm_hmm_kernels.py:102``), Viterbi paths
 exactly.  The sentence-HMM tables of ``models/topology.py`` are equal
 exactly, and the ``__graft_entry__.entry`` forward step composed from the
-port's modules gives the JAX logliks.
+port's modules gives the JAX logliks.  The kernels' source
+``csrc/hmm_banded.cu``, compiled with g++ against
+``tests/cuda_emu/cuda_runtime.h`` (one thread per CUDA thread), runs the
+block kernels' loop instantiations (N > 1,024 states) on the CPU: equal to
+the plain versions at N = 1,100, and bit for bit to the one-thread-a-state
+instantiations where both take a shape.
 """
+
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -247,3 +258,150 @@ def test_graft_entry_forward_step():
     _, got = thmm.forward_log_banded_batch(ehmm.band, ehmm.log_pi, log_b,
                                            t(np.asarray(masks)), 5)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# the DP kernels' source on the CPU
+
+REPO = Path(__file__).resolve().parents[1]
+EMU = Path(__file__).resolve().parent / "cuda_emu"
+DP_PLAIN_ASYNC = """__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  *dst = *src;
+}
+__device__ __forceinline__ void cp_async_commit() {}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {}
+__device__ __forceinline__ float select_f32(bool c, float x, float y) {
+  return c ? x : y;
+}
+
+"""
+
+
+def emulated_dp_source(block_max_n=None) -> str:
+    """``csrc/hmm_banded.cu`` for g++: the ``cp.async`` and ``selp`` bodies
+    become plain C, the dynamic shared memory a per-block buffer, every
+    launch a call of ``emu_launch``; ``block_max_n`` cuts the block
+    kernels' limit, so that smaller shapes take the loop kernels."""
+    src = (REPO / hk.SOURCE).read_text()
+    a = src.index("__device__ __forceinline__ void cp_async_f32")
+    b = src.index("// The block kernels' lse_of with an exact band width.")
+    src = src[:a] + DP_PLAIN_ASYNC + src[b:]
+    src = src.replace("extern __shared__ float sm[];",
+                      "float* sm = reinterpret_cast<float*>(emu_dyn_smem);")
+    src = src.replace(
+        "extern __shared__ __align__(16) unsigned char viterbi_offs[];",
+        "unsigned char* viterbi_offs = emu_dyn_smem;")
+    src, n = re.subn(r"(\b\w+(?:<[^<>]*>)?)<<<([^>]*)>>>\(",
+                     r"emu_launch(\1, \2, ", src)
+    assert n == 5   # warp macro, loop helper, three block kernels
+    if block_max_n is not None:
+        old = "constexpr int BLOCK_MAX_N = 1024;"
+        assert old in src
+        src = src.replace(old, f"constexpr int BLOCK_MAX_N = {block_max_n};")
+    return '#include "cuda_runtime.h"\n' + src
+
+
+@pytest.fixture(scope="module")
+def emulated_dp(tmp_path_factory):
+    """The DP library as it is, and with the block kernels cut to 64
+    states."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernels' source for the CPU")
+    tmp = tmp_path_factory.mktemp("hmm_banded_emu")
+    libs = {}
+    for name, cut in (("as_is", None), ("cut", 64)):
+        cpp, so = tmp / f"{name}.cpp", tmp / f"lib{name}.so"
+        cpp.write_text(emulated_dp_source(cut))
+        subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                        "-pthread", f"-I{EMU}", "-o", str(so), str(cpp)],
+                       check=True, capture_output=True)
+        libs[name] = hk.bind(ctypes.CDLL(str(so)))
+    return libs
+
+
+def dp_calls(lib, band, log_pi, log_b, masks, w, end_states=0,
+             block=False):
+    """The three wrappers' calls, made on CPU tensors: ``(alpha, loglik),
+    beta, (score, path, delta)``."""
+    b, t_pad, n = log_b.shape
+    band, log_pi, log_b = (torch.as_tensor(a, dtype=torch.float32)
+                           .contiguous() for a in (band, log_pi, log_b))
+    mask = torch.as_tensor(masks).to(torch.uint8).contiguous()
+    alpha, beta = torch.empty(b, t_pad, n), torch.empty(b, t_pad, n)
+    loglik, score = torch.empty(b), torch.empty(b)
+    path = torch.empty(b, t_pad, dtype=torch.int32)
+    delta = torch.empty(b, n)
+    offs = torch.empty(max(b * (t_pad - 1) * n, 1), dtype=torch.uint8)
+    sfx = "_block" if block else ""
+    rc = [getattr(lib, f"hmm_forward_banded{sfx}")(
+              band.data_ptr(), log_pi.data_ptr(), log_b.data_ptr(),
+              mask.data_ptr(), alpha.data_ptr(), loglik.data_ptr(), b, t_pad,
+              n, w, None),
+          getattr(lib, f"hmm_backward_banded{sfx}")(
+              band.data_ptr(), log_b.data_ptr(), mask.data_ptr(),
+              beta.data_ptr(), b, t_pad, n, w, None),
+          getattr(lib, f"hmm_viterbi_banded{sfx}")(
+              band.data_ptr(), log_pi.data_ptr(), log_b.data_ptr(),
+              mask.data_ptr(), offs.data_ptr(), score.data_ptr(),
+              path.data_ptr(), delta.data_ptr(), b, t_pad, n, w, end_states,
+              None)]
+    assert rc == [0, 0, 0]
+    return (alpha, loglik), beta, (score, path, delta)
+
+
+def block_route_matches_plain(lib, n, seed):
+    """The block route at ``n`` states on tied scores (Viterbi's first
+    maximum) and ragged frames against the plain versions: Viterbi bit for
+    bit, alpha and beta bit for bit where the lse's expf / logf agree
+    (glibc's with torch's) and at float32 rounding elsewhere."""
+    rng = np.random.default_rng(seed)
+    b, t_pad, w = 3, 6, 5
+    band, log_pi, log_b, masks = banded_inputs(rng, b, t_pad, n, w)
+    log_b = np.where(log_b > -1e29, np.round(log_b / 8) * 8,
+                     log_b).astype(np.float32)
+    (alpha, ll), beta, (sc, path, delta) = dp_calls(
+        lib, band, log_pi, log_b, masks, w, end_states=3)
+    tb, tpi, tlb, tm = t(band), t(log_pi), t(log_b), t(masks)
+    want_a, want_ll = thmm.forward_log_banded_plain(tb, tpi, tlb, tm, w)
+    want_b = thmm.backward_log_banded_plain(tb, tlb, tm, w)
+    wsc, wpath, wdelta = thmm.viterbi_log_banded_plain(tb, tpi, tlb, tm, w,
+                                                       3)
+    assert torch.equal(path, wpath)
+    assert torch.equal(sc, wsc) and torch.equal(delta, wdelta)
+    close(alpha, want_a)
+    close(beta, want_b)
+    close(ll, want_ll)
+    exact = (alpha == want_a).float().mean() * (beta == want_b).float().mean()
+    assert float(exact) > 0.99
+
+
+def test_loop_kernels_source_on_cpu_match_plain(emulated_dp):
+    """N = 1,100 sentence states (past the block kernels' 1,024 threads):
+    the loop instantiations' alpha, beta and Viterbi score, path and final
+    delta against the plain versions."""
+    lib = emulated_dp["as_is"]
+    assert lib.hmm_banded_max_n() == 29056
+    block_route_matches_plain(lib, 1100, 1100)
+
+
+@pytest.mark.parametrize("n", [1024, 1025])
+def test_block_kernels_source_on_cpu_at_their_limit(emulated_dp, n):
+    """The last shape a thread a state takes (1,024 threads) and the first
+    the loop instantiations take, against the plain versions."""
+    block_route_matches_plain(emulated_dp["as_is"], n, n)
+
+
+@pytest.mark.parametrize("n,w", [(100, 5), (160, 9)])
+def test_loop_kernels_source_on_cpu_are_the_block_kernels(emulated_dp, n, w):
+    """With the block kernels' limit cut to 64 states, the block route of
+    the same shape runs the loop kernels: alpha, beta and all of Viterbi's
+    outputs equal the block kernels' bit for bit."""
+    rng = np.random.default_rng(n + w)
+    ops = banded_inputs(rng, 3, 7, n, w)
+    want = dp_calls(emulated_dp["as_is"], *ops, w, block=True)
+    got = dp_calls(emulated_dp["cut"], *ops, w, block=True)
+    for g, o in zip((*got[0], got[1], *got[2]),
+                    (*want[0], want[1], *want[2])):
+        assert torch.equal(g, o)
