@@ -4,10 +4,12 @@
 
 Builds the hand-written CUDA kernels from ``poccala_tpu_torch/csrc`` (the
 GMM scorer in float32 and bfloat16, the banded HMM forward / backward /
-Viterbi, the device decoder's frame scan and its n-best), holds each
-against its plain PyTorch version (the frame scan bit for bit at the decode
-cell's size with no LM, a flat and a sparse bigram LM, at a stream chunk's,
-the CD graph's and the 21,589-node lexicon's; the n-best bit for bit at the
+Viterbi, the device decoder's frame scan, its block-pruned frame scan and
+its n-best), holds each against its plain PyTorch version (the frame scan
+bit for bit at the decode cell's size with no LM, a flat and a sparse
+bigram LM, at a stream chunk's, the CD graph's and the 21,589-node
+lexicon's; the pruned scan bit for bit at 256 x 4 s over 21,589 nodes with
+8 and 4 active blocks of 256; the n-best bit for bit at the
 decode cell with each LM form at ``return_nbest`` 1 and 5, and at 21,589
 nodes; the shapes the kernels' first designs refused: 18 token states a
 node, a bank of 29,500 senones, 1,100 sentence states), computes each
@@ -37,7 +39,8 @@ random weights from a seeded ``torch.Generator``:
   GMM launch, the rest host NumPy) and one ``BeamDecoder.decode``, each
   held to a CPU copy of the bank;
 * block-pruned decode over a synthetic 21.6k-node lexicon at the decode
-  batch (256 x 4 s), exact against ``active_blocks`` 8 and 4;
+  batch (256 x 4 s), exact against ``active_blocks`` 8 and 4 (one pruned
+  scan launch a call), and a pruned stream session (one a chunk);
 * the command line (``python -m poccala_tpu_torch.cli --device cuda``):
   synth-corpus, train, align, decode (every tier), listen and serve on a
   small corpus, train, align and decode held against ``--device cpu``;
@@ -196,6 +199,7 @@ def kernel_counts() -> dict:
     return dict(gmm=gk.gmm_log_scores_cuda.launches,
                 **{k: f.launches for k, f in hk.KERNELS.items()},
                 scan=dk.decoder_scan_cuda.launches,
+                pruned=dk.decoder_scan_pruned_cuda.launches,
                 fin=dk.decoder_finalize_cuda.launches)
 
 
@@ -204,6 +208,7 @@ def reset_kernel_counts() -> None:
     for kernel in hk.KERNELS.values():
         kernel.launches = 0
     dk.decoder_scan_cuda.launches = 0
+    dk.decoder_scan_pruned_cuda.launches = 0
     dk.decoder_finalize_cuda.launches = 0
 
 
@@ -339,7 +344,10 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 def bound_ms(n_bytes: float, flops: float, op_type: str) -> dict:
     """The least time the card could take: every input read once and every
     output written once at the memory rate, or the operations at the peak
-    rate of their type, whichever is larger."""
+    rate of their type, whichever is larger.  Each add, multiply, max or
+    compare counts as one operation, as in the published rates, which count
+    an FMA as two: a kernel of adds and compares (the scans) issues at most
+    half of the float32 rate, so its bound is a floor it cannot reach."""
     by_bytes = n_bytes / PEAK_BYTES_S * 1e3
     by_ops = flops / PEAK_FLOPS[op_type] * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
@@ -681,6 +689,7 @@ def phase_throughput(seed: int, dec: DeviceBeamDecoder, smi: str,
 
     torch.cuda.synchronize()
     dk.decoder_scan_cuda.launches = 0
+    dk.decoder_scan_pruned_cuda.launches = 0
     dk.decoder_finalize_cuda.launches = 0
     t0 = time.perf_counter()
     pending = None
@@ -1560,36 +1569,131 @@ def first_stream_result(seed: int) -> None:
                           .launches)), flush=True)
 
 
-def pruned_bound(dec: DeviceBeamDecoder, b: int, t_c: int, s: int,
+def pruned_bound(dec: DeviceBeamDecoder, b: int, t_c: int,
                  frames: int) -> dict:
-    """The block-pruned scan's least time (``step_pruned``, an eager loop
-    still): the scores ``[B, Tc, S]`` read once, the compact carry
-    (deltas float32 and ctx int32, ``[B, K, blk, Ns]``) and the entry row
-    (score and ctx, ``[B, N]``) read and written once, the rows ``[B, Tc]``
-    written once; operations: the lookahead's max over every token state
-    of every node (N Ns a valid frame) and the K active blocks' advance
-    ((2W + 4) a token state).  ``lookahead_traffic_ms``: the plain loop's
-    lookahead as it is built, ``[B, N, Ns]`` float32 written and read back
-    every frame."""
-    n, n_s, w = dec._prep_device().bands.shape
+    """The block-pruned scan's least time: of the scores ``[B, Tc, S]`` only
+    the senones the lexicon's emitting states name, on this run's
+    ``frames`` valid frames, and ``n_valid`` read once; the compact carry
+    (``kb`` int64 ``[B, K]``, deltas float32 and ctx int32 ``[B, K, blk,
+    Ns]``) and the entry row (score and ctx, ``[B, N]``) read and written
+    once; the rows ``[B, Tc]`` written once; the tables (bands, senones,
+    parents, root flags, slots, block slot ranges) read once.  Operations a
+    valid frame, as the lookahead needs them: each distinct senone row's
+    max (G Ns: the nodes share ~100 rows, ``pack_pruned_tables``), entry +
+    la and its block max (2 N), the K active blocks' ``max_s d + la`` and
+    its max (K blk (Ns + 1)), the top K over the blocks (K n_blocks), the
+    advance ((2W + 4) a token state of the K blocks) and the entry
+    refresh's compare (N); the emission's compares over the active blocks'
+    slots (about K blk a frame) are left out.  Each counts as one float32
+    operation (:func:`bound_ms`).  Bytes are the elements' own.
+    ``lookahead_traffic_ms``: the plain loop's lookahead as it is built,
+    ``[B, N, Ns]`` float32 written and read back every frame."""
+    tabs = dec._prep_device()
+    n, n_s, w = tabs.bands.shape
+    q = int(tabs.node_slot.shape[0])
     k, blk = dec.active_blocks, dec.block_size
-    n_bytes = (4 * b * t_c * s + 2 * 8 * b * k * blk * n_s + 2 * 8 * b * n
-               + 8 * b * t_c)
-    out = bound_ms(n_bytes, frames * (n * n_s + k * blk * n_s * (2 * w + 4)),
-                   "float32")
+    n_groups = dk.pack_pruned_tables(tabs, blk, k)["n_groups"]
+    n_sen = int(torch.unique(tabs.senone[tabs.emitting]).numel())
+    n_bytes = (4 * frames * n_sen + 4 * b + 2 * 8 * b * k
+               + 2 * 8 * b * k * blk * n_s + 2 * 8 * b * n + 8 * b * t_c
+               + 4 * n * n_s * (w + 1) + 5 * n + 9 * q + 4 * (n // blk + 1))
+    ops = (n_groups * n_s + 3 * n + k * (n // blk) + k * blk * (n_s + 1)
+           + k * blk * n_s * (2 * w + 4))
+    out = bound_ms(n_bytes, frames * ops, "float32")
+    out.update(senones_read=n_sen, senone_groups=n_groups,
+               ops_per_frame=ops)
     out["lookahead_traffic_ms"] = frames * n * n_s * 8 / PEAK_BYTES_S * 1e3
     return out
 
 
+def pruned_case(dec: DeviceBeamDecoder, scores, n_valid, t0: int = 0,
+                carry=None, reps: int = 5) -> dict:
+    """The pruned scan kernel (``dec._scan`` on the card) against its plain
+    loop (``dec._scan_plain`` with ``_step_pruned``) on the same scores and
+    carry: ``kb``, the compact carry, the entry row and the traceback rows
+    must be equal bit for bit, or this raises.  ``ms``: one event pair
+    around a wrapper call (median of ``reps``); ``kernel_ms``: the kernel
+    alone under the profiler; ``plain_ms``: host ms of the plain loop,
+    synchronised; ``plain_peak_mem_bytes`` / ``peak_mem_bytes``: the device
+    memory each call peaks at above what was allocated before it;
+    ``phase_cycles_utt0``: the first utterance's SM cycles in each of the
+    kernel's phases (one more launch, with ``phase_clocks``)."""
+    tabs = dec._prep_device()
+    b, t_c, s = scores.shape
+    if carry is None:
+        carry = dec._seed(tabs, b)
+
+    def kernel():
+        return dec._scan(tabs, carry, scores, t0, n_valid)
+
+    def plain():
+        return dec._scan_plain(tabs, carry, scores, t0, n_valid)
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    before = dk.decoder_scan_pruned_cuda.launches
+    got, kernel_peak = peak(kernel)
+    want, plain_peak = peak(plain)
+    names = ("kb", "d_act", "c_act", "entry", "entry_ctx")
+    pairs = {**{k: (g, w) for k, g, w in zip(names, got[0], want[0])},
+             "tb_prev": (got[1], want[1]), "tb_word": (got[2], want[2])}
+    equal = {k: bool(torch.equal(a, b)) for k, (a, b) in pairs.items()}
+    n, n_s, _ = tabs.bands.shape
+    k = dec.active_blocks
+    line = dict(b=b, t_c=t_c, t0=t0, n_nodes=n, n_s=n_s, s=s,
+                block_size=dec.block_size, active_blocks=k,
+                n_blocks=dec._n_blocks, lm="none" if dec.lm is None else
+                "sparse" if tabs.lm_sparse is not None else "flat",
+                placement=dk.tables_placement(tabs, s, k, dec.block_size),
+                equal=equal, max_abs_err=max(
+                    float((got[0][i] - want[0][i]).abs().max())
+                    for i in (1, 3)),
+                words_emitted=int((got[2] >= 0).sum()),
+                peak_mem_bytes=kernel_peak, plain_peak_mem_bytes=plain_peak)
+    check(all(equal.values()), f"pruned scan kernel vs plain loop: {line}")
+    del got, want
+    line.update(ms=median_ms(kernel, reps=reps),
+                kernel_ms=kernel_device_ms(kernel, "decoder_pruned", reps=5),
+                plain_ms=synced_ms(plain)[1], library_ms=None,
+                **pruned_bound(dec, b, t_c,
+                               int(np.clip(np.asarray(n_valid), 0,
+                                           t_c).sum())))
+    # where a frame goes: the first utterance's SM cycles in each phase
+    clocks = torch.zeros(len(dk.PRUNED_PHASES), dtype=torch.int64,
+                         device=scores.device)
+    dk.decoder_scan_pruned_cuda(
+        tabs, carry, scores, t0, n_valid, n_vocab=dec._n_vocab,
+        r_top=dec._r_top(tabs), penalty=-float(dec.word_penalty),
+        block_size=dec.block_size, phase_clocks=clocks)
+    cycles = clocks.cpu().tolist()
+    line["phase_cycles_utt0"] = dict(zip(dk.PRUNED_PHASES, cycles))
+    line["phase_share_utt0"] = {k: c / max(1, sum(cycles)) for k, c in
+                                zip(dk.PRUNED_PHASES, cycles)}
+    line["launches"] = dk.decoder_scan_pruned_cuda.launches - before
+    return line
+
+
 def phase_pruned(seed: int, smi: str, batch: int = 256,
-                 utt_seconds: float = 4.0) -> int:
+                 utt_seconds: float = 4.0) -> dict:
     """Block-pruned search at the decode batch (bench.py's 256 x 4 s of
     noise through the frontend) over the synthetic ~21.6k-node lexicon
     standing in for Mandarin.dat: exact, then block_size 256 with 8 and 4
     active blocks, each timed after a warm-up call and a synchronise, with
-    its peak device memory; then one pruned stream session against the
-    one-shot pruned decode.  Returns the frame-scan kernel's launches in
-    the exact call and the n-best kernel's in the three calls."""
+    its peak device memory and its launches (the exact call one frame-scan
+    launch, a pruned call one pruned-scan launch, each one n-best launch);
+    then the pruned scan kernel held to its plain loop at this cell, bit
+    for bit, with its times (also at 8 blocks with a sparse bigram LM);
+    then one pruned stream session (one pruned launch a chunk) against the
+    one-shot pruned decode.  Returns the
+    frame-scan kernel's launches in the exact call, the pruned kernel's in
+    the pruned calls and chunks, the n-best kernel's in the three calls,
+    and the pruned kernel's ``kernels`` record (k8)."""
     phase_t0 = time.perf_counter()
     cfg = Config()
     cfg.model.mix_level = cfg.model.max_mix_level = M
@@ -1609,7 +1713,8 @@ def phase_pruned(seed: int, smi: str, batch: int = 256,
     n_frames = masks.sum(dim=1).cpu().numpy()
     del signals
 
-    runs, outs, fin_launches = {}, {}, 0
+    runs, outs, cases = {}, {}, {}
+    launches = dict(scan=0, pruned=0, fin=0)
     for name, kw in (("exact", {}),
                      ("k8", dict(block_size=256, active_blocks=8)),
                      ("k4", dict(block_size=256, active_blocks=4))):
@@ -1626,30 +1731,46 @@ def phase_pruned(seed: int, smi: str, batch: int = 256,
         outs[name] = dec.decode_batch(feats, n_frames)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        check(gk.gmm_log_scores_cuda.launches == 1,
+        counts = kernel_counts()
+        check(counts["gmm"] == 1,
               f"{name}: one GMM kernel launch per decode call")
-        scan = dk.decoder_scan_cuda.launches
-        check(scan == (0 if kw else 1), f"{name}: {scan} frame-scan "
-              "launches (one for the exact call, none pruned)")
-        fin = dk.decoder_finalize_cuda.launches
-        check(fin == 1, f"{name}: one n-best launch per decode call ({fin})")
-        fin_launches += fin
+        want = (0, 1) if kw else (1, 0)
+        check((counts["scan"], counts["pruned"]) == want,
+              f"{name}: frame-scan and pruned-scan launches "
+              f"{(counts['scan'], counts['pruned'])}, expected {want}")
+        check(counts["fin"] == 1,
+              f"{name}: one n-best launch per decode call ({counts['fin']})")
+        for key in launches:
+            launches[key] += counts[key]
         check(all(len(h) >= 1 for h in outs[name]),
               f"{name}: every utterance decoded")
         runs[name] = dict(wall_ms=wall_ms, table_prep_seconds=prep_s,
                           peak_mem_bytes=torch.cuda.max_memory_allocated(),
                           blocks=getattr(dec, "_n_blocks", None),
-                          scan_kernel_launches=scan,
-                          finalize_kernel_launches=fin)
+                          scan_kernel_launches=counts["scan"],
+                          pruned_kernel_launches=counts["pruned"],
+                          finalize_kernel_launches=counts["fin"],
+                          decode_call_profile=device_profile(
+                              lambda: dec.decode_batch(feats, n_frames)))
         if kw:
-            runs[name]["bound"] = pruned_bound(
-                dec, batch, int(feats.shape[1]), int(bank.num_states),
-                int(n_frames.sum()))
-        if not kw:
-            exact_launches = scan
-            runs[name]["decode_call_profile"] = device_profile(
-                lambda: dec.decode_batch(feats, n_frames))
+            scores = dec._scores(feats)
+            cases[name] = pruned_case(dec, scores, n_frames)
+            del scores
         del dec
+        torch.cuda.empty_cache()
+    # the same scan with a sparse bigram LM over the lexicon's words (the
+    # emission's 16 candidates, fewer finite ones where few blocks emit)
+    from poccala_tpu_torch.lm.ngram import Ngram
+
+    lm = Ngram(2)
+    lm.train([list(rng.choice(words, size=8)) for _ in range(2000)])
+    dec = DeviceBeamDecoder(bank, flat, lm=lm, lm_weight=3.0, word_penalty=1.0,
+                            block_size=256, active_blocks=8)
+    dec._prep_device()
+    scores = dec._scores(feats)
+    cases["k8_sparse_lm"] = pruned_case(dec, scores, n_frames, reps=3)
+    del scores, dec
+    torch.cuda.empty_cache()
     for name in ("k8", "k4"):
         agree, worst = 0, 0.0
         for he, hp in zip(outs["exact"], outs[name]):
@@ -1660,20 +1781,38 @@ def phase_pruned(seed: int, smi: str, batch: int = 256,
         runs[name].update(one_best_agreement=agree / batch,
                           max_rel_excess_over_exact=worst)
 
-    # a pruned stream session of one utterance equals the pruned one-shot
+    # a pruned stream session of one utterance equals the pruned one-shot,
+    # with one pruned-scan launch a chunk
     dec = DeviceBeamDecoder(bank, flat, block_size=256, active_blocks=8)
     x = feats[0, : int(n_frames[0])]
     st = dec.stream_init(batch=1, max_frames=len(x))
+    reset_kernel_counts()
     for lo in range(0, len(x), CHUNK):
         dec.stream_feed(st, x[lo:lo + CHUNK])
+    chunks = len(st.tb_prev)
+    stream_counts = kernel_counts()
+    check((stream_counts["pruned"], stream_counts["scan"]) == (chunks, 0),
+          f"one pruned-scan launch a pruned stream chunk: {stream_counts}, "
+          f"{chunks} chunks")
+    launches["pruned_stream"] = stream_counts["pruned"]
     same_nbest(dec.stream_result(st, 2)[0], dec.decode_batch(
         x[None], [len(x)], 2)[0], "pruned stream vs pruned one-shot")
+    for name, line in cases.items():
+        say("pruned_scan", case=name, **line)
     say("pruned", lexicon_nodes=int(flat.n_nodes), words=len(words),
         lexicon_build_seconds=lex_s, batch=batch, utt_seconds=utt_seconds,
         frames=int(feats.shape[1]), block_size=256, runs=runs,
-        stream_equals_one_shot=True, phase_seconds=time.perf_counter()
-        - phase_t0, device=torch.cuda.get_device_name(0), nvidia_smi=smi)
-    return dict(scan=exact_launches, fin=fin_launches)
+        stream_equals_one_shot=True, stream_chunks=chunks,
+        source=dk.SOURCE, replaces=dk.PRUNED_REPLACES,
+        phase_seconds=time.perf_counter() - phase_t0,
+        device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    line = cases["k8"]
+    launches["record"] = {k: line[k] for k in (
+        "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "lookahead_traffic_ms")}
+    launches["record_k4"] = {k: cases["k4"][k] for k in (
+        "ms", "kernel_ms", "plain_ms", "bound_ms")}
+    return launches
 
 
 def phase_cli(seed: int) -> None:
@@ -2096,7 +2235,8 @@ def phase_cd_e2e(seed: int) -> None:
                   for d in decoded[dev]] for dev in decoded}
     check(hyps["cuda"] == hyps["cpu"], f"decode --cd words on the card "
           f"{hyps['cuda']} vs on the CPU {hyps['cpu']}")
-    check(all(n > 0 for n in used["cuda"].values()),
+    # every kernel but the pruned scan: the CD path runs the exact search
+    check(all(n > 0 for k, n in used["cuda"].items() if k != "pruned"),
           f"the CD path launched every kernel on the card: {used['cuda']}")
     check(not any(used["cpu"].values()),
           f"the CPU run launched no kernel: {used['cpu']}")
@@ -2232,6 +2372,7 @@ def phase_cd_throughput(seed: int, smi: str, epochs: int = 4) -> dict:
     gk.gmm_log_scores_cuda.launches = 0
     gk.gmm_log_scores_cuda.launches_bf16 = 0
     dk.decoder_scan_cuda.launches = 0
+    dk.decoder_scan_pruned_cuda.launches = 0
     dk.decoder_finalize_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2404,8 +2545,9 @@ def phase_parallel_one_rank(seed: int, data: dict) -> dict:
         torch.use_deterministic_algorithms(False)
     dist.destroy_process_group()
 
-    for k, n in launches.items():
-        check(n > 0, f"the sharded path launched the {k} kernel ({n})")
+    for k, n in launches.items():   # the pruned scan aside: it is exact
+        check(n > 0 or k == "pruned",
+              f"the sharded path launched the {k} kernel ({n})")
     rel = [abs(g / w - 1) for g, w in zip(got["lls"], want["lls"])]
     check(max(rel) < 1e-4, f"Trainer(mesh=) logliks {got['lls']} against "
           f"the unsharded trainer's {want['lls']}")
@@ -2585,7 +2727,9 @@ def phase_parallel_ranks(seed: int, data: dict, one: dict) -> None:
               f"rank {r}'s logliks against the unsharded E-step")
         check(recs[r]["words"] == one["words"],
               f"rank {r}'s decoded words equal the unsharded decode")
-        check(all(n > 0 for n in recs[r]["kernel_launches"].values()),
+        # every kernel but the pruned scan: a sharded decode is exact
+        check(all(n > 0 for k, n in recs[r]["kernel_launches"].items()
+                  if k != "pruned"),
               f"rank {r} launched every kernel: "
               f"{recs[r]['kernel_launches']}")
         dry = recs[r]["dryrun"]
@@ -3241,6 +3385,15 @@ def main(argv=None) -> int:
     check(all(v > 0 for k, v in kernels[-1].items()
               if k.startswith("launches")),
           f"the n-best kernel ran on every path: {kernels[-1]}")
+    # the pruned scan: one launch per pruned decode call (k8, k4) and per
+    # pruned stream chunk; its times at k8 (k4's beside them)
+    kernels.append(dict(
+        name="decoder_scan_pruned", route="cuda", source=dk.SOURCE,
+        replaces=dk.PRUNED_REPLACES, launches=pruned_launches["pruned"],
+        launches_stream=pruned_launches["pruned_stream"],
+        k4=pruned_launches["record_k4"], **pruned_launches["record"]))
+    check(kernels[-1]["launches"] == 2 and kernels[-1]["launches_stream"] > 0,
+          f"the pruned scan ran once a pruned call and chunk: {kernels[-1]}")
     # the instantiations for those shapes, with their launches on their paths
     # (a decode call and a stream chunk; one E-step and one alignment)
     kernels += [

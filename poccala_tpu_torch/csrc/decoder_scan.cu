@@ -1,6 +1,8 @@
 // The device decoder's exact frame scan for Hopper (sm_90a), CUDA C++:
 // every frame of one decode call (or one stream chunk) for every utterance
-// of the batch, in one launch.
+// of the batch, in one launch.  Below it, in the same source, the n-best
+// (decoder_finalize_kernel) and the block-pruned search's frame scan
+// (decoder_pruned_kernel).
 //
 // Replaces `step` of DeviceBeamDecoder._build_step
 // (poccala_tpu/decoder/device.py:423-472) under the lax.scan of `_build_run`
@@ -97,6 +99,7 @@ namespace {
 constexpr int NS_MAX = 16;     // token states per node
 constexpr int W_MAX = 8;       // band width
 constexpr int R_MAX = 16;      // candidates of the LM's two-phase emission
+constexpr int PRUNED_PHASES = 6;  // the pruned scan's traced phases
 constexpr int MAX_THREADS = 256;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
 // the opt-in shared memory of one block, less room for the static arrays
@@ -128,6 +131,51 @@ struct ScanTables {
   int32_t n_nodes, n_states, band_w, n_slots, n_vocab, r_top, lm_mode,
       lm_n_keys;
   float penalty;               // the constant LM term (lm_mode 0)
+};
+
+// The block-pruned search's tables beside ScanTables; field order and types
+// mirror ops/cuda/decoder_scan_cuda.py:_PrunedTables.
+struct PrunedTables {
+  const int32_t* slot_ptr;     // [n_blocks + 1]: block j's slots are
+                               // [slot_ptr[j], slot_ptr[j + 1])
+  const int32_t* node_group;   // [N]: the row of group_senone of each node
+  const int32_t* group_senone; // [n_groups, Ns]: the distinct senone rows
+                               // (-1 where not emitting)
+  int32_t block_size, n_active, n_blocks, n_groups;
+};
+
+// The pruned scan's operands ([B, ...] each, contiguous); field order
+// mirrors ops/cuda/decoder_scan_cuda.py:_PrunedIO.  The carry goes from
+// the *_in to the *_out tensors; d_work / c_work ([B, K blk Ns]), ex / exc
+// ([B, K blk]), meta ([B, 2 n_blocks + 6 K] int32) and la ([B, n_groups])
+// are scratch, read only where the plan keeps that part out of shared
+// memory.
+struct PrunedIO {
+  const float* scores;         // [B, Tc, S]
+  const int32_t* n_valid;      // [B]
+  const int64_t* kb_in;        // [B, K] active blocks, best first
+  const float* d_in;           // [B, K, blk, Ns]
+  const int32_t* c_in;         // [B, K, blk, Ns]
+  const float* e_in;           // [B, N] entry row
+  const int32_t* ec_in;        // [B, N] its contexts
+  int64_t* kb_out;
+  float* d_out;
+  int32_t* c_out;
+  float* e_out;
+  int32_t* ec_out;
+  float* d_work;
+  int32_t* c_work;
+  float* ex;
+  int32_t* exc;
+  int32_t* meta;
+  float* la;                   // [B, n_groups]
+  int32_t* tb_prev;            // [B, Tc]
+  int32_t* tb_word;            // [B, Tc]
+  long long* clocks;           // [PRUNED_PHASES] or null: block 0's cycles
+                               // a phase (the entry refresh and the next
+                               // row's wait; the lookahead; the top K and
+                               // remap; the advance; the emission's passes;
+                               // its totals), added to
 };
 
 namespace {
@@ -208,25 +256,62 @@ __device__ __forceinline__ void block_best(float& v, int& q, float* red_v,
   __syncthreads();   // red_* free for the next pass
 }
 
-// The exit of node n from its states d / c (the node's carry at n Ns):
-// device.py's _exit_of, k = 1..W-1 ascending, strict >, from NEG_INF and
-// context V.  Returns the exit score; *ectx its packed context.
-__device__ __forceinline__ float node_exit(const ScanTables& tb,
-                                           const float* d, const int32_t* c,
-                                           int n, int* ectx) {
+// The exit of one node from its states d / c (Ns of them) and its bands
+// bn [Ns, W]: device.py's _exit_of, k = 1..W-1 ascending, strict >, from
+// NEG_INF and context V.  Returns the exit score; *ectx its packed context.
+__device__ __forceinline__ float states_exit(const ScanTables& tb,
+                                             const float* d, const int32_t* c,
+                                             const float* bn, int* ectx) {
   const int Ns = tb.n_states, W = tb.band_w;
-  const size_t base = (size_t)n * Ns;
-  const float* bn = tb.bands + base * W;
   float e = NEG_INF_F;
   int ec = tb.n_vocab;
   for (int k = 1; k < W; ++k) {
     const int rr = Ns - 1 - k;
     if (rr < 0) break;
-    const float cand = d[base + rr] + __ldg(bn + rr * W + k);
-    if (cand > e) { e = cand; ec = c[base + rr]; }
+    const float cand = d[rr] + __ldg(bn + rr * W + k);
+    if (cand > e) { e = cand; ec = c[rr]; }
   }
   *ectx = ec;
   return e;
+}
+
+// The exit of node n from the full carry d / c ([N, Ns]).
+__device__ __forceinline__ float node_exit(const ScanTables& tb,
+                                           const float* d, const int32_t* c,
+                                           int n, int* ectx) {
+  const size_t base = (size_t)n * tb.n_states;
+  return states_exit(tb, d + base, c + base, tb.bands + base * tb.band_w,
+                     ectx);
+}
+
+// The banded advance of one node in place, where its states d / c live
+// (shared or device memory), against its bands bn [Ns, W] and senones
+// sn [Ns] on the frame's scores row: device.py's
+// _advance and the clamp, states Ns-1 down (a state reads only lower states
+// of its node, so no second buffer), offsets k up, strict >; log_b is the
+// row's score where the state emits, NEG_INF where not, 0 in state 0.
+__device__ __forceinline__ void advance_in_place(const ScanTables& tb,
+                                                 float* d, int32_t* c,
+                                                 const float* bn,
+                                                 const int32_t* sn,
+                                                 const float* row) {
+  const int Ns = tb.n_states, W = tb.band_w, V = tb.n_vocab;
+  for (int s = Ns - 1; s >= 0; --s) {
+    float best = NEG_INF_F;
+    int bctx = V;
+    for (int k = 0; k < W && k <= s; ++k) {
+      const float cand = d[s - k] + __ldg(bn + (s - k) * W + k);
+      if (cand > best) { best = cand; bctx = c[s - k]; }
+    }
+    float lb = 0.0f;
+    if (s > 0) {
+      const int sen = __ldg(sn + s);
+      lb = sen >= 0 ? row[sen] : NEG_INF_F;
+    }
+    const float x = best + lb;
+    d[s] = x < NEG_INF_F ? NEG_INF_F : x;   // torch.clamp(min=NEG_INF)
+    c[s] = bctx;
+  }
 }
 
 template <bool CARRY_SMEM, bool ROWS_SMEM, bool REGS>
@@ -355,25 +440,8 @@ decoder_scan_kernel(const ScanTables tb, const float* __restrict__ scores,
           if (s < Ns) { dc[base + s] = d[s]; cc[base + s] = c[s]; }
       } else {   // in place where the carry lives (state 0's advanced
                  // value too: the entry phase overwrites it)
-        float* d = dc + base;
-        int32_t* c = cc + base;
-        for (int s = Ns - 1; s >= 0; --s) {
-          float best = NEG_INF_F;
-          int bctx = V;
-          for (int k = 0; k < W && k <= s; ++k) {
-            const float cand = d[s - k] + __ldg(bn + (s - k) * W + k);
-            if (cand > best) { best = cand; bctx = c[s - k]; }
-          }
-          float lb = 0.0f;
-          if (s > 0) {
-            const int sen = __ldg(sn + s);
-            lb = sen >= 0 ? row[sen] : NEG_INF_F;
-          }
-          const float x = best + lb;
-          d[s] = x < NEG_INF_F ? NEG_INF_F : x;   // torch.clamp(min=NEG_INF)
-          c[s] = bctx;
-        }
-        e = node_exit(tb, dc, cc, n, &ectx);
+        advance_in_place(tb, dc + base, cc + base, bn, sn, row);
+        e = states_exit(tb, dc + base, cc + base, bn, &ectx);
       }
       ex[n] = e;
       exc[n] = ectx;
@@ -630,6 +698,459 @@ decoder_finalize_kernel(const ScanTables tb, const float* __restrict__ deltas,
   }
 }
 
+// ----------------------------------------------------------------------
+// The block-pruned frame scan.
+//
+// Replaces `step_pruned` of make_pruned (poccala_tpu/decoder/device.py:
+// 500-603) under the same lax.scans as the exact step (:713, :886).  Its
+// plain version, DeviceBeamDecoder._step_pruned in a loop over frames, is
+// ~100 eager launches a frame and builds a [B, N, Ns] lookahead temporary
+// every frame (178 MB at 256 utterances of the 21,589-node lexicon); here
+// one launch runs every frame of a decode call or a stream chunk for every
+// utterance.  The nodes are in DFS order, padded to n_blocks blocks of
+// blk; K blocks are active.  The carry per utterance: kb [K] (int64, the
+// active blocks, best first), the compact deltas / ctx [K, blk, Ns] and the
+// global entry row and its contexts [N].  Per frame, exactly the plain
+// loop's arithmetic (compares, max, one add per term in its order), so the
+// carry, kb and the traceback rows equal the plain loop's bit for bit:
+//   1. lookahead: la[n] = max over the node's states of the frame's score
+//      (NEG_INF where a state does not emit), blk_best[j] = max over block
+//      j of entry + la; an active block also takes max over its nodes of
+//      (max_s d + la) (the plain loop's scatter_reduce "amax").  la is
+//      computed once per distinct senone row (group: 125 rows at the
+//      synthetic lexicon, against 21,760 nodes), read through node_group:
+//      the same max over the same values in the same order;
+//   2. the K best blocks in _top_k's order (value descending, the lower
+//      block first on ties): K passes of a warp argmax, each taking the
+//      best block after the previous winner;
+//   3. remap: a surviving block keeps its interior, a fresh one starts at
+//      (NEG_INF, V); state 0 of every active node takes the entry row;
+//   4. the banded advance and clamp of the K blk active nodes in place
+//      (advance_in_place), then their exits (states_exit);
+//   5. the word emission over the active blocks' slots and the entry
+//      refresh of all N nodes, as the exact scan's phases 3-4;
+//   6. the traceback row (prev, word).
+// Frames at or past n_valid[b] are frozen: rows -1, carry untouched.
+//
+// Where the plain loop's results hinge on detail, and what this does:
+// * Ties among dead blocks.  Most blocks hold no token: their entry is
+//   NEG_INF and NEG_INF + la rounds to -1e30 (-2e30 for an all-padding
+//   block), so dozens of blocks tie and _top_k takes the lowest indices.
+//   blk_best is computed densely by the plain loop's formula for every
+//   node of every block (no shortcut past dead nodes), so each tie is the
+//   same tie, and the selection breaks it by the block index.
+// * The clipped parent.  _enter reads flow_ctx = ex_ctx[:, parent] with
+//   parent clipped to 0, so a parentless node takes node 0's exit context
+//   when it does not restart: the entry phase looks node max(p, 0) up
+//   through the block map like any parent (V where its block is inactive,
+//   as in the flat row the plain loop scatters).
+// * Only active nodes have finite exits.  The exits are kept compact
+//   (ex [K blk], by logical position) with map[n_blocks] = the position of
+//   each active block (-1 elsewhere) for the parent lookup, no [N] row.
+//   The slots come from np.nonzero(word_tab >= 0) in node order, so each
+//   block's slots are one range (slot_ptr) and the emission scans only the
+//   K ranges, in slot order.  With an LM and fewer than R finite
+//   candidates the plain loop fills its top R with NEG_INF slots from all
+//   Q; their total is NEG_INF, so they never win the first maximum nor
+//   reach a row: here a pass that finds no slot gives a NEG_INF total.
+// * Memory.  The entry row (8 N bytes: 174 KB at 21,760 nodes) and the
+//   compact carry (8 K blk Ns: 131 KB at 8 x 256, 65.5 KB at 4 x 256) do
+//   not both fit in the 227 KB a block may take.  pruned_plan places, in
+//   order, the scores rows (double-buffered by cp.async), the small block
+//   arrays (meta), the groups' lookahead, the exits, the carry, the entry
+//   row, each in shared memory if it fits in what is left, else in device
+//   memory (the entry row in the output tensors, the rest in scratch the
+//   wrapper passes).  The carry comes before the entry row: the advance
+//   reads and writes it in place, state after state, while the entry row
+//   is read and written once a frame, and at 4 x 256 the carry leaves room
+//   for two blocks an SM, so the 256 utterances run in one wave (on an
+//   H100: 29.3 ms a call, against 47.8 ms with the entry row first).
+//   ROWS_SMEM (the cp.async prefetch) makes two instantiations; every other
+//   part is placed at run time, through a base pointer.
+// * No shape limit the plain loop lacks: any Ns and W (the advance runs in
+//   place with runtime loops), block size, K <= n_blocks, Q and S.  A
+//   device-memory carry is permuted by a physical-slot table (phys), so a
+//   surviving block never moves; the output is written in kb's order.
+//
+// What bounds it.  At the pruned cell (B = 256, 319 frames, N = 21,760,
+// Ns = 8, K = 8 of 85 blocks of 256, S = 606) the scan must read the
+// scores of the 300 senones the lexicon names once (~100 MB) and do, a
+// frame, the lookahead (the 125 senone groups' maxima, entry + la and its
+// block max over N nodes, the K blocks' max_s d + la), the advance of the
+// K blk active nodes and the entry refresh's compare: 1.8e10 operations a
+// call, ~0.26 ms at one float32 operation each.  As for the exact scan,
+// what costs is the chain of T dependent frames per utterance, each a
+// sequence of block-wide phases, one block per utterance.  On an H100 (phase_clocks) a frame takes
+// ~170 k cycles of a block at 8 x 256: the lookahead and the advance a third
+// each, the entry refresh a fifth, the top K and the emission the rest;
+// each a chain of L2 loads of the static tables (21,760 nodes' worth every
+// frame) that 8 warps do not hide, not a bandwidth.  Three things moved it:
+// the lookahead through the 125 senone groups instead of every node's Ns
+// senones (89 -> 73 ms a call at 8 x 256), the entry refresh's table loads
+// BATCH at a time (-> 66 ms) and the carry before the entry row (-> 55 ms;
+// 4 x 256: 29 ms).  States in registers, state-major carries and
+// transposed tables did not.  Not tuned further.
+constexpr int BATCH = 8;   // the entry refresh's table loads in flight
+
+struct PrunedPlan {
+  bool rows_smem, meta_smem, la_smem, ex_smem, entry_smem, carry_smem;
+  unsigned meta_off, la_off, ex_off, entry_off, carry_off, smem;
+};
+
+template <bool ROWS_SMEM>
+__global__ void __launch_bounds__(MAX_THREADS)
+decoder_pruned_kernel(const ScanTables tb, const PrunedTables pt,
+                      const PrunedPlan plan, const PrunedIO io, int Tc,
+                      int S, int t0) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float red_v[MAX_WARPS];
+  __shared__ int red_q[MAX_WARPS];
+  __shared__ float top_v[R_MAX];
+  __shared__ int top_q[R_MAX];
+  __shared__ float e_score_s;
+  __shared__ int word_s;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, warps = nthr >> 5;
+  const int N = tb.n_nodes, Ns = tb.n_states;
+  const int V = tb.n_vocab, R = tb.r_top, vp1 = V + 1;
+  const int blk = pt.block_size, K = pt.n_active, NB = pt.n_blocks;
+  const int act_n = K * blk;                       // active nodes
+  const size_t blk_n = (size_t)blk * Ns;           // one block's carry
+  const size_t carry_n = (size_t)K * blk_n;
+
+  // meta: blk_best [NB] | map [NB] (block -> position, -1) | kb_s [K]
+  // (position -> block) | knew [K] | phys [K] (position -> carry slot) |
+  // nphys [K] | used [K] | fresh [K]
+  int32_t* meta = plan.meta_smem
+      ? reinterpret_cast<int32_t*>(smem_raw + plan.meta_off)
+      : io.meta + (size_t)b * (2 * NB + 6 * K);
+  float* blk_best = reinterpret_cast<float*>(meta);
+  int32_t* map = meta + NB;
+  int32_t* kb_s = map + NB;
+  int32_t* knew = kb_s + K;
+  int32_t* phys = knew + K;
+  int32_t* nphys = phys + K;
+  int32_t* used = nphys + K;
+  int32_t* fresh = used + K;
+  float* srow = reinterpret_cast<float*>(smem_raw);
+  float* la_g = plan.la_smem
+      ? reinterpret_cast<float*>(smem_raw + plan.la_off)
+      : io.la + (size_t)b * pt.n_groups;
+  float* ex;
+  int32_t* exc;
+  if (plan.ex_smem) {
+    ex = reinterpret_cast<float*>(smem_raw + plan.ex_off);
+    exc = reinterpret_cast<int32_t*>(ex + act_n);
+  } else {
+    ex = io.ex + (size_t)b * act_n;
+    exc = io.exc + (size_t)b * act_n;
+  }
+  float* ent;
+  int32_t* entc;
+  if (plan.entry_smem) {
+    ent = reinterpret_cast<float*>(smem_raw + plan.entry_off);
+    entc = reinterpret_cast<int32_t*>(ent + N);
+  } else {
+    ent = io.e_out + (size_t)b * N;
+    entc = io.ec_out + (size_t)b * N;
+  }
+  float* dw;
+  int32_t* cw;
+  if (plan.carry_smem) {
+    dw = reinterpret_cast<float*>(smem_raw + plan.carry_off);
+    cw = reinterpret_cast<int32_t*>(dw + carry_n);
+  } else {
+    dw = io.d_work + (size_t)b * carry_n;
+    cw = io.c_work + (size_t)b * carry_n;
+  }
+
+  // the carry in, each block in the carry slot of its position
+  {
+    const float* e_b = io.e_in + (size_t)b * N;
+    const int32_t* ec_b = io.ec_in + (size_t)b * N;
+    for (int n = tid; n < N; n += nthr) {
+      ent[n] = e_b[n];
+      entc[n] = ec_b[n];
+    }
+    const float* d_b = io.d_in + (size_t)b * carry_n;
+    const int32_t* c_b = io.c_in + (size_t)b * carry_n;
+    for (size_t i = tid; i < carry_n; i += nthr) {
+      dw[i] = d_b[i];
+      cw[i] = c_b[i];
+    }
+    for (int j = tid; j < NB; j += nthr) map[j] = -1;
+  }
+  __syncthreads();
+  for (int k = tid; k < K; k += nthr) {
+    const int j = (int)io.kb_in[(size_t)b * K + k];
+    kb_s[k] = j;
+    phys[k] = k;
+    map[j] = k;
+  }
+
+  const int nv = min(Tc, max(io.n_valid[b], 0));
+  const float* sc_b = io.scores + (size_t)b * Tc * S;
+  if (ROWS_SMEM) {
+    if (nv > 0)
+      for (int j = tid; j < S; j += nthr) cp_async_f32(srow + j, sc_b + j);
+    cp_async_commit();
+  }
+  // the phases' cycles in block 0, summed over its frames, where io.clocks
+  // is given (PRUNED_PHASES of them; each phase ends at a barrier)
+  const bool trace = io.clocks != nullptr && b == 0 && tid == 0;
+  long long tick = trace ? clock64() : 0;
+  auto mark = [&](int phase) {
+    if (trace) {
+      const long long now = clock64();
+      io.clocks[phase] += now - tick;
+      tick = now;
+    }
+  };
+
+  for (int i = 0; i < nv; ++i) {
+    const float* row;
+    if (ROWS_SMEM) {
+      row = srow + (i & 1) * S;
+      if (i + 1 < nv) {
+        float* next = srow + ((i + 1) & 1) * S;
+        const float* src = sc_b + (size_t)(i + 1) * S;
+        for (int j = tid; j < S; j += nthr) cp_async_f32(next + j, src + j);
+      }
+      cp_async_commit();   // an empty group past the end keeps the count
+      cp_async_wait_one(); // frame i's row has landed (this thread's part)
+    } else {
+      row = sc_b + (size_t)i * S;
+    }
+    __syncthreads();     // ... and every thread's; last frame's entry done
+    mark(0);
+
+    // 1. lookahead: each senone row's best score (amax over the states in
+    // order), then a warp a block, densely over its nodes
+    for (int g = tid; g < pt.n_groups; g += nthr) {
+      const int32_t* sn = pt.group_senone + (size_t)g * Ns;
+      float la = NEG_INF_F;
+      for (int s = 0; s < Ns; ++s) {
+        const int sen = __ldg(sn + s);
+        const float x = sen >= 0 ? row[sen] : NEG_INF_F;
+        if (s == 0 || x > la) la = x;
+      }
+      la_g[g] = la;
+    }
+    __syncthreads();
+    for (int j = warp; j < NB; j += warps) {
+      const int k = map[j];
+      const float* dk = k >= 0 ? dw + (size_t)phys[k] * blk_n : nullptr;
+      float best = -INFINITY, inner = -INFINITY;
+      for (int n = lane; n < blk; n += 32) {
+        const int node = j * blk + n;
+        const float la = la_g[__ldg(pt.node_group + node)];
+        const float pot = ent[node] + la;
+        if (pot > best) best = pot;
+        if (dk != nullptr) {
+          const float* dn = dk + (size_t)n * Ns;
+          float m = dn[0];
+          for (int s = 1; s < Ns; ++s) m = dn[s] > m ? dn[s] : m;
+          const float x = m + la;
+          if (x > inner) inner = x;
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ob = __shfl_xor_sync(FULL, best, off);
+        const float oi = __shfl_xor_sync(FULL, inner, off);
+        best = ob > best ? ob : best;
+        inner = oi > inner ? oi : inner;
+      }
+      if (lane == 0) blk_best[j] = (k >= 0 && inner > best) ? inner : best;
+    }
+    __syncthreads();
+    mark(1);
+
+    // 2-3. the top K blocks (warp 0), then the remap (its lane 0)
+    if (warp == 0) {
+      float pv = 0.0f;
+      int pq = -1;
+      for (int r = 0; r < K; ++r) {
+        float bv = -INFINITY;
+        int bq = 0x7fffffff;
+        for (int j = lane; j < NB; j += 32) {
+          const float x = blk_best[j];
+          const bool after = r == 0 || before(pv, pq, x, j);
+          if (after && before(x, j, bv, bq)) { bv = x; bq = j; }
+        }
+        warp_best(bv, bq);
+        if (lane == 0) knew[r] = bq;
+        pv = bv;
+        pq = bq;
+      }
+      if (lane == 0) {
+        for (int k = 0; k < K; ++k) used[k] = 0;
+        for (int k = 0; k < K; ++k) {   // a survivor keeps its carry slot
+          const int op = map[knew[k]];
+          nphys[k] = op >= 0 ? phys[op] : -1;
+          if (op >= 0) used[phys[op]] = 1;
+        }
+        for (int k = 0; k < K; ++k) map[kb_s[k]] = -1;
+        for (int k = 0, f = 0; k < K; ++k) {   // a fresh block a free slot
+          fresh[k] = nphys[k] < 0;
+          if (fresh[k]) {
+            while (used[f]) ++f;
+            nphys[k] = f;
+            used[f] = 1;
+          }
+          kb_s[k] = knew[k];
+          phys[k] = nphys[k];
+          map[knew[k]] = k;
+        }
+      }
+    }
+    __syncthreads();
+    mark(2);
+
+    // 4. the active nodes: remap, advance in place, exits
+    for (int idx = tid; idx < act_n; idx += nthr) {
+      const int k = idx / blk, n = idx - k * blk;
+      const int node = kb_s[k] * blk + n;
+      float* d = dw + (size_t)phys[k] * blk_n + (size_t)n * Ns;
+      int32_t* c = cw + (size_t)phys[k] * blk_n + (size_t)n * Ns;
+      if (fresh[k])
+        for (int s = 1; s < Ns; ++s) {
+          d[s] = NEG_INF_F;
+          c[s] = V;
+        }
+      d[0] = ent[node];
+      c[0] = entc[node];
+      const size_t base = (size_t)node * Ns;
+      const float* bn = tb.bands + base * tb.band_w;
+      advance_in_place(tb, d, c, bn, tb.senone + base, row);
+      int ectx;
+      ex[idx] = states_exit(tb, d, c, bn, &ectx);
+      exc[idx] = ectx;
+    }
+    __syncthreads();
+    mark(3);
+
+    // 5. the frame's best word emission: R ordered block argmaxes over the
+    // active blocks' slots
+    float pv = 0.0f;
+    int pq = -1;
+    for (int r = 0; r < R; ++r) {
+      float bv = -INFINITY;   // below every slot's value (>= NEG_INF)
+      int bq = 0x7fffffff;    // stays where no slot is left
+      for (int k = 0; k < K; ++k) {
+        const int j = kb_s[k];
+        const int q1 = __ldg(pt.slot_ptr + j + 1);
+        for (int q = __ldg(pt.slot_ptr + j) + tid; q < q1; q += nthr) {
+          const float xq = ex[(k - j) * blk + __ldg(tb.node_slot + q)];
+          const float a = (__ldg(tb.slot_valid + q) && xq > NEG_INF_HALF_F)
+                              ? xq : NEG_INF_F;
+          const bool after = r == 0 || before(pv, pq, a, q);
+          if (after && before(a, q, bv, bq)) { bv = a; bq = q; }
+        }
+      }
+      block_best(bv, bq, red_v, red_q);
+      if (tid == 0) { top_v[r] = bv; top_q[r] = bq; }
+      pv = bv;
+      pq = bq;
+    }
+    __syncthreads();
+    mark(4);
+    if (warp == 0) {
+      float tot = -INFINITY;  // lanes past R never win
+      int slot = 0, cr = 0;
+      if (lane < R) {
+        tot = NEG_INF_F;      // the plain loop's NEG_INF picks
+        const int q = top_q[lane];
+        if (q != 0x7fffffff) {
+          slot = q;
+          const int node = __ldg(tb.node_slot + q), j = node / blk;
+          cr = exc[map[j] * blk + node - j * blk];
+          const float lm = lm_term(tb, cr % vp1, __ldg(tb.word_slot + q));
+          const float r_sc = top_v[lane];
+          tot = r_sc > NEG_INF_HALF_F ? r_sc + lm : NEG_INF_F;
+        }
+      }
+      int idx = lane;   // first maximum over the R candidates
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ot = __shfl_down_sync(0xffffffffu, tot, off);
+        const int oi = __shfl_down_sync(0xffffffffu, idx, off);
+        const int os = __shfl_down_sync(0xffffffffu, slot, off);
+        const int oc = __shfl_down_sync(0xffffffffu, cr, off);
+        if (before(ot, oi, tot, idx)) { tot = ot; idx = oi; slot = os; cr = oc; }
+      }
+      if (lane == 0) {
+        const bool valid = tot > NEG_INF_HALF_F;
+        e_score_s = tot;
+        word_s = valid ? __ldg(tb.word_slot + slot) : -1;
+        io.tb_prev[(size_t)b * Tc + i] = valid ? cr / vp1 - 1 : -1;
+        io.tb_word[(size_t)b * Tc + i] = word_s;
+      }
+    }
+    __syncthreads();
+    mark(5);
+
+    // 6. the entry row: parent flow (through the block map) against the
+    // restart
+    const float e_score = e_score_s;
+    const int word = word_s;
+    const int re_ctx = (t0 + i + 1) * vp1 + (word >= 0 ? word : V);
+    for (int n0 = tid; n0 < N; n0 += nthr * BATCH) {
+      int par[BATCH];   // the batch's table loads in flight together
+      bool root[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int n = n0 + nthr * u;
+        par[u] = n < N ? __ldg(tb.parent + n) : -1;
+        root[u] = n < N && __ldg(tb.root_child + n);
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int n = n0 + nthr * u;
+        if (n >= N) break;
+        const int p = par[u];
+        const int pc = max(p, 0), pj = pc / blk, k = map[pj];
+        float x = NEG_INF_F;
+        int xc = V;
+        if (k >= 0) {
+          x = ex[(k - pj) * blk + pc];
+          xc = exc[(k - pj) * blk + pc];
+        }
+        const float flow = p >= 0 ? x : NEG_INF_F;
+        const float restart = root[u] ? e_score : NEG_INF_F;
+        const bool use_restart = restart > flow;
+        ent[n] = use_restart ? restart : flow;
+        entc[n] = use_restart ? re_ctx : xc;
+      }
+    }
+  }
+  if (ROWS_SMEM) cp_async_wait_all();
+  for (int i = nv + tid; i < Tc; i += nthr) {
+    io.tb_prev[(size_t)b * Tc + i] = -1;
+    io.tb_word[(size_t)b * Tc + i] = -1;
+  }
+  __syncthreads();
+  // the carry out in kb's order
+  for (int k = tid; k < K; k += nthr) io.kb_out[(size_t)b * K + k] = kb_s[k];
+  float* d_o = io.d_out + (size_t)b * carry_n;
+  int32_t* c_o = io.c_out + (size_t)b * carry_n;
+  for (size_t i = tid; i < carry_n; i += nthr) {
+    const size_t k = i / blk_n, at = (size_t)phys[k] * blk_n + (i - k * blk_n);
+    d_o[i] = dw[at];
+    c_o[i] = cw[at];
+  }
+  if (plan.entry_smem) {
+    float* e_o = io.e_out + (size_t)b * N;
+    int32_t* ec_o = io.ec_out + (size_t)b * N;
+    for (int n = tid; n < N; n += nthr) {
+      e_o[n] = ent[n];
+      ec_o[n] = entc[n];
+    }
+  }
+}
+
 int threads_for(int n) {
   const int t = (n + 31) / 32 * 32;
   return t < 64 ? 64 : (t > MAX_THREADS ? MAX_THREADS : t);
@@ -723,6 +1244,46 @@ int launch_finalize(int B, int threads, size_t smem, cudaStream_t stream,
   decoder_finalize_kernel<ROWS_SMEM><<<B, threads, smem, stream>>>(
       tb, deltas, ctx, tb_prev, tb_word, ac, seqs, scores, T, C, R, L,
       ac_in_smem);
+  return (int)cudaGetLastError();
+}
+
+// What the pruned scan keeps in shared memory: in order, the two scores
+// rows, meta, the groups' lookahead, the exits, the carry and the entry
+// row, each where it fits in what the earlier parts leave of SMEM_LIMIT.
+PrunedPlan pruned_plan(int N, int Ns, int S, int K, int blk, int G) {
+  const int NB = blk > 0 ? N / blk : 0;
+  const size_t act = (size_t)K * blk;
+  PrunedPlan p{};
+  size_t used = 0;
+  auto take = [&](size_t bytes, unsigned* off) {
+    if (used + bytes > SMEM_LIMIT) return false;
+    if (off != nullptr) *off = (unsigned)used;
+    used += bytes;
+    return true;
+  };
+  p.rows_smem = take(2 * (size_t)S * 4, nullptr);
+  p.meta_smem = take(4 * (2 * (size_t)NB + 6 * (size_t)K), &p.meta_off);
+  p.la_smem = take(4 * (size_t)G, &p.la_off);
+  p.ex_smem = take(8 * act, &p.ex_off);
+  p.carry_smem = take(8 * act * Ns, &p.carry_off);
+  p.entry_smem = take(8 * (size_t)N, &p.entry_off);
+  p.smem = (unsigned)used;
+  return p;
+}
+
+template <bool ROWS_SMEM>
+int launch_pruned(int B, int threads, cudaStream_t stream,
+                  const ScanTables& tb, const PrunedTables& pt,
+                  const PrunedPlan& plan, const PrunedIO& io, int Tc, int S,
+                  int t0) {
+  if (plan.smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        decoder_pruned_kernel<ROWS_SMEM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  decoder_pruned_kernel<ROWS_SMEM><<<B, threads, plan.smem, stream>>>(
+      tb, pt, plan, io, Tc, S, t0);
   return (int)cudaGetLastError();
 }
 
@@ -826,6 +1387,51 @@ extern "C" int decoder_finalize_rows_in_smem(int Q, int T, int C, int R) {
 extern "C" int decoder_finalize_ac_in_smem(int Q, int T, int C, int R) {
   return finalize_plan(Q, T, C, R).ac_smem;
 }
+// The block-pruned scan of B utterances over Tc frames of scores [B, Tc,
+// S] (the first at absolute frame t0): the carry (kb, deltas, ctx, entry
+// row and contexts) from io's *_in to its *_out tensors, the rows written
+// whole.  The scratch io names is read only where decoder_pruned_smem
+// leaves that part out of shared memory.  Returns as decoder_scan_exact.
+extern "C" int decoder_scan_pruned(const ScanTables* tables,
+                                   const PrunedTables* pruned,
+                                   const PrunedIO* io_, int B, int Tc, int S,
+                                   int t0, void* stream_) {
+  const ScanTables tb = *tables;
+  const PrunedTables pt = *pruned;
+  const PrunedIO io = *io_;
+  if (B < 1 || Tc < 1 || S < 1 || bad_tables(tb) || tb.r_top < 1 ||
+      tb.r_top > R_MAX || tb.r_top > tb.n_slots || t0 < 0 ||
+      pt.slot_ptr == nullptr || pt.node_group == nullptr ||
+      pt.group_senone == nullptr || pt.n_groups < 1 ||
+      pt.block_size < 1 || pt.n_active < 1 || pt.n_active > pt.n_blocks ||
+      (long long)pt.n_blocks * pt.block_size != tb.n_nodes)
+    return (int)cudaErrorInvalidValue;
+  const PrunedPlan plan = pruned_plan(tb.n_nodes, tb.n_states, S,
+                                      pt.n_active, pt.block_size,
+                                      pt.n_groups);
+  if ((!plan.meta_smem && io.meta == nullptr) ||
+      (!plan.la_smem && io.la == nullptr) ||
+      (!plan.ex_smem && (io.ex == nullptr || io.exc == nullptr)) ||
+      (!plan.carry_smem && (io.d_work == nullptr || io.c_work == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const auto fn =
+      plan.rows_smem ? &launch_pruned<true> : &launch_pruned<false>;
+  return fn(B, threads_for(pt.n_active * pt.block_size),
+            (cudaStream_t)stream_, tb, pt, plan, io, Tc, S, t0);
+}
+
+extern "C" int decoder_pruned_phases() { return PRUNED_PHASES; }
+
+// Where the pruned scan keeps each part, as bits (1 = shared memory): 1
+// the scores rows, 2 meta (the block arrays), 4 the groups' lookahead, 8
+// the exits, 16 the entry row, 32 the carry.
+extern "C" int decoder_pruned_smem(int N, int Ns, int S, int K, int blk,
+                                   int G) {
+  const PrunedPlan p = pruned_plan(N, Ns, S, K, blk, G);
+  return p.rows_smem | p.meta_smem << 1 | p.la_smem << 2 | p.ex_smem << 3 |
+         p.entry_smem << 4 | p.carry_smem << 5;
+}
+
 extern "C" const char* decoder_scan_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

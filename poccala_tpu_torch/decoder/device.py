@@ -42,10 +42,12 @@ runs the exact search's frames on the GPU as one launch of the CUDA kernel
 ``csrc/decoder_scan.cu`` (:mod:`poccala_tpu_torch.ops.cuda.
 decoder_scan_cuda`), and on the CPU as its plain version, a Python loop of
 :meth:`DeviceBeamDecoder._frame_step` over frames batched over utterances;
-the two agree bit for bit.  The n-best (:meth:`DeviceBeamDecoder.
-_finalize`) is likewise one launch of the same source's ``decoder_finalize``
-kernel on the GPU and :meth:`DeviceBeamDecoder._finalize_plain` on the CPU.
-The block-pruned step is a Python loop on both devices.  On the GPU every op is an asynchronous launch on the calling
+the two agree bit for bit.  The block-pruned search is likewise one launch
+of the same source's ``decoder_scan_pruned`` kernel on the GPU and a loop
+of :meth:`DeviceBeamDecoder._step_pruned` on the CPU, and the n-best
+(:meth:`DeviceBeamDecoder._finalize`) one launch of its
+``decoder_finalize`` kernel on the GPU and
+:meth:`DeviceBeamDecoder._finalize_plain` on the CPU.  On the GPU every op is an asynchronous launch on the calling
 thread's current stream (the worker thread of
 :class:`~poccala_tpu_torch.serve.DecodeService` runs batches and stream
 chunks alike there), so :meth:`decode_dispatch` returns once the work is
@@ -81,7 +83,7 @@ import torch.nn.functional as F
 from poccala_tpu_torch.decoder.beam import Hypothesis
 from poccala_tpu_torch.decoder.vector import VectorBeamDecoder
 from poccala_tpu_torch.ops.cuda.decoder_scan_cuda import \
-    decoder_finalize_cuda, decoder_scan_cuda
+    decoder_finalize_cuda, decoder_scan_cuda, decoder_scan_pruned_cuda
 from poccala_tpu_torch.ops.gmm_score import gmm_log_scores_batch
 from poccala_tpu_torch.utils.logmath import NEG_INF
 
@@ -705,21 +707,26 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         ``n_valid`` ``[B]`` are frozen.  Returns ``(carry, tb_prev,
         tb_word)``, the rows ``[B, Tc]`` int32 (-1 where no word).
 
-        The exact search on a CUDA tensor is one launch of the frame-scan
-        kernel (it raises if it cannot launch); a CPU tensor, and the
-        block-pruned search on either device, take :meth:`_scan_plain`."""
-        if scores.is_cuda and not self._prune_on:
-            return decoder_scan_cuda(
+        On a CUDA tensor the exact search is one launch of the frame-scan
+        kernel and the block-pruned search one launch of the pruned scan's
+        (either raises if it cannot launch); a CPU tensor takes
+        :meth:`_scan_plain`."""
+        if not scores.is_cuda:
+            return self._scan_plain(tabs, carry, scores, t0, n_valid)
+        kw = dict(n_vocab=self._n_vocab, r_top=self._r_top(tabs),
+                  penalty=-float(self.word_penalty))
+        if self._prune_on:
+            return decoder_scan_pruned_cuda(
                 tabs, carry, scores.contiguous(), t0, n_valid,
-                n_vocab=self._n_vocab, r_top=self._r_top(tabs),
-                penalty=-float(self.word_penalty))
-        return self._scan_plain(tabs, carry, scores, t0, n_valid)
+                block_size=self.block_size, **kw)
+        return decoder_scan_cuda(tabs, carry, scores.contiguous(), t0,
+                                 n_valid, **kw)
 
     def _scan_plain(self, tabs: _Tables, carry, scores: torch.Tensor,
                     t0: int, n_valid):
         """:meth:`_scan` as a loop of :meth:`_frame_step` (or, pruned,
-        :meth:`_step_pruned`) over frames, on any device: the frame-scan
-        kernel's plain version."""
+        :meth:`_step_pruned`) over frames, on any device: the plain version
+        of the frame-scan kernel (or of the pruned scan's)."""
         b, t_c, _ = scores.shape
         dev = scores.device
         if isinstance(n_valid, torch.Tensor):

@@ -265,7 +265,7 @@ def emulated_source(smem_limit=None) -> str:
         "unsigned char* smem_raw = emu_dyn_smem;")
     src, n = re.subn(r"(decoder_\w+_kernel<[^<>]*>)<<<([^>]*)>>>\(",
                      r"emu_launch(\1, \2, ", src)
-    assert n == 2   # the frame scan's launch and the n-best's
+    assert n == 3   # the frame scan's launch, the n-best's, the pruned scan's
     if smem_limit is not None:
         old = "constexpr size_t SMEM_LIMIT = 232448 - 1024;"
         assert old in src

@@ -1199,3 +1199,181 @@ def test_decoder_finalize_large_lexicons(cuda, min_nodes):
                                       dec._scores(feats), 0, n)
         for nbest in (1, 5):
             finalize_both(dec, carry, prev, word, dec._n_cand(nbest))
+
+
+# ----------------------------------------------------------------------
+# the block-pruned search's frame scan (decoder_scan_pruned in
+# csrc/decoder_scan.cu) against its plain loop, DeviceBeamDecoder.
+# _scan_plain with _step_pruned, bit for bit
+
+PRUNED_NAMES = ("kb", "d_act", "c_act", "entry", "entry_ctx")
+
+
+def pruned_decoder(cuda, lm_kind="none", min_nodes=1500, seed=7, **kw):
+    """:func:`scan_decoder` over a synthetic lexicon (``min_nodes`` nodes;
+    None: the 21,589-node one) with block pruning (64-node blocks, 2 active
+    unless ``kw`` says otherwise)."""
+    from poccala_tpu_torch.lexicon.build import FULL_VOCAB_NODES, \
+        synthetic_lexicon
+
+    inv = UnitInventory.standard("XIF_tone")
+    flat, _, _ = synthetic_lexicon(
+        inv, min_nodes=min_nodes or FULL_VOCAB_NODES,
+        n_chars=12 if min_nodes else None)
+    dec = scan_decoder(cuda, lm_kind, flat=flat, seed=seed, penalty=1.5,
+                       **{"block_size": 64, "active_blocks": 2, **kw})
+    dec._prep_device()
+    assert dec._prune_on
+    return dec
+
+
+def pruned_both(dec, scores, n_valid, t0=0, carry=None, rows_before=None):
+    """The kernel's ``_scan`` (one pruned launch, no exact one) against the
+    plain loop from the same carry: the carry's five fields and the rows
+    equal bit for bit, and so the n-best each gives over ``rows_before``
+    and the new rows; returns the kernel's."""
+    from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
+
+    tabs = dec._prep_device()
+    if carry is None:
+        carry = dec._seed(tabs, scores.shape[0])
+    before = (dk.decoder_scan_pruned_cuda.launches,
+              dk.decoder_scan_cuda.launches)
+    got = dec._scan(tabs, carry, scores, t0, n_valid)
+    assert (dk.decoder_scan_pruned_cuda.launches,
+            dk.decoder_scan_cuda.launches) == (before[0] + 1, before[1])
+    want = dec._scan_plain(tabs, carry, scores, t0, n_valid)
+    for name, g, w in zip(PRUNED_NAMES, got[0], want[0]):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+    def nbest(out):
+        carry, prev, word = out
+        if rows_before is not None:
+            prev = torch.cat([rows_before[0], prev], 1)
+            word = torch.cat([rows_before[1], word], 1)
+        return dec._finalize(tabs, carry, prev, word, 8)
+
+    (g_seqs, g_sc), (w_seqs, w_sc) = nbest(got), nbest(want)
+    assert torch.equal(g_seqs, w_seqs) and torch.equal(g_sc, w_sc)
+    return got
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("lm_kind", ["none", "flat", "sparse"])
+def test_decoder_scan_pruned_matches_plain_loop(cuda, lm_kind, tied):
+    """~1,500 nodes in 24 blocks of 64, 2 active, B = 7, 48 frames (scores
+    rounded to multiples of 8 where ``tied``), rows frozen from random
+    frame counts, one at 0: everything in shared memory."""
+    from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
+
+    dec = pruned_decoder(cuda, lm_kind)
+    assert all(dk.tables_placement(dec._tabs, dec.bank.num_states, 2,
+                                   64).values())
+    rng = np.random.default_rng(11)
+    feats = torch.tensor((rng.normal(size=(7, 48, 13)) * 2)
+                         .astype(np.float32), device=cuda)
+    scores = dec._scores(feats)
+    if tied:
+        scores = torch.round(scores / 8) * 8
+    n = rng.integers(1, 49, size=7)
+    n[0], n[1] = 48, 0
+    _, prev, word = pruned_both(dec, scores, n)
+    assert (word[0] >= 0).any()
+    for u, k in enumerate(n):
+        assert (prev[u, k:] == -1).all() and (word[u, k:] == -1).all()
+
+
+@pytest.mark.parametrize("lm_kind", ["none", "sparse"])
+def test_decoder_scan_pruned_stream_chunks(cuda, lm_kind):
+    """Three 16-frame chunks (t0 = 0, 16, 32; rows that end inside a chunk)
+    through the kernel, each held to the plain loop from the same carry,
+    equal the one-shot scan of the 48 frames; then ``stream_feed`` and
+    ``stream_result`` launch one pruned scan a chunk and give the one-shot
+    decode's words."""
+    from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
+
+    dec = pruned_decoder(cuda, lm_kind, seed=8, active_blocks=3)
+    rng = np.random.default_rng(8)
+    feats = (rng.normal(size=(3, 48, 13)) * 2).astype(np.float32)
+    scores = dec._scores(torch.tensor(feats, device=cuda))
+    n = np.array([48, 37, 20])
+    whole = pruned_both(dec, scores, n)
+    carry, prev, word = None, [], []
+    for t0 in (0, 16, 32):
+        before = (torch.cat(prev, 1), torch.cat(word, 1)) if t0 else None
+        carry, p, w = pruned_both(dec, scores[:, t0:t0 + 16].contiguous(),
+                                  np.clip(n - t0, 0, 16), t0, carry, before)
+        prev.append(p)
+        word.append(w)
+    for name, g, w in zip(PRUNED_NAMES, carry, whole[0]):
+        assert torch.equal(g, w), name
+    assert torch.equal(torch.cat(prev, 1), whole[1])
+    assert torch.equal(torch.cat(word, 1), whole[2])
+    launches = dk.decoder_scan_pruned_cuda.launches
+    st = dec.stream_init(batch=3, max_frames=48)
+    for t0 in (0, 16, 32):
+        dec.stream_feed(st, feats[:, t0:t0 + 16], np.clip(n - t0, 0, 16))
+    assert dk.decoder_scan_pruned_cuda.launches == launches + 3
+    for g, w in zip(dec.stream_result(st, 3), dec.decode_batch(feats, n, 3)):
+        assert [h.words for h in g] == [h.words for h in w]
+
+
+@pytest.mark.parametrize("lm_kind", ["none", "sparse"])
+def test_decode_batch_pruned_launches_once(cuda, lm_kind, monkeypatch):
+    """A pruned ``decode_batch`` on the card: one pruned scan launch, no
+    exact one, ``_step_pruned`` never."""
+    from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
+
+    dec = pruned_decoder(cuda, lm_kind)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain pruned step ran on the card")
+
+    monkeypatch.setattr(dec, "_step_pruned", refuse)
+    feats = (np.random.default_rng(4).normal(size=(4, 40, 13)) * 2
+             ).astype(np.float32)
+    before = (dk.decoder_scan_pruned_cuda.launches,
+              dk.decoder_scan_cuda.launches)
+    hyps = dec.decode_batch(feats, [40, 33, 20, 12], 3)
+    assert (dk.decoder_scan_pruned_cuda.launches,
+            dk.decoder_scan_cuda.launches) == (before[0] + 1, before[1])
+    # noise may end inside a word: some utterance decodes to words
+    assert len(hyps) == 4 and any(len(h) >= 1 for h in hyps)
+
+
+@pytest.mark.parametrize("block_size,k_act,out", [
+    (256, 8, "entry"), (256, 4, "entry"), (1024, 4, "carry")])
+def test_decoder_scan_pruned_at_21k_nodes(cuda, block_size, k_act, out):
+    """The 21,589-node synthetic lexicon with a sparse bigram LM: 8 or 4 of
+    85 blocks of 256 (the carry in shared memory, the entry row in device
+    memory) and the config's default 4 blocks of 1,024 (the other way
+    round)."""
+    from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
+
+    dec = pruned_decoder(cuda, "sparse", min_nodes=None, seed=9,
+                         block_size=block_size, active_blocks=k_act)
+    place = dk.tables_placement(dec._tabs, dec.bank.num_states, k_act,
+                                block_size)
+    assert {k for k, v in place.items() if not v} == {out}
+    rng = np.random.default_rng(9)
+    feats = torch.tensor((rng.normal(size=(3, 40, 13)) * 2)
+                         .astype(np.float32), device=cuda)
+    pruned_both(dec, dec._scores(feats), np.array([40, 27, 40]))
+
+
+@pytest.mark.parametrize("skips", [False, True])
+def test_decoder_scan_pruned_at_state_num_10(cuda, skips):
+    """18 token states a node (band width 2, or 10 with skips) over the
+    built-in lexicon in 16 blocks of 8, 3 active."""
+    dec = scan_decoder(cuda, "sparse", state_num=10, penalty=1.5,
+                       bank_fn=with_skips if skips else None,
+                       block_size=8, active_blocks=3)
+    tabs = dec._prep_device()
+    assert dec._prune_on and tuple(tabs.bands.shape[1:]) == (
+        18, 10 if skips else 2)
+    rng = np.random.default_rng(10)
+    feats = torch.tensor((rng.normal(size=(5, 48, 13)) * 2)
+                         .astype(np.float32), device=cuda)
+    pruned_both(dec, torch.round(dec._scores(feats) / 8) * 8,
+                np.array([48, 48, 40, 31, 9]))
