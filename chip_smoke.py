@@ -1579,7 +1579,7 @@ def pruned_bound(dec: DeviceBeamDecoder, b: int, t_c: int,
     once; the rows ``[B, Tc]`` written once; the tables (bands, senones,
     parents, root flags, slots, block slot ranges) read once.  Operations a
     valid frame, as the lookahead needs them: each distinct senone row's
-    max (G Ns: the nodes share ~100 rows, ``pack_pruned_tables``), entry +
+    max (G Ns: the nodes share ~100 rows, ``senone_groups``), entry +
     la and its block max (2 N), the K active blocks' ``max_s d + la`` and
     its max (K blk (Ns + 1)), the top K over the blocks (K n_blocks), the
     advance ((2W + 4) a token state of the K blocks) and the entry
@@ -1592,7 +1592,8 @@ def pruned_bound(dec: DeviceBeamDecoder, b: int, t_c: int,
     n, n_s, w = tabs.bands.shape
     q = int(tabs.node_slot.shape[0])
     k, blk = dec.active_blocks, dec.block_size
-    n_groups = dk.pack_pruned_tables(tabs, blk, k)["n_groups"]
+    n_groups = int(torch.unique(torch.where(tabs.emitting, tabs.senone, -1),
+                                dim=0).shape[0])
     n_sen = int(torch.unique(tabs.senone[tabs.emitting]).numel())
     n_bytes = (4 * frames * n_sen + 4 * b + 2 * 8 * b * k
                + 2 * 8 * b * k * blk * n_s + 2 * 8 * b * n + 8 * b * t_c
@@ -1601,7 +1602,7 @@ def pruned_bound(dec: DeviceBeamDecoder, b: int, t_c: int,
            + k * blk * n_s * (2 * w + 4))
     out = bound_ms(n_bytes, frames * ops, "float32")
     out.update(senones_read=n_sen, senone_groups=n_groups,
-               ops_per_frame=ops)
+               table_groups=dk.n_groups(tabs), ops_per_frame=ops)
     out["lookahead_traffic_ms"] = frames * n * n_s * 8 / PEAK_BYTES_S * 1e3
     return out
 
@@ -1650,7 +1651,8 @@ def pruned_case(dec: DeviceBeamDecoder, scores, n_valid, t0: int = 0,
                 block_size=dec.block_size, active_blocks=k,
                 n_blocks=dec._n_blocks, lm="none" if dec.lm is None else
                 "sparse" if tabs.lm_sparse is not None else "flat",
-                placement=dk.tables_placement(tabs, s, k, dec.block_size),
+                placement=dk.tables_placement(tabs, s, k, dec.block_size,
+                                              dec._r_top(tabs)),
                 equal=equal, max_abs_err=max(
                     float((got[0][i] - want[0][i]).abs().max())
                     for i in (1, 3)),
@@ -2866,9 +2868,11 @@ def scan_case(dec: DeviceBeamDecoder, scores, n_valid, t0: int = 0,
     n, n_s, w = tabs.bands.shape
     lm = ("none" if dec.lm is None else
           "sparse" if tabs.lm_sparse is not None else "flat")
+    plan = dk.scan_plan(tabs, s, dec._r_top(tabs))
     line = dict(b=b, t_c=t_c, t0=t0, n_nodes=n, n_s=n_s, w=w, s=s,
                 slots=int(tabs.node_slot.shape[0]), lm=lm,
-                carry_in_smem=dk.carry_in_smem(n, n_s, s), equal=equal,
+                groups=dk.n_groups(tabs), route=plan["route"],
+                plan=plan, equal=equal,
                 max_abs_err=float((got[0][0] - want[0][0]).abs().max()),
                 words_emitted=int((got[2] >= 0).sum()))
     check(all(equal.values()), f"frame-scan kernel vs plain loop: {line}")
@@ -2887,14 +2891,28 @@ def scan_case(dec: DeviceBeamDecoder, scores, n_valid, t0: int = 0,
         line["kernel_ms_back_to_back"] = loop_ms(
             lambda: dec._scan(tabs, carry, scores, t0, nv), n=reps)
     line["launches"] = dk.decoder_scan_cuda.launches - before
+    # where a frame goes: the first utterance's SM cycles in each phase
+    clocks = torch.zeros(len(dk.EXACT_PHASES), dtype=torch.int64,
+                         device=scores.device)
+    dk.decoder_scan_cuda(tabs, carry, scores, t0, n_valid,
+                         n_vocab=dec._n_vocab, r_top=dec._r_top(tabs),
+                         penalty=-float(dec.word_penalty),
+                         phase_clocks=clocks)
+    cycles = clocks.cpu().tolist()
+    frames0 = max(1, min(t_c, int(np.asarray(n_valid).reshape(-1)[0])))
+    line["phase_cycles_utt0"] = dict(zip(dk.EXACT_PHASES, cycles))
+    line["cycles_per_frame_utt0"] = sum(cycles) / frames0
     return line
 
 
 def scan_record(line: dict) -> dict:
     """A :func:`scan_case` line's fields of the ``kernels`` JSON record."""
-    return {k: line[k] for k in ("max_abs_err", "ms", "kernel_ms",
-                                 "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms", "carry_round_trip_ms")}
+    out = {k: line[k] for k in ("max_abs_err", "ms", "kernel_ms",
+                                "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "carry_round_trip_ms")}
+    out.update(scan_route=line["route"], cluster=line["plan"]["cluster"],
+               active_clusters=line["plan"]["active_clusters"])
+    return out
 
 
 def phase_decoder_scan(seed: int, smi: str) -> dict:
@@ -2903,9 +2921,10 @@ def phase_decoder_scan(seed: int, smi: str) -> dict:
     125-node lexicon, 256 x 4 s of noise through the frontend: B = 256,
     Tc = 319) with no LM, a flat and a sparse bigram LM; at a 25-frame
     stream chunk from an earlier chunk's carry (t0 = 25) at B = 1 and 8;
-    and over the 21,589-node ``synthetic_lexicon`` (the carry in device
-    memory).  Returns the ``kernels`` records of the shared-memory and the
-    device-memory instantiation."""
+    and over ``synthetic_lexicon`` at the reference lexicon's 3,514 nodes
+    and at 21,589 (each carry split over a thread-block cluster).  Each
+    case with the first utterance's cycles per phase.  Returns the
+    ``kernels`` records of the one-CTA and the cluster route."""
     phase_t0 = time.perf_counter()
     dec, _ = full_width_decoder(seed, "cuda")
     tabs = dec._prep_device()
@@ -2925,23 +2944,132 @@ def phase_decoder_scan(seed: int, smi: str) -> dict:
             dec, scores[:b, CHUNK:2 * CHUNK].contiguous(),
             np.clip(n_frames[:b] - CHUNK, 0, CHUNK), t0=CHUNK, carry=carry,
             rows_before=rows, reps=21, plain_reps=5)
-    flat, _, _ = synthetic_lexicon(UnitInventory.standard("XIF_tone"))
+    inv = UnitInventory.standard("XIF_tone")
+    # the reference lexicon's scale (README: 3,514 nodes): the largest
+    # n_chars whose two-character words stay below it, filled up
+    flat, _, _ = synthetic_lexicon(inv, min_nodes=3514, n_chars=56)
+    ref = DeviceBeamDecoder(dec.bank, flat)
+    lines["exact_3514"] = scan_case(ref, scores, n_frames, reps=3)
+    # the reference-scale exact decode call: wall and peak memory
+    ref.decode_batch(feats, n_frames)                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hyps, wall = synced_ms(lambda: ref.decode_batch(feats, n_frames))
+    check(all(len(h) >= 1 for h in hyps), "3,514 nodes: every utterance "
+          "decoded")
+    lines["exact_3514"].update(
+        decode_call_wall_ms=wall,
+        decode_call_peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del ref
+    flat, _, _ = synthetic_lexicon(inv)
     lines["exact_21k"] = scan_case(DeviceBeamDecoder(dec.bank, flat), scores,
                                    n_frames, reps=3)
     for name, line in lines.items():
         say("decoder_scan", case=name, **line)
-    check(lines["decode"]["carry_in_smem"]
-          and not lines["exact_21k"]["carry_in_smem"],
-          "the 125-node carry in shared memory, the 21,589-node one not")
+    routes = {k: v["route"] for k, v in lines.items()}
+    check(all(routes[k] == "smem" for k in routes if not k.startswith("exact"))
+          and routes["exact_3514"] == routes["exact_21k"] == "cluster",
+          f"the 125-node carries on one CTA, the 3,514- and 21,589-node ones "
+          f"over a cluster: {routes}")
     say("decoder_scan_summary", source=dk.SOURCE, replaces=dk.REPLACES,
+        routes={k: (v["route"], v["plan"]["cluster"],
+                    v["plan"]["active_clusters"]) for k, v in lines.items()},
         ptxas_registers_spill_stores_loads=PTXAS.get("decoder_scan",
                                                      "not rebuilt"),
         phase_seconds=time.perf_counter() - phase_t0,
         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
     del scores, feats
     torch.cuda.empty_cache()
-    return dict(exact=scan_record(lines["decode"]),
-                exact_global=scan_record(lines["exact_21k"]))
+    cluster = scan_record(lines["exact_21k"])
+    cluster["exact_3514"] = scan_record(lines["exact_3514"])
+    return dict(exact=scan_record(lines["decode"]), exact_cluster=cluster)
+
+
+def phase_scan_times(seed: int, smi: str) -> dict:
+    """Both frame scans' kernel-alone times (``torch.profiler``, mean of 5
+    launches) at their cells, with no plain loop: the decode cell with no LM
+    and with a flat and a sparse bigram LM, a 25-frame chunk at B = 1 (t0 =
+    25) over the built-in lexicon and over 3,514 nodes, the exact scan over
+    the CD graph (:func:`cd_system`) and over 3,514 and 21,589 nodes, the
+    pruned scan at 8 and 4 of 85 blocks of 256 (and 8 with the LM); the
+    B = 1 chunks' host ms of one synchronised wrapper call (median of 21:
+    the launch's host cost, the plan included); then one exact, one k8 and
+    one k4 ``decode_batch`` of the 21,589-node cell, each after a warm-up,
+    with its wall ms and peak device memory.  It uses only what the port's decoder
+    has had since the pruned scan's first kernel, so a copy of this script
+    run in an older checkout times that checkout's kernels: two checkouts
+    are compared by alternating them in one chip call."""
+    from poccala_tpu_torch.lm.ngram import Ngram
+    from poccala_tpu_torch.models import context as ctx
+
+    dec, _ = full_width_decoder(seed, "cuda")
+    feats, n_frames = noise_features(seed)
+    scores = dec._scores(feats)
+    inv = UnitInventory.standard("XIF_tone")
+    lm = builtin_bigram(seed)
+    alone, call_ms = {}, {}
+
+    def time_scan(name, d, sc, nv, t0=0, carry=None):
+        tabs = d._prep_device()
+        c = d._seed(tabs, sc.shape[0]) if carry is None else carry
+        alone[name] = kernel_device_ms(
+            lambda: d._scan(tabs, c, sc, t0, nv),
+            "decoder_pruned" if d._prune_on else "decoder_scan", reps=5)
+
+    def time_chunk(name, d):
+        tabs = d._prep_device()
+        carry, *_ = d._scan(tabs, d._seed(tabs, 1),
+                            scores[:1, :CHUNK].contiguous(), 0, n_frames[:1])
+        sc = scores[:1, CHUNK:2 * CHUNK].contiguous()
+        nv = np.clip(n_frames[:1] - CHUNK, 0, CHUNK)
+        time_scan(name, d, sc, nv, t0=CHUNK, carry=carry)
+        call_ms[name] = synced_ms(
+            lambda: d._scan(tabs, carry, sc, CHUNK, nv), reps=21)[1]
+
+    time_scan("decode", dec, scores, n_frames)
+    for kind, the_lm in (("flat", TableLM(lm)), ("sparse", lm)):
+        time_scan(f"decode_{kind}_lm", DeviceBeamDecoder(
+            dec.bank, dec.lexicon, lm=the_lm, lm_weight=3.0,
+            word_penalty=1.0), scores, n_frames)
+    time_chunk("chunk_b1", dec)
+    flat, _, _ = synthetic_lexicon(inv, min_nodes=3514, n_chars=56)
+    ref = DeviceBeamDecoder(dec.bank, flat)
+    time_chunk("chunk_b1_3514", ref)
+    time_scan("exact_3514", ref, scores, n_frames)
+    del ref
+    _, cd_inv, cd, _, _, cd_bank, entries, _ = cd_system(seed, "cuda")
+    cd_dec = DeviceBeamDecoder(cd_bank, ctx.build_cd_lexicon(
+        entries, cd, sil_word=("<sil>", cd_inv.id_of["sil"])))
+    time_scan("cd", cd_dec, cd_dec._scores(feats), n_frames)
+    del cd_dec, cd_bank
+    flat, words, _ = synthetic_lexicon(inv)
+    big_lm = Ngram(2)
+    rng = np.random.default_rng(seed)
+    big_lm.train([list(rng.choice(words, size=8)) for _ in range(2000)])
+    decs = {"exact": DeviceBeamDecoder(dec.bank, flat),
+            "k8": DeviceBeamDecoder(dec.bank, flat, block_size=256,
+                                    active_blocks=8),
+            "k4": DeviceBeamDecoder(dec.bank, flat, block_size=256,
+                                    active_blocks=4)}
+    for name, d in decs.items():
+        time_scan("exact_21k" if name == "exact" else f"pruned_{name}", d,
+                  scores, n_frames)
+    time_scan("pruned_k8_sparse_lm", DeviceBeamDecoder(
+        dec.bank, flat, lm=big_lm, lm_weight=3.0, word_penalty=1.0,
+        block_size=256, active_blocks=8), scores, n_frames)
+    walls = {}
+    for name, d in decs.items():
+        d.decode_batch(feats, n_frames)                     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, wall = synced_ms(lambda: d.decode_batch(feats, n_frames))
+        walls[name] = dict(wall_ms=wall,
+                           peak_mem_bytes=torch.cuda.max_memory_allocated())
+    say("scan_times", kernel_alone_ms=alone, chunk_call_host_ms=call_ms,
+        calls_21k=walls,
+        source=dk.SOURCE, device=torch.cuda.get_device_name(0),
+        nvidia_smi=smi)
+    return alone
 
 
 # ----------------------------------------------------------------------
@@ -3115,16 +3243,19 @@ def widened_bank(bank: sb.SenoneBank, n_senones: int, seed: int):
     return sb.bank_from_numpy(arrays, device="cuda")
 
 
-def shapes_decode(dec: DeviceBeamDecoder, feats, n_frames, name: str) -> dict:
-    """One decode call and one 25-frame stream chunk with its result through
-    ``dec``: the scan and n-best kernels' launches, the 1-best."""
+def shapes_decode(dec: DeviceBeamDecoder, feats, n_frames, name: str,
+                  chunks: int = 1) -> dict:
+    """One decode call and ``chunks`` 25-frame stream chunks with their
+    result through ``dec`` (enough frames for a word of the lexicon to
+    end): the scan and n-best kernels' launches, the 1-best."""
     reset_kernel_counts()
     hyps, wall_ms = synced_ms(lambda: dec.decode_batch(feats, n_frames))
-    st = dec.stream_init(batch=1, max_frames=CHUNK)
-    dec.stream_feed(st, feats[:1, :CHUNK])
+    st = dec.stream_init(batch=1, max_frames=CHUNK * chunks)
+    for lo in range(0, CHUNK * chunks, CHUNK):
+        dec.stream_feed(st, feats[:1, lo:lo + CHUNK])
     chunk_hyps = dec.stream_result(st, 1)
     launches = kernel_counts()
-    check(launches["scan"] == 2 and launches["fin"] == 2,
+    check(launches["scan"] == 1 + chunks and launches["fin"] == 2,
           f"{name}: the decode call and the stream chunk ran the frame scan "
           f"and the n-best on the card: {launches}")
     check(all(len(h) >= 1 and np.isfinite(h[0].score) for h in hyps)
@@ -3140,8 +3271,10 @@ def phase_shapes(seed: int, smi: str) -> dict:
     token states a node: the states in place in the carry) at the decode
     cell's width (256 x 4 s, 8 mixtures, 39 dims, the built-in lexicon),
     and over a bank of 29,500 senones (each frame's scores row read from
-    device memory; 32 x 4 s); a decode call and a stream chunk through
-    each; and forward, backward and Viterbi at N = 1,100 sentence states
+    device memory; 32 x 4 s), and at ``state_num = 10`` over the 21,589-node
+    lexicon (a carry no cluster of 16 holds: device memory; 8 x 4 s); a
+    decode call and a stream chunk through each; and forward, backward and
+    Viterbi at N = 1,100 sentence states
     (the block kernels' loop instantiations; labels of up to 366 units,
     64 x 4 s), timed, with
     their launches in one E-step and one alignment at that length.
@@ -3165,7 +3298,18 @@ def phase_shapes(seed: int, smi: str) -> dict:
           f"state_num = 10: {n_s} token states, in place in the carry")
     lines = {"state_num_10": scan_case(dec, dec._scores(feats), n_frames)}
     paths = {"state_num_10": shapes_decode(dec, feats, n_frames, "state_num 10")}
-    del dec, bank
+    big, _, _ = synthetic_lexicon(inv)
+    dec = DeviceBeamDecoder(bank, big)
+    b = 8
+    x, nf = feats[:b].contiguous(), n_frames[:b]
+    lines["global"] = scan_case(dec, dec._scores(x), nf, reps=3)
+    # three chunks: a word of up to six units of 8 emitting states ends
+    paths["global"] = shapes_decode(dec, x, nf, "state_num 10, 21,589 nodes",
+                                    chunks=3)
+    check(lines["global"]["route"] == "global",
+          f"state_num 10 over 21,589 nodes: the carry in device memory "
+          f"({lines['global']['plan']})")
+    del dec, bank, big
 
     cfg = Config()
     cfg.model.mix_level = cfg.model.max_mix_level = M
@@ -3175,10 +3319,10 @@ def phase_shapes(seed: int, smi: str) -> dict:
     wide = widened_bank(base, SHAPES_S, seed)
     dec = DeviceBeamDecoder(wide, flat)
     tabs = dec._prep_device()
-    n, n_s, _ = tabs.bands.shape
-    check(not dk.rows_in_smem(n, n_s, SHAPES_S)
-          and dk.carry_in_smem(n, n_s, SHAPES_S),
-          "29,500 senones: the scores rows in device memory, the carry not")
+    plan = dk.scan_plan(tabs, SHAPES_S, 1)
+    check(not plan["rows_smem"] and plan["route"] == "smem",
+          f"29,500 senones: the scores rows in device memory, the carry on "
+          f"one CTA: {plan}")
     b = 32
     x, nf = feats[:b].contiguous(), n_frames[:b]
     lines["s29500"] = scan_case(dec, dec._scores(x), nf)
@@ -3273,6 +3417,7 @@ SOLO = {
     "cd_throughput": phase_cd_throughput,
     "parallel": phase_parallel,
     "decoder_scan": phase_decoder_scan,
+    "scan_times": phase_scan_times,
     "finalize": phase_finalize,
     "shapes": phase_shapes,
 }
@@ -3355,8 +3500,9 @@ def main(argv=None) -> int:
                      launches_cd=cd_launches[k],
                      launches_parallel=par_launches[k], **records[k])
                 for k in hk.KERNELS]
-    # the frame scan: the shared-memory instantiation on the decode, stream,
-    # CD and parallel paths; the device-memory one on the 21,589-node call
+    # the frame scan: one CTA an utterance on the decode, stream, CD and
+    # parallel paths; a cluster an utterance on the 21,589-node call (and at
+    # the reference lexicon's 3,514 nodes, its times beside)
     kernels += [dict(name="decoder_scan_exact", route="cuda",
                      source=dk.SOURCE, replaces=dk.REPLACES,
                      launches=launches["scan"],
@@ -3364,10 +3510,10 @@ def main(argv=None) -> int:
                      launches_cd=cd_launches["scan"],
                      launches_parallel=par_launches["scan"],
                      **records["exact"]),
-                dict(name="decoder_scan_exact_global", route="cuda",
+                dict(name="decoder_scan_exact_cluster", route="cuda",
                      source=dk.SOURCE, replaces=dk.REPLACES,
                      launches=pruned_launches["scan"],
-                     **records["exact_global"])]
+                     **records["exact_cluster"])]
     check(kernels[-2]["launches_stream"] > 0
           and kernels[-2]["launches_cd"] > 0
           and kernels[-2]["launches_parallel"] > 0,
@@ -3402,7 +3548,10 @@ def main(argv=None) -> int:
              **records["scan_state_num_10"]),
         dict(name="decoder_scan_exact_rows_global", route="cuda",
              source=dk.SOURCE, replaces=dk.REPLACES,
-             **records["scan_s29500"])]
+             **records["scan_s29500"]),
+        dict(name="decoder_scan_exact_global", route="cuda",
+             source=dk.SOURCE, replaces=dk.REPLACES,
+             **records["scan_global"])]
     kernels += [dict(name=f"hmm_{k}_banded_loop", route="cuda",
                      source=hk.SOURCE, replaces=hk.REPLACES[k],
                      **records[f"{k}_loop"]) for k in hk.KERNELS]

@@ -12,12 +12,16 @@
 // ~25,000 a decode call; here it is one.
 //
 // Tables (row-major, contiguous; ScanTables below):
-//   bands[N, Ns, W]   log transition from state s to s + k of node n
-//   senone[N, Ns]     senone of each token state, -1 where not emitting
-//   parent[N]         tree parent, -1 for first-level nodes and the root
-//   root_child[N]     1 where a word re-enters (first-level nodes)
+//   node_info[N, 4]   each node's group, its packed parent word (bit 0 the
+//                     root-child flag, bit 1 "has a parent", bits 2.. the
+//                     parent, 0 where none), its first valid word slot and
+//                     its valid slot count
+//   group_senone[G, Ns], group_bands[G, Ns, W]: the distinct (senone row,
+//                     band row) pairs of the nodes (a few hundred against
+//                     thousands of nodes), -1 where a state does not emit
 //   node_slot[Q], word_slot[Q], slot_valid[Q]: the static (node, word)
-//                     emission slots
+//                     emission slots, in node order
+//   bands[N, Ns, W]   per node, for the n-best
 // Carry per utterance: deltas[N, Ns] (float32) and ctx[N, Ns] (int32, the
 // packed context (h + 1)(V + 1) + l of traceback pointer h and last word l).
 //
@@ -25,54 +29,75 @@
 // per term in the same order; no reduction in floating point), so the
 // carry, the traceback rows and hence the n-best equal the plain loop's
 // bit for bit:
-//   1. d'[n, s] = max_k(d[n, s-k] + bands[n, s-k, k]) (strict >, k from 0:
+//   1. the entry state of every node from the previous frame: its parent's
+//      exit against the restart from that frame's best emission (strict >
+//      picks the restart), ctx = (t+1)(V+1) + word for a restart;
+//   2. d'[n, s] = max_k(d[n, s-k] + bands[n, s-k, k]) (strict >, k from 0:
 //      the smaller offset wins a tie), ctx riding the same selects; then
 //      d'[n, s] = max(d' + log_b, NEG_INF) with log_b from the frame's
 //      scores row (NEG_INF where not emitting, 0 in state 0);
-//   2. the exit of each node over rr = Ns-1-k, k = 1..W-1 (strict >);
-//   3. the frame's best word emission over the Q slots: the top R (R = 1
+//   3. the exit of each node over rr = Ns-1-k, k = 1..W-1 (strict >);
+//   4. the frame's best word emission over the Q slots: the top R (R = 1
 //      with no LM, else min(Q, 16)) acoustic exits in lax.top_k's order
 //      (descending, the lower slot first on ties), each plus its LM term
 //      (the constant -word_penalty, a flat [(V+1)V] table, or a sparse
 //      bigram by a lower-bound binary search in sorted keys with a
 //      per-row backoff), then the first maximum;
-//   4. the entry state of every node: its parent's exit against the
-//      restart from the frame's best emission (strict > picks the
-//      restart), ctx = (t+1)(V+1) + word for a restart;
 //   5. the traceback row (prev, word) of the frame, -1 where no word.
-// Frames at or past n_valid[b] are frozen: rows -1, carry untouched.
+// The entry after the last valid frame is written once at the end, so the
+// carry out is the plain loop's.  Frames at or past n_valid[b] are frozen:
+// rows -1, carry untouched.
 //
 // What bounds it.  At the decode cell (B = 256 utterances, 319 frames, the
 // built-in lexicon's N = 125 nodes of Ns = 8 states, S = 606 senones) the
-// scan must read the scores once: 198 MB, 0.059 ms at 3.35 TB/s, and does
-// ~40 operations per token state and frame (1e8 in all) — nothing.  What
+// scan must read the scores of the senones the lexicon names once and does
+// ~40 operations per token state and frame (1e8 in all): 0.03 ms.  What
 // costs is that frame t needs frame t-1: each utterance is a chain of 319
-// dependent frames, and each frame needs its whole block (the emission is
+// dependent frames, and each frame needs all of its nodes (the emission is
 // a reduction over all word-end slots, the entry reads other nodes'
-// exits), so the time is (one frame's latency: three barriers, a block
-// reduction, loads of the tables) x T.  At the 21,589-node synthetic
-// lexicon the carry (N Ns 8 B = 1.38 MB an utterance) cannot stay on chip:
-// it goes to device memory and back every frame, 256 x 319 x 2.76 MB =
-// 225 GB, ~67 ms at the memory rate.
+// exits), so the time is one frame's latency (its barriers, the loads of
+// its tables) x T.  At the 21,589-node synthetic lexicon the carry (N Ns 8
+// B = 1.38 MB an utterance) does not fit one block's 227 KB of shared
+// memory.
 //
-// Design (simple and right first):
-// * One block per utterance, persistent over all of the call's frames.  A
-//   thread owns nodes n = tid, tid + T, ... in every phase.  The advance is
-//   node-local (a state reads only lower states of its own node), so it
-//   runs in place in registers, the states taken from Ns-1 down to 0; the
-//   carry needs no second buffer.  The only data that crosses nodes are
-//   the exits (ex, ex_ctx [N]), read by the emission and the entry phase
-//   after a barrier.
-// * Carry and exits live in shared memory where they fit in the 227 KB a
-//   block may opt into (the built-in lexicon: 9 KB; the CD lexicon of 875
-//   nodes: 63 KB), else in device memory (CARRY_SMEM = false).
-// * The frame's scores row is copied into shared memory one frame ahead
-//   by cp.async, double-buffered, where the two rows fit (2 S 4 bytes
-//   within SMEM_LIMIT: S up to ~28,900 senones); a larger bank reads each
-//   frame's row straight from device memory (ROWS_SMEM = false).  The
-//   rows come first: the carry goes to shared memory only in what they
-//   leave.
-// * Ns and W are runtime values.  Up to NS_MAX and W_MAX (REGS) every
+// Design:
+// * Routes (scan_plan, chosen at launch).  On chip: the carry, the exits
+//   and the nodes' info live in shared memory.  Where they fit one CTA's,
+//   one CTA per utterance; where they fit a thread-block cluster's, the
+//   smallest cluster that holds them (2-8 CTAs portable, up to 16
+//   non-portable) splits each utterance's nodes into contiguous ranges,
+//   one a CTA, and what crosses CTAs goes through distributed shared
+//   memory: a parent's exit in another CTA, read by the entry step, and
+//   each CTA's emission list, merged by every warp.  Past a cluster of 16
+//   the carry and the exits stay in device memory, one CTA of 256 threads
+//   per utterance.
+// * A thread owns the same nodes every frame.  The entry refresh is folded
+//   into the next frame's advance: the exits (ex, exc) are double-buffered
+//   by frame parity, and the owner of node n takes its entry from the
+//   previous frame's exit of parent[n] and the previous frame's emission,
+//   just before it advances n.  The advance is node-local (a state reads
+//   only lower states of its node), so it runs in place, the states taken
+//   from Ns-1 down to 0.
+// * The emission in one barrier.  Each warp takes its own top R over its
+//   nodes' slots by R warp argmaxes under the total order (value
+//   descending, slot ascending), each after the previous winner: no block
+//   barrier.  After one barrier every warp merges the warps' sorted lists
+//   (by rank where they are few and R > 1: an entry's place is its place
+//   in its list plus a binary search in each other list; else by R argmax
+//   passes over their entries) and picks the first maximum of the LM
+//   totals itself, so every thread holds the frame's emission for the next
+//   frame's entries.  In a cluster, warp 0 of each CTA first merges its
+//   CTA's lists, and after the cluster barrier every warp merges the CTAs'
+//   lists by R argmax passes over their entries (a binary search in
+//   another CTA's memory is a chain of remote loads).  A frame is one __syncthreads on one CTA; one
+//   __syncthreads and one cluster barrier in a cluster.
+// * The static tables by group: each node's band and senone rows are read
+//   through its group, from copies staged in shared memory once a call
+//   where they fit (else from device memory).
+// * The frame's scores row is copied into shared memory two frames ahead by
+//   cp.async, in three buffers, where they fit; a larger bank reads each
+//   frame's row straight from device memory (ROWS_SMEM = false).
+// * Ns and W are runtime values.  Up to NS_MAX and W_MAX (NSR) every
 //   loop over them is unrolled to the maximum with the bound as a
 //   predicate, so the node's states stay in registers (an index into a
 //   register array must be a compile-time constant).  Past either (Ns =
@@ -80,19 +105,18 @@
 //   transition, up to state_num) the advance runs in place on the carry
 //   where it lives, shared or device memory, with runtime loops: the same
 //   compares in the same order (states Ns-1 down, offsets k up, strict >).
-// * The three choices make eight instantiations of one source, chosen at
-//   launch (scan_plan, states_in_regs).
-// * The emission is R passes of a block argmax under the total order
-//   (value descending, slot ascending), each pass taking the best slot
-//   after the previous pass's winner: lax.top_k's order exactly, with no
-//   sort.  A warp then adds the R LM terms and takes the first maximum.
-// * B = 256 blocks of 128 threads fill the card's 132 SMs at once in the
-//   shared-memory case; the global-memory case is bound by the carry's
-//   round trip.  Not tuned here.
+// * On chip or not, rows in shared memory or not, and states in registers
+//   (unrolled to 8 states and 2 offsets, or 16 and 8) or in place make
+//   twelve instantiations of one source; the cluster size and the group
+//   tables' placement are read at run time.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -100,8 +124,16 @@ constexpr int NS_MAX = 16;     // token states per node
 constexpr int W_MAX = 8;       // band width
 constexpr int R_MAX = 16;      // candidates of the LM's two-phase emission
 constexpr int PRUNED_PHASES = 6;  // the pruned scan's traced phases
-constexpr int MAX_THREADS = 256;
+constexpr int EXACT_PHASES = 5;   // the exact scan's traced phases
+constexpr int MAX_THREADS = 256;  // the n-best; the exact scan off chip
 constexpr int MAX_WARPS = MAX_THREADS / 32;
+constexpr int SCAN_THREADS = 512;  // the exact scan on chip, the pruned scan
+constexpr int SCAN_WARPS = SCAN_THREADS / 32;
+constexpr int NODES_PER_THREAD = 4;   // the most an on-chip thread owns
+constexpr int MAX_CLUSTER = 16;       // CTAs of an utterance on chip
+constexpr int PORTABLE_CLUSTER = 8;
+constexpr int MERGE = R_MAX * R_MAX / 32;  // a lane's entries in a merge
+constexpr int RANK_LISTS = 4;  // the most lists merged by rank
 // the opt-in shared memory of one block, less room for the static arrays
 constexpr size_t SMEM_LIMIT = 232448 - 1024;
 
@@ -110,15 +142,13 @@ constexpr size_t SMEM_LIMIT = 232448 - 1024;
 #define NEG_INF_F ((float)(-1e30))
 #define NEG_INF_HALF_F ((float)(-1e30 / 2.0))
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int NO_SLOT = 0x7fffffff;
 
 }  // namespace
 
 // Field order and types mirror ops/cuda/decoder_scan_cuda.py:_ScanTables.
 struct ScanTables {
-  const float* bands;          // [N, Ns, W]
-  const int32_t* senone;       // [N, Ns], -1 where not emitting
-  const int32_t* parent;       // [N], -1 where none
-  const uint8_t* root_child;   // [N]
+  const float* bands;          // [N, Ns, W] (the n-best's node exits)
   const int32_t* node_slot;    // [Q]
   const int32_t* word_slot;    // [Q]
   const uint8_t* slot_valid;   // [Q]
@@ -128,28 +158,41 @@ struct ScanTables {
   const float* lm_cbase;       // [V]
   const int32_t* lm_keys;      // [n_keys] sorted ascending
   const float* lm_vals;        // [n_keys]
+  const int32_t* node_info;    // [N, 4]: group, parent word, first valid
+                               // slot, valid slot count
+  const int32_t* group_senone; // [G, Ns], -1 where not emitting
+  const float* group_bands;    // [G, Ns, W]
   int32_t n_nodes, n_states, band_w, n_slots, n_vocab, r_top, lm_mode,
-      lm_n_keys;
+      lm_n_keys, n_groups;
   float penalty;               // the constant LM term (lm_mode 0)
 };
 
 // The block-pruned search's tables beside ScanTables; field order and types
-// mirror ops/cuda/decoder_scan_cuda.py:_PrunedTables.
+// mirror ops/cuda/decoder_scan_cuda.py:_PrunedTables.  Per lexicon block j
+// the distinct groups of its root children (rc_group[rc_ptr[j] ..
+// rc_ptr[j + 1]]) and of its other nodes (dead_group), and its nodes that
+// have a parent, by the parent's block a: segments src_ptr[j] ..
+// src_ptr[j + 1], segment g of block a = src_block[g] holding the edges
+// seg_ptr[g] .. seg_ptr[g + 1], each the parent's index in a (flow_par)
+// and the child's group (flow_grp).
 struct PrunedTables {
-  const int32_t* slot_ptr;     // [n_blocks + 1]: block j's slots are
-                               // [slot_ptr[j], slot_ptr[j + 1])
-  const int32_t* node_group;   // [N]: the row of group_senone of each node
-  const int32_t* group_senone; // [n_groups, Ns]: the distinct senone rows
-                               // (-1 where not emitting)
-  int32_t block_size, n_active, n_blocks, n_groups;
+  const int32_t* rc_ptr;       // [n_blocks + 1]
+  const int32_t* rc_group;
+  const int32_t* dead_ptr;     // [n_blocks + 1]
+  const int32_t* dead_group;
+  const int32_t* src_ptr;      // [n_blocks + 1]
+  const int32_t* src_block;    // [segments]
+  const int32_t* seg_ptr;      // [segments + 1]
+  const int32_t* flow_par;     // [edges]
+  const int32_t* flow_grp;     // [edges]
+  int32_t block_size, n_active, n_blocks;
 };
 
 // The pruned scan's operands ([B, ...] each, contiguous); field order
 // mirrors ops/cuda/decoder_scan_cuda.py:_PrunedIO.  The carry goes from
 // the *_in to the *_out tensors; d_work / c_work ([B, K blk Ns]), ex / exc
-// ([B, K blk]), meta ([B, 2 n_blocks + 6 K] int32) and la ([B, n_groups])
-// are scratch, read only where the plan keeps that part out of shared
-// memory.
+// ([B, 2 K blk]), meta ([B, 3 n_blocks + 7 K] int32) and la ([B, G]) are
+// scratch, read only where the plan keeps that part out of shared memory.
 struct PrunedIO {
   const float* scores;         // [B, Tc, S]
   const int32_t* n_valid;      // [B]
@@ -168,14 +211,15 @@ struct PrunedIO {
   float* ex;
   int32_t* exc;
   int32_t* meta;
-  float* la;                   // [B, n_groups]
+  float* la;                   // [B, G]
   int32_t* tb_prev;            // [B, Tc]
   int32_t* tb_word;            // [B, Tc]
   long long* clocks;           // [PRUNED_PHASES] or null: block 0's cycles
-                               // a phase (the entry refresh and the next
-                               // row's wait; the lookahead; the top K and
-                               // remap; the advance; the emission's passes;
-                               // its totals), added to
+                               // a phase (the row's wait and the entry row
+                               // out; the lookahead; the top K and remap;
+                               // the entries and the advance; the
+                               // emission's lists and merge; its totals),
+                               // added to
 };
 
 namespace {
@@ -194,6 +238,29 @@ __device__ __forceinline__ void cp_async_wait_one() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+// This CTA's rank in its cluster.
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// A barrier over every thread of the cluster; shared-memory writes before
+// it are seen by the other CTAs' reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// p (in this CTA's shared memory) at the same offset in CTA `rank`'s, as a
+// generic address (distributed shared memory).
+template <class T>
+__device__ __forceinline__ T* cluster_map(T* p, unsigned rank) {
+  unsigned long long out;
+  asm volatile("mapa.u64 %0, %1, %2;"
+               : "=l"(out)
+               : "l"(reinterpret_cast<unsigned long long>(p)), "r"(rank));
+  return reinterpret_cast<T*>(out);
 }
 
 // The total order of the emission's top-R: a before b when its value is
@@ -224,15 +291,24 @@ __device__ __forceinline__ float lm_term(const ScanTables& tb, int l_r,
   return tb.penalty;
 }
 
-// Warp-wide first-in-order (value, slot) pair; every lane gets it (a
-// butterfly: the order is total, so any pairing gives the same winner).
+// float <-> int preserving the order (-0 below +0), for a max over ints
+__device__ __forceinline__ int ordered(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float unordered(int i) {
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
+}
+
+// Warp-wide first-in-order (value, slot) pair (value descending, slot
+// ascending, slots in [0, NO_SLOT]); every lane gets it: two warp
+// reductions, the largest value (as an unsigned key: a value's zero counts
+// as +0, as the order's compares count -0), then the smallest slot of it.
 __device__ __forceinline__ void warp_best(float& v, int& q) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(FULL, v, off);
-    const int oq = __shfl_xor_sync(FULL, q, off);
-    if (before(ov, oq, v, q)) { v = ov; q = oq; }
-  }
+  const unsigned key = (unsigned)ordered(v + 0.0f) ^ 0x80000000u;
+  const unsigned top = __reduce_max_sync(FULL, key);
+  q = (int)__reduce_min_sync(FULL, key == top ? (unsigned)q : 0xffffffffu);
+  v = unordered((int)(top ^ 0x80000000u));
 }
 
 // Block-wide first-in-order (value, slot) pair; every thread gets it.
@@ -256,20 +332,187 @@ __device__ __forceinline__ void block_best(float& v, int& q, float* red_v,
   __syncthreads();   // red_* free for the next pass
 }
 
+// The warp-wide max of v (a zero as +0); every lane gets it.
+__device__ __forceinline__ float warp_max(float v) {
+  return unordered(__reduce_max_sync(FULL, ordered(v + 0.0f)));
+}
+
+// The warp's top R (value, slot) pairs in the total order: R warp argmaxes,
+// each over the candidates after the previous winner.  each(take) calls
+// take(value, slot) for every candidate of this lane; lane r gets the r-th
+// pair ((-inf, NO_SLOT) past the candidates).
+template <class Each>
+__device__ __forceinline__ void warp_top(int R, Each each, float& my_v,
+                                         int& my_q) {
+  const int lane = threadIdx.x & 31;
+  float pv = 0.0f;
+  int pq = -1;
+  my_v = -INFINITY;
+  my_q = NO_SLOT;
+  for (int r = 0; r < R; ++r) {
+    float bv = -INFINITY;   // below every slot's value (>= NEG_INF)
+    int bq = NO_SLOT;
+    each([&](float a, int q) {
+      if ((r == 0 || before(pv, pq, a, q)) && before(a, q, bv, bq)) {
+        bv = a;
+        bq = q;
+      }
+    });
+    warp_best(bv, bq);
+    if (bq == NO_SLOT) break;   // nothing left: the same in every lane
+    if (lane == r) { my_v = bv; my_q = bq; }
+    pv = bv;
+    pq = bq;
+  }
+}
+
+// The top R of L ordered lists of R pairs (list l at lv(l), lq(l); L R <=
+// 32 MERGE), by the same passes over the lanes' entries; lane r gets the
+// r-th pair.
+template <class ListV, class ListQ>
+__device__ __forceinline__ void warp_merge(int L, int R, ListV lv, ListQ lq,
+                                           float& my_v, int& my_q) {
+  const int lane = threadIdx.x & 31;
+  if (R == 1) {   // one pass over one entry a list
+    my_v = lane < L ? lv(lane)[0] : -INFINITY;
+    my_q = lane < L ? lq(lane)[0] : NO_SLOT;
+    warp_best(my_v, my_q);
+    if (lane > 0) {
+      my_v = -INFINITY;
+      my_q = NO_SLOT;
+    }
+    return;
+  }
+  float ev[MERGE];
+  int eq[MERGE];
+#pragma unroll
+  for (int k = 0; k < MERGE; ++k) {
+    const int e = lane + 32 * k, l = e / R;
+    ev[k] = -INFINITY;
+    eq[k] = NO_SLOT;
+    if (l < L) {
+      ev[k] = lv(l)[e - l * R];
+      eq[k] = lq(l)[e - l * R];
+    }
+  }
+  warp_top(R, [&](auto&& take) {
+#pragma unroll
+    for (int k = 0; k < MERGE; ++k)
+      if (eq[k] != NO_SLOT) take(ev[k], eq[k]);
+  }, my_v, my_q);
+}
+
+// The same top R of L ordered lists in this CTA's shared memory, by rank:
+// an entry's rank is its position in its list plus, in each other list,
+// the count of entries before it (a binary search; a slot is in one list
+// at most, so the ranks are distinct); the entries of rank < R go in place
+// through the warp's scratch out_v / out_q [R], and lane r gets the r-th.
+template <class ListV, class ListQ>
+__device__ __forceinline__ void warp_merge_rank(int L, int R, ListV lv,
+                                                ListQ lq, float* out_v,
+                                                int* out_q, float& my_v,
+                                                int& my_q) {
+  const int lane = threadIdx.x & 31;
+  if (lane < R) {
+    out_v[lane] = -INFINITY;
+    out_q[lane] = NO_SLOT;
+  }
+  __syncwarp();
+  for (int e = lane; e < L * R; e += 32) {
+    const int l = e / R, pos = e - l * R;
+    const float v = lv(l)[pos];
+    const int q = lq(l)[pos];
+    if (q == NO_SLOT) continue;   // past the list's pairs
+    int rank = pos;
+    for (int o = 0; o < L && rank < R; ++o) {
+      if (o == l) continue;
+      const float* ov = lv(o);
+      const int* oq = lq(o);
+      int lo = 0, hi = R;   // the first entry of list o not before (v, q)
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (before(ov[mid], oq[mid], v, q)) lo = mid + 1; else hi = mid;
+      }
+      rank += lo;
+    }
+    if (rank < R) {
+      out_v[rank] = v;
+      out_q[rank] = q;
+    }
+  }
+  __syncwarp();
+  my_v = lane < R ? out_v[lane] : -INFINITY;
+  my_q = lane < R ? out_q[lane] : NO_SLOT;
+  __syncwarp();   // the scratch is free again
+}
+
+// The top R of L ordered lists in this CTA's shared memory: by rank where
+// R > 1 and the lists are few (RANK_LISTS: a few binary searches an
+// entry), else by R argmax passes (one pass for R = 1).
+template <class ListV, class ListQ>
+__device__ __forceinline__ void merge_lists(int L, int R, ListV lv, ListQ lq,
+                                            float* out_v, int* out_q,
+                                            float& my_v, int& my_q) {
+  if (R > 1 && L <= RANK_LISTS)
+    warp_merge_rank(L, R, lv, lq, out_v, out_q, my_v, my_q);
+  else
+    warp_merge(L, R, lv, lq, my_v, my_q);
+}
+
+// The frame's word emission from the top R pairs (lane r holds the r-th):
+// each plus its LM term on (its exit context % (V + 1), its word), then the
+// first maximum; ctx_of(node) is the node's exit context.  Every lane gets
+// the total, the word (-1 where none) and the traceback pointer.
+template <class CtxOf>
+__device__ __forceinline__ void pick(const ScanTables& tb, float v, int q,
+                                     CtxOf ctx_of, float& e_score, int& word,
+                                     int& prev) {
+  const int lane = threadIdx.x & 31, vp1 = tb.n_vocab + 1;
+  float tot = -INFINITY;  // lanes past R never win
+  int w = -1, cr = 0;
+  if (lane < tb.r_top) {
+    tot = NEG_INF_F;      // the plain loop's NEG_INF picks
+    if (q != NO_SLOT) {
+      w = tb.word_slot[q];
+      cr = ctx_of(tb.node_slot[q]);
+      const float lm = lm_term(tb, cr % vp1, w);
+      tot = v > NEG_INF_HALF_F ? v + lm : NEG_INF_F;
+    }
+  }
+  int idx = 0;   // first maximum over the R candidates
+  if (tb.r_top > 1) {
+    idx = lane;
+    warp_best(tot, idx);
+  }
+  tot = __shfl_sync(FULL, tot, idx);
+  w = __shfl_sync(FULL, w, idx);
+  cr = __shfl_sync(FULL, cr, idx);
+  const bool valid = tot > NEG_INF_HALF_F;
+  e_score = tot;
+  word = valid ? w : -1;
+  prev = valid ? cr / vp1 - 1 : -1;
+}
+
+// A node's states d / c are d[s * ds], c[s * ds]: ds = 1 where the carry
+// is node-major, the node count of the carry's rows where it is
+// state-major (in shared memory: a warp's lanes then read consecutive
+// words, free of bank conflicts).
+
 // The exit of one node from its states d / c (Ns of them) and its bands
 // bn [Ns, W]: device.py's _exit_of, k = 1..W-1 ascending, strict >, from
 // NEG_INF and context V.  Returns the exit score; *ectx its packed context.
 __device__ __forceinline__ float states_exit(const ScanTables& tb,
                                              const float* d, const int32_t* c,
-                                             const float* bn, int* ectx) {
+                                             int ds, const float* bn,
+                                             int* ectx) {
   const int Ns = tb.n_states, W = tb.band_w;
   float e = NEG_INF_F;
   int ec = tb.n_vocab;
   for (int k = 1; k < W; ++k) {
     const int rr = Ns - 1 - k;
     if (rr < 0) break;
-    const float cand = d[rr] + __ldg(bn + rr * W + k);
-    if (cand > e) { e = cand; ec = c[rr]; }
+    const float cand = d[rr * ds] + bn[rr * W + k];
+    if (cand > e) { e = cand; ec = c[rr * ds]; }
   }
   *ectx = ec;
   return e;
@@ -280,7 +523,7 @@ __device__ __forceinline__ float node_exit(const ScanTables& tb,
                                            const float* d, const int32_t* c,
                                            int n, int* ectx) {
   const size_t base = (size_t)n * tb.n_states;
-  return states_exit(tb, d + base, c + base, tb.bands + base * tb.band_w,
+  return states_exit(tb, d + base, c + base, 1, tb.bands + base * tb.band_w,
                      ectx);
 }
 
@@ -291,7 +534,7 @@ __device__ __forceinline__ float node_exit(const ScanTables& tb,
 // of its node, so no second buffer), offsets k up, strict >; log_b is the
 // row's score where the state emits, NEG_INF where not, 0 in state 0.
 __device__ __forceinline__ void advance_in_place(const ScanTables& tb,
-                                                 float* d, int32_t* c,
+                                                 float* d, int32_t* c, int ds,
                                                  const float* bn,
                                                  const int32_t* sn,
                                                  const float* row) {
@@ -300,231 +543,394 @@ __device__ __forceinline__ void advance_in_place(const ScanTables& tb,
     float best = NEG_INF_F;
     int bctx = V;
     for (int k = 0; k < W && k <= s; ++k) {
-      const float cand = d[s - k] + __ldg(bn + (s - k) * W + k);
+      const float cand = d[(s - k) * ds] + bn[(s - k) * W + k];
+      if (cand > best) { best = cand; bctx = c[(s - k) * ds]; }
+    }
+    float lb = 0.0f;
+    if (s > 0) {
+      const int sen = sn[s];
+      lb = sen >= 0 ? row[sen] : NEG_INF_F;
+    }
+    const float x = best + lb;
+    d[s * ds] = x < NEG_INF_F ? NEG_INF_F : x;   // torch.clamp(min=NEG_INF)
+    c[s * ds] = bctx;
+  }
+}
+
+// The same advance with the node's states in registers (unrolled to
+// NSR <= NS_MAX states and WR <= W_MAX offsets), state 0 entering as
+// (d0, c0); the states past 0 are written back (the next entry replaces
+// state 0), and the exit returned (*ectx its context).
+template <int NSR, int WR>
+__device__ __forceinline__ float advance_regs(const ScanTables& tb, float* dn,
+                                             int32_t* cn, int ds, float d0,
+                                             int c0, const float* bn,
+                                             const int32_t* sn,
+                                             const float* row, int* ectx) {
+  const int Ns = tb.n_states, W = tb.band_w, V = tb.n_vocab;
+  float d[NSR];
+  int c[NSR];
+  d[0] = d0;
+  c[0] = c0;
+#pragma unroll
+  for (int s = 1; s < NSR; ++s)
+    if (s < Ns) { d[s] = dn[s * ds]; c[s] = cn[s * ds]; }
+#pragma unroll
+  for (int s = NSR - 1; s >= 0; --s) {
+    if (s >= Ns) continue;
+    float best = NEG_INF_F;
+    int bctx = V;
+#pragma unroll
+    for (int k = 0; k < WR && k <= s; ++k) {
+      if (k >= W) break;
+      const float cand = d[s - k] + bn[(s - k) * W + k];
       if (cand > best) { best = cand; bctx = c[s - k]; }
     }
     float lb = 0.0f;
     if (s > 0) {
-      const int sen = __ldg(sn + s);
+      const int sen = sn[s];
       lb = sen >= 0 ? row[sen] : NEG_INF_F;
     }
     const float x = best + lb;
     d[s] = x < NEG_INF_F ? NEG_INF_F : x;   // torch.clamp(min=NEG_INF)
     c[s] = bctx;
   }
+  float e = NEG_INF_F;
+  int ec = V;
+#pragma unroll
+  for (int k = 1; k < WR; ++k) {
+    if (k >= W) break;
+    const int rr = Ns - 1 - k;
+#pragma unroll
+    for (int s = 0; s < NSR; ++s) {
+      if (s == rr) {
+        const float cand = d[s] + bn[s * W + k];
+        if (cand > e) { e = cand; ec = c[s]; }
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 1; s < NSR; ++s)
+    if (s < Ns) { dn[s * ds] = d[s]; cn[s * ds] = c[s]; }
+  *ectx = ec;
+  return e;
 }
 
-template <bool CARRY_SMEM, bool ROWS_SMEM, bool REGS>
-__global__ void __launch_bounds__(MAX_THREADS)
-decoder_scan_kernel(const ScanTables tb, const float* __restrict__ scores,
+// The entry of a node (state 0 for the next frame) from the parent's exit
+// (x, xc) and the previous frame's emission: device.py's _enter, strict >
+// picks the restart; a parentless node takes the exit context of node 0 as
+// the plain loop's clipped gather does.
+__device__ __forceinline__ void entry_of(int pword, float x, int xc,
+                                         float e_score, int re_ctx, float* d0,
+                                         int* c0) {
+  const float flow = (pword & 2) ? x : NEG_INF_F;
+  const float restart = (pword & 1) ? e_score : NEG_INF_F;
+  const bool use_restart = restart > flow;
+  *d0 = use_restart ? restart : flow;
+  *c0 = use_restart ? re_ctx : xc;
+}
+
+// Where the exact scan keeps what: `onchip` (carry, exits and the nodes'
+// info in shared memory, over `cs` CTAs of `chunk` nodes each) or not (one
+// CTA, the carry in the output tensors and the exits in the [B, 2, N]
+// scratch); the three scores rows and the group tables each in shared
+// memory where they fit.  Byte offsets into the dynamic shared memory: the
+// emission's lists first, at 0.
+struct ScanPlan {
+  int onchip, cs, chunk, threads, rows_smem, groups_smem;
+  unsigned rows_off, groups_off, info_off, ex_off, carry_off, smem;
+};
+
+template <bool ONCHIP, bool ROWS_SMEM, int NSR, int WR>
+__global__ void __launch_bounds__(SCAN_THREADS)
+decoder_scan_kernel(const ScanTables tb, const ScanPlan plan,
+                    const float* __restrict__ scores,
                     const int32_t* __restrict__ n_valid,
                     const float* __restrict__ d_in,
                     const int32_t* __restrict__ c_in, float* d_out,
                     int32_t* c_out, float* ex_global, int32_t* exc_global,
                     int32_t* __restrict__ tb_prev,
-                    int32_t* __restrict__ tb_word, int Tc, int S, int t0) {
+                    int32_t* __restrict__ tb_word, int Tc, int S, int t0,
+                    long long* clocks) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float red_v[MAX_WARPS];
-  __shared__ int red_q[MAX_WARPS];
-  __shared__ float top_v[R_MAX];
-  __shared__ int top_q[R_MAX];
-  __shared__ float e_score_s;
-  __shared__ int prev_s, word_s;
-
-  const int b = blockIdx.x;
+  const int cs = plan.cs;
+  const int rank = cs > 1 ? (int)cluster_rank() : 0;
+  const int b = blockIdx.x / cs;
   const int tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  const int lane = tid & 31, warp = tid >> 5, warps = nthr >> 5;
   const int N = tb.n_nodes, Ns = tb.n_states, W = tb.band_w;
-  const int Q = tb.n_slots, V = tb.n_vocab, R = tb.r_top;
-  const int vp1 = V + 1;
-  const size_t carry_n = (size_t)N * Ns;
+  const int V = tb.n_vocab, R = tb.r_top, vp1 = V + 1;
+  const int chunk = plan.chunk;                 // N off chip
+  const int lo = rank * chunk;                  // this CTA's first node
+  const int n_own = max(0, min(N - lo, chunk));
 
-  // shared memory: (ROWS_SMEM) scores rows [2][S] | (CARRY_SMEM) ex [N] |
-  // ex_ctx [N] | deltas [N Ns] | ctx [N Ns]
-  float* srow = reinterpret_cast<float*>(smem_raw);
+  // shared memory: the warps' lists [2][SCAN_WARPS][R], the CTA's [2][R]
+  // and the warps' merge scratch [SCAN_WARPS][R] (values, then slots each)
+  // | scores rows [3][S] | group tables | (ONCHIP) node info [chunk] |
+  // exits [2][chunk] and contexts | carry [Ns][chunk] by state
+  float* wl_v = reinterpret_cast<float*>(smem_raw);
+  int* wl_q = reinterpret_cast<int*>(wl_v + 2 * SCAN_WARPS * R);
+  float* cl_v = reinterpret_cast<float*>(wl_q + 2 * SCAN_WARPS * R);
+  int* cl_q = reinterpret_cast<int*>(cl_v + 2 * R);
+  float* mo_v = reinterpret_cast<float*>(cl_q + 2 * R) + warp * R;
+  int* mo_q = reinterpret_cast<int*>(mo_v - warp * R + SCAN_WARPS * R) +
+              warp * R;
+  float* srow = reinterpret_cast<float*>(smem_raw + plan.rows_off);
+  const int32_t* gsen = tb.group_senone;
+  const float* gband = tb.group_bands;
+  if (plan.groups_smem) {
+    const size_t n_sen = (size_t)tb.n_groups * Ns;
+    int32_t* s_sen = reinterpret_cast<int32_t*>(smem_raw + plan.groups_off);
+    float* s_band = reinterpret_cast<float*>(s_sen + n_sen);
+    for (size_t j = tid; j < n_sen; j += nthr) s_sen[j] = gsen[j];
+    for (size_t j = tid; j < n_sen * W; j += nthr) s_band[j] = gband[j];
+    gsen = s_sen;
+    gband = s_band;
+  }
+  const int4* info;
   float* ex;
   int32_t* exc;
   float* dc;
   int32_t* cc;
-  if (CARRY_SMEM) {
-    ex = srow + (ROWS_SMEM ? 2 * S : 0);
-    exc = reinterpret_cast<int32_t*>(ex + N);
-    dc = reinterpret_cast<float*>(exc + N);
-    cc = reinterpret_cast<int32_t*>(dc + carry_n);
+  const float* din = d_in + ((size_t)b * N + lo) * Ns;
+  const int32_t* cin = c_in + ((size_t)b * N + lo) * Ns;
+  const size_t carry_n = (size_t)n_own * Ns;
+  // node l's state s at dc[l * nstride + s * ds]: state-major on chip
+  const int nstride = ONCHIP ? 1 : Ns, ds = ONCHIP ? chunk : 1;
+  if (ONCHIP) {
+    // each node's parent word re-packed as (CTA << 24 | index in it << 2)
+    int4* s_info = reinterpret_cast<int4*>(smem_raw + plan.info_off);
+    const int4* g_info = reinterpret_cast<const int4*>(tb.node_info) + lo;
+    for (int l = tid; l < n_own; l += nthr) {
+      int4 v = g_info[l];
+      const int p = v.y >> 2, cta = p / chunk;
+      v.y = (v.y & 3) | (p - cta * chunk) << 2 | cta << 24;
+      s_info[l] = v;
+    }
+    info = s_info;
+    ex = reinterpret_cast<float*>(smem_raw + plan.ex_off);
+    exc = reinterpret_cast<int32_t*>(ex + 2 * chunk);
+    dc = reinterpret_cast<float*>(smem_raw + plan.carry_off);
+    cc = reinterpret_cast<int32_t*>(dc + (size_t)chunk * Ns);
   } else {
-    ex = ex_global + (size_t)b * N;
-    exc = exc_global + (size_t)b * N;
-    dc = d_out + (size_t)b * carry_n;
-    cc = c_out + (size_t)b * carry_n;
+    info = reinterpret_cast<const int4*>(tb.node_info);
+    ex = ex_global + (size_t)b * 2 * N;
+    exc = exc_global + (size_t)b * 2 * N;
+    dc = d_out + (size_t)b * N * Ns;
+    cc = c_out + (size_t)b * N * Ns;
   }
-  const float* din = d_in + (size_t)b * carry_n;
-  const int32_t* cin = c_in + (size_t)b * carry_n;
-  if (CARRY_SMEM || dc != din) {
-    for (size_t i = tid; i < carry_n; i += nthr) {
-      dc[i] = din[i];
-      cc[i] = cin[i];
+  if (ONCHIP || dc != din) {
+    for (size_t j = tid; j < carry_n; j += nthr) {
+      const size_t l = j / Ns, at = l * nstride + (j - l * Ns) * ds;
+      dc[at] = din[j];
+      cc[at] = cin[j];
     }
   }
 
   const int nv = min(Tc, max(n_valid[b], 0));
   const float* sc_b = scores + (size_t)b * Tc * S;
-  if (ROWS_SMEM) {
-    if (nv > 0)
-      for (int j = tid; j < S; j += nthr) cp_async_f32(srow + j, sc_b + j);
-    cp_async_commit();
+  if (ROWS_SMEM) {   // rows 0 and 1 in flight, then wait for row 0
+    for (int r = 0; r < 2; ++r) {
+      if (r < nv)
+        for (int j = tid; j < S; j += nthr)
+          cp_async_f32(srow + r * S + j, sc_b + (size_t)r * S + j);
+      cp_async_commit();
+    }
+    cp_async_wait_one();
   }
+  __syncthreads();
+  // the phases' cycles in block 0, summed over its frames, where clocks is
+  // given (EXACT_PHASES of them: the row wait and the barrier, the entries,
+  // advance and exits, the emission's lists and merges, the pick, the
+  // entry after the last frame)
+  const bool trace = clocks != nullptr && b == 0 && rank == 0 && tid == 0;
+  long long tick = trace ? clock64() : 0, spent[EXACT_PHASES] = {};
+  auto mark = [&](int phase) {   // summed in registers, added at the end
+    if (trace) {
+      const long long now = clock64();
+      spent[phase] += now - tick;
+      tick = now;
+    }
+  };
+  // a node's previous-frame exit (buffer `buf`) by its re-packed parent
+  // word, in this CTA or another of the cluster
+  auto parent_exit = [&](int pword, int buf, int* xc) {
+    const int cta = pword >> 24, at = buf * chunk + (pword >> 2 & 0x3fffff);
+    const float* e = ex;
+    const int32_t* c = exc;
+    if (cta != rank) {
+      e = cluster_map(e, cta);
+      c = cluster_map(c, cta);
+    }
+    *xc = c[at];
+    return e[at];
+  };
+  auto ctx_of = [&](int buf, int node) {
+    const int cta = ONCHIP ? node / chunk : 0;
+    const int32_t* c = exc;
+    if (cta != rank) c = cluster_map(c, cta);
+    return c[buf * chunk + node - cta * chunk];
+  };
 
+  float e_prev = NEG_INF_F;   // the previous frame's emission
+  int re_prev = 0;            // and its restart context
   for (int i = 0; i < nv; ++i) {
+    const int cur = i & 1, prv = cur ^ 1;
     const float* row;
     if (ROWS_SMEM) {
-      row = srow + (i & 1) * S;
-      if (i + 1 < nv) {
-        float* next = srow + ((i + 1) & 1) * S;
-        const float* src = sc_b + (size_t)(i + 1) * S;
+      row = srow + (i % 3) * S;
+      if (i + 2 < nv) {
+        float* next = srow + ((i + 2) % 3) * S;
+        const float* src = sc_b + (size_t)(i + 2) * S;
         for (int j = tid; j < S; j += nthr) cp_async_f32(next + j, src + j);
       }
       cp_async_commit();   // an empty group past the end keeps the count
-      cp_async_wait_one(); // frame i's row has landed (this thread's part)
     } else {
       row = sc_b + (size_t)i * S;
     }
-    __syncthreads();     // ... and every thread's; last frame's entry done
 
-    // 1-2. advance, emission scores, exits: node-local
-    for (int n = tid; n < N; n += nthr) {
-      const size_t base = (size_t)n * Ns;
-      const float* bn = tb.bands + base * W;
-      const int32_t* sn = tb.senone + base;
-      float e = NEG_INF_F;
-      int ectx = V;
-      if constexpr (REGS) {   // the node's states in registers
-        float d[NS_MAX];
-        int c[NS_MAX];
+    // 1-3. each owned node: its entry, the advance, its exit
+    float* ex_c = ex + cur * chunk;
+    int32_t* exc_c = exc + cur * chunk;
+    for (int l = tid; l < n_own; l += nthr) {
+      const int4 nf = info[l];
+      float* dn = dc + (size_t)l * nstride;
+      int32_t* cn = cc + (size_t)l * nstride;
+      float d0;
+      int c0;
+      if (i > 0) {
+        int xc;
+        const float x = parent_exit(nf.y, prv, &xc);
+        entry_of(nf.y, x, xc, e_prev, re_prev, &d0, &c0);
+      } else {
+        d0 = dn[0];
+        c0 = cn[0];
+      }
+      const float* bn = gband + (size_t)nf.x * Ns * W;
+      const int32_t* sn = gsen + (size_t)nf.x * Ns;
+      float e;
+      int ectx;
+      if constexpr (NSR > 0) {
+        e = advance_regs<NSR, WR>(tb, dn, cn, ds, d0, c0, bn, sn, row,
+                                  &ectx);
+      } else {
+        dn[0] = d0;
+        cn[0] = c0;
+        advance_in_place(tb, dn, cn, ds, bn, sn, row);
+        e = states_exit(tb, dn, cn, ds, bn, &ectx);
+      }
+      ex_c[l] = e;
+      exc_c[l] = ectx;
+    }
+    mark(1);
+
+    // 4. this warp's top R over its nodes' slots, then every warp merges
+    // the lists (in a cluster: each CTA's, then the CTAs')
+    float v;
+    int q;
+    if constexpr (ONCHIP) {   // at most NODES_PER_THREAD nodes a thread:
+      float ce[NODES_PER_THREAD];   // their exits and valid slots held
+      int c0[NODES_PER_THREAD], c1[NODES_PER_THREAD];
 #pragma unroll
-        for (int s = 0; s < NS_MAX; ++s)
-          if (s < Ns) { d[s] = dc[base + s]; c[s] = cc[base + s]; }
-#pragma unroll
-        for (int s = NS_MAX - 1; s >= 0; --s) {
-          if (s >= Ns) continue;
-          float best = NEG_INF_F;
-          int bctx = V;
-#pragma unroll
-          for (int k = 0; k < W_MAX && k <= s; ++k) {
-            if (k >= W) break;
-            const float cand = d[s - k] + __ldg(bn + (s - k) * W + k);
-            if (cand > best) { best = cand; bctx = c[s - k]; }
+      for (int j = 0; j < NODES_PER_THREAD; ++j) {
+        const int l = tid + j * nthr;
+        c0[j] = c1[j] = 0;
+        ce[j] = NEG_INF_F;
+        if (l < n_own) {
+          ce[j] = ex_c[l];
+          if (ce[j] > NEG_INF_HALF_F) {   // else its slots score NEG_INF
+            c0[j] = info[l].z;
+            c1[j] = c0[j] + info[l].w;
           }
-          float lb = 0.0f;
-          if (s > 0) {
-            const int sen = __ldg(sn + s);
-            lb = sen >= 0 ? row[sen] : NEG_INF_F;
-          }
-          const float x = best + lb;
-          d[s] = x < NEG_INF_F ? NEG_INF_F : x;   // torch.clamp(min=NEG_INF)
-          c[s] = bctx;
         }
+      }
+      warp_top(R, [&](auto&& take) {
 #pragma unroll
-        for (int k = 1; k < W_MAX; ++k) {
-          if (k >= W) break;
-          const int rr = Ns - 1 - k;
-#pragma unroll
-          for (int s = 0; s < NS_MAX; ++s) {
-            if (s == rr) {
-              const float cand = d[s] + __ldg(bn + s * W + k);
-              if (cand > e) { e = cand; ectx = c[s]; }
-            }
-          }
+        for (int j = 0; j < NODES_PER_THREAD; ++j)
+          for (int s = c0[j]; s < c1[j]; ++s) take(ce[j], s);
+      }, v, q);
+    } else {
+      warp_top(R, [&](auto&& take) {
+        for (int l = tid; l < n_own; l += nthr) {
+          const float e = ex_c[l];
+          if (!(e > NEG_INF_HALF_F)) continue;   // its slots score NEG_INF
+          const int4 nf = info[l];   // its valid slots
+          for (int s = nf.z; s < nf.z + nf.w; ++s) take(e, s);
         }
-#pragma unroll
-        for (int s = 1; s < NS_MAX; ++s)
-          if (s < Ns) { dc[base + s] = d[s]; cc[base + s] = c[s]; }
-      } else {   // in place where the carry lives (state 0's advanced
-                 // value too: the entry phase overwrites it)
-        advance_in_place(tb, dc + base, cc + base, bn, sn, row);
-        e = states_exit(tb, dc + base, cc + base, bn, &ectx);
-      }
-      ex[n] = e;
-      exc[n] = ectx;
+      }, v, q);
     }
+    float* wv = wl_v + cur * SCAN_WARPS * R;
+    int* wq = wl_q + cur * SCAN_WARPS * R;
+    if (lane < R) {
+      wv[warp * R + lane] = v;
+      wq[warp * R + lane] = q;
+    }
+    mark(2);
+    if (ROWS_SMEM) cp_async_wait_one();   // row i + 1 (this thread's part)
     __syncthreads();
+    mark(0);
+    auto warp_lists_v = [&](int w) { return wv + w * R; };
+    auto warp_lists_q = [&](int w) { return wq + w * R; };
+    if (cs == 1) {
+      merge_lists(warps, R, warp_lists_v, warp_lists_q, mo_v, mo_q, v, q);
+    } else {
+      float* cv = cl_v + cur * R;
+      int* cq = cl_q + cur * R;
+      if (warp == 0) {
+        merge_lists(warps, R, warp_lists_v, warp_lists_q, mo_v, mo_q, v, q);
+        if (lane < R) {
+          cv[lane] = v;
+          cq[lane] = q;
+        }
+      }
+      cluster_sync();
+      warp_merge(cs, R, [&](int c) { return cluster_map(cv, c); },
+                 [&](int c) { return cluster_map(cq, c); }, v, q);
+    }
+    mark(2);
 
-    // 3. the frame's best word emission: R ordered block argmaxes
-    float pv = 0.0f;
-    int pq = -1;
-    for (int r = 0; r < R; ++r) {
-      float bv = -INFINITY;   // below every slot's value (>= NEG_INF)
-      int bq = 0x7fffffff;
-      for (int q = tid; q < Q; q += nthr) {
-        const float xq = ex[__ldg(tb.node_slot + q)];
-        const float a =
-            (__ldg(tb.slot_valid + q) && xq > NEG_INF_HALF_F) ? xq : NEG_INF_F;
-        const bool after = r == 0 || before(pv, pq, a, q);
-        if (after && before(a, q, bv, bq)) { bv = a; bq = q; }
-      }
-      block_best(bv, bq, red_v, red_q);
-      if (tid == 0) { top_v[r] = bv; top_q[r] = bq; }
-      pv = bv;
-      pq = bq;
+    // 5. the pick and the traceback row
+    int word, prev;
+    pick(tb, v, q, [&](int node) { return ctx_of(cur, node); }, e_prev, word,
+         prev);
+    re_prev = (t0 + i + 1) * vp1 + (word >= 0 ? word : V);
+    if (rank == 0 && tid == 0) {
+      tb_prev[(size_t)b * Tc + i] = prev;
+      tb_word[(size_t)b * Tc + i] = word;
     }
-    __syncthreads();
-    if (warp == 0) {
-      float tot = -INFINITY;  // lanes past R never win
-      int slot = 0, cr = 0;
-      if (lane < R) {
-        slot = top_q[lane];
-        const float r_sc = top_v[lane];
-        cr = exc[__ldg(tb.node_slot + slot)];
-        const float lm = lm_term(tb, cr % vp1, __ldg(tb.word_slot + slot));
-        tot = r_sc > NEG_INF_HALF_F ? r_sc + lm : NEG_INF_F;
-      }
-      int idx = lane;   // first maximum over the R candidates
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ot = __shfl_down_sync(0xffffffffu, tot, off);
-        const int oi = __shfl_down_sync(0xffffffffu, idx, off);
-        const int os = __shfl_down_sync(0xffffffffu, slot, off);
-        const int oc = __shfl_down_sync(0xffffffffu, cr, off);
-        if (before(ot, oi, tot, idx)) { tot = ot; idx = oi; slot = os; cr = oc; }
-      }
-      if (lane == 0) {
-        const bool valid = tot > NEG_INF_HALF_F;
-        e_score_s = tot;
-        prev_s = valid ? cr / vp1 - 1 : -1;
-        word_s = valid ? __ldg(tb.word_slot + slot) : -1;
-        tb_prev[(size_t)b * Tc + i] = prev_s;
-        tb_word[(size_t)b * Tc + i] = word_s;
-      }
-    }
-    __syncthreads();
-
-    // 4. entry states: parent flow against the restart
-    const float e_score = e_score_s;
-    const int word = word_s;
-    const int re_ctx = (t0 + i + 1) * vp1 + (word >= 0 ? word : V);
-    for (int n = tid; n < N; n += nthr) {
-      const int p = __ldg(tb.parent + n);
-      const float flow = p >= 0 ? ex[p] : NEG_INF_F;
-      const int flow_ctx = exc[max(p, 0)];
-      const float restart = __ldg(tb.root_child + n) ? e_score : NEG_INF_F;
-      const bool use_restart = restart > flow;
-      dc[(size_t)n * Ns] = use_restart ? restart : flow;
-      cc[(size_t)n * Ns] = use_restart ? re_ctx : flow_ctx;
+    mark(3);
+  }
+  // the entry after the last frame
+  if (nv > 0) {
+    const int last = (nv - 1) & 1;
+    for (int l = tid; l < n_own; l += nthr) {
+      const int pword = info[l].y;
+      int xc;
+      const float x = parent_exit(pword, last, &xc);
+      entry_of(pword, x, xc, e_prev, re_prev, dc + (size_t)l * nstride,
+               cc + (size_t)l * nstride);
     }
   }
+  mark(4);
+  if (trace)
+    for (int k = 0; k < EXACT_PHASES; ++k) clocks[k] += spent[k];
   if (ROWS_SMEM) cp_async_wait_all();
-  for (int i = nv + tid; i < Tc; i += nthr) {
-    tb_prev[(size_t)b * Tc + i] = -1;
-    tb_word[(size_t)b * Tc + i] = -1;
-  }
-  if (CARRY_SMEM) {
+  if (rank == 0)
+    for (int i = nv + tid; i < Tc; i += nthr) {
+      tb_prev[(size_t)b * Tc + i] = -1;
+      tb_word[(size_t)b * Tc + i] = -1;
+    }
+  if (ONCHIP) {
     __syncthreads();
-    float* dout = d_out + (size_t)b * carry_n;
-    int32_t* cout = c_out + (size_t)b * carry_n;
-    for (size_t i = tid; i < carry_n; i += nthr) {
-      dout[i] = dc[i];
-      cout[i] = cc[i];
+    float* dout = d_out + ((size_t)b * N + lo) * Ns;
+    int32_t* cout = c_out + ((size_t)b * N + lo) * Ns;
+    for (size_t j = tid; j < carry_n; j += nthr) {
+      const size_t l = j / Ns, at = l + (j - l * Ns) * chunk;
+      dout[j] = dc[at];
+      cout[j] = cc[at];
     }
   }
+  if (cs > 1) cluster_sync();   // no CTA leaves while another reads it
 }
 
 // ----------------------------------------------------------------------
@@ -698,6 +1104,7 @@ decoder_finalize_kernel(const ScanTables tb, const float* __restrict__ deltas,
   }
 }
 
+
 // ----------------------------------------------------------------------
 // The block-pruned frame scan.
 //
@@ -717,144 +1124,135 @@ decoder_finalize_kernel(const ScanTables tb, const float* __restrict__ deltas,
 //      (NEG_INF where a state does not emit), blk_best[j] = max over block
 //      j of entry + la; an active block also takes max over its nodes of
 //      (max_s d + la) (the plain loop's scatter_reduce "amax").  la is
-//      computed once per distinct senone row (group: 125 rows at the
-//      synthetic lexicon, against 21,760 nodes), read through node_group:
-//      the same max over the same values in the same order;
+//      computed once per group (a few hundred against 21,760 nodes), the
+//      same max over the same values in the same order;
 //   2. the K best blocks in _top_k's order (value descending, the lower
-//      block first on ties): K passes of a warp argmax, each taking the
-//      best block after the previous winner;
+//      block first on ties): each block's rank in that order, the count of
+//      blocks before it (a warp a block), and the blocks of rank < K in
+//      place;
 //   3. remap: a surviving block keeps its interior, a fresh one starts at
-//      (NEG_INF, V); state 0 of every active node takes the entry row;
+//      (NEG_INF, V); state 0 of every active node takes its entry;
 //   4. the banded advance and clamp of the K blk active nodes in place
 //      (advance_in_place), then their exits (states_exit);
-//   5. the word emission over the active blocks' slots and the entry
-//      refresh of all N nodes, as the exact scan's phases 3-4;
+//   5. the word emission over the active blocks' slots, as the exact
+//      scan's;
 //   6. the traceback row (prev, word).
 // Frames at or past n_valid[b] are frozen: rows -1, carry untouched.
 //
+// What changed between frames is all a frame reads.  After a frame the
+// entry row is (NEG_INF, V) but for root children (the restart), the
+// children of active nodes (the parent's exit) and parentless nodes (node
+// 0's exit context where its block is active), so:
+// * No entry row is kept.  An active node's entry is computed when its
+//   advance needs it, from the previous frame's exits (double-buffered by
+//   frame parity, with the block map that indexes them) and emission; the
+//   [N] row is read once at the start (the first frame's entries) and
+//   written once at the end.
+// * The lookahead's dense max over N nodes becomes, per block (a warp a
+//   block, the one writer of its value), the max of three terms: the
+//   restart plus the best la of its root children's groups, NEG_INF plus
+//   the best la of its other nodes' groups (static per-block lists of
+//   distinct groups: rounding is monotone, fl(a + x) never decreases as x
+//   grows, so these equal the dense maxima bit for bit, and dead blocks
+//   tie at NEG_INF + la as in the plain loop), and its nodes whose parent
+//   was active in the previous frame (parent's exit + la: the static
+//   edges into the block grouped by the parent's block, a segment read
+//   where that block was active).  The first frame of a launch takes the
+//   dense max over the entry row in.
+// * A frame's work is O(G Ns + n_blocks (groups a block) + K blk) instead
+//   of O(N).
+//
 // Where the plain loop's results hinge on detail, and what this does:
-// * Ties among dead blocks.  Most blocks hold no token: their entry is
-//   NEG_INF and NEG_INF + la rounds to -1e30 (-2e30 for an all-padding
-//   block), so dozens of blocks tie and _top_k takes the lowest indices.
-//   blk_best is computed densely by the plain loop's formula for every
-//   node of every block (no shortcut past dead nodes), so each tie is the
-//   same tie, and the selection breaks it by the block index.
+// * Ties among dead blocks: see above; the selection breaks ties by the
+//   block index.
 // * The clipped parent.  _enter reads flow_ctx = ex_ctx[:, parent] with
 //   parent clipped to 0, so a parentless node takes node 0's exit context
-//   when it does not restart: the entry phase looks node max(p, 0) up
-//   through the block map like any parent (V where its block is inactive,
-//   as in the flat row the plain loop scatters).
-// * Only active nodes have finite exits.  The exits are kept compact
-//   (ex [K blk], by logical position) with map[n_blocks] = the position of
-//   each active block (-1 elsewhere) for the parent lookup, no [N] row.
-//   The slots come from np.nonzero(word_tab >= 0) in node order, so each
-//   block's slots are one range (slot_ptr) and the emission scans only the
-//   K ranges, in slot order.  With an LM and fewer than R finite
-//   candidates the plain loop fills its top R with NEG_INF slots from all
-//   Q; their total is NEG_INF, so they never win the first maximum nor
-//   reach a row: here a pass that finds no slot gives a NEG_INF total.
-// * Memory.  The entry row (8 N bytes: 174 KB at 21,760 nodes) and the
-//   compact carry (8 K blk Ns: 131 KB at 8 x 256, 65.5 KB at 4 x 256) do
-//   not both fit in the 227 KB a block may take.  pruned_plan places, in
-//   order, the scores rows (double-buffered by cp.async), the small block
-//   arrays (meta), the groups' lookahead, the exits, the carry, the entry
-//   row, each in shared memory if it fits in what is left, else in device
-//   memory (the entry row in the output tensors, the rest in scratch the
-//   wrapper passes).  The carry comes before the entry row: the advance
-//   reads and writes it in place, state after state, while the entry row
-//   is read and written once a frame, and at 4 x 256 the carry leaves room
-//   for two blocks an SM, so the 256 utterances run in one wave (on an
-//   H100: 29.3 ms a call, against 47.8 ms with the entry row first).
-//   ROWS_SMEM (the cp.async prefetch) makes two instantiations; every other
-//   part is placed at run time, through a base pointer.
+//   when it does not restart: the entry looks node max(p, 0) up through
+//   the block map like any parent (V where its block is inactive).
+// * Only active nodes have finite exits, kept compact (ex [K blk] by
+//   position).  With an LM and fewer than R finite candidates the plain
+//   loop fills its top R with NEG_INF slots from all Q; their total is
+//   NEG_INF, so they never win the first maximum nor reach a row: a list
+//   entry with no slot gives a NEG_INF total.
+// * Memory.  pruned_plan places, in order, the emission's lists, the
+//   scores rows (double-buffered by cp.async), the small block arrays
+//   (meta), the groups' lookahead, the group tables, the exits and the
+//   carry, each in shared memory if it fits in what is left, else in
+//   device memory (scratch the wrapper passes; the group tables read in
+//   place).  ROWS_SMEM makes two instantiations; every other part is
+//   placed at run time, through a base pointer.
 // * No shape limit the plain loop lacks: any Ns and W (the advance runs in
 //   place with runtime loops), block size, K <= n_blocks, Q and S.  A
 //   device-memory carry is permuted by a physical-slot table (phys), so a
 //   surviving block never moves; the output is written in kb's order.
-//
-// What bounds it.  At the pruned cell (B = 256, 319 frames, N = 21,760,
-// Ns = 8, K = 8 of 85 blocks of 256, S = 606) the scan must read the
-// scores of the 300 senones the lexicon names once (~100 MB) and do, a
-// frame, the lookahead (the 125 senone groups' maxima, entry + la and its
-// block max over N nodes, the K blocks' max_s d + la), the advance of the
-// K blk active nodes and the entry refresh's compare: 1.8e10 operations a
-// call, ~0.26 ms at one float32 operation each.  As for the exact scan,
-// what costs is the chain of T dependent frames per utterance, each a
-// sequence of block-wide phases, one block per utterance.  On an H100 (phase_clocks) a frame takes
-// ~170 k cycles of a block at 8 x 256: the lookahead and the advance a third
-// each, the entry refresh a fifth, the top K and the emission the rest;
-// each a chain of L2 loads of the static tables (21,760 nodes' worth every
-// frame) that 8 warps do not hide, not a bandwidth.  Three things moved it:
-// the lookahead through the 125 senone groups instead of every node's Ns
-// senones (89 -> 73 ms a call at 8 x 256), the entry refresh's table loads
-// BATCH at a time (-> 66 ms) and the carry before the entry row (-> 55 ms;
-// 4 x 256: 29 ms).  States in registers, state-major carries and
-// transposed tables did not.  Not tuned further.
-constexpr int BATCH = 8;   // the entry refresh's table loads in flight
 
 struct PrunedPlan {
-  bool rows_smem, meta_smem, la_smem, ex_smem, entry_smem, carry_smem;
-  unsigned meta_off, la_off, ex_off, entry_off, carry_off, smem;
+  bool rows_smem, meta_smem, la_smem, groups_smem, ex_smem, carry_smem;
+  unsigned rows_off, meta_off, la_off, groups_off, ex_off, carry_off, smem;
 };
 
 template <bool ROWS_SMEM>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(SCAN_THREADS)
 decoder_pruned_kernel(const ScanTables tb, const PrunedTables pt,
                       const PrunedPlan plan, const PrunedIO io, int Tc,
                       int S, int t0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float red_v[MAX_WARPS];
-  __shared__ int red_q[MAX_WARPS];
-  __shared__ float top_v[R_MAX];
-  __shared__ int top_q[R_MAX];
-  __shared__ float e_score_s;
-  __shared__ int word_s;
-
   const int b = blockIdx.x;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, warps = nthr >> 5;
-  const int N = tb.n_nodes, Ns = tb.n_states;
-  const int V = tb.n_vocab, R = tb.r_top, vp1 = V + 1;
+  const int N = tb.n_nodes, Ns = tb.n_states, W = tb.band_w;
+  const int V = tb.n_vocab, R = tb.r_top, vp1 = V + 1, G = tb.n_groups;
   const int blk = pt.block_size, K = pt.n_active, NB = pt.n_blocks;
   const int act_n = K * blk;                       // active nodes
-  const size_t blk_n = (size_t)blk * Ns;           // one block's carry
+  const size_t blk_n = (size_t)blk * Ns;           // one block's carry,
+                                                   // [Ns][blk] by state
   const size_t carry_n = (size_t)K * blk_n;
+  const int4* info = reinterpret_cast<const int4*>(tb.node_info);
 
-  // meta: blk_best [NB] | map [NB] (block -> position, -1) | kb_s [K]
-  // (position -> block) | knew [K] | phys [K] (position -> carry slot) |
-  // nphys [K] | used [K] | fresh [K]
+  // the warps' lists [2][SCAN_WARPS][R] (values, then slots) at 0; meta:
+  // blk_best [NB] | map [2][NB] (block -> position
+  // by frame parity, -1) | kb_s [2][K] (position -> block) | knew [K] |
+  // phys [K] (position -> carry slot) | nphys [K] | used [K] | fresh [K]
+  float* wl_v = reinterpret_cast<float*>(smem_raw);
+  int* wl_q = reinterpret_cast<int*>(wl_v + 2 * SCAN_WARPS * R);
+  float* mo_v = reinterpret_cast<float*>(wl_q + 2 * SCAN_WARPS * R + 4 * R) +
+                warp * R;   // the exact scan's layout: the CTA's lists unused
+  int* mo_q = reinterpret_cast<int*>(mo_v - warp * R + SCAN_WARPS * R) +
+              warp * R;
   int32_t* meta = plan.meta_smem
       ? reinterpret_cast<int32_t*>(smem_raw + plan.meta_off)
-      : io.meta + (size_t)b * (2 * NB + 6 * K);
+      : io.meta + (size_t)b * (3 * NB + 7 * K);
   float* blk_best = reinterpret_cast<float*>(meta);
   int32_t* map = meta + NB;
-  int32_t* kb_s = map + NB;
-  int32_t* knew = kb_s + K;
+  int32_t* kb_s = map + 2 * NB;
+  int32_t* knew = kb_s + 2 * K;
   int32_t* phys = knew + K;
   int32_t* nphys = phys + K;
   int32_t* used = nphys + K;
   int32_t* fresh = used + K;
-  float* srow = reinterpret_cast<float*>(smem_raw);
+  float* srow = reinterpret_cast<float*>(smem_raw + plan.rows_off);
   float* la_g = plan.la_smem
       ? reinterpret_cast<float*>(smem_raw + plan.la_off)
-      : io.la + (size_t)b * pt.n_groups;
+      : io.la + (size_t)b * G;
+  const int32_t* gsen = tb.group_senone;
+  const float* gband = tb.group_bands;
+  if (plan.groups_smem) {
+    const size_t n_sen = (size_t)G * Ns;
+    int32_t* s_sen = reinterpret_cast<int32_t*>(smem_raw + plan.groups_off);
+    float* s_band = reinterpret_cast<float*>(s_sen + n_sen);
+    for (size_t j = tid; j < n_sen; j += nthr) s_sen[j] = gsen[j];
+    for (size_t j = tid; j < n_sen * W; j += nthr) s_band[j] = gband[j];
+    gsen = s_sen;
+    gband = s_band;
+  }
   float* ex;
   int32_t* exc;
   if (plan.ex_smem) {
     ex = reinterpret_cast<float*>(smem_raw + plan.ex_off);
-    exc = reinterpret_cast<int32_t*>(ex + act_n);
+    exc = reinterpret_cast<int32_t*>(ex + 2 * act_n);
   } else {
-    ex = io.ex + (size_t)b * act_n;
-    exc = io.exc + (size_t)b * act_n;
-  }
-  float* ent;
-  int32_t* entc;
-  if (plan.entry_smem) {
-    ent = reinterpret_cast<float*>(smem_raw + plan.entry_off);
-    entc = reinterpret_cast<int32_t*>(ent + N);
-  } else {
-    ent = io.e_out + (size_t)b * N;
-    entc = io.ec_out + (size_t)b * N;
+    ex = io.ex + (size_t)b * 2 * act_n;
+    exc = io.exc + (size_t)b * 2 * act_n;
   }
   float* dw;
   int32_t* cw;
@@ -866,28 +1264,27 @@ decoder_pruned_kernel(const ScanTables tb, const PrunedTables pt,
     cw = io.c_work + (size_t)b * carry_n;
   }
 
-  // the carry in, each block in the carry slot of its position
+  // the carry in, each block in the carry slot of its position; the
+  // blocks in frame parity 1 (the frame before the first)
+  const float* e_b = io.e_in + (size_t)b * N;
+  const int32_t* ec_b = io.ec_in + (size_t)b * N;
   {
-    const float* e_b = io.e_in + (size_t)b * N;
-    const int32_t* ec_b = io.ec_in + (size_t)b * N;
-    for (int n = tid; n < N; n += nthr) {
-      ent[n] = e_b[n];
-      entc[n] = ec_b[n];
-    }
     const float* d_b = io.d_in + (size_t)b * carry_n;
     const int32_t* c_b = io.c_in + (size_t)b * carry_n;
-    for (size_t i = tid; i < carry_n; i += nthr) {
-      dw[i] = d_b[i];
-      cw[i] = c_b[i];
+    for (size_t i = tid; i < carry_n; i += nthr) {   // [K][blk][Ns] in
+      const size_t kn = i / Ns, k = kn / blk;
+      const size_t at = (k * Ns + i - kn * Ns) * blk + kn - k * blk;
+      dw[at] = d_b[i];
+      cw[at] = c_b[i];
     }
-    for (int j = tid; j < NB; j += nthr) map[j] = -1;
+    for (int j = tid; j < NB; j += nthr) map[j] = map[NB + j] = -1;
   }
   __syncthreads();
   for (int k = tid; k < K; k += nthr) {
     const int j = (int)io.kb_in[(size_t)b * K + k];
-    kb_s[k] = j;
+    kb_s[k] = kb_s[K + k] = j;
     phys[k] = k;
-    map[j] = k;
+    map[NB + j] = k;
   }
 
   const int nv = min(Tc, max(io.n_valid[b], 0));
@@ -900,16 +1297,38 @@ decoder_pruned_kernel(const ScanTables tb, const PrunedTables pt,
   // the phases' cycles in block 0, summed over its frames, where io.clocks
   // is given (PRUNED_PHASES of them; each phase ends at a barrier)
   const bool trace = io.clocks != nullptr && b == 0 && tid == 0;
-  long long tick = trace ? clock64() : 0;
-  auto mark = [&](int phase) {
+  long long tick = trace ? clock64() : 0, spent[PRUNED_PHASES] = {};
+  auto mark = [&](int phase) {   // summed in registers, added at the end
     if (trace) {
       const long long now = clock64();
-      io.clocks[phase] += now - tick;
+      spent[phase] += now - tick;
       tick = now;
     }
   };
+  float e_prev = NEG_INF_F;   // the previous frame's emission
+  int re_prev = 0;            // and its restart context
+  // node's entry for frame i: the entry row in for the first frame, else
+  // from frame i - 1's exits (through its block map) and emission
+  auto entry = [&](int i, int node, float* d0, int32_t* c0) {
+    if (i == 0) {
+      *d0 = e_b[node];
+      *c0 = ec_b[node];
+      return;
+    }
+    const int buf = (i - 1) & 1, pword = info[node].y;
+    const int p = pword >> 2, pj = p / blk, k = map[buf * NB + pj];
+    float x = NEG_INF_F;
+    int xc = V;
+    if (k >= 0) {
+      const int at = buf * act_n + k * blk + p - pj * blk;
+      x = ex[at];
+      xc = exc[at];
+    }
+    entry_of(pword, x, xc, e_prev, re_prev, d0, c0);
+  };
 
   for (int i = 0; i < nv; ++i) {
+    const int cur = i & 1, prv = cur ^ 1;
     const float* row;
     if (ROWS_SMEM) {
       row = srow + (i & 1) * S;
@@ -923,208 +1342,180 @@ decoder_pruned_kernel(const ScanTables tb, const PrunedTables pt,
     } else {
       row = sc_b + (size_t)i * S;
     }
-    __syncthreads();     // ... and every thread's; last frame's entry done
+    __syncthreads();     // ... and every thread's; last frame's pick done
     mark(0);
 
-    // 1. lookahead: each senone row's best score (amax over the states in
-    // order), then a warp a block, densely over its nodes
-    for (int g = tid; g < pt.n_groups; g += nthr) {
-      const int32_t* sn = pt.group_senone + (size_t)g * Ns;
+    // 1. lookahead: each group's best score (amax over the states in
+    // order), then each block's
+    for (int g = tid; g < G; g += nthr) {
+      const int32_t* sn = gsen + (size_t)g * Ns;
       float la = NEG_INF_F;
       for (int s = 0; s < Ns; ++s) {
-        const int sen = __ldg(sn + s);
+        const int sen = sn[s];
         const float x = sen >= 0 ? row[sen] : NEG_INF_F;
         if (s == 0 || x > la) la = x;
       }
       la_g[g] = la;
     }
     __syncthreads();
+    // a warp a block: the max of its terms, written once
+    const int* map_p = map + prv * NB;
+    const float er = e_prev > NEG_INF_F ? e_prev : NEG_INF_F;
     for (int j = warp; j < NB; j += warps) {
-      const int k = map[j];
-      const float* dk = k >= 0 ? dw + (size_t)phys[k] * blk_n : nullptr;
-      float best = -INFINITY, inner = -INFINITY;
-      for (int n = lane; n < blk; n += 32) {
-        const int node = j * blk + n;
-        const float la = la_g[__ldg(pt.node_group + node)];
-        const float pot = ent[node] + la;
-        if (pot > best) best = pot;
-        if (dk != nullptr) {
-          const float* dn = dk + (size_t)n * Ns;
-          float m = dn[0];
-          for (int s = 1; s < Ns; ++s) m = dn[s] > m ? dn[s] : m;
-          const float x = m + la;
-          if (x > inner) inner = x;
+      float best = -INFINITY, mrc = -INFINITY, mdead = -INFINITY;
+      if (i == 0) {   // densely over the entry row in
+        for (int n = lane; n < blk; n += 32) {
+          const int node = j * blk + n;
+          const float pot = e_b[node] + la_g[info[node].x];
+          if (pot > best) best = pot;
+        }
+      } else {
+        // the restart over root children, NEG_INF over the other nodes
+        for (int a = pt.rc_ptr[j] + lane; a < pt.rc_ptr[j + 1]; a += 32) {
+          const float x = la_g[pt.rc_group[a]];
+          mrc = x > mrc ? x : mrc;
+        }
+        for (int a = pt.dead_ptr[j] + lane; a < pt.dead_ptr[j + 1]; a += 32) {
+          const float x = la_g[pt.dead_group[a]];
+          mdead = x > mdead ? x : mdead;
+        }
+        // its nodes whose parent's block was active: the parent's exit
+        for (int g = pt.src_ptr[j]; g < pt.src_ptr[j + 1]; ++g) {
+          const int k = map_p[pt.src_block[g]];
+          if (k < 0) continue;
+          const float* exk = ex + prv * act_n + k * blk;
+          for (int a = pt.seg_ptr[g] + lane; a < pt.seg_ptr[g + 1]; a += 32) {
+            const float x = exk[pt.flow_par[a]] + la_g[pt.flow_grp[a]];
+            if (x > best) best = x;
+          }
         }
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ob = __shfl_xor_sync(FULL, best, off);
-        const float oi = __shfl_xor_sync(FULL, inner, off);
-        best = ob > best ? ob : best;
-        inner = oi > inner ? oi : inner;
+      // an active block's own nodes: max_s d + la
+      const int k = map_p[j];
+      if (k >= 0) {
+        const float* dk = dw + (size_t)phys[k] * blk_n;
+        for (int n = lane; n < blk; n += 32) {
+          const float* dn = dk + n;
+          float m = dn[0];
+          for (int s = 1; s < Ns; ++s) m = dn[s * blk] > m ? dn[s * blk] : m;
+          const float x = m + la_g[info[j * blk + n].x];
+          if (x > best) best = x;
+        }
       }
-      if (lane == 0) blk_best[j] = (k >= 0 && inner > best) ? inner : best;
+      best = warp_max(best);
+      if (i > 0) {
+        mrc = warp_max(mrc);
+        mdead = warp_max(mdead);
+        if (pt.rc_ptr[j + 1] > pt.rc_ptr[j]) {
+          const float x = er + mrc;
+          best = x > best ? x : best;
+        }
+        if (pt.dead_ptr[j + 1] > pt.dead_ptr[j]) {
+          const float x = NEG_INF_F + mdead;
+          best = x > best ? x : best;
+        }
+      }
+      if (lane == 0) blk_best[j] = best;
     }
     __syncthreads();
     mark(1);
 
-    // 2-3. the top K blocks (warp 0), then the remap (its lane 0)
-    if (warp == 0) {
-      float pv = 0.0f;
-      int pq = -1;
-      for (int r = 0; r < K; ++r) {
-        float bv = -INFINITY;
-        int bq = 0x7fffffff;
-        for (int j = lane; j < NB; j += 32) {
-          const float x = blk_best[j];
-          const bool after = r == 0 || before(pv, pq, x, j);
-          if (after && before(x, j, bv, bq)) { bv = x; bq = j; }
-        }
-        warp_best(bv, bq);
-        if (lane == 0) knew[r] = bq;
-        pv = bv;
-        pq = bq;
+    // 2. the top K blocks: each block's rank in the total order (value
+    // descending, block ascending), a warp a block counting the blocks
+    // before it; the blocks of rank < K go in place
+    int* kb_c = kb_s + cur * K;
+    int* map_c = map + cur * NB;
+    for (int j = warp; j < NB; j += warps) {
+      const float x = blk_best[j];
+      int n_before = 0;
+      for (int o = lane; o < NB; o += 32)
+        n_before += before(blk_best[o], o, x, j);
+      const int rank = __reduce_add_sync(FULL, n_before);
+      if (lane == 0 && rank < K) knew[rank] = j;
+    }
+    __syncthreads();
+    // 3. the remap (thread 0)
+    if (tid == 0) {
+      const int* map_p = map + prv * NB;
+      for (int k = 0; k < K; ++k) used[k] = 0;
+      for (int k = 0; k < K; ++k) {   // a survivor keeps its carry slot
+        const int op = map_p[knew[k]];
+        nphys[k] = op >= 0 ? phys[op] : -1;
+        if (op >= 0) used[phys[op]] = 1;
       }
-      if (lane == 0) {
-        for (int k = 0; k < K; ++k) used[k] = 0;
-        for (int k = 0; k < K; ++k) {   // a survivor keeps its carry slot
-          const int op = map[knew[k]];
-          nphys[k] = op >= 0 ? phys[op] : -1;
-          if (op >= 0) used[phys[op]] = 1;
+      for (int k = 0; k < K; ++k) map_c[kb_c[k]] = -1;   // frame i - 2's
+      for (int k = 0, f = 0; k < K; ++k) {   // a fresh block a free slot
+        fresh[k] = nphys[k] < 0;
+        if (fresh[k]) {
+          while (used[f]) ++f;
+          nphys[k] = f;
+          used[f] = 1;
         }
-        for (int k = 0; k < K; ++k) map[kb_s[k]] = -1;
-        for (int k = 0, f = 0; k < K; ++k) {   // a fresh block a free slot
-          fresh[k] = nphys[k] < 0;
-          if (fresh[k]) {
-            while (used[f]) ++f;
-            nphys[k] = f;
-            used[f] = 1;
-          }
-          kb_s[k] = knew[k];
-          phys[k] = nphys[k];
-          map[knew[k]] = k;
-        }
+        kb_c[k] = knew[k];
+        phys[k] = nphys[k];
+        map_c[knew[k]] = k;
       }
     }
     __syncthreads();
     mark(2);
 
-    // 4. the active nodes: remap, advance in place, exits
+    // 4. the active nodes: entry, advance in place, exits; then this warp's
+    // top R over their slots
+    float* ex_c = ex + cur * act_n;
+    int32_t* exc_c = exc + cur * act_n;
     for (int idx = tid; idx < act_n; idx += nthr) {
       const int k = idx / blk, n = idx - k * blk;
-      const int node = kb_s[k] * blk + n;
-      float* d = dw + (size_t)phys[k] * blk_n + (size_t)n * Ns;
-      int32_t* c = cw + (size_t)phys[k] * blk_n + (size_t)n * Ns;
+      const int node = kb_c[k] * blk + n;
+      float* d = dw + (size_t)phys[k] * blk_n + n;
+      int32_t* c = cw + (size_t)phys[k] * blk_n + n;
       if (fresh[k])
         for (int s = 1; s < Ns; ++s) {
-          d[s] = NEG_INF_F;
-          c[s] = V;
+          d[s * blk] = NEG_INF_F;
+          c[s * blk] = V;
         }
-      d[0] = ent[node];
-      c[0] = entc[node];
-      const size_t base = (size_t)node * Ns;
-      const float* bn = tb.bands + base * tb.band_w;
-      advance_in_place(tb, d, c, bn, tb.senone + base, row);
+      entry(i, node, d, c);
+      const int grp = info[node].x;
+      const float* bn = gband + (size_t)grp * Ns * W;
+      advance_in_place(tb, d, c, blk, bn, gsen + (size_t)grp * Ns, row);
       int ectx;
-      ex[idx] = states_exit(tb, d, c, bn, &ectx);
-      exc[idx] = ectx;
+      ex_c[idx] = states_exit(tb, d, c, blk, bn, &ectx);
+      exc_c[idx] = ectx;
     }
-    __syncthreads();
+    float v;
+    int q;
+    warp_top(R, [&](auto&& take) {
+      for (int idx = tid; idx < act_n; idx += nthr) {
+        const float e = ex_c[idx];
+        if (!(e > NEG_INF_HALF_F)) continue;   // its slots score NEG_INF
+        const int k = idx / blk;
+        const int4 nf = info[kb_c[k] * blk + idx - k * blk];
+        for (int s = nf.z; s < nf.z + nf.w; ++s) take(e, s);
+      }
+    }, v, q);
+    float* wv = wl_v + cur * SCAN_WARPS * R;
+    int* wq = wl_q + cur * SCAN_WARPS * R;
+    if (lane < R) {
+      wv[warp * R + lane] = v;
+      wq[warp * R + lane] = q;
+    }
     mark(3);
-
-    // 5. the frame's best word emission: R ordered block argmaxes over the
-    // active blocks' slots
-    float pv = 0.0f;
-    int pq = -1;
-    for (int r = 0; r < R; ++r) {
-      float bv = -INFINITY;   // below every slot's value (>= NEG_INF)
-      int bq = 0x7fffffff;    // stays where no slot is left
-      for (int k = 0; k < K; ++k) {
-        const int j = kb_s[k];
-        const int q1 = __ldg(pt.slot_ptr + j + 1);
-        for (int q = __ldg(pt.slot_ptr + j) + tid; q < q1; q += nthr) {
-          const float xq = ex[(k - j) * blk + __ldg(tb.node_slot + q)];
-          const float a = (__ldg(tb.slot_valid + q) && xq > NEG_INF_HALF_F)
-                              ? xq : NEG_INF_F;
-          const bool after = r == 0 || before(pv, pq, a, q);
-          if (after && before(a, q, bv, bq)) { bv = a; bq = q; }
-        }
-      }
-      block_best(bv, bq, red_v, red_q);
-      if (tid == 0) { top_v[r] = bv; top_q[r] = bq; }
-      pv = bv;
-      pq = bq;
-    }
     __syncthreads();
+
+    // 5-6. every warp merges the lists and picks; the traceback row
+    merge_lists(warps, R, [&](int w) { return wv + w * R; },
+                [&](int w) { return wq + w * R; }, mo_v, mo_q, v, q);
     mark(4);
-    if (warp == 0) {
-      float tot = -INFINITY;  // lanes past R never win
-      int slot = 0, cr = 0;
-      if (lane < R) {
-        tot = NEG_INF_F;      // the plain loop's NEG_INF picks
-        const int q = top_q[lane];
-        if (q != 0x7fffffff) {
-          slot = q;
-          const int node = __ldg(tb.node_slot + q), j = node / blk;
-          cr = exc[map[j] * blk + node - j * blk];
-          const float lm = lm_term(tb, cr % vp1, __ldg(tb.word_slot + q));
-          const float r_sc = top_v[lane];
-          tot = r_sc > NEG_INF_HALF_F ? r_sc + lm : NEG_INF_F;
-        }
-      }
-      int idx = lane;   // first maximum over the R candidates
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ot = __shfl_down_sync(0xffffffffu, tot, off);
-        const int oi = __shfl_down_sync(0xffffffffu, idx, off);
-        const int os = __shfl_down_sync(0xffffffffu, slot, off);
-        const int oc = __shfl_down_sync(0xffffffffu, cr, off);
-        if (before(ot, oi, tot, idx)) { tot = ot; idx = oi; slot = os; cr = oc; }
-      }
-      if (lane == 0) {
-        const bool valid = tot > NEG_INF_HALF_F;
-        e_score_s = tot;
-        word_s = valid ? __ldg(tb.word_slot + slot) : -1;
-        io.tb_prev[(size_t)b * Tc + i] = valid ? cr / vp1 - 1 : -1;
-        io.tb_word[(size_t)b * Tc + i] = word_s;
-      }
+    int word, prev;
+    pick(tb, v, q, [&](int node) {
+      const int j = node / blk;
+      return exc_c[map_c[j] * blk + node - j * blk];
+    }, e_prev, word, prev);
+    re_prev = (t0 + i + 1) * vp1 + (word >= 0 ? word : V);
+    if (tid == 0) {
+      io.tb_prev[(size_t)b * Tc + i] = prev;
+      io.tb_word[(size_t)b * Tc + i] = word;
     }
-    __syncthreads();
     mark(5);
-
-    // 6. the entry row: parent flow (through the block map) against the
-    // restart
-    const float e_score = e_score_s;
-    const int word = word_s;
-    const int re_ctx = (t0 + i + 1) * vp1 + (word >= 0 ? word : V);
-    for (int n0 = tid; n0 < N; n0 += nthr * BATCH) {
-      int par[BATCH];   // the batch's table loads in flight together
-      bool root[BATCH];
-#pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int n = n0 + nthr * u;
-        par[u] = n < N ? __ldg(tb.parent + n) : -1;
-        root[u] = n < N && __ldg(tb.root_child + n);
-      }
-#pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int n = n0 + nthr * u;
-        if (n >= N) break;
-        const int p = par[u];
-        const int pc = max(p, 0), pj = pc / blk, k = map[pj];
-        float x = NEG_INF_F;
-        int xc = V;
-        if (k >= 0) {
-          x = ex[(k - pj) * blk + pc];
-          xc = exc[(k - pj) * blk + pc];
-        }
-        const float flow = p >= 0 ? x : NEG_INF_F;
-        const float restart = root[u] ? e_score : NEG_INF_F;
-        const bool use_restart = restart > flow;
-        ent[n] = use_restart ? restart : flow;
-        entc[n] = use_restart ? re_ctx : xc;
-      }
-    }
   }
   if (ROWS_SMEM) cp_async_wait_all();
   for (int i = nv + tid; i < Tc; i += nthr) {
@@ -1132,83 +1523,236 @@ decoder_pruned_kernel(const ScanTables tb, const PrunedTables pt,
     io.tb_word[(size_t)b * Tc + i] = -1;
   }
   __syncthreads();
-  // the carry out in kb's order
-  for (int k = tid; k < K; k += nthr) io.kb_out[(size_t)b * K + k] = kb_s[k];
+  // the carry out in kb's order, and the entry row after the last frame
+  const int* kb_l = kb_s + ((nv - 1) & 1) * K;
+  for (int k = tid; k < K; k += nthr) io.kb_out[(size_t)b * K + k] = kb_l[k];
   float* d_o = io.d_out + (size_t)b * carry_n;
   int32_t* c_o = io.c_out + (size_t)b * carry_n;
-  for (size_t i = tid; i < carry_n; i += nthr) {
-    const size_t k = i / blk_n, at = (size_t)phys[k] * blk_n + (i - k * blk_n);
+  for (size_t i = tid; i < carry_n; i += nthr) {   // [K][blk][Ns] out
+    const size_t kn = i / Ns, k = kn / blk;
+    const size_t at = ((size_t)phys[k] * Ns + i - kn * Ns) * blk + kn - k * blk;
     d_o[i] = dw[at];
     c_o[i] = cw[at];
   }
-  if (plan.entry_smem) {
-    float* e_o = io.e_out + (size_t)b * N;
-    int32_t* ec_o = io.ec_out + (size_t)b * N;
-    for (int n = tid; n < N; n += nthr) {
-      e_o[n] = ent[n];
-      ec_o[n] = entc[n];
-    }
-  }
+  float* e_o = io.e_out + (size_t)b * N;
+  int32_t* ec_o = io.ec_out + (size_t)b * N;
+  for (int n = tid; n < N; n += nthr) entry(nv, n, e_o + n, ec_o + n);
+  mark(0);
+  if (trace)
+    for (int k = 0; k < PRUNED_PHASES; ++k) io.clocks[k] += spent[k];
 }
 
-int threads_for(int n) {
+int threads_for(int n, int most = MAX_THREADS) {
   const int t = (n + 31) / 32 * 32;
-  return t < 64 ? 64 : (t > MAX_THREADS ? MAX_THREADS : t);
+  return t < 64 ? 64 : (t > most ? most : t);
 }
 
-// Where the frame scan keeps its scores rows and its carry: the rows in
-// shared memory when the two fit SMEM_LIMIT, the carry (exits, deltas,
-// ctx) in what they leave.
-struct ScanPlan {
-  bool rows_smem, carry_smem;
-  size_t smem;
-};
+size_t align16(size_t bytes) { return (bytes + 15) / 16 * 16; }
 
-ScanPlan scan_plan(int N, int Ns, int S) {
-  const size_t rows = 2 * (size_t)S * sizeof(float);
-  const size_t carry = 2 * (size_t)N * 4 + 2 * (size_t)N * Ns * 4;
-  ScanPlan p;
-  p.rows_smem = rows <= SMEM_LIMIT;
-  const size_t room = SMEM_LIMIT - (p.rows_smem ? rows : 0);
-  p.carry_smem = carry <= room;
-  p.smem = (p.rows_smem ? rows : 0) + (p.carry_smem ? carry : 0);
+// The emission's lists: the warps' [2][SCAN_WARPS][R], the CTA's [2][R]
+// and the warps' merge scratch [SCAN_WARPS][R], a value and a slot each.
+size_t lists_bytes(int R) {
+  return align16((3 * (size_t)SCAN_WARPS + 2) * R * 8);
+}
+
+// The exact scan's plan (ScanPlan above).  The rows go to shared memory
+// where the three fit beside the lists.  Then the node ranges' info,
+// exits and carry on chip beside them and the group tables (else without
+// the group tables): on one CTA where they fit, else on the cluster size
+// (up to MAX_CLUSTER) of which the card runs the most at once
+// (`active(plan)`: utterances in flight), the largest among equals (the
+// least work a CTA).  Else the carry stays in device memory, the group
+// tables in shared memory where they fit.
+template <class Active>
+ScanPlan scan_plan(int N, int Ns, int W, int S, int G, int R,
+                   Active active) {
+  const size_t lists = lists_bytes(R);
+  const size_t rows = align16(3 * (size_t)S * 4);
+  const size_t groups = align16((size_t)G * Ns * (W + 1) * 4);
+  ScanPlan p{}, best{};
+  int best_n = 0;
+  p.rows_smem = lists + rows <= SMEM_LIMIT;
+  const size_t base = lists + (p.rows_smem ? rows : 0);
+  p.rows_off = (unsigned)lists;
+  for (int with_groups = 1; with_groups >= 0 && best_n == 0; --with_groups)
+    for (int cs = 1; cs <= MAX_CLUSTER; ++cs) {
+      const int chunk = (N + cs - 1) / cs;
+      if (chunk > SCAN_THREADS * NODES_PER_THREAD) continue;
+      size_t at = base;
+      p.groups_smem = with_groups;
+      p.groups_off = (unsigned)at;
+      at += with_groups ? groups : 0;
+      p.info_off = (unsigned)at;
+      at += align16((size_t)chunk * 16);
+      p.ex_off = (unsigned)at;
+      at += align16((size_t)chunk * 16);
+      p.carry_off = (unsigned)at;
+      at += align16((size_t)chunk * Ns * 8);
+      if (at > SMEM_LIMIT) continue;
+      p.onchip = 1;
+      p.cs = cs;
+      p.chunk = chunk;
+      p.threads = threads_for(chunk, SCAN_THREADS);
+      p.smem = (unsigned)at;
+      if (cs == 1) return p;
+      const int n = active(p);
+      if (n > 0 && n >= best_n) {
+        best = p;
+        best_n = n;
+      }
+    }
+  if (best_n > 0) return best;
+  p.onchip = 0;
+  p.cs = 1;
+  p.chunk = N;
+  p.threads = MAX_THREADS;
+  p.groups_smem = base + groups <= SMEM_LIMIT;
+  p.groups_off = (unsigned)base;
+  p.smem = (unsigned)(base + (p.groups_smem ? groups : 0));
+  p.info_off = p.ex_off = p.carry_off = p.smem;
   return p;
 }
 
-// A node's states in registers (unrolled to NS_MAX, W_MAX), else in place
-// in the carry.
-bool states_in_regs(int Ns, int W) { return Ns <= NS_MAX && W <= W_MAX; }
+// A node's states in registers, unrolled to (8 states, 2 offsets: the
+// left-to-right topology) or (NS_MAX, W_MAX): kinds 1-2; else in place in
+// the carry (0).
+int regs_kind(int Ns, int W) {
+  if (W > W_MAX || Ns > NS_MAX) return 0;
+  return Ns <= 8 && W <= 2 ? 1 : 2;
+}
 
-// Opt into the dynamic shared memory past 48 KB, then launch one block of
-// `threads` per utterance.
-template <bool CARRY_SMEM, bool ROWS_SMEM, bool REGS>
-int launch(int B, int threads, size_t smem, cudaStream_t stream,
+// Opt a kernel into its dynamic shared memory past 48 KB and, past 8 CTAs,
+// into a non-portable cluster size.
+template <class K>
+cudaError_t prepare(K kernel, size_t smem, int cs) {
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return rc;
+  }
+  if (cs > PORTABLE_CLUSTER)
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return cudaSuccess;
+}
+
+// B utterances of plan.cs CTAs each, in clusters of plan.cs where it is
+// more than 1.
+cudaLaunchConfig_t launch_config(int B, const ScanPlan& plan,
+                                 cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * plan.cs, 1, 1);
+  cfg.blockDim = dim3(plan.threads, 1, 1);
+  cfg.dynamicSmemBytes = plan.smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = plan.cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = plan.cs > 1 ? 1 : 0;
+  return cfg;
+}
+
+// How many clusters of the plan's shape the card runs at once, into *n.
+template <bool ONCHIP, bool ROWS_SMEM, int NSR, int WR>
+cudaError_t active_clusters(const ScanPlan& plan, int* n) {
+  const auto kernel = decoder_scan_kernel<ONCHIP, ROWS_SMEM, NSR, WR>;
+  *n = 0;
+  const cudaError_t rc = prepare(kernel, plan.smem, plan.cs);
+  if (rc != cudaSuccess) return rc;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(1, plan, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
+}
+
+template <bool ONCHIP, bool ROWS_SMEM, int NSR, int WR>
+int launch(int B, const ScanPlan& plan, cudaStream_t stream,
            const ScanTables& tb, const float* scores, const int32_t* n_valid,
            const float* d_in, const int32_t* c_in, float* d_out,
            int32_t* c_out, float* ex, int32_t* exc, int32_t* tb_prev,
-           int32_t* tb_word, int Tc, int S, int t0) {
-  if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        decoder_scan_kernel<CARRY_SMEM, ROWS_SMEM, REGS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
-  decoder_scan_kernel<CARRY_SMEM, ROWS_SMEM, REGS><<<B, threads, smem, stream>>>(
-      tb, scores, n_valid, d_in, c_in, d_out, c_out, ex, exc, tb_prev,
-      tb_word, Tc, S, t0);
+           int32_t* tb_word, int Tc, int S, int t0, long long* clocks) {
+  const auto kernel = decoder_scan_kernel<ONCHIP, ROWS_SMEM, NSR, WR>;
+  cudaError_t rc = prepare(kernel, plan.smem, plan.cs);
+  if (rc != cudaSuccess) return (int)rc;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(B, plan, stream, &attr);
+  rc = cudaLaunchKernelEx(&cfg, kernel, tb, plan, scores, n_valid, d_in,
+                          c_in, d_out, c_out, ex, exc, tb_prev, tb_word, Tc,
+                          S, t0, clocks);
+  if (rc != cudaSuccess) return (int)rc;
   return (int)cudaGetLastError();
 }
 
-using LaunchFn = int (*)(int, int, size_t, cudaStream_t, const ScanTables&,
-                         const float*, const int32_t*, const float*,
-                         const int32_t*, float*, int32_t*, float*, int32_t*,
-                         int32_t*, int32_t*, int, int, int);
-// indexed by carry_smem * 4 + rows_smem * 2 + states_in_regs
-constexpr LaunchFn LAUNCH[8] = {
-    launch<false, false, false>, launch<false, false, true>,
-    launch<false, true, false>,  launch<false, true, true>,
-    launch<true, false, false>,  launch<true, false, true>,
-    launch<true, true, false>,   launch<true, true, true>};
+using LaunchFn = int (*)(int, const ScanPlan&, cudaStream_t,
+                         const ScanTables&, const float*, const int32_t*,
+                         const float*, const int32_t*, float*, int32_t*,
+                         float*, int32_t*, int32_t*, int32_t*, int, int, int,
+                         long long*);
+using ClustersFn = cudaError_t (*)(const ScanPlan&, int*);
+// indexed by onchip * 6 + rows_smem * 3 + regs_kind
+#define SCAN_KINDS(f, on, rows)                                             \
+  f<on, rows, 0, 0>, f<on, rows, 8, 2>, f<on, rows, NS_MAX, W_MAX>
+#define SCAN_INSTANCES(f)                                                   \
+  {SCAN_KINDS(f, false, false), SCAN_KINDS(f, false, true),                \
+   SCAN_KINDS(f, true, false), SCAN_KINDS(f, true, true)}
+constexpr LaunchFn LAUNCH[12] = SCAN_INSTANCES(launch);
+constexpr ClustersFn CLUSTERS[12] = SCAN_INSTANCES(active_clusters);
+
+int instance(const ScanPlan& p, const ScanTables& tb) {
+  return p.onchip * 6 + p.rows_smem * 3 + regs_kind(tb.n_states, tb.band_w);
+}
+
+// A plan and the clusters of its shape the card runs at once (1 where
+// the CTAs are not clustered), kept per device and shape: choosing a
+// cluster size asks the card for the occupancy of each size that fits.
+struct Planned {
+  int key[7];
+  ScanPlan plan;
+  int active;
+};
+std::mutex plans_mutex;
+std::vector<Planned> plans;
+constexpr size_t PLANS_KEPT = 64;
+
+// The plan for these tables at S senones on the current device, a
+// cluster's shape weighed by the clusters of it the card runs at once.
+// Returns the first error of the occupancy queries, or cudaSuccess.
+cudaError_t plan_for(const ScanTables& tb, int S, Planned* out) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  const int key[7] = {dev, tb.n_nodes, tb.n_states, tb.band_w,
+                      S,   tb.n_groups, tb.r_top};
+  std::lock_guard<std::mutex> lock(plans_mutex);
+  for (const Planned& p : plans)
+    if (std::equal(key, key + 7, p.key)) {
+      *out = p;
+      return cudaSuccess;
+    }
+  const ScanPlan plan = scan_plan(
+      tb.n_nodes, tb.n_states, tb.band_w, S, tb.n_groups, tb.r_top,
+      [&](const ScanPlan& p) {
+        int n = 0;
+        if (rc == cudaSuccess) rc = CLUSTERS[instance(p, tb)](p, &n);
+        return rc == cudaSuccess ? n : 0;
+      });
+  if (rc != cudaSuccess) return rc;
+  int active = 1;
+  if (plan.cs > 1) {
+    rc = CLUSTERS[instance(plan, tb)](plan, &active);
+    if (rc != cudaSuccess) return rc;
+  }
+  Planned p{};
+  std::copy(key, key + 7, p.key);
+  p.plan = plan;
+  p.active = active;
+  if (plans.size() >= PLANS_KEPT) plans.erase(plans.begin());
+  plans.push_back(p);
+  *out = p;
+  return cudaSuccess;
+}
 
 // What the n-best kernel keeps in shared memory: the selection's arrays,
 // then the traceback rows where they fit, then ac where it fits.
@@ -1247,26 +1791,29 @@ int launch_finalize(int B, int threads, size_t smem, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
-// What the pruned scan keeps in shared memory: in order, the two scores
-// rows, meta, the groups' lookahead, the exits, the carry and the entry
-// row, each where it fits in what the earlier parts leave of SMEM_LIMIT.
-PrunedPlan pruned_plan(int N, int Ns, int S, int K, int blk, int G) {
+// What the pruned scan keeps in shared memory: the emission's lists, then
+// in order the two scores rows, meta, the groups' lookahead, the group
+// tables, the exits and the carry, each where it fits in what the earlier
+// parts leave of SMEM_LIMIT.
+PrunedPlan pruned_plan(int N, int Ns, int W, int S, int K, int blk, int G,
+                       int R) {
   const int NB = blk > 0 ? N / blk : 0;
   const size_t act = (size_t)K * blk;
   PrunedPlan p{};
-  size_t used = 0;
+  size_t used = lists_bytes(R);
   auto take = [&](size_t bytes, unsigned* off) {
+    bytes = align16(bytes);
     if (used + bytes > SMEM_LIMIT) return false;
-    if (off != nullptr) *off = (unsigned)used;
+    *off = (unsigned)used;
     used += bytes;
     return true;
   };
-  p.rows_smem = take(2 * (size_t)S * 4, nullptr);
-  p.meta_smem = take(4 * (2 * (size_t)NB + 6 * (size_t)K), &p.meta_off);
+  p.rows_smem = take(2 * (size_t)S * 4, &p.rows_off);
+  p.meta_smem = take(4 * (3 * (size_t)NB + 7 * (size_t)K), &p.meta_off);
   p.la_smem = take(4 * (size_t)G, &p.la_off);
-  p.ex_smem = take(8 * act, &p.ex_off);
+  p.groups_smem = take(4 * (size_t)G * Ns * (W + 1), &p.groups_off);
+  p.ex_smem = take(16 * act, &p.ex_off);
   p.carry_smem = take(8 * act * Ns, &p.carry_off);
-  p.entry_smem = take(8 * (size_t)N, &p.entry_off);
   p.smem = (unsigned)used;
   return p;
 }
@@ -1288,9 +1835,11 @@ int launch_pruned(int B, int threads, cudaStream_t stream,
 }
 
 bool bad_tables(const ScanTables& tb) {
-  return tb.n_nodes < 1 || tb.n_states < 1 || tb.band_w < 1 ||
-         tb.n_slots < 1 || tb.lm_mode < 0 || tb.lm_mode > 2 ||
-         (tb.lm_mode > 0 && tb.n_vocab < 1);
+  return tb.n_nodes < 1 || tb.n_nodes >= (1 << 22) || tb.n_states < 1 ||
+         tb.band_w < 1 || tb.n_slots < 1 || tb.lm_mode < 0 ||
+         tb.lm_mode > 2 || (tb.lm_mode > 0 && tb.n_vocab < 1) ||
+         tb.node_info == nullptr || tb.group_senone == nullptr ||
+         tb.group_bands == nullptr || tb.n_groups < 1;
 }
 
 }  // namespace
@@ -1300,51 +1849,61 @@ bool bad_tables(const ScanTables& tb) {
 // cudaErrorInvalidValue for a shape it does not take; the launch is
 // asynchronous on `stream`.  The carry goes from (d_in, c_in) to
 // (d_out, c_out) ([B, N, Ns]); tb_prev and tb_word ([B, Tc]) are written
-// whole.  ex_scratch / exc_scratch ([B, N]) are read only where the carry
-// does not fit in shared memory (decoder_scan_carry_in_smem returns 0).
+// whole.  ex_scratch / exc_scratch ([B, 2, N]) are read only where the
+// carry stays off chip (decoder_scan_plan's first entry 0).  clocks: null,
+// or EXACT_PHASES int64 counters the first utterance's cycles are added to.
 extern "C" int decoder_scan_exact(const ScanTables* tables,
                                   const void* scores, const void* n_valid,
                                   const void* d_in, const void* c_in,
                                   void* d_out, void* c_out, void* ex_scratch,
                                   void* exc_scratch, void* tb_prev,
                                   void* tb_word, int B, int Tc, int S, int t0,
-                                  void* stream_) {
+                                  void* clocks, void* stream_) {
   const ScanTables tb = *tables;
   if (B < 1 || Tc < 1 || S < 1 || bad_tables(tb) || tb.r_top < 1 ||
       tb.r_top > R_MAX || tb.r_top > tb.n_slots || t0 < 0)
     return (int)cudaErrorInvalidValue;
-  const int N = tb.n_nodes, Ns = tb.n_states;
-  const ScanPlan plan = scan_plan(N, Ns, S);
-  if (!plan.carry_smem && (ex_scratch == nullptr || exc_scratch == nullptr))
+  Planned planned;
+  const cudaError_t rc = plan_for(tb, S, &planned);
+  if (rc != cudaSuccess) return (int)rc;
+  const ScanPlan& plan = planned.plan;
+  if (!plan.onchip && (ex_scratch == nullptr || exc_scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int threads = plan.carry_smem ? threads_for(N) : MAX_THREADS;
-  const int which = plan.carry_smem * 4 + plan.rows_smem * 2 +
-                    states_in_regs(Ns, tb.band_w);
-  return LAUNCH[which](
-      B, threads, plan.smem, (cudaStream_t)stream_, tb,
-      static_cast<const float*>(scores), static_cast<const int32_t*>(n_valid),
-      static_cast<const float*>(d_in), static_cast<const int32_t*>(c_in),
-      static_cast<float*>(d_out), static_cast<int32_t*>(c_out),
-      static_cast<float*>(ex_scratch), static_cast<int32_t*>(exc_scratch),
-      static_cast<int32_t*>(tb_prev), static_cast<int32_t*>(tb_word), Tc, S,
-      t0);
+  return LAUNCH[instance(plan, tb)](
+      B, plan, (cudaStream_t)stream_, tb, static_cast<const float*>(scores),
+      static_cast<const int32_t*>(n_valid), static_cast<const float*>(d_in),
+      static_cast<const int32_t*>(c_in), static_cast<float*>(d_out),
+      static_cast<int32_t*>(c_out), static_cast<float*>(ex_scratch),
+      static_cast<int32_t*>(exc_scratch), static_cast<int32_t*>(tb_prev),
+      static_cast<int32_t*>(tb_word), Tc, S, t0,
+      static_cast<long long*>(clocks));
 }
 
-// 1 where the carry of an N-node, Ns-state lexicon at S senones stays in
-// shared memory, 0 where it goes to device memory (and the exits to the
-// scratch the caller passes).
-extern "C" int decoder_scan_carry_in_smem(int N, int Ns, int S) {
-  return scan_plan(N, Ns, S).carry_smem;
-}
-// 1 where the frame's scores row is staged in shared memory, 0 where the
-// kernel reads it from device memory.
-extern "C" int decoder_scan_rows_in_smem(int N, int Ns, int S) {
-  return scan_plan(N, Ns, S).rows_smem;
+// The exact scan's plan for these tables at S senones, into out[8]: on
+// chip (1) or not (0), CTAs an utterance, nodes a CTA, threads a CTA, the
+// rows in shared memory, the group tables in shared memory, dynamic shared
+// memory bytes a CTA, and the clusters of that shape the card runs at once
+// (1 where the CTAs are not clustered).  Returns 0, the error of an
+// occupancy query, or cudaErrorInvalidValue for tables the scan does not
+// take.
+extern "C" int decoder_scan_plan(const ScanTables* tables, int S, int* out) {
+  const ScanTables tb = *tables;
+  if (S < 1 || bad_tables(tb) || tb.r_top < 1 || tb.r_top > R_MAX)
+    return (int)cudaErrorInvalidValue;
+  Planned planned;
+  const cudaError_t rc = plan_for(tb, S, &planned);
+  if (rc != cudaSuccess) return (int)rc;
+  const ScanPlan& p = planned.plan;
+  const int fields[8] = {p.onchip,    p.cs,           p.chunk,
+                         p.threads,   p.rows_smem,    p.groups_smem,
+                         (int)p.smem, planned.active};
+  for (int i = 0; i < 8; ++i) out[i] = fields[i];
+  return 0;
 }
 // 1 where a node's states live in registers, 0 where the advance runs in
 // place in the carry.
 extern "C" int decoder_scan_states_in_regs(int Ns, int W) {
-  return states_in_regs(Ns, W);
+  return regs_kind(Ns, W) > 0;
 }
 extern "C" int decoder_scan_max_r() { return R_MAX; }
 
@@ -1401,14 +1960,17 @@ extern "C" int decoder_scan_pruned(const ScanTables* tables,
   const PrunedIO io = *io_;
   if (B < 1 || Tc < 1 || S < 1 || bad_tables(tb) || tb.r_top < 1 ||
       tb.r_top > R_MAX || tb.r_top > tb.n_slots || t0 < 0 ||
-      pt.slot_ptr == nullptr || pt.node_group == nullptr ||
-      pt.group_senone == nullptr || pt.n_groups < 1 ||
+      pt.rc_ptr == nullptr || pt.rc_group == nullptr ||
+      pt.dead_ptr == nullptr || pt.dead_group == nullptr ||
+      pt.src_ptr == nullptr || pt.src_block == nullptr ||
+      pt.seg_ptr == nullptr || pt.flow_par == nullptr ||
+      pt.flow_grp == nullptr ||
       pt.block_size < 1 || pt.n_active < 1 || pt.n_active > pt.n_blocks ||
       (long long)pt.n_blocks * pt.block_size != tb.n_nodes)
     return (int)cudaErrorInvalidValue;
-  const PrunedPlan plan = pruned_plan(tb.n_nodes, tb.n_states, S,
-                                      pt.n_active, pt.block_size,
-                                      pt.n_groups);
+  const PrunedPlan plan = pruned_plan(
+      tb.n_nodes, tb.n_states, tb.band_w, S, pt.n_active, pt.block_size,
+      tb.n_groups, tb.r_top);
   if ((!plan.meta_smem && io.meta == nullptr) ||
       (!plan.la_smem && io.la == nullptr) ||
       (!plan.ex_smem && (io.ex == nullptr || io.exc == nullptr)) ||
@@ -1416,20 +1978,21 @@ extern "C" int decoder_scan_pruned(const ScanTables* tables,
     return (int)cudaErrorInvalidValue;
   const auto fn =
       plan.rows_smem ? &launch_pruned<true> : &launch_pruned<false>;
-  return fn(B, threads_for(pt.n_active * pt.block_size),
+  return fn(B, threads_for(pt.n_active * pt.block_size, SCAN_THREADS),
             (cudaStream_t)stream_, tb, pt, plan, io, Tc, S, t0);
 }
 
 extern "C" int decoder_pruned_phases() { return PRUNED_PHASES; }
+extern "C" int decoder_exact_phases() { return EXACT_PHASES; }
 
 // Where the pruned scan keeps each part, as bits (1 = shared memory): 1
 // the scores rows, 2 meta (the block arrays), 4 the groups' lookahead, 8
-// the exits, 16 the entry row, 32 the carry.
-extern "C" int decoder_pruned_smem(int N, int Ns, int S, int K, int blk,
-                                   int G) {
-  const PrunedPlan p = pruned_plan(N, Ns, S, K, blk, G);
+// the exits, 16 the carry, 32 the group tables.
+extern "C" int decoder_pruned_smem(int N, int Ns, int W, int S, int K,
+                                   int blk, int G, int R) {
+  const PrunedPlan p = pruned_plan(N, Ns, W, S, K, blk, G, R);
   return p.rows_smem | p.meta_smem << 1 | p.la_smem << 2 | p.ex_smem << 3 |
-         p.entry_smem << 4 | p.carry_smem << 5;
+         p.carry_smem << 4 | p.groups_smem << 5;
 }
 
 extern "C" const char* decoder_scan_error_string(int code) {

@@ -12,14 +12,18 @@ runs for a CPU tensor.  The two agree bit for bit.
 
 The decoder's tables (``_Tables``) are packed once per table object
 (:func:`pack_tables`, cached with weak references): int32 indices, the
-emitting mask folded into ``senone`` (-1 where not emitting) and
-``has_parent`` into ``parent`` (-1 where none).  CUDA tensors only: the
+group tables (the emitting mask folded into ``group_senone``, -1 where
+not emitting) and each node's info (group, parent and root-child flag in
+one word, valid slot range).  CUDA tensors only: the
 wrapper raises on a CPU tensor and on an operand of the wrong dtype, and
 when the kernel does not launch.  Any token-state count, band width and
-bank size launches: the source chooses among eight instantiations (states
-in registers or in place in the carry; carry and scores rows in shared or
-device memory), see :func:`states_in_regs`, :func:`carry_in_smem` and
-:func:`rows_in_smem`.
+bank size launches: the source chooses among twelve instantiations
+(states in registers, unrolled to 8 states and 2 offsets or 16 and 8, or
+in place in the carry; carry and scores rows in shared or device memory) and, on chip, the CTAs an utterance takes (one, or a
+thread-block cluster of up to 16 whose distributed shared memory holds the
+carry), see :func:`scan_plan` and :func:`states_in_regs`.  The tables it
+reads by group (:func:`pack_tables`): each node's band and senone rows are
+one of a few hundred distinct pairs, staged in shared memory.
 
 The same source holds the device decoder's n-best, wrapped by
 :func:`decoder_finalize_cuda`.  That kernel replaces ``finalize`` of
@@ -41,8 +45,10 @@ c_act, entry, entry_ctx)``; its plain version is :meth:`poccala_tpu_torch.
 decoder.device.DeviceBeamDecoder._step_pruned` in a loop over frames
 (``_scan_plain``).  The two agree bit for bit.  Beside the frame scan's
 packed tables it takes each block's slot range (:func:`pack_pruned_tables`,
-cached the same way); :func:`tables_placement` says which parts the kernel
-keeps in shared memory for a shape.
+cached the same way): per lexicon block the distinct groups of its root
+children and of its other nodes, and each node's children, so that a
+frame reads what changed instead of every node; :func:`tables_placement`
+says which parts the kernel keeps in shared memory for a shape.
 """
 
 from __future__ import annotations
@@ -72,31 +78,79 @@ class _ScanTables(ctypes.Structure):
     """``struct ScanTables`` of ``csrc/decoder_scan.cu``, field for field."""
 
     _fields_ = [(name, _P) for name in (
-        "bands", "senone", "parent", "root_child", "node_slot", "word_slot",
-        "slot_valid", "lm_flat", "lm_uni", "lm_rboff", "lm_cbase", "lm_keys",
-        "lm_vals")] + [(name, ctypes.c_int32) for name in (
-            "n_nodes", "n_states", "band_w", "n_slots", "n_vocab", "r_top",
-            "lm_mode", "lm_n_keys")] + [("penalty", ctypes.c_float)]
+        "bands", "node_slot", "word_slot", "slot_valid", "lm_flat", "lm_uni", "lm_rboff", "lm_cbase", "lm_keys",
+        "lm_vals", "node_info", "group_senone", "group_bands")] + [
+            (name, ctypes.c_int32) for name in (
+                "n_nodes", "n_states", "band_w", "n_slots", "n_vocab",
+                "r_top", "lm_mode", "lm_n_keys", "n_groups")] + [
+                    ("penalty", ctypes.c_float)]
+_N_PTRS = 13
+
+
+def group_tables(tabs) -> dict:
+    """Each node's group, the distinct (senone row, band row) pair it has:
+    ``group_senone`` ``[G, Ns]`` int32 (-1 where a state does not emit),
+    ``group_bands`` ``[G, Ns, W]`` float32 and ``node_group`` ``[N]`` int32,
+    in NumPy (``group_senone[node_group]`` is the senone table and
+    ``group_bands[node_group]`` the band table, exactly)."""
+    senone = torch.where(tabs.emitting, tabs.senone, -1).cpu().numpy()
+    bands = tabs.bands.cpu().numpy()
+    n = senone.shape[0]
+    # a node's two rows as one row of bytes: equal rows, equal bytes
+    key = np.concatenate([senone.astype(np.int32).view(np.uint8)
+                          .reshape(n, -1),
+                          np.ascontiguousarray(bands).view(np.uint8)
+                          .reshape(n, -1)], axis=1)
+    _, first, group = np.unique(key, axis=0, return_index=True,
+                                return_inverse=True)
+    return dict(group_senone=senone[first].astype(np.int32),
+                group_bands=bands[first],
+                node_group=group.reshape(-1).astype(np.int32))
+
+
+def node_info(tabs, node_group: np.ndarray) -> np.ndarray:
+    """``[N, 4]`` int32: each node's group, its parent word (bit 0 the
+    root-child flag, bit 1 "has a parent", bits 2 up the parent, 0 where
+    none), its first valid word slot and its valid slot count (the slots
+    are in node order; a node's valid slots are one range)."""
+    node_slot = tabs.node_slot.cpu().numpy()
+    if (np.diff(node_slot) < 0).any():
+        raise ValueError("the word slots are not in node order")
+    # the valid slots' indices, padded so that an empty range indexes too
+    valid = np.append(np.nonzero(tabs.slot_valid.cpu().numpy())[0], 0)
+    nodes = np.arange(node_group.shape[0])
+    lo = np.searchsorted(node_slot[valid[:-1]], nodes, side="left")
+    hi = np.searchsorted(node_slot[valid[:-1]], nodes, side="right")
+    count = hi - lo
+    first = np.where(count > 0, valid[lo], 0)
+    if (valid[np.maximum(hi - 1, 0)] - first != count - 1)[count > 0].any():
+        raise ValueError("a node's valid word slots are not one range")
+    has = tabs.has_parent.cpu().numpy()
+    word = (tabs.is_root_child.cpu().numpy().astype(np.int64)
+            | has.astype(np.int64) << 1
+            | np.where(has, tabs.parent.cpu().numpy(), 0) << 2)
+    return np.stack([node_group, word, first, count], 1).astype(np.int32)
 
 
 def pack_tables(tabs, n_vocab: int, r_top: int, penalty: float) -> dict:
-    """The kernel's operands from the decoder's ``_Tables``, in plain torch
-    on the tables' device: contiguous tensors, int32 indices and uint8
-    flags, the LM in its form (``lm_mode``), ``r_top`` candidates and the
-    constant LM term ``penalty`` (``-word_penalty``) as float32."""
+    """The kernel's operands from the decoder's ``_Tables``, on the tables'
+    device: contiguous tensors, int32 indices and uint8 flags, the LM in its
+    form (``lm_mode``), ``r_top`` candidates and the constant LM term
+    ``penalty`` (``-word_penalty``) as float32, the group tables
+    (:func:`group_tables`) and each node's info (:func:`node_info`)."""
     i32, u8, f32 = torch.int32, torch.uint8, torch.float32
+    n = int(tabs.bands.shape[0])
+    if n >= 2**22:
+        raise ValueError(f"{n} nodes: the parent word holds fewer than "
+                         "2**22")
     packed = dict(
         bands=tabs.bands.to(f32).contiguous(),
-        senone=torch.where(tabs.emitting, tabs.senone, -1).to(i32)
-        .contiguous(),
-        parent=torch.where(tabs.has_parent, tabs.parent, -1).to(i32)
-        .contiguous(),
-        root_child=tabs.is_root_child.to(u8).contiguous(),
         node_slot=tabs.node_slot.to(i32).contiguous(),
         word_slot=tabs.word_slot.to(i32).contiguous(),
         slot_valid=tabs.slot_valid.to(u8).contiguous(),
         n_vocab=int(n_vocab), r_top=int(r_top),
         penalty=float(np.float32(penalty)), lm_mode=LM_NONE,
+        **_grouped(tabs),
     )
     if tabs.lm_sparse is not None:
         uni, rboff, cbase, keys, vals = tabs.lm_sparse
@@ -119,12 +173,14 @@ def _struct(p: dict) -> _ScanTables:
     n, ns, w = p["bands"].shape
     keys = p.get("lm_keys")
     return _ScanTables(
-        *(ptr(name) for name, _ in _ScanTables._fields_[:13]),
+        *(ptr(name) for name, _ in _ScanTables._fields_[:_N_PTRS]),
         n, ns, w, p["node_slot"].shape[0], p["n_vocab"], p["r_top"],
-        p["lm_mode"], 0 if keys is None else keys.shape[0], p["penalty"])
+        p["lm_mode"], 0 if keys is None else keys.shape[0],
+        p["group_senone"].shape[0], p["penalty"])
 
 
 _packs: OrderedDict = OrderedDict()
+_groups: OrderedDict = OrderedDict()
 
 
 def _memo(cache: OrderedDict, key: tuple, tabs, build):
@@ -143,6 +199,19 @@ def _memo(cache: OrderedDict, key: tuple, tabs, build):
     return value
 
 
+def _grouped(tabs) -> dict:
+    """``node_info``, ``group_senone`` and ``group_bands`` on the tables'
+    device, kept per table object."""
+    def build():
+        groups = group_tables(tabs)
+        dev = tabs.bands.device
+        return dict(node_info=torch.as_tensor(
+            node_info(tabs, groups["node_group"]), device=dev),
+            group_senone=torch.as_tensor(groups["group_senone"], device=dev),
+            group_bands=torch.as_tensor(groups["group_bands"], device=dev))
+    return _memo(_groups, (), tabs, build)
+
+
 def _cached(tabs, n_vocab: int, r_top: int, penalty: float):
     """``(pack_tables(...), its _ScanTables)``, kept per table object with
     the scalars it was packed for."""
@@ -157,9 +226,10 @@ class _PrunedTables(ctypes.Structure):
     """``struct PrunedTables`` of ``csrc/decoder_scan.cu``."""
 
     _fields_ = [(name, _P) for name in (
-        "slot_ptr", "node_group", "group_senone")] + [
+        "rc_ptr", "rc_group", "dead_ptr", "dead_group", "src_ptr",
+        "src_block", "seg_ptr", "flow_par", "flow_grp")] + [
             (name, ctypes.c_int32) for name in (
-                "block_size", "n_active", "n_blocks", "n_groups")]
+                "block_size", "n_active", "n_blocks")]
 
 
 class _PrunedIO(ctypes.Structure):
@@ -172,15 +242,25 @@ class _PrunedIO(ctypes.Structure):
         "ex", "exc", "meta", "la", "tb_prev", "tb_word", "clocks")]
 
 
+def _csr(keys: np.ndarray, values: np.ndarray, n_keys: int):
+    """``(ptr [n_keys + 1], values sorted by key)`` as int32, each key's
+    values in ascending order."""
+    order = np.lexsort((values, keys))
+    ptr = np.searchsorted(keys[order], np.arange(n_keys + 1))
+    return ptr.astype(np.int32), values[order].astype(np.int32)
+
+
 def pack_pruned_tables(tabs, block_size: int, n_active: int) -> dict:
-    """The pruned scan's tables beside :func:`pack_tables`: ``slot_ptr``
-    ``[n_blocks + 1]`` int32 (block ``j``'s slots are ``slot_ptr[j]`` up to
-    ``slot_ptr[j + 1]``: the slots are in node order, so each block's are
-    one range); ``group_senone`` ``[G, Ns]`` int32, the distinct rows of the
-    senone table (-1 where a state does not emit: one per unit, and the
-    dead rows), and ``node_group`` ``[N]`` int32, each node's row of it (the
-    lookahead's best score is computed once per row); the block size, the
-    active block count K, the block count and G; on the tables' device."""
+    """The pruned scan's tables beside :func:`pack_tables`, on the tables'
+    device: per lexicon block ``j`` the distinct groups (of
+    :func:`group_tables`) of its root children, ``rc_group[rc_ptr[j] :
+    rc_ptr[j + 1]]``, and of its other nodes, ``dead_group[dead_ptr[j] :
+    dead_ptr[j + 1]]`` (int32, ascending); its nodes that have a parent,
+    by the parent's block ``a``: segments ``g`` in ``src_ptr[j] :
+    src_ptr[j + 1]`` with ``src_block[g] = a``, each holding the edges
+    ``seg_ptr[g] : seg_ptr[g + 1]``, an edge the parent's index in its
+    block (``flow_par``) and the child's group (``flow_grp``); the block
+    size, the active block count K and the block count."""
     n = int(tabs.bands.shape[0])
     blk, k = int(block_size), int(n_active)
     if blk < 1 or n % blk:
@@ -188,24 +268,41 @@ def pack_pruned_tables(tabs, block_size: int, n_active: int) -> dict:
     n_blocks = n // blk
     if not 1 <= k <= n_blocks:
         raise ValueError(f"active_blocks={k} outside [1, {n_blocks}]")
-    node_slot = tabs.node_slot
-    if bool((node_slot[1:] < node_slot[:-1]).any()):
-        raise ValueError("the word slots are not in node order")
-    starts = torch.arange(n_blocks + 1, device=node_slot.device,
-                          dtype=node_slot.dtype) * blk
-    slot_ptr = torch.searchsorted(node_slot.contiguous(), starts)
-    senone = torch.where(tabs.emitting, tabs.senone, -1).to(torch.int32)
-    rows, node_group = torch.unique(senone, dim=0, return_inverse=True)
-    return dict(slot_ptr=slot_ptr.to(torch.int32).contiguous(),
-                node_group=node_group.to(torch.int32).contiguous(),
-                group_senone=rows.contiguous(), block_size=blk, n_active=k,
-                n_blocks=n_blocks, n_groups=int(rows.shape[0]))
+    group = _grouped(tabs)["node_info"][:, 0].cpu().numpy()
+    rc = tabs.is_root_child.cpu().numpy()
+    block = np.arange(n) // blk
+    out = dict(block_size=blk, n_active=k, n_blocks=n_blocks)
+    for name, sel in (("rc", rc), ("dead", ~rc)):
+        pairs = np.unique(np.stack([block[sel], group[sel]], 1), axis=0)
+        out[f"{name}_ptr"], out[f"{name}_group"] = _csr(
+            pairs[:, 0], pairs[:, 1], n_blocks)
+    child = np.nonzero(tabs.has_parent.cpu().numpy())[0]
+    par = tabs.parent.cpu().numpy()[child]
+    order = np.lexsort((child, par // blk, child // blk))
+    child, par = child[order], par[order]
+    key = (child // blk) * n_blocks + par // blk     # (block, parent block)
+    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]][:len(key)])
+    out["src_ptr"] = np.searchsorted(key[starts] // n_blocks,
+                                     np.arange(n_blocks + 1)).astype(np.int32)
+    out["src_block"] = (key[starts] % n_blocks).astype(np.int32)
+    out["seg_ptr"] = np.r_[starts, len(child)].astype(np.int32)
+    out["flow_par"] = (par % blk).astype(np.int32)
+    out["flow_grp"] = group[child].astype(np.int32)
+    dev = tabs.bands.device
+    for name in PRUNED_TABLES:
+        # an empty list still needs an address
+        a = out[name] if out[name].size else np.zeros(1, np.int32)
+        out[name] = torch.as_tensor(a, device=dev)
+    return out
+
+
+PRUNED_TABLES = ("rc_ptr", "rc_group", "dead_ptr", "dead_group", "src_ptr",
+                 "src_block", "seg_ptr", "flow_par", "flow_grp")
 
 
 def _pruned_struct(p: dict) -> _PrunedTables:
-    return _PrunedTables(*(p[name].data_ptr() for name in (
-        "slot_ptr", "node_group", "group_senone")),
-        p["block_size"], p["n_active"], p["n_blocks"], p["n_groups"])
+    return _PrunedTables(*(p[name].data_ptr() for name in PRUNED_TABLES),
+                         p["block_size"], p["n_active"], p["n_blocks"])
 
 
 _pruned_packs: OrderedDict = OrderedDict()
@@ -225,27 +322,29 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     the frame scan, the n-best (``decoder_finalize``) and the pruned scan
     (``decoder_scan_pruned``)."""
     lib.decoder_scan_exact.argtypes = [ctypes.POINTER(_ScanTables)] \
-        + [_P] * 10 + [_I] * 4 + [_P]
+        + [_P] * 10 + [_I] * 4 + [_P, _P]
     lib.decoder_finalize.argtypes = [ctypes.POINTER(_ScanTables)] \
         + [_P] * 7 + [_I] * 5 + [_P]
     lib.decoder_scan_pruned.argtypes = [
         ctypes.POINTER(_ScanTables), ctypes.POINTER(_PrunedTables),
         ctypes.POINTER(_PrunedIO)] + [_I] * 4 + [_P]
-    lib.decoder_pruned_smem.argtypes = [_I] * 6
+    lib.decoder_pruned_smem.argtypes = [_I] * 8
     lib.decoder_pruned_phases.argtypes = []
-    for fn in (lib.decoder_scan_carry_in_smem, lib.decoder_scan_rows_in_smem):
-        fn.argtypes = [_I, _I, _I]
+    lib.decoder_exact_phases.argtypes = []
+    lib.decoder_scan_plan.argtypes = [ctypes.POINTER(_ScanTables), _I,
+                                      ctypes.POINTER(ctypes.c_int)]
     lib.decoder_scan_states_in_regs.argtypes = [_I, _I]
     lib.decoder_scan_max_r.argtypes = []
     for fn in (lib.decoder_finalize_rows_in_smem,
                lib.decoder_finalize_ac_in_smem):
         fn.argtypes = [_I] * 4
-    for fn in (lib.decoder_scan_exact, lib.decoder_scan_carry_in_smem,
-               lib.decoder_scan_rows_in_smem, lib.decoder_scan_states_in_regs,
+    for fn in (lib.decoder_scan_exact, lib.decoder_scan_plan,
+               lib.decoder_scan_states_in_regs,
                lib.decoder_scan_max_r, lib.decoder_finalize,
                lib.decoder_finalize_rows_in_smem,
                lib.decoder_finalize_ac_in_smem, lib.decoder_scan_pruned,
-               lib.decoder_pruned_smem, lib.decoder_pruned_phases):
+               lib.decoder_pruned_smem, lib.decoder_pruned_phases,
+               lib.decoder_exact_phases):
         fn.restype = ctypes.c_int
     lib.decoder_scan_error_string.argtypes = [_I]
     lib.decoder_scan_error_string.restype = ctypes.c_char_p
@@ -257,19 +356,50 @@ def _lib() -> ctypes.CDLL:
     return bind(build.load("decoder_scan"))
 
 
-def carry_in_smem(n_nodes: int, n_states: int, n_senones: int) -> bool:
-    """Whether the kernel keeps the carry of this lexicon in shared memory
-    (else it runs a device-memory instantiation)."""
-    return bool(_lib().decoder_scan_carry_in_smem(n_nodes, n_states,
-                                                  n_senones))
+PLAN_FIELDS = ("onchip", "cluster", "nodes_per_cta", "threads", "rows_smem",
+               "groups_smem", "smem_bytes", "active_clusters")
 
 
-def rows_in_smem(n_nodes: int, n_states: int, n_senones: int) -> bool:
-    """Whether the kernel stages each frame's scores row in shared memory
-    (else it reads the row from device memory: banks past ~28,900
-    senones)."""
-    return bool(_lib().decoder_scan_rows_in_smem(n_nodes, n_states,
-                                                 n_senones))
+def scan_plan(tabs, n_senones: int, r_top: int, lib=None) -> dict:
+    """How the exact scan runs these tables (``_Tables``) at ``n_senones``
+    with ``r_top`` candidates, over :data:`PLAN_FIELDS`: the carry on chip
+    or in device memory, the CTAs an utterance takes (``cluster``: 1, or a
+    thread-block cluster's size), the nodes and threads a CTA, the scores
+    rows and the group tables in shared memory or not, a CTA's dynamic
+    shared memory and the clusters of that shape the card runs at once;
+    ``route`` is ``"smem"`` (one CTA), ``"cluster"`` or ``"global"``
+    (``lib``: a bound library other than the built one, which keeps its
+    plans per device and shape)."""
+    return _plan_of(_shape_struct(tabs, r_top), n_senones, lib or _lib())
+
+
+def _shape_struct(tabs, r_top: int) -> _ScanTables:
+    """A ``_ScanTables`` with the shapes and group tables alone: what the
+    plan reads."""
+    g = _grouped(tabs)
+    n, n_s, w = tabs.bands.shape
+    return _ScanTables(
+        node_info=g["node_info"].data_ptr(),
+        group_senone=g["group_senone"].data_ptr(),
+        group_bands=g["group_bands"].data_ptr(), n_nodes=n, n_states=n_s,
+        band_w=w, n_slots=tabs.node_slot.shape[0], n_vocab=1,
+        r_top=int(r_top), n_groups=g["group_senone"].shape[0])
+
+
+def _plan_of(struct: _ScanTables, n_senones: int, lib) -> dict:
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    rc = lib.decoder_scan_plan(ctypes.byref(struct), int(n_senones), out)
+    if rc == 1:                                    # cudaErrorInvalidValue
+        raise ValueError("the exact scan does not take these tables")
+    if rc:
+        raise RuntimeError("decoder_scan plan failed: "
+                           + lib.decoder_scan_error_string(rc).decode())
+    plan = dict(zip(PLAN_FIELDS, (int(x) for x in out)))
+    for name in ("onchip", "rows_smem", "groups_smem"):
+        plan[name] = bool(plan[name])
+    plan["route"] = ("global" if not plan["onchip"] else
+                     "smem" if plan["cluster"] == 1 else "cluster")
+    return plan
 
 
 def states_in_regs(n_states: int, band_w: int) -> bool:
@@ -304,14 +434,22 @@ def _n_valid(n_valid, dev, b: int) -> torch.Tensor:
     return n_valid
 
 
+# the exact scan's traced phases, in its order (``phase_clocks``)
+EXACT_PHASES = ("row_wait", "advance", "emission_passes", "pick", "entry")
+
+
 def decoder_scan_cuda(tabs, carry, scores: torch.Tensor, t0: int, n_valid,
-                      *, n_vocab: int, r_top: int, penalty: float):
+                      *, n_vocab: int, r_top: int, penalty: float,
+                      phase_clocks: torch.Tensor | None = None):
     """Every frame of ``scores`` ``[B, Tc, S]`` (float32; the first frame's
     absolute index is ``t0``) through the exact search, from ``carry`` =
     ``(deltas [B, N, Ns] float32, ctx [B, N, Ns] int32)``; frames at or past
     ``n_valid`` ``[B]`` are frozen.  Returns ``((deltas, ctx), tb_prev,
     tb_word)``, the rows ``[B, Tc]`` int32 (-1 where no word), as
-    ``DeviceBeamDecoder._scan``'s plain loop does."""
+    ``DeviceBeamDecoder._scan``'s plain loop does.  ``phase_clocks``
+    (int64 ``[len(EXACT_PHASES)]`` on the card), where given, has the first
+    utterance's SM cycles in each phase of :data:`EXACT_PHASES` added to
+    it."""
     deltas, ctx = carry
     dev = scores.device
     if scores.ndim != 3:
@@ -334,6 +472,9 @@ def decoder_scan_cuda(tabs, carry, scores: torch.Tensor, t0: int, n_valid,
                              tabs.node_slot.shape[0]):
         raise ValueError(f"r_top={r_top} outside [1, min(16, slots)]")
     n_valid = _n_valid(n_valid, dev, b)
+    if phase_clocks is not None:
+        _check("phase_clocks", phase_clocks, dev, torch.int64,
+               (lib.decoder_exact_phases(),))
     packed, struct = _cached(tabs, n_vocab, r_top, penalty)
     d_out = torch.empty_like(deltas)
     c_out = torch.empty_like(ctx)
@@ -342,9 +483,9 @@ def decoder_scan_cuda(tabs, carry, scores: torch.Tensor, t0: int, n_valid,
     if b == 0 or t_c == 0:
         return (deltas.clone(), ctx.clone()), tb_prev, tb_word
     ex = exc = None
-    if not lib.decoder_scan_carry_in_smem(n, n_s, s):
-        ex = torch.empty((b, n), dtype=torch.float32, device=dev)
-        exc = torch.empty((b, n), dtype=torch.int32, device=dev)
+    if not _plan_of(struct, s, lib)["onchip"]:
+        ex = torch.empty((b, 2, n), dtype=torch.float32, device=dev)
+        exc = torch.empty((b, 2, n), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.decoder_scan_exact(
             ctypes.byref(struct), scores.data_ptr(), n_valid.data_ptr(),
@@ -352,6 +493,7 @@ def decoder_scan_cuda(tabs, carry, scores: torch.Tensor, t0: int, n_valid,
             c_out.data_ptr(), None if ex is None else ex.data_ptr(),
             None if exc is None else exc.data_ptr(), tb_prev.data_ptr(),
             tb_word.data_ptr(), b, t_c, s, int(t0),
+            None if phase_clocks is None else phase_clocks.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("decoder_scan kernel launch failed: "
@@ -437,33 +579,37 @@ def decoder_finalize_cuda(tabs, carry, tb_prev: torch.Tensor,
 decoder_finalize_cuda.launches = 0
 
 
-PLACES = ("rows", "meta", "lookahead", "exits", "entry", "carry")
+PLACES = ("rows", "meta", "lookahead", "exits", "carry", "groups")
 # the pruned scan's traced phases, in its order (``phase_clocks``)
 PRUNED_PHASES = ("entry_and_row_wait", "lookahead", "top_k_and_remap",
                  "advance", "emission_passes", "emission_totals")
 
 
-def pruned_placement(n_nodes: int, n_states: int, n_senones: int,
-                     n_active: int, block_size: int, n_groups: int,
-                     lib=None) -> dict:
+def pruned_placement(n_nodes: int, n_states: int, band_w: int,
+                     n_senones: int, n_active: int, block_size: int,
+                     n_groups: int, r_top: int = 1, lib=None) -> dict:
     """Where the pruned scan keeps each part for this shape, ``{part: True
     for shared memory, False for device memory}`` over :data:`PLACES`: the
-    two scores rows, the block arrays, the senone groups' lookahead, the
-    active nodes' exits, the entry row, the compact carry (``lib``: a bound
-    library other than the built one)."""
-    bits = (lib or _lib()).decoder_pruned_smem(n_nodes, n_states, n_senones,
-                                               n_active, block_size, n_groups)
+    two scores rows, the block arrays, the groups' lookahead, the active
+    nodes' exits (two frames'), the compact carry, the group tables
+    (``lib``: a bound library other than the built one)."""
+    bits = (lib or _lib()).decoder_pruned_smem(
+        n_nodes, n_states, band_w, n_senones, n_active, block_size,
+        n_groups, r_top)
     return {name: bool(bits >> i & 1) for i, name in enumerate(PLACES)}
 
 
+def n_groups(tabs) -> int:
+    """The distinct (senone row, band row) pairs of the tables' nodes."""
+    return int(_grouped(tabs)["group_senone"].shape[0])
+
+
 def tables_placement(tabs, n_senones: int, n_active: int, block_size: int,
-                     lib=None) -> dict:
-    """:func:`pruned_placement` for the decoder's tables ``tabs`` (their
-    senone groups counted by :func:`pack_pruned_tables`)."""
-    n, n_s, _ = tabs.bands.shape
-    packed, _ = _cached_pruned(tabs, block_size, n_active)
-    return pruned_placement(n, n_s, n_senones, n_active, block_size,
-                            packed["n_groups"], lib)
+                     r_top: int = 1, lib=None) -> dict:
+    """:func:`pruned_placement` for the decoder's tables ``tabs``."""
+    n, n_s, w = tabs.bands.shape
+    return pruned_placement(n, n_s, w, n_senones, n_active, block_size,
+                            n_groups(tabs), r_top, lib)
 
 
 def pruned_operands(tabs, carry, scores: torch.Tensor, n_valid, *,
@@ -499,12 +645,12 @@ def pruned_operands(tabs, carry, scores: torch.Tensor, n_valid, *,
         ops["d_work"] = torch.empty_like(d_act)
         ops["c_work"] = torch.empty_like(c_act)
     if not placement["exits"]:
-        ops["ex"] = torch.empty((b, k * blk), dtype=torch.float32,
+        ops["ex"] = torch.empty((b, 2 * k * blk), dtype=torch.float32,
                                 device=dev)
-        ops["exc"] = torch.empty((b, k * blk), dtype=torch.int32,
+        ops["exc"] = torch.empty((b, 2 * k * blk), dtype=torch.int32,
                                  device=dev)
     if not placement["meta"]:
-        ops["meta"] = torch.empty((b, 2 * (n // blk) + 6 * k),
+        ops["meta"] = torch.empty((b, 3 * (n // blk) + 7 * k),
                                   dtype=torch.int32, device=dev)
     if not placement["lookahead"]:
         ops["la"] = torch.empty((b, n_groups), dtype=torch.float32,
@@ -544,14 +690,13 @@ def decoder_scan_pruned_cuda(tabs, carry, scores: torch.Tensor, t0: int,
     if blk < 1 or n % blk or not 1 <= k <= n // blk:
         raise ValueError(f"{n} nodes in blocks of {blk} with {k} active: "
                          "expected a block multiple and 1 <= K <= blocks")
-    packed, pstruct = _cached_pruned(tabs, blk, k)
+    _, pstruct = _cached_pruned(tabs, blk, k)
     if scores.is_cuda:
-        placement = tables_placement(tabs, s, k, blk)
+        placement = tables_placement(tabs, s, k, blk, r_top)
     else:   # the checks below raise for a CPU tensor
         placement = dict.fromkeys(PLACES, True)
     ops, res = pruned_operands(tabs, carry, scores, n_valid, block_size=blk,
-                               n_groups=packed["n_groups"],
-                               placement=placement)
+                               n_groups=n_groups(tabs), placement=placement)
     if not 0 <= t0 < 2**31:
         raise ValueError(f"frame offset t0={t0} outside int32")
     if not scores.is_cuda:

@@ -904,8 +904,13 @@ def scan_both(dec, scores, n_valid, t0=0, carry=None, rows_before=None):
 @pytest.mark.parametrize("lm_kind", ["none", "flat", "sparse"])
 def test_decoder_scan_matches_plain_loop(cuda, lm_kind, b):
     """The 125-node built-in lexicon, 64 frames, rows frozen from random
-    frame counts (one at 0 where B > 1)."""
+    frame counts (one at 0 where B > 1): one CTA an utterance."""
+    from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
+
     dec = scan_decoder(cuda, lm_kind, penalty=1.5)
+    tabs = dec._prep_device()
+    assert dk.scan_plan(tabs, dec.bank.num_states,
+                        dec._r_top(tabs))["route"] == "smem"
     rng = np.random.default_rng(b)
     feats = torch.tensor((rng.normal(size=(b, 64, 13)) * 2)
                          .astype(np.float32), device=cuda)
@@ -956,23 +961,29 @@ def test_decoder_scan_stream_chunks(cuda):
     assert torch.equal(torch.cat(word, 1), whole[2])
 
 
-@pytest.mark.parametrize("min_nodes,in_smem", [(875, True), (None, False)])
-def test_decoder_scan_large_lexicons(cuda, min_nodes, in_smem):
-    """An 875-node lexicon (the CD graph's size: the carry in shared memory
-    past the 48 KB a block gets unasked) and the 21,589-node synthetic
-    lexicon (the carry in device memory)."""
+@pytest.mark.parametrize("min_nodes,n_chars,state_num,route", [
+    (875, 12, 5, "smem"), (3514, 56, 5, "cluster"), (None, None, 5, "cluster"),
+    (None, None, 10, "global")])
+def test_decoder_scan_large_lexicons(cuda, min_nodes, n_chars, state_num,
+                                     route):
+    """An 875-node lexicon (the CD graph's size: the carry in one CTA's
+    shared memory past the 48 KB a block gets unasked), the reference
+    lexicon's 3,514 nodes and the 21,589-node synthetic lexicon (each
+    carry split over a thread-block cluster), and the 21,589 nodes at 18
+    token states (a carry no cluster of 16 holds: device memory)."""
     from poccala_tpu_torch.lexicon.build import FULL_VOCAB_NODES, \
         synthetic_lexicon
     from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
 
     inv = UnitInventory.standard("XIF_tone")
     flat, _, _ = synthetic_lexicon(
-        inv, min_nodes=min_nodes or FULL_VOCAB_NODES,
-        n_chars=12 if min_nodes else None)
-    dec = scan_decoder(cuda, "sparse", flat=flat, seed=9)
+        inv, min_nodes=min_nodes or FULL_VOCAB_NODES, n_chars=n_chars)
+    dec = scan_decoder(cuda, "sparse", flat=flat, seed=9,
+                       state_num=state_num)
     tabs = dec._prep_device()
-    n_nodes, n_s, _ = tabs.bands.shape
-    assert dk.carry_in_smem(n_nodes, n_s, dec.bank.num_states) == in_smem
+    plan = dk.scan_plan(tabs, dec.bank.num_states, dec._r_top(tabs))
+    assert plan["route"] == route, plan
+    assert route != "cluster" or plan["active_clusters"] >= 1
     rng = np.random.default_rng(9)
     feats = torch.tensor((rng.normal(size=(3, 40, 13)) * 2)
                          .astype(np.float32), device=cuda)
@@ -1056,11 +1067,10 @@ def test_decoder_scan_past_shared_memory(cuda):
     dec = scan_decoder(cuda, "sparse", seed=12, penalty=1.5,
                        bank_fn=widened)
     tabs = dec._prep_device()
-    n_nodes, n_s, w = tabs.bands.shape
     assert dec.bank.num_states == 29500
     assert int(tabs.senone.max()) == 29499
-    assert not dk.rows_in_smem(n_nodes, n_s, 29500)
-    assert dk.carry_in_smem(n_nodes, n_s, 29500)
+    plan = dk.scan_plan(tabs, 29500, dec._r_top(tabs))
+    assert not plan["rows_smem"] and plan["route"] == "smem"
     rng = np.random.default_rng(12)
     feats = torch.tensor((rng.normal(size=(3, 40, 13)) * 2)
                          .astype(np.float32), device=cuda)
@@ -1269,7 +1279,7 @@ def test_decoder_scan_pruned_matches_plain_loop(cuda, lm_kind, tied):
 
     dec = pruned_decoder(cuda, lm_kind)
     assert all(dk.tables_placement(dec._tabs, dec.bank.num_states, 2,
-                                   64).values())
+                                   64, dec._r_top(dec._tabs)).values())
     rng = np.random.default_rng(11)
     feats = torch.tensor((rng.normal(size=(7, 48, 13)) * 2)
                          .astype(np.float32), device=cuda)
@@ -1342,24 +1352,39 @@ def test_decode_batch_pruned_launches_once(cuda, lm_kind, monkeypatch):
     assert len(hyps) == 4 and any(len(h) >= 1 for h in hyps)
 
 
-@pytest.mark.parametrize("block_size,k_act,out", [
-    (256, 8, "entry"), (256, 4, "entry"), (1024, 4, "carry")])
-def test_decoder_scan_pruned_at_21k_nodes(cuda, block_size, k_act, out):
-    """The 21,589-node synthetic lexicon with a sparse bigram LM: 8 or 4 of
-    85 blocks of 256 (the carry in shared memory, the entry row in device
-    memory) and the config's default 4 blocks of 1,024 (the other way
-    round)."""
+@pytest.mark.parametrize("block_size,k_act,lm_kind,out", [
+    (256, 8, "sparse", set()), (256, 8, "none", set()),
+    (256, 4, "sparse", set()), (256, 4, "none", set()),
+    (1024, 4, "sparse", {"carry"})])
+def test_decoder_scan_pruned_at_21k_nodes(cuda, block_size, k_act, lm_kind,
+                                          out):
+    """The 21,589-node synthetic lexicon with and without a sparse bigram
+    LM: 8 or 4 of 85 blocks of 256 (every part in shared memory) and the
+    config's default 4 blocks of 1,024 (the carry in device memory); one
+    call, and three 16-frame chunks equal to it."""
     from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
 
-    dec = pruned_decoder(cuda, "sparse", min_nodes=None, seed=9,
+    dec = pruned_decoder(cuda, lm_kind, min_nodes=None, seed=9,
                          block_size=block_size, active_blocks=k_act)
     place = dk.tables_placement(dec._tabs, dec.bank.num_states, k_act,
-                                block_size)
-    assert {k for k, v in place.items() if not v} == {out}
+                                block_size, dec._r_top(dec._tabs))
+    assert {k for k, v in place.items() if not v} == out
     rng = np.random.default_rng(9)
-    feats = torch.tensor((rng.normal(size=(3, 40, 13)) * 2)
+    feats = torch.tensor((rng.normal(size=(3, 48, 13)) * 2)
                          .astype(np.float32), device=cuda)
-    pruned_both(dec, dec._scores(feats), np.array([40, 27, 40]))
+    scores = dec._scores(feats)
+    n = np.array([48, 27, 40])
+    whole = pruned_both(dec, scores, n)
+    carry, prev, word = None, [], []
+    for t0 in (0, 16, 32):
+        before = (torch.cat(prev, 1), torch.cat(word, 1)) if t0 else None
+        carry, p, w = pruned_both(dec, scores[:, t0:t0 + 16].contiguous(),
+                                  np.clip(n - t0, 0, 16), t0, carry, before)
+        prev.append(p)
+        word.append(w)
+    for name, g, w in zip(PRUNED_NAMES, carry, whole[0]):
+        assert torch.equal(g, w), name
+    assert torch.equal(torch.cat(word, 1), whole[2])
 
 
 @pytest.mark.parametrize("skips", [False, True])

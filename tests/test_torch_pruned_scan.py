@@ -12,7 +12,9 @@ blocks of 64, 2 or 3 active):
 * ``DeviceBeamDecoder._scan`` takes the plain loop (``_step_pruned``) for
   CPU tensors, and ``decoder_scan_pruned_cuda`` refuses CPU tensors, wrong
   dtypes, shapes and block sizes (no fallback);
-* the packed pruned tables (each block's slot range) round-trip;
+* the packed pruned tables (each block's groups of root children and of
+  its other nodes, each node's children) round-trip, and the group tables
+  reproduce every node's band and senone rows;
 * the plain loop equals JAX's jitted ``step_pruned`` bit for bit on scores
   rounded to multiples of 8 (ties everywhere), in two chunks;
 * the kernel's own source, compiled with g++ against
@@ -20,12 +22,14 @@ blocks of 64, 2 or 3 active):
   plain loop bit for bit (``kb``, ``d_act``, ``c_act``, ``entry``,
   ``entry_ctx``, ``tb_prev``, ``tb_word``) with no LM, a flat and a sparse
   bigram LM, rows frozen inside a chunk, two chunks whose carry passes from
-  one to the next (``t0 > 0``), every placement of its parts in shared or
-  device memory (chosen by cutting ``SMEM_LIMIT`` textually), K = 3, and at
+  one to the next (``t0 > 0``: the entry row out of the first is the
+  second's in), every placement of its parts in shared or device memory
+  (chosen by cutting ``SMEM_LIMIT`` textually), K = 3 and 4, and at
   ``state_num = 10`` (18 token states a node, with and without skip
-  transitions); with an LM it meets frames of fewer than 16 finite word
-  candidates, where the plain loop's top 16 take ``NEG_INF`` slots from
-  outside the active blocks;
+  transitions); the cases meet dead blocks, fresh blocks, and frames with
+  block 0 (the parentless root's) active and inactive; with an LM they
+  meet frames of fewer than 16 finite word candidates, where the plain
+  loop's top 16 take ``NEG_INF`` slots from outside the active blocks;
 * a mutant of the source whose top-K breaks ties by the higher block is
   rejected.
 """
@@ -146,28 +150,49 @@ def test_packed_pruned_tables_round_trip(world, k_act):
     _, dec = pruned_pair(world, "none", active_blocks=k_act)
     tabs = dec._prep_device()
     p = dk.pack_pruned_tables(tabs, dec.block_size, k_act)
-    n_blocks = tabs.bands.shape[0] // 64
+    n = tabs.bands.shape[0]
+    n_blocks = n // 64
     assert (p["block_size"], p["n_active"], p["n_blocks"]) == \
         (64, k_act, n_blocks) == (64, k_act, dec._n_blocks)
-    ptr = p["slot_ptr"]
-    assert ptr.dtype == torch.int32 and ptr.shape == (n_blocks + 1,)
-    assert ptr[0] == 0 and ptr[-1] == tabs.node_slot.shape[0]
-    assert bool((ptr[1:] >= ptr[:-1]).all())
-    block_of = tabs.node_slot // 64
-    for j in range(n_blocks):
-        assert bool((block_of[ptr[j]:ptr[j + 1]] == j).all())
-    # the senone rows' groups: every node's row, once each
+    # the group tables: every node's band and senone rows, exactly
+    g = dk.group_tables(tabs)
+    group = torch.as_tensor(g["node_group"]).long()
     senone = torch.where(tabs.emitting, tabs.senone, -1)
-    rows, group = p["group_senone"], p["node_group"]
-    assert rows.dtype == group.dtype == torch.int32
-    assert rows.shape == (p["n_groups"], senone.shape[1])
-    assert torch.equal(rows[group.long()].long(), senone)
-    assert torch.unique(rows, dim=0).shape[0] == p["n_groups"] < 300
+    assert torch.equal(torch.as_tensor(g["group_senone"])[group].long(),
+                       senone)
+    assert torch.equal(torch.as_tensor(g["group_bands"])[group], tabs.bands)
+    n_groups = g["group_senone"].shape[0]
+    assert n_groups == dk.n_groups(tabs) < 300
+    # per block, its root children's groups and its other nodes', once
+    # each; per node, its children
+    rc = tabs.is_root_child.numpy()
+    for name, sel in (("rc", rc), ("dead", ~rc)):
+        ptr, lst = p[f"{name}_ptr"].numpy(), p[f"{name}_group"].numpy()
+        assert ptr.shape == (n_blocks + 1,) and ptr[0] == 0
+        for j in range(n_blocks):
+            nodes = np.arange(j * 64, (j + 1) * 64)
+            want = np.unique(g["node_group"][nodes[sel[nodes]]])
+            assert np.array_equal(lst[ptr[j]:ptr[j + 1]], want), (name, j)
+    # per block, its nodes with a parent as (parent block, parent's index
+    # in it, own group), grouped by the parent's block
+    parent = np.where(tabs.has_parent.numpy(), tabs.parent.numpy(), -1)
+    src, blocks = p["src_ptr"].numpy(), p["src_block"].numpy()
+    seg, par, grp = (p[k].numpy() for k in ("seg_ptr", "flow_par",
+                                            "flow_grp"))
+    for j in range(n_blocks):
+        nodes = np.arange(j * 64, (j + 1) * 64)
+        nodes = nodes[parent[nodes] >= 0]
+        want = sorted(zip(parent[nodes] // 64, parent[nodes] % 64,
+                          g["node_group"][nodes]))
+        got = sorted((blocks[s], par[e], grp[e])
+                     for s in range(src[j], src[j + 1])
+                     for e in range(seg[s], seg[s + 1]))
+        assert got == want, j
+        assert len(set(blocks[src[j]:src[j + 1]])) == src[j + 1] - src[j]
     st = dk._pruned_struct(p)
-    assert (st.slot_ptr, st.node_group, st.group_senone, st.block_size,
-            st.n_active, st.n_blocks, st.n_groups) == \
-        (ptr.data_ptr(), group.data_ptr(), rows.data_ptr(), 64, k_act,
-         n_blocks, p["n_groups"])
+    assert (st.rc_ptr, st.flow_grp, st.block_size, st.n_active,
+            st.n_blocks) == (p["rc_ptr"].data_ptr(),
+                             p["flow_grp"].data_ptr(), 64, k_act, n_blocks)
     first = dk._cached_pruned(tabs, 64, k_act)
     assert dk._cached_pruned(tabs, 64, k_act)[0] is first[0]
     assert dk._cached_pruned(tabs, 64, k_act + 1)[0] is not first[0]
@@ -222,10 +247,8 @@ def compile_emulated(tmp, name, src) -> ctypes.CDLL:
 
 
 # the top-K's tie order reversed: on equal lookaheads the higher block first
-TIE_MUTANT = (("const float x = blk_best[j];",
-               "const float x = blk_best[NB - 1 - j];"),
-              ("if (lane == 0) knew[r] = bq;",
-               "if (lane == 0) knew[r] = NB - 1 - bq;"))
+TIE_MUTANT = (("n_before += before(blk_best[o], o, x, j);",
+               "n_before += blk_best[o] > x || (blk_best[o] == x && o > j);"),)
 
 
 @pytest.fixture(scope="module")
@@ -258,11 +281,12 @@ def emulated_pruned(lib, dec, tabs, carry, scores, t0, n_valid,
     b, t_c, s = scores.shape
     n, n_s, _ = tabs.bands.shape
     k = carry[0].shape[1]
-    packed, pst = dk._cached_pruned(tabs, dec.block_size, k)
-    place = dk.tables_placement(tabs, s, k, dec.block_size, lib=lib)
+    _, pst = dk._cached_pruned(tabs, dec.block_size, k)
+    place = dk.tables_placement(tabs, s, k, dec.block_size,
+                                dec._r_top(tabs), lib=lib)
     ops, res = dk.pruned_operands(tabs, carry, scores, n_valid,
                                   block_size=dec.block_size,
-                                  n_groups=packed["n_groups"],
+                                  n_groups=dk.n_groups(tabs),
                                   placement=place)
     for name in ("kb_out", "d_out", "c_out", "e_out", "ec_out", "d_work",
                  "c_work", "ex", "exc", "meta", "la", "tb_prev", "tb_word"):
@@ -324,45 +348,85 @@ def chunks_equal(lib, dec, scores, n):
     return dict(places.pop()), w_word
 
 
-ALL = dict(rows=True, meta=True, lookahead=True, exits=True, entry=True,
-           carry=True)
+ALL = dict.fromkeys(dk.PLACES, True)
+# pruned_plan's order of the parts, after the emission's lists
+ORDER = ("rows", "meta", "lookahead", "groups", "exits", "carry")
+
+
+def align16(n: int) -> int:
+    return (n + 15) // 16 * 16
 
 
 def part_bytes(dec) -> dict:
     """The shared-memory bytes of each part of the pruned scan for this
-    decoder's tables, in ``pruned_plan``'s order."""
+    decoder's tables (16-byte aligned), the emission's lists first."""
     tabs = dec._prep_device()
-    n, n_s, _ = tabs.bands.shape
+    n, n_s, w = tabs.bands.shape
     k, blk = dec.active_blocks, dec.block_size
-    g = dk.pack_pruned_tables(tabs, blk, k)["n_groups"]
-    return dict(rows=8 * dec.bank.num_states, meta=4 * (2 * (n // blk) + 6 * k),
-                lookahead=4 * g, exits=8 * k * blk, carry=8 * k * blk * n_s,
-                entry=8 * n)
+    g = dk.n_groups(tabs)
+    return {name: align16(b) for name, b in dict(
+        lists=50 * dec._r_top(tabs) * 8, rows=8 * dec.bank.num_states,
+        meta=4 * (3 * (n // blk) + 7 * k), lookahead=4 * g,
+        groups=4 * g * n_s * (w + 1), exits=16 * k * blk,
+        carry=8 * k * blk * n_s).items()}
 
 
 def cut_limit(where: str, size: dict):
-    """``(SMEM_LIMIT, expected placement)`` that sends the parts ``where``
-    names to device memory: the limit is the sum of the parts that stay
-    (each part that leaves must not fit in what the earlier ones leave)."""
-    stay = {"all": None,
-            "entry": ("rows", "meta", "lookahead", "exits", "carry"),
-            "carry": ("rows", "meta", "lookahead", "exits", "entry"),
-            "rows": ("meta", "lookahead", "exits"),
+    """``(SMEM_LIMIT, expected placement)``: the limit the lists and the
+    parts ``where`` keeps in shared memory take, and the placement the plan
+    makes in it (each part in order where it fits in what the earlier ones
+    leave).  "entry": every part, in exactly the room they take (the entry
+    row takes none: it is read in once and written out once)."""
+    stay = {"all": None, "entry": ORDER, "carry": ORDER[:-1],
+            "exits": ORDER[:4],
+            "groups": ORDER[:3], "rows": ("meta", "lookahead", "exits"),
             "lookahead": ("rows", "meta"), "every": ()}[where]
     if stay is None:
         return None, ALL
-    limit = sum(size[k] for k in stay) or min(size.values()) - 1
-    return limit, {k: k in stay for k in ALL}
+    limit = size["lists"] + (sum(size[k] for k in stay) or 15)
+    used, placement = size["lists"], {}
+    for name in ORDER:
+        placement[name] = used + size[name] <= limit
+        used += size[name] if placement[name] else 0
+    return limit, placement
+
+
+def record_blocks(dec):
+    """Wrap ``dec._step_pruned`` to record, per active frame, each
+    utterance's active blocks before and after the step."""
+    seen = []
+    step = dec._step_pruned
+
+    def recorder(tabs, carry, frame_scores, ti, active):
+        out = step(tabs, carry, frame_scores, ti, active)
+        for u in np.nonzero(active.numpy())[0]:
+            seen.append((set(carry[0][u].tolist()),
+                         set(out[0][0][u].tolist())))
+        return out
+    dec._step_pruned = recorder
+    return seen
 
 
 # (LM, tied scores, the parts sent to device memory, active blocks)
 CASES = [
     ("none", True, "all", 2), ("flat", True, "all", 2),
     ("sparse", True, "all", 2), ("sparse", False, "all", 2),
-    ("none", True, "entry", 2), ("sparse", True, "carry", 4),
+    ("none", True, "entry", 2), ("none", True, "groups", 2),
+    ("sparse", True, "carry", 4),
     ("flat", True, "rows", 2), ("none", True, "lookahead", 2),
-    ("sparse", True, "every", 2),
+    ("sparse", True, "every", 2), ("none", True, "exits", 4),
 ]
+
+
+def test_cases_place_every_part_both_ways(world):
+    """Across CASES every part of the pruned scan is in device memory at
+    least once (and in shared memory in the default case)."""
+    out = set()
+    for lm_kind, _, where, k_act in CASES:
+        _, dec = pruned_pair(world, lm_kind, active_blocks=k_act)
+        _, place = cut_limit(where, part_bytes(dec))
+        out |= {k for k, v in place.items() if not v}
+    assert out == set(dk.PLACES)
 
 
 @pytest.mark.parametrize("lm_kind,tied,where,k_act", CASES,
@@ -375,23 +439,37 @@ def test_kernel_source_on_cpu_is_the_plain_loop(world, utts, emulated,
     carry passed from chunk to chunk: the kernel's carry and rows equal the
     plain loop's bit for bit, with the parts ``where`` names in device
     memory (``SMEM_LIMIT`` cut to what the others take) and the rest in
-    shared memory."""
+    shared memory.  The frames met blocks that die and fresh ones."""
     _, dec = pruned_pair(world, lm_kind, active_blocks=k_act)
-    size = part_bytes(dec)
-    # the cuts below rely on the world's proportions: at K = 4 the carry
-    # outgrows the entry row, at K = 2 not
-    assert (size["carry"] > size["entry"]) == (k_act == 4)
-    assert size["rows"] > size["meta"] + size["lookahead"] + size["exits"]
-    limit, placement = cut_limit(where, size)
+    limit, placement = cut_limit(where, part_bytes(dec))
     feats, n = utts
     scores = (tied_scores(dec, feats) if tied
               else dec._scores(torch.as_tensor(feats)))
     seen = count_candidates(dec, np.asarray(n))
+    blocks = record_blocks(dec)
     place, words = chunks_equal(emulated(limit), dec, scores, n)
     assert place == placement
     assert (words >= 0).any()
+    assert any(before - after for before, after in blocks)   # fresh blocks
     if lm_kind != "none":   # frames of 1..15 finite candidates were met
         assert any(0 < c < 16 for c in seen), sorted(set(seen))
+
+
+@pytest.mark.parametrize("lm_kind", ["none", "sparse"])
+def test_kernel_source_on_cpu_with_block_0_active(world, utts, emulated,
+                                                  lm_kind):
+    """One utterance of equal scores (every lookahead ties, so the lowest
+    blocks, 0 among them, stay active) beside three whose block 0 dies
+    after the first frame: the parentless nodes' entries take node 0's
+    exit context in the one and V in the others, bit for bit as the plain
+    loop."""
+    _, dec = pruned_pair(world, lm_kind)
+    feats, n = utts
+    scores = tied_scores(dec, feats)
+    scores[3] = 0.0
+    blocks = record_blocks(dec)
+    chunks_equal(emulated(), dec, scores, n)
+    assert {0 in after for _, after in blocks} == {True, False}
 
 
 def test_kernel_source_on_cpu_with_three_active_blocks(world, utts, emulated):
@@ -417,6 +495,24 @@ def test_kernel_source_on_cpu_at_state_num_10(worlds, emulated, skips,
     scores = tied_scores(dec, wd["feats"])[:, :T_ALL]
     chunks_equal(emulated(limit), dec, scores, np.minimum(wd["n_frames"],
                                                           T_ALL))
+
+
+@pytest.mark.parametrize("state_num,skips", [(5, True), (7, False)])
+def test_kernel_source_on_cpu_takes_every_advance(worlds, emulated, state_num,
+                                                  skips):
+    """The shapes between the left-to-right topology and state_num 10: 8
+    states and band width 5 (skips at state_num 5), 12 states
+    (state_num 7), over the built-in lexicon in 16 blocks of 8, 3 active,
+    with a sparse bigram LM: bit for bit as the plain loop."""
+    wd = worlds(state_num, skips=skips)
+    _, dec = builtin_decoders(wd, "sparse")
+    dec = DeviceBeamDecoder(dec.bank, dec.lexicon, lm=dec.lm, lm_weight=3.0,
+                            word_penalty=1.5, block_size=8, active_blocks=3)
+    tabs = dec._prep_device()
+    n_s, w = tabs.bands.shape[1:]
+    assert dec._prune_on and (n_s, w) == ((8, 5) if skips else (12, 2))
+    scores = tied_scores(dec, wd["feats"])[:, :T_ALL]
+    chunks_equal(emulated(), dec, scores, np.minimum(wd["n_frames"], T_ALL))
 
 
 def test_phase_clocks_trace_the_first_utterance(world, utts, emulated):
@@ -453,14 +549,17 @@ def test_tie_order_mutant_is_rejected(world, utts, emulated):
 
 def test_placement_at_the_pruned_cell(emulated):
     """The plan at chip_smoke.py's pruned cell (21,589 nodes in 85 blocks of
-    256, Ns = 8, 606 senones): at K = 8 and 4 the carry in shared memory
-    and the entry row in device memory; at the config's default of 4
-    blocks of 1,024 (22,528 nodes) the carry (262 KB) in device memory and
-    the entry row in shared memory."""
+    256, Ns = 8, W = 2, 606 senones, ~210 groups): at K = 8 and 4 every
+    part in shared memory, with no LM and with 16 candidates; at the
+    config's default of 4 blocks of 1,024 (22,528 nodes) the carry (262
+    KB) in device memory."""
     lib = emulated()
-    for n, blk, k, out in ((21760, 256, 8, "entry"), (21760, 256, 4, "entry"),
-                           (22528, 1024, 4, "carry")):
-        assert dk.pruned_placement(n, 8, 606, k, blk, 210, lib=lib) == \
-            {**ALL, out: False}, (n, blk, k)
+    for n, blk, k, r, out in ((21760, 256, 8, 1, None),
+                              (21760, 256, 8, 16, None),
+                              (21760, 256, 4, 1, None),
+                              (22528, 1024, 4, 1, "carry")):
+        want = {**ALL, out: False} if out else ALL
+        assert dk.pruned_placement(n, 8, 2, 606, k, blk, 210, r,
+                                   lib=lib) == want, (n, blk, k)
     # a small lexicon keeps everything on chip
-    assert dk.pruned_placement(1536, 8, 606, 2, 64, 210, lib=lib) == ALL
+    assert dk.pruned_placement(1536, 8, 2, 606, 2, 64, 210, lib=lib) == ALL
