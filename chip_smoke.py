@@ -72,6 +72,7 @@ nor anything of the JAX package.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import re
@@ -2806,6 +2807,14 @@ def builtin_bigram(seed: int):
     return lm
 
 
+def plan_at(tabs, n_senones: int, r_top: int, batch: int) -> dict:
+    """``dk.scan_plan`` for ``batch`` utterances (in a checkout whose plan
+    takes no batch size, its one plan)."""
+    if "batch" in inspect.signature(dk.scan_plan).parameters:
+        return dk.scan_plan(tabs, n_senones, r_top, batch=batch)
+    return dk.scan_plan(tabs, n_senones, r_top)
+
+
 def scan_bound(tabs, b: int, t_c: int, frames: int) -> dict:
     """The frame scan's least time: of the scores ``[B, Tc, S]`` only the
     senones the lexicon's emitting states name, on this run's ``frames``
@@ -2868,7 +2877,7 @@ def scan_case(dec: DeviceBeamDecoder, scores, n_valid, t0: int = 0,
     n, n_s, w = tabs.bands.shape
     lm = ("none" if dec.lm is None else
           "sparse" if tabs.lm_sparse is not None else "flat")
-    plan = dk.scan_plan(tabs, s, dec._r_top(tabs))
+    plan = plan_at(tabs, s, dec._r_top(tabs), b)
     line = dict(b=b, t_c=t_c, t0=t0, n_nodes=n, n_s=n_s, w=w, s=s,
                 slots=int(tabs.node_slot.shape[0]), lm=lm,
                 groups=dk.n_groups(tabs), route=plan["route"],
@@ -2985,17 +2994,141 @@ def phase_decoder_scan(seed: int, smi: str) -> dict:
     return dict(exact=scan_record(lines["decode"]), exact_cluster=cluster)
 
 
+def scan_alone_ms(d: DeviceBeamDecoder, sc, nv, t0: int = 0,
+                  carry=None, wrapper: bool = False):
+    """``d``'s frame scan alone (``torch.profiler``, mean of 5 launches)
+    over ``sc`` from ``carry`` (the seed by default); with ``wrapper``,
+    ``(alone, one event pair around a wrapper call, median of 5)``."""
+    tabs = d._prep_device()
+    c = d._seed(tabs, sc.shape[0]) if carry is None else carry
+
+    def call():
+        return d._scan(tabs, c, sc, t0, nv)
+
+    alone = kernel_device_ms(call, "decoder_pruned" if d._prune_on
+                             else "decoder_scan", reps=5)
+    return (alone, median_ms(call)) if wrapper else alone
+
+
+def second_chunk(d: DeviceBeamDecoder, sc_all, n_frames):
+    """The second 25-frame chunk of the first utterance of ``sc_all``
+    (t0 = 25) and the carry the first leaves: ``(scores, n_valid,
+    carry)``."""
+    tabs = d._prep_device()
+    carry, *_ = d._scan(tabs, d._seed(tabs, 1),
+                        sc_all[:1, :CHUNK].contiguous(), 0, n_frames[:1])
+    return (sc_all[:1, CHUNK:2 * CHUNK].contiguous(),
+            np.clip(n_frames[:1] - CHUNK, 0, CHUNK), carry)
+
+
+def scan_trace(d: DeviceBeamDecoder, sc, nv, t0: int = 0,
+               carry=None) -> tuple[dict, dict]:
+    """The exact scan's plan for ``sc`` and the first utterance's SM cycles
+    a frame by phase (``phase_clocks``)."""
+    tabs = d._prep_device()
+    c = d._seed(tabs, sc.shape[0]) if carry is None else carry
+    plan = plan_at(tabs, sc.shape[2], d._r_top(tabs), sc.shape[0])
+    clocks = torch.zeros(len(dk.EXACT_PHASES), dtype=torch.int64,
+                         device="cuda")
+    dk.decoder_scan_cuda(tabs, c, sc, t0, nv, n_vocab=d._n_vocab,
+                         r_top=d._r_top(tabs), penalty=-float(d.word_penalty),
+                         phase_clocks=clocks)
+    frames = max(1, min(sc.shape[1], int(np.asarray(nv)[0])))
+    return ({k: plan[k] for k in ("route", "cluster", "active_clusters",
+                                  "threads", "nodes_per_cta")},
+            {k: v / frames for k, v in zip(dk.EXACT_PHASES,
+                                           clocks.cpu().tolist())})
+
+
+def scan_call_bytes(d: DeviceBeamDecoder, sc, nv, t0: int = 0,
+                    carry=None) -> int:
+    """The device memory one call of ``d``'s frame scan over ``sc`` takes
+    past what was allocated before it (its outputs and scratch):
+    ``max_memory_allocated`` during the call less ``memory_allocated``
+    before."""
+    tabs = d._prep_device()
+    c = d._seed(tabs, sc.shape[0]) if carry is None else carry
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = d._scan(tabs, c, sc, t0, nv)
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - before
+
+
+def nbest_alone_ms(d: DeviceBeamDecoder, scores, n_frames,
+                   nbest: int = 1) -> tuple[float, float]:
+    """The n-best alone (``torch.profiler``, mean of 5 launches) and through
+    its wrapper (one event pair around a call, median of 5) on the carry
+    and rows of ``d``'s scan of ``scores``."""
+    tabs = d._prep_device()
+    carry, prev, word = d._scan(tabs, d._seed(tabs, scores.shape[0]), scores,
+                                0, n_frames)
+    n_cand = d._n_cand(nbest)
+
+    def call():
+        return d._finalize(tabs, carry, prev, word, n_cand)
+
+    return kernel_device_ms(call, "decoder_finalize", reps=5), median_ms(call)
+
+
+def device_memory_times(seed: int, dec: DeviceBeamDecoder, feats, n_frames,
+                        flat: FlatLexicon) -> dict:
+    """The exact scan's device-memory route alone: ``state_num = 10`` over
+    ``flat`` (the 21,589-node lexicon) at B = 8 and 128 and a 25-frame chunk
+    at B = 1, the default topology (``dec``'s bank) over 40,000 nodes at
+    B = 8, each with its plan and the first utterance's SM cycles a frame
+    by phase; and the n-best alone over the 40,000 nodes at B = 256."""
+    inv = UnitInventory.standard("XIF_tone")
+    out = dict(alone={}, wrapper={}, plans={}, cycles={}, call_bytes={})
+
+    def case(name, d, sc, nv, t0=0, carry=None):
+        out["alone"][name], out["wrapper"][name] = scan_alone_ms(
+            d, sc, nv, t0, carry, wrapper=True)
+        out["plans"][name], out["cycles"][name] = scan_trace(d, sc, nv, t0,
+                                                             carry)
+        out["call_bytes"][name] = scan_call_bytes(d, sc, nv, t0, carry)
+
+    cfg10 = Config()
+    cfg10.model.state_num = SHAPES_STATE_NUM
+    cfg10.model.mix_level = cfg10.model.max_mix_level = M
+    d10 = DeviceBeamDecoder(sb.create_bank(
+        len(inv), cfg10.model, D,
+        generator=torch.Generator().manual_seed(seed), device="cuda"), flat)
+    sc10 = d10._scores(feats[:128])
+    for b in (8, 128):
+        case(f"global_21k_s10_b{b}", d10, sc10[:b].contiguous(),
+             n_frames[:b])
+    sc, nv, carry = second_chunk(d10, sc10, n_frames)
+    case("global_21k_s10_chunk_b1", d10, sc, nv, CHUNK, carry)
+    del sc, carry
+    del d10, sc10
+    huge, _, _ = synthetic_lexicon(inv, min_nodes=40_000)
+    d40 = DeviceBeamDecoder(dec.bank, huge)
+    scores = d40._scores(feats)
+    case("global_40k_b8", d40, scores[:8].contiguous(), n_frames[:8])
+    out["nbest_40k_ms"], out["nbest_40k_wrapper_ms"] = nbest_alone_ms(
+        d40, scores, n_frames)
+    del d40, scores
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_scan_times(seed: int, smi: str) -> dict:
     """Both frame scans' kernel-alone times (``torch.profiler``, mean of 5
     launches) at their cells, with no plain loop: the decode cell with no LM
     and with a flat and a sparse bigram LM, a 25-frame chunk at B = 1 (t0 =
     25) over the built-in lexicon and over 3,514 nodes, the exact scan over
     the CD graph (:func:`cd_system`) and over 3,514 and 21,589 nodes, the
-    pruned scan at 8 and 4 of 85 blocks of 256 (and 8 with the LM); the
+    pruned scan at 8 and 4 of 85 blocks of 256 (and 8 with the LM), and
+    the exact scan's device-memory route (:func:`device_memory_times`); the
     B = 1 chunks' host ms of one synchronised wrapper call (median of 21:
-    the launch's host cost, the plan included); then one exact, one k8 and
-    one k4 ``decode_batch`` of the 21,589-node cell, each after a warm-up,
-    with its wall ms and peak device memory.  It uses only what the port's decoder
+    the launch's host cost, the plan included); the n-best alone at the
+    decode cell (``return_nbest`` 1 and 5) and over 21,589 (1 and 5) and
+    40,000 nodes (B = 256); then one exact, one k8 and one k4
+    ``decode_batch`` of the 21,589-node cell, each after a warm-up, with its
+    wall ms and peak device memory.  It uses only what the port's decoder
     has had since the pruned scan's first kernel, so a copy of this script
     run in an older checkout times that checkout's kernels: two checkouts
     are compared by alternating them in one chip call."""
@@ -3007,40 +3140,33 @@ def phase_scan_times(seed: int, smi: str) -> dict:
     scores = dec._scores(feats)
     inv = UnitInventory.standard("XIF_tone")
     lm = builtin_bigram(seed)
-    alone, call_ms = {}, {}
-
-    def time_scan(name, d, sc, nv, t0=0, carry=None):
-        tabs = d._prep_device()
-        c = d._seed(tabs, sc.shape[0]) if carry is None else carry
-        alone[name] = kernel_device_ms(
-            lambda: d._scan(tabs, c, sc, t0, nv),
-            "decoder_pruned" if d._prune_on else "decoder_scan", reps=5)
+    alone, call_ms, nbest, nbest_wrapper = {}, {}, {}, {}
 
     def time_chunk(name, d):
+        sc, nv, carry = second_chunk(d, scores, n_frames)
+        alone[name] = scan_alone_ms(d, sc, nv, CHUNK, carry)
         tabs = d._prep_device()
-        carry, *_ = d._scan(tabs, d._seed(tabs, 1),
-                            scores[:1, :CHUNK].contiguous(), 0, n_frames[:1])
-        sc = scores[:1, CHUNK:2 * CHUNK].contiguous()
-        nv = np.clip(n_frames[:1] - CHUNK, 0, CHUNK)
-        time_scan(name, d, sc, nv, t0=CHUNK, carry=carry)
         call_ms[name] = synced_ms(
             lambda: d._scan(tabs, carry, sc, CHUNK, nv), reps=21)[1]
 
-    time_scan("decode", dec, scores, n_frames)
+    alone["decode"] = scan_alone_ms(dec, scores, n_frames)
+    for k in (1, 5):
+        nbest[f"decode_n{k}"], nbest_wrapper[f"decode_n{k}"] = \
+            nbest_alone_ms(dec, scores, n_frames, k)
     for kind, the_lm in (("flat", TableLM(lm)), ("sparse", lm)):
-        time_scan(f"decode_{kind}_lm", DeviceBeamDecoder(
+        alone[f"decode_{kind}_lm"] = scan_alone_ms(DeviceBeamDecoder(
             dec.bank, dec.lexicon, lm=the_lm, lm_weight=3.0,
             word_penalty=1.0), scores, n_frames)
     time_chunk("chunk_b1", dec)
     flat, _, _ = synthetic_lexicon(inv, min_nodes=3514, n_chars=56)
     ref = DeviceBeamDecoder(dec.bank, flat)
     time_chunk("chunk_b1_3514", ref)
-    time_scan("exact_3514", ref, scores, n_frames)
+    alone["exact_3514"] = scan_alone_ms(ref, scores, n_frames)
     del ref
     _, cd_inv, cd, _, _, cd_bank, entries, _ = cd_system(seed, "cuda")
     cd_dec = DeviceBeamDecoder(cd_bank, ctx.build_cd_lexicon(
         entries, cd, sil_word=("<sil>", cd_inv.id_of["sil"])))
-    time_scan("cd", cd_dec, cd_dec._scores(feats), n_frames)
+    alone["cd"] = scan_alone_ms(cd_dec, cd_dec._scores(feats), n_frames)
     del cd_dec, cd_bank
     flat, words, _ = synthetic_lexicon(inv)
     big_lm = Ngram(2)
@@ -3052,11 +3178,18 @@ def phase_scan_times(seed: int, smi: str) -> dict:
             "k4": DeviceBeamDecoder(dec.bank, flat, block_size=256,
                                     active_blocks=4)}
     for name, d in decs.items():
-        time_scan("exact_21k" if name == "exact" else f"pruned_{name}", d,
-                  scores, n_frames)
-    time_scan("pruned_k8_sparse_lm", DeviceBeamDecoder(
+        alone["exact_21k" if name == "exact" else f"pruned_{name}"] = \
+            scan_alone_ms(d, scores, n_frames)
+    alone["pruned_k8_sparse_lm"] = scan_alone_ms(DeviceBeamDecoder(
         dec.bank, flat, lm=big_lm, lm_weight=3.0, word_penalty=1.0,
         block_size=256, active_blocks=8), scores, n_frames)
+    for k in (1, 5):
+        nbest[f"exact_21k_n{k}"], nbest_wrapper[f"exact_21k_n{k}"] = \
+            nbest_alone_ms(decs["exact"], scores, n_frames, k)
+    glob = device_memory_times(seed, dec, feats, n_frames, flat)
+    alone.update(glob["alone"])
+    nbest["exact_40k_n1"] = glob["nbest_40k_ms"]
+    nbest_wrapper["exact_40k_n1"] = glob["nbest_40k_wrapper_ms"]
     walls = {}
     for name, d in decs.items():
         d.decode_batch(feats, n_frames)                     # warm-up
@@ -3066,7 +3199,11 @@ def phase_scan_times(seed: int, smi: str) -> dict:
         walls[name] = dict(wall_ms=wall,
                            peak_mem_bytes=torch.cuda.max_memory_allocated())
     say("scan_times", kernel_alone_ms=alone, chunk_call_host_ms=call_ms,
-        calls_21k=walls,
+        nbest_kernel_alone_ms=nbest, nbest_wrapper_ms=nbest_wrapper,
+        device_memory_wrapper_ms=glob["wrapper"],
+        device_memory_plans=glob["plans"],
+        device_memory_cycles_per_frame_utt0=glob["cycles"],
+        device_memory_call_bytes=glob["call_bytes"], calls_21k=walls,
         source=dk.SOURCE, device=torch.cuda.get_device_name(0),
         nvidia_smi=smi)
     return alone
@@ -3149,7 +3286,8 @@ def phase_finalize(seed: int, smi: str) -> dict:
     decode cell (XIF_tone, 606 senones, 8 mixtures, the built-in 125-node
     lexicon, 256 x 4 s of noise: B = 256, T = 319) with no LM, a flat and a
     sparse bigram LM, each at ``return_nbest`` 1 and 5; and over the
-    21,589-node ``synthetic_lexicon``.  Then one decode call at the decode
+    21,589- and 40,000-node ``synthetic_lexicon`` (Q past 20,000 slots) at
+    ``return_nbest`` 1 and 5.  Then one decode call at the decode
     cell under the profiler: its launches and where its time goes.
     Returns the ``kernels`` record of the decode cell's case."""
     phase_t0 = time.perf_counter()
@@ -3170,13 +3308,18 @@ def phase_finalize(seed: int, smi: str) -> dict:
         for nbest in (1, 5):
             lines[f"decode_{kind}_n{nbest}"] = finalize_case(
                 d, carry, prev, word, nbest)
-    flat, _, _ = synthetic_lexicon(UnitInventory.standard("XIF_tone"))
-    big = DeviceBeamDecoder(dec.bank, flat)
-    t = big._prep_device()
-    carry, prev, word = big._scan(t, big._seed(t, scores.shape[0]), scores,
-                                  0, n_frames)
-    lines["exact_21k_n1"] = finalize_case(big, carry, prev, word, 1, reps=5)
-    del carry, prev, word, big
+    inv = UnitInventory.standard("XIF_tone")
+    for name, min_nodes in (("21k", None), ("40k", 40_000)):
+        flat, _, _ = synthetic_lexicon(inv, **({} if min_nodes is None else
+                                               dict(min_nodes=min_nodes)))
+        big = DeviceBeamDecoder(dec.bank, flat)
+        t = big._prep_device()
+        carry, prev, word = big._scan(t, big._seed(t, scores.shape[0]),
+                                      scores, 0, n_frames)
+        for nbest in (1, 5):
+            lines[f"exact_{name}_n{nbest}"] = finalize_case(
+                big, carry, prev, word, nbest, reps=5)
+        del carry, prev, word, big
     for name, line in lines.items():
         say("decoder_finalize", case=name, **line)
     reset_kernel_counts()
@@ -3212,10 +3355,13 @@ def phase_finalize(seed: int, smi: str) -> dict:
         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
     del scores, feats
     torch.cuda.empty_cache()
-    line = lines["decode_none_n1"]
-    return {"finalize": {k: line[k] for k in (
-        "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms")}}
+    keys = ("max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    record = {k: lines["decode_none_n1"][k] for k in keys}
+    # the large lexicons' (21,589 and 40,000 nodes, Q past 20,000) beside
+    for name in ("exact_21k_n1", "exact_21k_n5", "exact_40k_n1"):
+        record[name] = {k: lines[name][k] for k in ("slots", *keys)}
+    return {"finalize": record}
 
 
 # ----------------------------------------------------------------------
@@ -3243,25 +3389,47 @@ def widened_bank(bank: sb.SenoneBank, n_senones: int, seed: int):
     return sb.bank_from_numpy(arrays, device="cuda")
 
 
+def plain_decode(dec: DeviceBeamDecoder, feats, n_frames):
+    """``dec.decode_batch`` with the frame scan and the n-best in their
+    plain versions (``_scan_plain``, ``_finalize_plain``) on the card."""
+    dec._scan, dec._finalize = dec._scan_plain, dec._finalize_plain
+    try:
+        return dec.decode_batch(feats, n_frames)
+    finally:
+        del dec._scan, dec._finalize
+
+
 def shapes_decode(dec: DeviceBeamDecoder, feats, n_frames, name: str,
                   chunks: int = 1) -> dict:
     """One decode call and ``chunks`` 25-frame stream chunks with their
     result through ``dec`` (enough frames for a word of the lexicon to
-    end): the scan and n-best kernels' launches, the 1-best."""
+    end): the scan and n-best kernels' launches, the 1-best, which must be
+    the words and scores of the same call through the plain versions."""
     reset_kernel_counts()
     hyps, wall_ms = synced_ms(lambda: dec.decode_batch(feats, n_frames))
+    call = kernel_counts()
+    reset_kernel_counts()
     st = dec.stream_init(batch=1, max_frames=CHUNK * chunks)
     for lo in range(0, CHUNK * chunks, CHUNK):
         dec.stream_feed(st, feats[:1, lo:lo + CHUNK])
     chunk_hyps = dec.stream_result(st, 1)
-    launches = kernel_counts()
-    check(launches["scan"] == 1 + chunks and launches["fin"] == 2,
-          f"{name}: the decode call and the stream chunk ran the frame scan "
-          f"and the n-best on the card: {launches}")
+    stream = kernel_counts()
+    check(call["scan"] == 1 and call["fin"] == 1 and stream["scan"] == chunks
+          and stream["fin"] == 1,
+          f"{name}: the decode call and the stream chunks ran the frame scan "
+          f"and the n-best on the card: {call}, {stream}")
     check(all(len(h) >= 1 and np.isfinite(h[0].score) for h in hyps)
           and len(chunk_hyps[0]) >= 1, f"{name}: every utterance decoded")
-    return dict(decode_call_ms=wall_ms, scan_launches=launches["scan"],
-                finalize_launches=launches["fin"],
+    want = plain_decode(dec, feats, n_frames)
+    check([[(h.words, h.score) for h in u] for u in hyps]
+          == [[(h.words, h.score) for h in u] for u in want],
+          f"{name}: the decode call's words and scores are the plain "
+          f"versions'")
+    return dict(decode_call_ms=wall_ms,
+                scan_launches=call["scan"] + stream["scan"],
+                stream_scan_launches=stream["scan"],
+                finalize_launches=call["fin"] + stream["fin"],
+                same_as_plain=True,
                 one_best=["".join(h[0].words) for h in hyps[:4]])
 
 
@@ -3271,9 +3439,12 @@ def phase_shapes(seed: int, smi: str) -> dict:
     token states a node: the states in place in the carry) at the decode
     cell's width (256 x 4 s, 8 mixtures, 39 dims, the built-in lexicon),
     and over a bank of 29,500 senones (each frame's scores row read from
-    device memory; 32 x 4 s), and at ``state_num = 10`` over the 21,589-node
-    lexicon (a carry no cluster of 16 holds: device memory; 8 x 4 s); a
-    decode call and a stream chunk through each; and forward, backward and
+    device memory; 32 x 4 s); the device-memory route (a carry no on-chip
+    cluster of 16 holds, the utterance over a cluster all the same) at
+    ``state_num = 10`` over the 21,589-node lexicon (8 x 4 s, and a 25-frame
+    chunk at B = 1) and at the default topology over 40,000 nodes (8 x
+    4 s); a decode call (its words held to the plain versions') and a
+    stream chunk through each; and forward, backward and
     Viterbi at N = 1,100 sentence states
     (the block kernels' loop instantiations; labels of up to 366 units,
     64 x 4 s), timed, with
@@ -3302,24 +3473,53 @@ def phase_shapes(seed: int, smi: str) -> dict:
     dec = DeviceBeamDecoder(bank, big)
     b = 8
     x, nf = feats[:b].contiguous(), n_frames[:b]
-    lines["global"] = scan_case(dec, dec._scores(x), nf, reps=3)
+    sc = dec._scores(x)
+    lines["global"] = scan_case(dec, sc, nf, reps=3)
     # three chunks: a word of up to six units of 8 emitting states ends
     paths["global"] = shapes_decode(dec, x, nf, "state_num 10, 21,589 nodes",
                                     chunks=3)
-    check(lines["global"]["route"] == "global",
-          f"state_num 10 over 21,589 nodes: the carry in device memory "
-          f"({lines['global']['plan']})")
-    del dec, bank, big
-
+    # one stream chunk at B = 1 (t0 = 25, from the first chunk's carry)
+    tabs = dec._prep_device()
+    carry, *rows = dec._scan(tabs, dec._seed(tabs, 1), sc[:1, :CHUNK]
+                             .contiguous(), 0, nf[:1])
+    lines["global_chunk_b1"] = scan_case(
+        dec, sc[:1, CHUNK:2 * CHUNK].contiguous(),
+        np.clip(nf[:1] - CHUNK, 0, CHUNK), t0=CHUNK, carry=carry,
+        rows_before=rows, reps=21, plain_reps=3)
+    # its launches on the path: the B = 1 stream's three chunks above,
+    # counted from zero before the stream
+    paths["global_chunk_b1"] = dict(
+        scan_launches=paths["global"]["stream_scan_launches"])
+    del dec, bank, big, sc, carry, rows
+    # the default topology past the cluster route: more nodes than 16 CTAs
+    # of SCAN_THREADS x NODES_PER_THREAD hold
     cfg = Config()
     cfg.model.mix_level = cfg.model.max_mix_level = M
     base = sb.create_bank(len(inv), cfg.model, D,
                           generator=torch.Generator().manual_seed(seed),
                           device="cuda")
+    huge, _, _ = synthetic_lexicon(inv, min_nodes=40_000)
+    dec = DeviceBeamDecoder(base, huge)
+    tabs = dec._prep_device()
+    check(tabs.bands.shape[0] >= 40_000
+          and not plan_at(tabs, S, 1, b)["onchip"],
+          f"{tabs.bands.shape[0]} nodes of 8 states: past the on-chip routes")
+    lines["global_40k"] = scan_case(dec, dec._scores(x), nf, reps=3)
+    paths["global_40k"] = shapes_decode(dec, x, nf, "40,000 nodes")
+    del dec, huge
+    for name in ("global", "global_chunk_b1", "global_40k"):
+        plan = lines[name]["plan"]
+        check(lines[name]["route"] == "global"
+              and (plan["cluster"] > 1
+                   or lines[name]["b"] * 2 > torch.cuda.get_device_properties(
+                       0).multi_processor_count),
+              f"{name}: the carry in device memory over more than one CTA "
+              f"an utterance ({plan})")
+
     wide = widened_bank(base, SHAPES_S, seed)
     dec = DeviceBeamDecoder(wide, flat)
     tabs = dec._prep_device()
-    plan = dk.scan_plan(tabs, SHAPES_S, 1)
+    plan = plan_at(tabs, SHAPES_S, 1, 32)
     check(not plan["rows_smem"] and plan["route"] == "smem",
           f"29,500 senones: the scores rows in device memory, the carry on "
           f"one CTA: {plan}")
@@ -3398,6 +3598,10 @@ def phase_shapes(seed: int, smi: str) -> dict:
     records = {f"scan_{k}": dict(scan_record(v),
                                  launches=paths[k]["scan_launches"])
                for k, v in lines.items()}
+    # the device-memory route: its decode-call case, with the B = 1 chunk's
+    # and the 40,000-node case's beside
+    for k in ("global_chunk_b1", "global_40k"):
+        records["scan_global"][k] = records.pop(f"scan_{k}")
     for k, v in dp.items():
         records[f"{k}_loop"] = dict(
             launches=train_launches[k],

@@ -68,9 +68,17 @@
 //   non-portable) splits each utterance's nodes into contiguous ranges,
 //   one a CTA, and what crosses CTAs goes through distributed shared
 //   memory: a parent's exit in another CTA, read by the entry step, and
-//   each CTA's emission list, merged by every warp.  Past a cluster of 16
-//   the carry and the exits stay in device memory, one CTA of 256 threads
-//   per utterance.
+//   each CTA's emission list, merged by every warp.  Past what a cluster
+//   of 16 holds (the device-memory route) an utterance still runs on a
+//   cluster, of the size that runs the batch in the fewest waves times
+//   nodes a CTA while the scratch of the utterances in flight stays in L2
+//   (so the batch size enters this route's plan): each CTA keeps its
+//   nodes' info and both frames' exits in shared memory (past what 16
+//   CTAs hold, in a device scratch, read across CTAs past L1 after the
+//   cluster barrier) and the carry of as many of its nodes as fit beside
+//   them; the rest of its carry lives state-major in a device scratch
+//   (a warp's load of a state reads 32 adjacent nodes), converted from and
+//   to the [B, N, Ns] carry at the start and end of the launch.
 // * A thread owns the same nodes every frame.  The entry refresh is folded
 //   into the next frame's advance: the exits (ex, exc) are double-buffered
 //   by frame parity, and the owner of node n takes its entry from the
@@ -79,16 +87,17 @@
 //   only lower states of its node), so it runs in place, the states taken
 //   from Ns-1 down to 0.
 // * The emission in one barrier.  Each warp takes its own top R over its
-//   nodes' slots by R warp argmaxes under the total order (value
-//   descending, slot ascending), each after the previous winner: no block
-//   barrier.  After one barrier every warp merges the warps' sorted lists
-//   (by rank where they are few and R > 1: an entry's place is its place
-//   in its list plus a binary search in each other list; else by R argmax
-//   passes over their entries) and picks the first maximum of the LM
+//   nodes' slots under the total order (value descending, slot
+//   ascending): each lane keeps its own best few, and R warp argmaxes over
+//   the lanes' heads take them in order: no block barrier.  After one
+//   barrier every warp merges the warps' sorted lists (by rank where they
+//   are few and R > 1: an entry's place is its place in its list plus a
+//   binary search in each other list; else by the same selection over
+//   their entries) and picks the first maximum of the LM
 //   totals itself, so every thread holds the frame's emission for the next
 //   frame's entries.  In a cluster, warp 0 of each CTA first merges its
 //   CTA's lists, and after the cluster barrier every warp merges the CTAs'
-//   lists by R argmax passes over their entries (a binary search in
+//   lists by that selection over their entries (a binary search in
 //   another CTA's memory is a chain of remote loads).  A frame is one __syncthreads on one CTA; one
 //   __syncthreads and one cluster barrier in a cluster.
 // * The static tables by group: each node's band and senone rows are read
@@ -105,10 +114,17 @@
 //   transition, up to state_num) the advance runs in place on the carry
 //   where it lives, shared or device memory, with runtime loops: the same
 //   compares in the same order (states Ns-1 down, offsets k up, strict >).
+//   Where the carry lives in device memory, registers are scarcer (512
+//   threads a CTA): a node's states live there only up to 8 states and 2
+//   offsets, all loaded before it is advanced; else the advance runs in
+//   place on NODES_PER_THREAD nodes of a thread at once, at W <= 2 WINDOW
+//   states at a time (a window's old states of all of them loaded before
+//   its compares), past that a state at a time.
 // * On chip or not, rows in shared memory or not, and states in registers
-//   (unrolled to 8 states and 2 offsets, or 16 and 8) or in place make
-//   twelve instantiations of one source; the cluster size and the group
-//   tables' placement are read at run time.
+//   (unrolled to 8 states and 2 offsets, or on chip 16 and 8) or in place
+//   make ten instantiations of one source; the cluster size and the
+//   placement of the group tables, the info and exits and the carry are
+//   read at run time.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -122,11 +138,14 @@ namespace {
 
 constexpr int NS_MAX = 16;     // token states per node
 constexpr int W_MAX = 8;       // band width
+constexpr int WINDOW = 4;      // states a step of the in-place advance off
+                               // chip loads (at band width <= 2)
 constexpr int R_MAX = 16;      // candidates of the LM's two-phase emission
 constexpr int PRUNED_PHASES = 6;  // the pruned scan's traced phases
 constexpr int EXACT_PHASES = 5;   // the exact scan's traced phases
-constexpr int MAX_THREADS = 256;  // the n-best; the exact scan off chip
-constexpr int MAX_WARPS = MAX_THREADS / 32;
+constexpr int MAX_THREADS = 256;  // the n-best
+constexpr int LANE_TOP = 4;       // a lane's own list in a warp's top R
+constexpr int SLOT_BATCH = 8;     // slots a thread reads at once there
 constexpr int SCAN_THREADS = 512;  // the exact scan on chip, the pruned scan
 constexpr int SCAN_WARPS = SCAN_THREADS / 32;
 constexpr int NODES_PER_THREAD = 4;   // the most an on-chip thread owns
@@ -269,6 +288,18 @@ __device__ __forceinline__ bool before(float va, int qa, float vb, int qb) {
   return va > vb || (va == vb && qa < qb);
 }
 
+// The count of entries of the ordered list (lv, lq) [n] before (v, q): a
+// binary search.
+__device__ __forceinline__ int count_before(const float* lv, const int* lq,
+                                            int n, float v, int q) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (before(lv[mid], lq[mid], v, q)) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
 // The word-boundary score of (lm context l, word w): device.py's _lm.
 __device__ __forceinline__ float lm_term(const ScanTables& tb, int l_r,
                                          int w_r) {
@@ -311,66 +342,120 @@ __device__ __forceinline__ void warp_best(float& v, int& q) {
   v = unordered((int)(top ^ 0x80000000u));
 }
 
-// Block-wide first-in-order (value, slot) pair; every thread gets it.
-// red_v / red_q hold one pair per warp.
-__device__ __forceinline__ void block_best(float& v, int& q, float* red_v,
-                                           int* red_q) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oq = __shfl_down_sync(0xffffffffu, q, off);
-    if (before(ov, oq, v, q)) { v = ov; q = oq; }
-  }
-  if (lane == 0) { red_v[warp] = v; red_q[warp] = q; }
-  __syncthreads();
-  v = red_v[0];
-  q = red_q[0];
-  for (int i = 1; i < warps; ++i)
-    if (before(red_v[i], red_q[i], v, q)) { v = red_v[i]; q = red_q[i]; }
-  __syncthreads();   // red_* free for the next pass
-}
-
 // The warp-wide max of v (a zero as +0); every lane gets it.
 __device__ __forceinline__ float warp_max(float v) {
   return unordered(__reduce_max_sync(FULL, ordered(v + 0.0f)));
 }
 
-// The warp's top R (value, slot) pairs in the total order: R warp argmaxes,
-// each over the candidates after the previous winner.  each(take) calls
-// take(value, slot) for every candidate of this lane; lane r gets the r-th
-// pair ((-inf, NO_SLOT) past the candidates).
+// The warp's top R (value, slot) pairs in the total order, written to
+// out_v / out_q [R] ((-inf, NO_SLOT) past the candidates).  Each lane
+// keeps its own best LANE_TOP candidates of what is left, sorted, and the
+// warp takes R argmaxes over the lanes' heads; the winner's lane drops its
+// head and, once its list is empty, rescans its candidates for the next
+// LANE_TOP after the last one it gave.  A lane scans its candidates about
+// once, however large R; for R = 1 it keeps only its best (no list to
+// sort).  each(take) calls take(value, slot) for every candidate of this
+// lane.
 template <class Each>
-__device__ __forceinline__ void warp_top(int R, Each each, float& my_v,
-                                         int& my_q) {
+__device__ __forceinline__ void warp_top(int R, Each each, float* out_v,
+                                         int* out_q) {
   const int lane = threadIdx.x & 31;
-  float pv = 0.0f;
-  int pq = -1;
-  my_v = -INFINITY;
-  my_q = NO_SLOT;
-  for (int r = 0; r < R; ++r) {
+  if (R == 1) {
     float bv = -INFINITY;   // below every slot's value (>= NEG_INF)
     int bq = NO_SLOT;
-    each([&](float a, int q) {
-      if ((r == 0 || before(pv, pq, a, q)) && before(a, q, bv, bq)) {
+    each([&](float a, int s) {
+      if (before(a, s, bv, bq)) {
         bv = a;
-        bq = q;
+        bq = s;
       }
     });
+    warp_best(bv, bq);   // (-inf, NO_SLOT) where no lane has one
+    if (lane == 0) {
+      out_v[0] = bv;
+      out_q[0] = bq;
+    }
+    return;
+  }
+  float v[LANE_TOP];
+  int q[LANE_TOP];
+  bool more = false;     // candidates past the list remain
+  float pv = 0.0f;       // the last pair this lane gave
+  int pq = -1;
+  auto fill = [&](bool after_last) {
+#pragma unroll
+    for (int i = 0; i < LANE_TOP; ++i) {
+      v[i] = -INFINITY;   // below every slot's value (>= NEG_INF)
+      q[i] = NO_SLOT;
+    }
+    int n = 0;
+    each([&](float a, int s) {
+      if (after_last && !before(pv, pq, a, s)) return;
+      ++n;
+      if (!before(a, s, v[LANE_TOP - 1], q[LANE_TOP - 1])) return;
+      v[LANE_TOP - 1] = a;
+      q[LANE_TOP - 1] = s;
+#pragma unroll
+      for (int i = LANE_TOP - 1; i > 0; --i)
+        if (before(v[i], q[i], v[i - 1], q[i - 1])) {
+          const float tv = v[i];
+          const int tq = q[i];
+          v[i] = v[i - 1];
+          q[i] = q[i - 1];
+          v[i - 1] = tv;
+          q[i - 1] = tq;
+        }
+    });
+    more = n > LANE_TOP;
+  };
+  fill(false);
+  int r = 0;
+  for (; r < R; ++r) {
+    float bv = v[0];
+    int bq = q[0];
     warp_best(bv, bq);
-    if (bq == NO_SLOT) break;   // nothing left: the same in every lane
-    if (lane == r) { my_v = bv; my_q = bq; }
-    pv = bv;
-    pq = bq;
+    if (bq == NO_SLOT) break;   // every lane is out: the same in every lane
+    if (lane == 0) {
+      out_v[r] = bv;
+      out_q[r] = bq;
+    }
+    if (q[0] == bq) {   // this lane's head: drop it
+      pv = bv;
+      pq = bq;
+#pragma unroll
+      for (int i = 0; i + 1 < LANE_TOP; ++i) {
+        v[i] = v[i + 1];
+        q[i] = q[i + 1];
+      }
+      v[LANE_TOP - 1] = -INFINITY;
+      q[LANE_TOP - 1] = NO_SLOT;
+      if (q[0] == NO_SLOT && more) fill(true);
+    }
+  }
+  for (int k = r + lane; k < R; k += 32) {
+    out_v[k] = -INFINITY;
+    out_q[k] = NO_SLOT;
   }
 }
 
+// Lane r's pair of the warp's scratch list out_v / out_q [R] ((-inf,
+// NO_SLOT) past R), after the warp wrote it; the scratch is free again on
+// return.
+__device__ __forceinline__ void lane_pair(int R, const float* out_v,
+                                          const int* out_q, float& my_v,
+                                          int& my_q) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  my_v = lane < R ? out_v[lane] : -INFINITY;
+  my_q = lane < R ? out_q[lane] : NO_SLOT;
+  __syncwarp();
+}
+
 // The top R of L ordered lists of R pairs (list l at lv(l), lq(l); L R <=
-// 32 MERGE), by the same passes over the lanes' entries; lane r gets the
-// r-th pair.
+// 32 MERGE), by warp_top over the lanes' entries through the warp's
+// scratch out_v / out_q [R]; lane r gets the r-th pair.
 template <class ListV, class ListQ>
 __device__ __forceinline__ void warp_merge(int L, int R, ListV lv, ListQ lq,
+                                           float* out_v, int* out_q,
                                            float& my_v, int& my_q) {
   const int lane = threadIdx.x & 31;
   if (R == 1) {   // one pass over one entry a list
@@ -399,64 +484,54 @@ __device__ __forceinline__ void warp_merge(int L, int R, ListV lv, ListQ lq,
 #pragma unroll
     for (int k = 0; k < MERGE; ++k)
       if (eq[k] != NO_SLOT) take(ev[k], eq[k]);
-  }, my_v, my_q);
+  }, out_v, out_q);
+  lane_pair(R, out_v, out_q, my_v, my_q);
 }
 
-// The same top R of L ordered lists in this CTA's shared memory, by rank:
-// an entry's rank is its position in its list plus, in each other list,
-// the count of entries before it (a binary search; a slot is in one list
-// at most, so the ranks are distinct); the entries of rank < R go in place
-// through the warp's scratch out_v / out_q [R], and lane r gets the r-th.
+// The entries first, first + step, ... of L ordered lists of R pairs
+// (list l at lv(l), lq(l)) placed by rank into out_v / out_q: an entry's
+// rank is its position in its list plus, in each other list, the count of
+// entries before it (a binary search; a slot is in one list at most, so
+// the ranks are distinct); the entries of rank < R go in place.
 template <class ListV, class ListQ>
-__device__ __forceinline__ void warp_merge_rank(int L, int R, ListV lv,
-                                                ListQ lq, float* out_v,
-                                                int* out_q, float& my_v,
-                                                int& my_q) {
-  const int lane = threadIdx.x & 31;
-  if (lane < R) {
-    out_v[lane] = -INFINITY;
-    out_q[lane] = NO_SLOT;
-  }
-  __syncwarp();
-  for (int e = lane; e < L * R; e += 32) {
+__device__ __forceinline__ void place_by_rank(int L, int R, ListV lv,
+                                              ListQ lq, int first, int step,
+                                              float* out_v, int* out_q) {
+  for (int e = first; e < L * R; e += step) {
     const int l = e / R, pos = e - l * R;
     const float v = lv(l)[pos];
     const int q = lq(l)[pos];
     if (q == NO_SLOT) continue;   // past the list's pairs
     int rank = pos;
-    for (int o = 0; o < L && rank < R; ++o) {
-      if (o == l) continue;
-      const float* ov = lv(o);
-      const int* oq = lq(o);
-      int lo = 0, hi = R;   // the first entry of list o not before (v, q)
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (before(ov[mid], oq[mid], v, q)) lo = mid + 1; else hi = mid;
-      }
-      rank += lo;
-    }
+    for (int o = 0; o < L && rank < R; ++o)
+      if (o != l) rank += count_before(lv(o), lq(o), R, v, q);
     if (rank < R) {
       out_v[rank] = v;
       out_q[rank] = q;
     }
   }
-  __syncwarp();
-  my_v = lane < R ? out_v[lane] : -INFINITY;
-  my_q = lane < R ? out_q[lane] : NO_SLOT;
-  __syncwarp();   // the scratch is free again
 }
 
 // The top R of L ordered lists in this CTA's shared memory: by rank where
 // R > 1 and the lists are few (RANK_LISTS: a few binary searches an
-// entry), else by R argmax passes (one pass for R = 1).
+// entry), through the warp's scratch out_v / out_q [R], else by
+// warp_merge; lane r gets the r-th pair.
 template <class ListV, class ListQ>
 __device__ __forceinline__ void merge_lists(int L, int R, ListV lv, ListQ lq,
                                             float* out_v, int* out_q,
                                             float& my_v, int& my_q) {
-  if (R > 1 && L <= RANK_LISTS)
-    warp_merge_rank(L, R, lv, lq, out_v, out_q, my_v, my_q);
-  else
-    warp_merge(L, R, lv, lq, my_v, my_q);
+  if (R > 1 && L <= RANK_LISTS) {
+    const int lane = threadIdx.x & 31;
+    if (lane < R) {
+      out_v[lane] = -INFINITY;
+      out_q[lane] = NO_SLOT;
+    }
+    __syncwarp();
+    place_by_rank(L, R, lv, lq, lane, 32, out_v, out_q);
+    lane_pair(R, out_v, out_q, my_v, my_q);
+  } else {
+    warp_merge(L, R, lv, lq, out_v, out_q, my_v, my_q);
+  }
 }
 
 // The frame's word emission from the top R pairs (lane r holds the r-th):
@@ -616,6 +691,80 @@ __device__ __forceinline__ float advance_regs(const ScanTables& tb, float* dn,
   return e;
 }
 
+// advance_in_place and states_exit of U nodes at once at band width W <=
+// 2, for a carry in device memory: the states are taken WINDOW at a time
+// from the top, each window's old states and the one below it loaded for
+// all U nodes before any compare (a state reads only itself and the state
+// below, not yet advanced), so a frame waits on about Ns / WINDOW rounds
+// of loads.  The same compares in the same order (k = 0, then 1); the
+// exit is taken from the exit state as the advance writes it.  ex / exc
+// [U] get the exits.
+template <int U>
+__device__ __forceinline__ void advance_window(
+    const ScanTables& tb, float* const* d, int32_t* const* c, const int* ds,
+    const float* const* bn, const int32_t* const* sn, const bool* act,
+    const float* row, float* ex, int* exc) {
+  const int Ns = tb.n_states, W = tb.band_w, V = tb.n_vocab;
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+    ex[j] = NEG_INF_F;
+    exc[j] = V;
+  }
+  for (int hi = Ns - 1; hi >= 0; hi -= WINDOW) {
+    const int lo = hi - WINDOW;   // x[.][i] is the old state lo + i
+    float x[U][WINDOW + 1];
+    int xc[U][WINDOW + 1];
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+#pragma unroll
+      for (int i = 0; i <= WINDOW; ++i) {
+        const bool live = act[j] && lo + i >= 0;
+        x[j][i] = live ? d[j][(lo + i) * ds[j]] : 0.0f;
+        xc[j][i] = live ? c[j][(lo + i) * ds[j]] : 0;
+      }
+#pragma unroll
+    for (int i = WINDOW; i >= 1; --i) {
+      const int s = lo + i;
+      if (s < 0) continue;
+      const int k_exit = Ns - 1 - s;
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        if (!act[j]) continue;
+        float best = NEG_INF_F;
+        int bctx = V;
+        float cand = x[j][i] + bn[j][s * W];            // k = 0
+        if (cand > best) {
+          best = cand;
+          bctx = xc[j][i];
+        }
+        if (W > 1 && s >= 1) {                         // k = 1
+          cand = x[j][i - 1] + bn[j][(s - 1) * W + 1];
+          if (cand > best) {
+            best = cand;
+            bctx = xc[j][i - 1];
+          }
+        }
+        float lb = 0.0f;
+        if (s > 0) {
+          const int sen = sn[j][s];
+          lb = sen >= 0 ? row[sen] : NEG_INF_F;
+        }
+        float y = best + lb;
+        y = y < NEG_INF_F ? NEG_INF_F : y;   // torch.clamp(min=NEG_INF)
+        d[j][s * ds[j]] = y;
+        c[j][s * ds[j]] = bctx;
+        if (k_exit >= 1 && k_exit < W) {
+          cand = y + bn[j][s * W + k_exit];
+          if (cand > ex[j]) {
+            ex[j] = cand;
+            exc[j] = bctx;
+          }
+        }
+      }
+    }
+  }
+}
+
 // The entry of a node (state 0 for the next frame) from the parent's exit
 // (x, xc) and the previous frame's emission: device.py's _enter, strict >
 // picks the restart; a parentless node takes the exit context of node 0 as
@@ -630,15 +779,20 @@ __device__ __forceinline__ void entry_of(int pword, float x, int xc,
   *c0 = use_restart ? re_ctx : xc;
 }
 
-// Where the exact scan keeps what: `onchip` (carry, exits and the nodes'
-// info in shared memory, over `cs` CTAs of `chunk` nodes each) or not (one
-// CTA, the carry in the output tensors and the exits in the [B, 2, N]
-// scratch); the three scores rows and the group tables each in shared
-// memory where they fit.  Byte offsets into the dynamic shared memory: the
-// emission's lists first, at 0.
+// Where the exact scan keeps what.  `onchip`: the carry, the exits and the
+// nodes' info in shared memory, over `cs` CTAs of `chunk` nodes each.  Not
+// on chip (the device-memory route): also `cs` CTAs of `chunk` nodes, each
+// with its nodes' info and exits in shared memory where they fit
+// (`ex_smem`; else in the scratch), and the carry of its first `in_nodes`
+// nodes in shared memory, of the rest in the scratch (state-major both);
+// `scratch_words` float32 and int32 words an utterance in the scratch.
+// The three scores rows and the group tables each in shared memory where
+// they fit.  Byte offsets into the dynamic shared memory: the emission's
+// lists first, at 0.
 struct ScanPlan {
-  int onchip, cs, chunk, threads, rows_smem, groups_smem;
+  int onchip, cs, chunk, threads, rows_smem, groups_smem, in_nodes, ex_smem;
   unsigned rows_off, groups_off, info_off, ex_off, carry_off, smem;
+  long long scratch_words;
 };
 
 template <bool ONCHIP, bool ROWS_SMEM, int NSR, int WR>
@@ -648,7 +802,7 @@ decoder_scan_kernel(const ScanTables tb, const ScanPlan plan,
                     const int32_t* __restrict__ n_valid,
                     const float* __restrict__ d_in,
                     const int32_t* __restrict__ c_in, float* d_out,
-                    int32_t* c_out, float* ex_global, int32_t* exc_global,
+                    int32_t* c_out, float* scratch_f, int32_t* scratch_i,
                     int32_t* __restrict__ tb_prev,
                     int32_t* __restrict__ tb_word, int Tc, int S, int t0,
                     long long* clocks) {
@@ -660,14 +814,19 @@ decoder_scan_kernel(const ScanTables tb, const ScanPlan plan,
   const int lane = tid & 31, warp = tid >> 5, warps = nthr >> 5;
   const int N = tb.n_nodes, Ns = tb.n_states, W = tb.band_w;
   const int V = tb.n_vocab, R = tb.r_top, vp1 = V + 1;
-  const int chunk = plan.chunk;                 // N off chip
+  const int chunk = plan.chunk;
   const int lo = rank * chunk;                  // this CTA's first node
   const int n_own = max(0, min(N - lo, chunk));
+  // nodes of this CTA whose carry is in shared memory (the first ones),
+  // and the stride of the rest's in the scratch
+  const int in_nodes = ONCHIP ? chunk : plan.in_nodes;
+  const int out_nodes = chunk - in_nodes;
+  const bool ex_smem = ONCHIP || plan.ex_smem;
 
   // shared memory: the warps' lists [2][SCAN_WARPS][R], the CTA's [2][R]
   // and the warps' merge scratch [SCAN_WARPS][R] (values, then slots each)
-  // | scores rows [3][S] | group tables | (ONCHIP) node info [chunk] |
-  // exits [2][chunk] and contexts | carry [Ns][chunk] by state
+  // | scores rows [3][S] | group tables | (ex_smem) node info [chunk] |
+  // exits [2][chunk] and contexts | carry [Ns][in_nodes] by state
   float* wl_v = reinterpret_cast<float*>(smem_raw);
   int* wl_q = reinterpret_cast<int*>(wl_v + 2 * SCAN_WARPS * R);
   float* cl_v = reinterpret_cast<float*>(wl_q + 2 * SCAN_WARPS * R);
@@ -690,14 +849,24 @@ decoder_scan_kernel(const ScanTables tb, const ScanPlan plan,
   const int4* info;
   float* ex;
   int32_t* exc;
-  float* dc;
-  int32_t* cc;
+  // the carry by state: node l < in_nodes at dc[l + s * in_nodes], the
+  // others (not on chip) at dg[l - in_nodes + s * out_nodes]
+  float* dc = reinterpret_cast<float*>(smem_raw + plan.carry_off);
+  int32_t* cc = reinterpret_cast<int32_t*>(dc + (size_t)in_nodes * Ns);
+  float* dg = nullptr;
+  int32_t* cg = nullptr;
   const float* din = d_in + ((size_t)b * N + lo) * Ns;
   const int32_t* cin = c_in + ((size_t)b * N + lo) * Ns;
   const size_t carry_n = (size_t)n_own * Ns;
-  // node l's state s at dc[l * nstride + s * ds]: state-major on chip
-  const int nstride = ONCHIP ? 1 : Ns, ds = ONCHIP ? chunk : 1;
-  if (ONCHIP) {
+  if (!ONCHIP) {   // this utterance's scratch: carries, then exits
+    float* xf = scratch_f + (size_t)b * plan.scratch_words;
+    int32_t* xi = scratch_i + (size_t)b * plan.scratch_words;
+    dg = xf + (size_t)rank * Ns * out_nodes;
+    cg = xi + (size_t)rank * Ns * out_nodes;
+    ex = xf + (size_t)cs * Ns * out_nodes + (size_t)rank * 2 * chunk;
+    exc = xi + (size_t)cs * Ns * out_nodes + (size_t)rank * 2 * chunk;
+  }
+  if (ex_smem) {
     // each node's parent word re-packed as (CTA << 24 | index in it << 2)
     int4* s_info = reinterpret_cast<int4*>(smem_raw + plan.info_off);
     const int4* g_info = reinterpret_cast<const int4*>(tb.node_info) + lo;
@@ -710,21 +879,27 @@ decoder_scan_kernel(const ScanTables tb, const ScanPlan plan,
     info = s_info;
     ex = reinterpret_cast<float*>(smem_raw + plan.ex_off);
     exc = reinterpret_cast<int32_t*>(ex + 2 * chunk);
-    dc = reinterpret_cast<float*>(smem_raw + plan.carry_off);
-    cc = reinterpret_cast<int32_t*>(dc + (size_t)chunk * Ns);
   } else {
-    info = reinterpret_cast<const int4*>(tb.node_info);
-    ex = ex_global + (size_t)b * 2 * N;
-    exc = exc_global + (size_t)b * 2 * N;
-    dc = d_out + (size_t)b * N * Ns;
-    cc = c_out + (size_t)b * N * Ns;
+    info = reinterpret_cast<const int4*>(tb.node_info) + lo;
   }
-  if (ONCHIP || dc != din) {
-    for (size_t j = tid; j < carry_n; j += nthr) {
-      const size_t l = j / Ns, at = l * nstride + (j - l * Ns) * ds;
-      dc[at] = din[j];
-      cc[at] = cin[j];
+  // node l's states: *d, *c and the stride between them
+  auto states_of = [&](int l, float** d, int32_t** c) {
+    if (ONCHIP || l < in_nodes) {
+      *d = dc + l;
+      *c = cc + l;
+      return in_nodes;
     }
+    *d = dg + (l - in_nodes);
+    *c = cg + (l - in_nodes);
+    return out_nodes;
+  };
+  for (size_t j = tid; j < carry_n; j += nthr) {
+    const int l = (int)(j / Ns), s = (int)(j - (size_t)l * Ns);
+    float* d;
+    int32_t* c;
+    const int ds = states_of(l, &d, &c);
+    d[s * ds] = din[j];
+    c[s * ds] = cin[j];
   }
 
   const int nv = min(Tc, max(n_valid[b], 0));
@@ -752,24 +927,44 @@ decoder_scan_kernel(const ScanTables tb, const ScanPlan plan,
       tick = now;
     }
   };
-  // a node's previous-frame exit (buffer `buf`) by its re-packed parent
-  // word, in this CTA or another of the cluster
-  auto parent_exit = [&](int pword, int buf, int* xc) {
-    const int cta = pword >> 24, at = buf * chunk + (pword >> 2 & 0x3fffff);
-    const float* e = ex;
-    const int32_t* c = exc;
-    if (cta != rank) {
-      e = cluster_map(e, cta);
-      c = cluster_map(c, cta);
+  // where node `at` (an index into the CTA's exits [2][chunk]) of CTA `cta`
+  // has its exit: in its shared memory (distributed shared memory for
+  // another CTA's) or its part of the scratch, read past L1 (another CTA
+  // wrote it)
+  auto exit_at = [&](int cta, int at, int* xc) {
+    if (ex_smem) {
+      const float* e = ex;
+      const int32_t* c = exc;
+      if (cta != rank) {
+        e = cluster_map(e, cta);
+        c = cluster_map(c, cta);
+      }
+      *xc = c[at];
+      return e[at];
     }
-    *xc = c[at];
-    return e[at];
+    const long long o = (long long)(cta - rank) * 2 * chunk + at;
+    *xc = __ldcg(exc + o);
+    return __ldcg(ex + o);
+  };
+  // a node's previous-frame exit (buffer `buf`) by its parent word
+  // (re-packed where the info is in shared memory)
+  auto parent_exit = [&](int pword, int buf, int* xc) {
+    int cta, idx;
+    if (ex_smem) {
+      cta = pword >> 24;
+      idx = pword >> 2 & 0x3fffff;
+    } else {
+      const int p = pword >> 2;
+      cta = p / chunk;
+      idx = p - cta * chunk;
+    }
+    return exit_at(cta, buf * chunk + idx, xc);
   };
   auto ctx_of = [&](int buf, int node) {
-    const int cta = ONCHIP ? node / chunk : 0;
-    const int32_t* c = exc;
-    if (cta != rank) c = cluster_map(c, cta);
-    return c[buf * chunk + node - cta * chunk];
+    const int cta = node / chunk;
+    int xc;
+    exit_at(cta, buf * chunk + node - cta * chunk, &xc);
+    return xc;
   };
 
   float e_prev = NEG_INF_F;   // the previous frame's emission
@@ -792,42 +987,110 @@ decoder_scan_kernel(const ScanTables tb, const ScanPlan plan,
     // 1-3. each owned node: its entry, the advance, its exit
     float* ex_c = ex + cur * chunk;
     int32_t* exc_c = exc + cur * chunk;
-    for (int l = tid; l < n_own; l += nthr) {
-      const int4 nf = info[l];
-      float* dn = dc + (size_t)l * nstride;
-      int32_t* cn = cc + (size_t)l * nstride;
-      float d0;
-      int c0;
-      if (i > 0) {
-        int xc;
-        const float x = parent_exit(nf.y, prv, &xc);
-        entry_of(nf.y, x, xc, e_prev, re_prev, &d0, &c0);
-      } else {
-        d0 = dn[0];
-        c0 = cn[0];
+    if constexpr (ONCHIP) {
+      for (int l = tid; l < n_own; l += nthr) {
+        const int4 nf = info[l];
+        float* dn = dc + l;
+        int32_t* cn = cc + l;
+        float d0;
+        int c0;
+        if (i > 0) {
+          int xc;
+          const float x = parent_exit(nf.y, prv, &xc);
+          entry_of(nf.y, x, xc, e_prev, re_prev, &d0, &c0);
+        } else {
+          d0 = dn[0];
+          c0 = cn[0];
+        }
+        const float* bn = gband + (size_t)nf.x * Ns * W;
+        const int32_t* sn = gsen + (size_t)nf.x * Ns;
+        float e;
+        int ectx;
+        if constexpr (NSR > 0) {
+          e = advance_regs<NSR, WR>(tb, dn, cn, chunk, d0, c0, bn, sn, row,
+                                    &ectx);
+        } else {
+          dn[0] = d0;
+          cn[0] = c0;
+          advance_in_place(tb, dn, cn, chunk, bn, sn, row);
+          e = states_exit(tb, dn, cn, chunk, bn, &ectx);
+        }
+        ex_c[l] = e;
+        exc_c[l] = ectx;
       }
-      const float* bn = gband + (size_t)nf.x * Ns * W;
-      const int32_t* sn = gsen + (size_t)nf.x * Ns;
-      float e;
-      int ectx;
-      if constexpr (NSR > 0) {
-        e = advance_regs<NSR, WR>(tb, dn, cn, ds, d0, c0, bn, sn, row,
-                                  &ectx);
-      } else {
-        dn[0] = d0;
-        cn[0] = c0;
-        advance_in_place(tb, dn, cn, ds, bn, sn, row);
-        e = states_exit(tb, dn, cn, ds, bn, &ectx);
+    } else {
+      // where the states live in registers, one node at a time (all of its
+      // states loaded at once; more nodes would spill); else
+      // NODES_PER_THREAD nodes in place: their entries at once, then at
+      // band width <= 2 each window's loads at once, past it one node after
+      // another
+      constexpr int U = NSR > 0 ? 1 : NODES_PER_THREAD;
+      for (int l0 = tid; l0 < n_own; l0 += nthr * U) {
+        float* dn[U];
+        int32_t* cn[U];
+        int dsn[U], pw[U], ectx[U];
+        const float* bn[U];
+        const int32_t* sn[U];
+        bool act[U];
+        float d0[U], e[U];
+        int c0[U];
+#pragma unroll
+        for (int j = 0; j < U; ++j) {
+          const int l = l0 + j * nthr;
+          act[j] = l < n_own;
+          const int la = act[j] ? l : l0;
+          dsn[j] = states_of(la, &dn[j], &cn[j]);
+          const int4 nf = info[la];
+          pw[j] = nf.y;
+          bn[j] = gband + (size_t)nf.x * Ns * W;
+          sn[j] = gsen + (size_t)nf.x * Ns;
+        }
+#pragma unroll
+        for (int j = 0; j < U; ++j) {
+          if (i > 0) {
+            int xc;
+            const float x = parent_exit(pw[j], prv, &xc);
+            entry_of(pw[j], x, xc, e_prev, re_prev, &d0[j], &c0[j]);
+          } else {
+            d0[j] = dn[j][0];
+            c0[j] = cn[j][0];
+          }
+        }
+        if constexpr (NSR > 0) {   // U = 1: act[0] holds
+          e[0] = advance_regs<NSR, WR>(tb, dn[0], cn[0], dsn[0], d0[0], c0[0],
+                                       bn[0], sn[0], row, &ectx[0]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < U; ++j)
+            if (act[j]) {
+              dn[j][0] = d0[j];
+              cn[j][0] = c0[j];
+            }
+          if (W <= 2) {
+            advance_window<U>(tb, dn, cn, dsn, bn, sn, act, row, e, ectx);
+          } else {
+#pragma unroll
+            for (int j = 0; j < U; ++j)
+              if (act[j]) {
+                advance_in_place(tb, dn[j], cn[j], dsn[j], bn[j], sn[j], row);
+                e[j] = states_exit(tb, dn[j], cn[j], dsn[j], bn[j], &ectx[j]);
+              }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < U; ++j)
+          if (act[j]) {
+            ex_c[l0 + j * nthr] = e[j];
+            exc_c[l0 + j * nthr] = ectx[j];
+          }
       }
-      ex_c[l] = e;
-      exc_c[l] = ectx;
     }
     mark(1);
 
     // 4. this warp's top R over its nodes' slots, then every warp merges
     // the lists (in a cluster: each CTA's, then the CTAs')
-    float v;
-    int q;
+    float* wv = wl_v + cur * SCAN_WARPS * R;
+    int* wq = wl_q + cur * SCAN_WARPS * R;
     if constexpr (ONCHIP) {   // at most NODES_PER_THREAD nodes a thread:
       float ce[NODES_PER_THREAD];   // their exits and valid slots held
       int c0[NODES_PER_THREAD], c1[NODES_PER_THREAD];
@@ -848,7 +1111,7 @@ decoder_scan_kernel(const ScanTables tb, const ScanPlan plan,
 #pragma unroll
         for (int j = 0; j < NODES_PER_THREAD; ++j)
           for (int s = c0[j]; s < c1[j]; ++s) take(ce[j], s);
-      }, v, q);
+      }, wv + warp * R, wq + warp * R);
     } else {
       warp_top(R, [&](auto&& take) {
         for (int l = tid; l < n_own; l += nthr) {
@@ -857,13 +1120,7 @@ decoder_scan_kernel(const ScanTables tb, const ScanPlan plan,
           const int4 nf = info[l];   // its valid slots
           for (int s = nf.z; s < nf.z + nf.w; ++s) take(e, s);
         }
-      }, v, q);
-    }
-    float* wv = wl_v + cur * SCAN_WARPS * R;
-    int* wq = wl_q + cur * SCAN_WARPS * R;
-    if (lane < R) {
-      wv[warp * R + lane] = v;
-      wq[warp * R + lane] = q;
+      }, wv + warp * R, wq + warp * R);
     }
     mark(2);
     if (ROWS_SMEM) cp_async_wait_one();   // row i + 1 (this thread's part)
@@ -871,6 +1128,8 @@ decoder_scan_kernel(const ScanTables tb, const ScanPlan plan,
     mark(0);
     auto warp_lists_v = [&](int w) { return wv + w * R; };
     auto warp_lists_q = [&](int w) { return wq + w * R; };
+    float v;
+    int q;
     if (cs == 1) {
       merge_lists(warps, R, warp_lists_v, warp_lists_q, mo_v, mo_q, v, q);
     } else {
@@ -885,7 +1144,8 @@ decoder_scan_kernel(const ScanTables tb, const ScanPlan plan,
       }
       cluster_sync();
       warp_merge(cs, R, [&](int c) { return cluster_map(cv, c); },
-                 [&](int c) { return cluster_map(cq, c); }, v, q);
+                 [&](int c) { return cluster_map(cq, c); }, mo_v, mo_q, v,
+                 q);
     }
     mark(2);
 
@@ -907,8 +1167,10 @@ decoder_scan_kernel(const ScanTables tb, const ScanPlan plan,
       const int pword = info[l].y;
       int xc;
       const float x = parent_exit(pword, last, &xc);
-      entry_of(pword, x, xc, e_prev, re_prev, dc + (size_t)l * nstride,
-               cc + (size_t)l * nstride);
+      float* d;
+      int32_t* c;
+      states_of(l, &d, &c);
+      entry_of(pword, x, xc, e_prev, re_prev, d, c);
     }
   }
   mark(4);
@@ -920,15 +1182,16 @@ decoder_scan_kernel(const ScanTables tb, const ScanPlan plan,
       tb_prev[(size_t)b * Tc + i] = -1;
       tb_word[(size_t)b * Tc + i] = -1;
     }
-  if (ONCHIP) {
-    __syncthreads();
-    float* dout = d_out + ((size_t)b * N + lo) * Ns;
-    int32_t* cout = c_out + ((size_t)b * N + lo) * Ns;
-    for (size_t j = tid; j < carry_n; j += nthr) {
-      const size_t l = j / Ns, at = l + (j - l * Ns) * chunk;
-      dout[j] = dc[at];
-      cout[j] = cc[at];
-    }
+  __syncthreads();
+  float* dout = d_out + ((size_t)b * N + lo) * Ns;
+  int32_t* cout = c_out + ((size_t)b * N + lo) * Ns;
+  for (size_t j = tid; j < carry_n; j += nthr) {
+    const int l = (int)(j / Ns), s = (int)(j - (size_t)l * Ns);
+    float* d;
+    int32_t* c;
+    const int ds = states_of(l, &d, &c);
+    dout[j] = d[s * ds];
+    cout[j] = c[s * ds];
   }
   if (cs > 1) cluster_sync();   // no CTA leaves while another reads it
 }
@@ -942,17 +1205,22 @@ decoder_scan_kernel(const ScanTables tb, const ScanPlan plan,
 // DeviceBeamDecoder._finalize_plain, is ~10 eager ops a chase step: ~630
 // launches a call, for work of a few microseconds.  Here one block per
 // utterance does all of it in one launch:
-//   1. the exit of each slot's node from the final carry (node_exit) and
-//      the slot's acoustic score ac[q] (NEG_INF where the slot is not valid
-//      or the exit is at or below NEG_INF / 2);
+//   1. the exit of each slot's node from the final carry (node_exit's
+//      compares, the nodes and exit states of SLOT_BATCH slots a thread
+//      loaded together) and the slot's acoustic score ac[q] (NEG_INF where
+//      the slot is not valid or the exit is at or below NEG_INF / 2);
 //   2. the top R = min(Q, max(32, 2 C)) slots in _top_k's order (value
-//      descending, the lower slot first among equals): R block argmaxes,
-//      each taking the best slot after the previous winner, as the frame
-//      scan's emission does;
+//      descending, the lower slot first among equals): each warp's top R
+//      over its threads' slots (warp_top: a lane's own few best, R warp
+//      argmaxes over the lanes' heads), then each entry of the warps' lists
+//      placed by its rank (place_by_rank: its place in its list plus a
+//      binary search in each other list; the slots are distinct, so are the
+//      ranks), the scan's selection and merge;
 //   3. each of the R candidates' LM term on (its exit context % (V + 1),
 //      its word) and its total (one float add, NEG_INF where the acoustic
 //      score is at or below NEG_INF / 2);
-//   4. the top C of the R totals in the same order, by one warp;
+//   4. the top C of the R totals in the same order, each total placed by
+//      its rank among the R;
 //   5. one thread per candidate chases max_words - 1 traceback pointers
 //      through (tb_prev, tb_word), writes the newest-first words into its
 //      seqs row (all -1 for an invalid candidate), counts them and reverses
@@ -963,11 +1231,12 @@ decoder_scan_kernel(const ScanTables tb, const ScanPlan plan,
 //
 // What bounds it: the bytes, ~1 us at the decode cell (the rows [B, T]
 // int32 twice, the slots' carry, seqs), and the latency of its dependent
-// steps: R + C selection passes and the chase's max_words - 1 dependent
-// loads.  The utterance's rows are staged in shared memory when their T 8
-// bytes fit beside the selection's arrays (ROWS_SMEM), so a chase step is
-// a shared-memory load; else it reads device memory.  ac[Q] sits in shared
-// memory where it fits beside those, else in a [B, Q] device scratch.
+// steps: R warp argmaxes, three barriers and the chase's max_words - 1
+// dependent loads.  The utterance's rows are staged in shared memory when
+// their T 8 bytes fit beside the selection's arrays (ROWS_SMEM), so a
+// chase step is a shared-memory load; else it reads device memory.  ac[Q]
+// sits in shared memory where it fits beside those, else in a [B, Q]
+// device scratch.
 template <bool ROWS_SMEM>
 __global__ void __launch_bounds__(MAX_THREADS)
 decoder_finalize_kernel(const ScanTables tb, const float* __restrict__ deltas,
@@ -978,24 +1247,26 @@ decoder_finalize_kernel(const ScanTables tb, const float* __restrict__ deltas,
                         float* __restrict__ scores, int T, int C, int R,
                         int L, int ac_in_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float red_v[MAX_WARPS];
-  __shared__ int red_q[MAX_WARPS];
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, warps = nthr >> 5;
   const int Q = tb.n_slots, vp1 = tb.n_vocab + 1;
   const size_t carry_n = (size_t)tb.n_nodes * tb.n_states;
   const float* d_b = deltas + (size_t)b * carry_n;
   const int32_t* c_b = ctx + (size_t)b * carry_n;
 
   // shared memory: top_v [R] | top_q [R] | tot [R] | cr [R] | pick [C] |
-  // (ROWS_SMEM) prev [T] | word [T] | (ac_in_smem) ac [Q]
+  // the warps' lists [warps][R] (values, then slots) | (ROWS_SMEM) prev [T]
+  // | word [T] | (ac_in_smem) ac [Q]
   float* top_v = reinterpret_cast<float*>(smem_raw);
   int* top_q = reinterpret_cast<int*>(top_v + R);
   float* tot = reinterpret_cast<float*>(top_q + R);
   int* cr = reinterpret_cast<int*>(tot + R);
   int* pick = cr + R;
-  int32_t* rows = pick + C;
+  float* wl_v = reinterpret_cast<float*>(pick + C);
+  int* wl_q = reinterpret_cast<int*>(wl_v + warps * R);
+  int32_t* rows = wl_q + warps * R;
   const int32_t* prev = tb_prev + (size_t)b * T;
   const int32_t* word = tb_word + (size_t)b * T;
   if (ROWS_SMEM) {
@@ -1010,31 +1281,48 @@ decoder_finalize_kernel(const ScanTables tb, const float* __restrict__ deltas,
                   ? reinterpret_cast<float*>(rows + (ROWS_SMEM ? 2 * T : 0))
                   : ac_global + (size_t)b * Q;
 
-  // 1. the slots' acoustic scores
-  for (int q = tid; q < Q; q += nthr) {
-    int unused;
-    const float x =
-        node_exit(tb, d_b, c_b, __ldg(tb.node_slot + q), &unused);
-    ac[q] = (__ldg(tb.slot_valid + q) && x > NEG_INF_HALF_F) ? x : NEG_INF_F;
+  // 1. the slots' acoustic scores, SLOT_BATCH slots a thread at a time:
+  // their nodes, then their exit states and bands, loaded together
+  const int Ns = tb.n_states, W = tb.band_w;
+  for (int q0 = tid; q0 < Q; q0 += nthr * SLOT_BATCH) {
+    size_t at[SLOT_BATCH];   // each slot's node's first state
+    float x[SLOT_BATCH];
+#pragma unroll
+    for (int j = 0; j < SLOT_BATCH; ++j) {
+      const int q = q0 + j * nthr;
+      at[j] = q < Q ? (size_t)__ldg(tb.node_slot + q) * Ns : 0;
+      x[j] = NEG_INF_F;
+    }
+    for (int k = 1; k < W; ++k) {   // node_exit's compares, in its order
+      const int rr = Ns - 1 - k;
+      if (rr < 0) break;
+      float cand[SLOT_BATCH];
+#pragma unroll
+      for (int j = 0; j < SLOT_BATCH; ++j)
+        cand[j] = d_b[at[j] + rr] + __ldg(tb.bands + (at[j] + rr) * W + k);
+#pragma unroll
+      for (int j = 0; j < SLOT_BATCH; ++j)
+        if (cand[j] > x[j]) x[j] = cand[j];
+    }
+#pragma unroll
+    for (int j = 0; j < SLOT_BATCH; ++j) {
+      const int q = q0 + j * nthr;
+      if (q < Q)
+        ac[q] = (__ldg(tb.slot_valid + q) && x[j] > NEG_INF_HALF_F)
+                    ? x[j] : NEG_INF_F;
+    }
   }
   __syncthreads();
 
-  // 2. the top R slots: R ordered block argmaxes
-  float pv = 0.0f;
-  int pq = -1;
-  for (int r = 0; r < R; ++r) {
-    float bv = -INFINITY;   // below every slot's value (>= NEG_INF)
-    int bq = 0x7fffffff;
-    for (int q = tid; q < Q; q += nthr) {
-      const float a = ac[q];
-      const bool after = r == 0 || before(pv, pq, a, q);
-      if (after && before(a, q, bv, bq)) { bv = a; bq = q; }
-    }
-    block_best(bv, bq, red_v, red_q);
-    if (tid == 0) { top_v[r] = bv; top_q[r] = bq; }
-    pv = bv;
-    pq = bq;
-  }
+  // 2. the top R slots: each warp's, then the warps' lists by rank
+  float* my_v = wl_v + warp * R;
+  int* my_q = wl_q + warp * R;
+  warp_top(R, [&](auto&& take) {
+    for (int q = tid; q < Q; q += nthr) take(ac[q], q);
+  }, my_v, my_q);
+  __syncthreads();
+  place_by_rank(warps, R, [&](int w) { return wl_v + w * R; },
+                [&](int w) { return wl_q + w * R; }, tid, nthr, top_v, top_q);
   __syncthreads();
 
   // 3. their LM terms and totals
@@ -1049,25 +1337,14 @@ decoder_finalize_kernel(const ScanTables tb, const float* __restrict__ deltas,
   }
   __syncthreads();
 
-  // 4. the top C totals, by the first warp
-  if (tid < 32) {
-    float pt = 0.0f;
-    int pi = -1;
-    for (int c = 0; c < C; ++c) {
-      float bv = -INFINITY;
-      int bi = 0x7fffffff;
-      for (int r = tid; r < R; r += 32) {
-        const float x = tot[r];
-        const bool after = c == 0 || before(pt, pi, x, r);
-        if (after && before(x, r, bv, bi)) { bv = x; bi = r; }
-      }
-      warp_best(bv, bi);
-      if (tid == 0) {
-        pick[c] = bi;
-        scores[(size_t)b * C + c] = bv;
-      }
-      pt = bv;
-      pi = bi;
+  // 4. the top C totals: each total's rank among the R
+  for (int r = tid; r < R; r += nthr) {
+    const float x = tot[r];
+    int rank = 0;
+    for (int o = 0; o < R; ++o) rank += before(tot[o], o, x, r);
+    if (rank < C) {
+      pick[rank] = r;
+      scores[(size_t)b * C + rank] = x;
     }
   }
   __syncthreads();
@@ -1103,7 +1380,6 @@ decoder_finalize_kernel(const ScanTables tb, const float* __restrict__ deltas,
     for (int j = lens; j < L; ++j) out[j] = -1;
   }
 }
-
 
 // ----------------------------------------------------------------------
 // The block-pruned frame scan.
@@ -1481,8 +1757,8 @@ decoder_pruned_kernel(const ScanTables tb, const PrunedTables pt,
       ex_c[idx] = states_exit(tb, d, c, blk, bn, &ectx);
       exc_c[idx] = ectx;
     }
-    float v;
-    int q;
+    float* wv = wl_v + cur * SCAN_WARPS * R;
+    int* wq = wl_q + cur * SCAN_WARPS * R;
     warp_top(R, [&](auto&& take) {
       for (int idx = tid; idx < act_n; idx += nthr) {
         const float e = ex_c[idx];
@@ -1491,17 +1767,13 @@ decoder_pruned_kernel(const ScanTables tb, const PrunedTables pt,
         const int4 nf = info[kb_c[k] * blk + idx - k * blk];
         for (int s = nf.z; s < nf.z + nf.w; ++s) take(e, s);
       }
-    }, v, q);
-    float* wv = wl_v + cur * SCAN_WARPS * R;
-    int* wq = wl_q + cur * SCAN_WARPS * R;
-    if (lane < R) {
-      wv[warp * R + lane] = v;
-      wq[warp * R + lane] = q;
-    }
+    }, wv + warp * R, wq + warp * R);
     mark(3);
     __syncthreads();
 
     // 5-6. every warp merges the lists and picks; the traceback row
+    float v;
+    int q;
     merge_lists(warps, R, [&](int w) { return wv + w * R; },
                 [&](int w) { return wq + w * R; }, mo_v, mo_q, v, q);
     mark(4);
@@ -1555,17 +1827,16 @@ size_t lists_bytes(int R) {
   return align16((3 * (size_t)SCAN_WARPS + 2) * R * 8);
 }
 
-// The exact scan's plan (ScanPlan above).  The rows go to shared memory
-// where the three fit beside the lists.  Then the node ranges' info,
-// exits and carry on chip beside them and the group tables (else without
-// the group tables): on one CTA where they fit, else on the cluster size
-// (up to MAX_CLUSTER) of which the card runs the most at once
-// (`active(plan)`: utterances in flight), the largest among equals (the
-// least work a CTA).  Else the carry stays in device memory, the group
-// tables in shared memory where they fit.
+// The exact scan's on-chip plan (ScanPlan above).  The rows go to shared
+// memory where the three fit beside the lists.  Then the node ranges'
+// info, exits and carry on chip beside them and the group tables (else
+// without the group tables): on one CTA where they fit, else on the
+// cluster size (up to MAX_CLUSTER) of which the card runs the most at
+// once (`active(plan)`: utterances in flight), the largest among equals
+// (the least work a CTA).  onchip = 0 where no size holds them.
 template <class Active>
-ScanPlan scan_plan(int N, int Ns, int W, int S, int G, int R,
-                   Active active) {
+ScanPlan onchip_plan(int N, int Ns, int W, int S, int G, int R,
+                     Active active) {
   const size_t lists = lists_bytes(R);
   const size_t rows = align16(3 * (size_t)S * 4);
   const size_t groups = align16((size_t)G * Ns * (W + 1) * 4);
@@ -1591,7 +1862,8 @@ ScanPlan scan_plan(int N, int Ns, int W, int S, int G, int R,
       if (at > SMEM_LIMIT) continue;
       p.onchip = 1;
       p.cs = cs;
-      p.chunk = chunk;
+      p.chunk = p.in_nodes = chunk;
+      p.ex_smem = 1;
       p.threads = threads_for(chunk, SCAN_THREADS);
       p.smem = (unsigned)at;
       if (cs == 1) return p;
@@ -1601,24 +1873,53 @@ ScanPlan scan_plan(int N, int Ns, int W, int S, int G, int R,
         best_n = n;
       }
     }
-  if (best_n > 0) return best;
-  p.onchip = 0;
-  p.cs = 1;
-  p.chunk = N;
-  p.threads = MAX_THREADS;
-  p.groups_smem = base + groups <= SMEM_LIMIT;
-  p.groups_off = (unsigned)base;
-  p.smem = (unsigned)(base + (p.groups_smem ? groups : 0));
-  p.info_off = p.ex_off = p.carry_off = p.smem;
+  return best;
+}
+
+// The device-memory route's layout on cs CTAs of ceil(N / cs) nodes each:
+// after the lists and the rows (where they fit), the group tables, the
+// nodes' info and exits, then the carry of as many nodes as fit; the group
+// tables make way where the info and exits fit only without them, and the
+// info and exits go to the scratch where they do not fit at all.
+ScanPlan device_plan(int N, int Ns, int W, int S, int G, int R, int cs) {
+  const size_t lists = lists_bytes(R);
+  const size_t rows = align16(3 * (size_t)S * 4);
+  const size_t groups = align16((size_t)G * Ns * (W + 1) * 4);
+  ScanPlan p{};
+  p.cs = cs;
+  p.chunk = (N + cs - 1) / cs;
+  p.threads = threads_for(p.chunk, SCAN_THREADS);
+  p.rows_smem = lists + rows <= SMEM_LIMIT;
+  p.rows_off = (unsigned)lists;
+  size_t at = lists + (p.rows_smem ? rows : 0);
+  const size_t info = align16((size_t)p.chunk * 16);
+  const size_t exits = 2 * info;   // the info, then the two frames' exits
+  p.groups_smem = at + groups <= SMEM_LIMIT &&
+                  (at + groups + exits <= SMEM_LIMIT ||
+                   at + exits > SMEM_LIMIT);
+  p.groups_off = (unsigned)at;
+  at += p.groups_smem ? groups : 0;
+  p.ex_smem = at + exits <= SMEM_LIMIT;
+  p.info_off = (unsigned)at;
+  p.ex_off = (unsigned)(at + info);
+  at += p.ex_smem ? exits : 0;
+  p.carry_off = (unsigned)at;
+  p.in_nodes = p.ex_smem ? (int)std::min<size_t>(
+                               p.chunk, (SMEM_LIMIT - at) / (8 * (size_t)Ns))
+                         : 0;
+  p.smem = (unsigned)(at + (size_t)p.in_nodes * Ns * 8);
+  p.scratch_words =
+      (long long)cs * ((long long)Ns * (p.chunk - p.in_nodes) +
+                       (p.ex_smem ? 0 : 2LL * p.chunk));
   return p;
 }
 
 // A node's states in registers, unrolled to (8 states, 2 offsets: the
-// left-to-right topology) or (NS_MAX, W_MAX): kinds 1-2; else in place in
-// the carry (0).
-int regs_kind(int Ns, int W) {
-  if (W > W_MAX || Ns > NS_MAX) return 0;
-  return Ns <= 8 && W <= 2 ? 1 : 2;
+// left-to-right topology) or, on chip, (NS_MAX, W_MAX): kinds 1-2; else in
+// place in the carry (0: off chip by windows at band width <= 2, else a node at a time).
+int regs_kind(int Ns, int W, bool onchip) {
+  if (Ns <= 8 && W <= 2) return 1;
+  return onchip && W <= W_MAX && Ns <= NS_MAX ? 2 : 0;
 }
 
 // Opt a kernel into its dynamic shared memory past 48 KB and, past 8 CTAs,
@@ -1655,13 +1956,25 @@ cudaLaunchConfig_t launch_config(int B, const ScanPlan& plan,
   return cfg;
 }
 
-// How many clusters of the plan's shape the card runs at once, into *n.
+// How many clusters of the plan's shape the card runs at once (CTAs where
+// plan.cs is 1), into *n.
 template <bool ONCHIP, bool ROWS_SMEM, int NSR, int WR>
 cudaError_t active_clusters(const ScanPlan& plan, int* n) {
   const auto kernel = decoder_scan_kernel<ONCHIP, ROWS_SMEM, NSR, WR>;
   *n = 0;
-  const cudaError_t rc = prepare(kernel, plan.smem, plan.cs);
+  cudaError_t rc = prepare(kernel, plan.smem, plan.cs);
   if (rc != cudaSuccess) return rc;
+  if (plan.cs == 1) {
+    int dev = 0, sms = 0, per_sm = 0;
+    rc = cudaGetDevice(&dev);
+    if (rc == cudaSuccess)
+      rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, plan.threads, plan.smem);
+    *n = per_sm * sms;
+    return rc;
+  }
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(1, plan, nullptr, &attr);
   return cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
@@ -1671,16 +1984,17 @@ template <bool ONCHIP, bool ROWS_SMEM, int NSR, int WR>
 int launch(int B, const ScanPlan& plan, cudaStream_t stream,
            const ScanTables& tb, const float* scores, const int32_t* n_valid,
            const float* d_in, const int32_t* c_in, float* d_out,
-           int32_t* c_out, float* ex, int32_t* exc, int32_t* tb_prev,
-           int32_t* tb_word, int Tc, int S, int t0, long long* clocks) {
+           int32_t* c_out, float* scratch_f, int32_t* scratch_i,
+           int32_t* tb_prev, int32_t* tb_word, int Tc, int S, int t0,
+           long long* clocks) {
   const auto kernel = decoder_scan_kernel<ONCHIP, ROWS_SMEM, NSR, WR>;
   cudaError_t rc = prepare(kernel, plan.smem, plan.cs);
   if (rc != cudaSuccess) return (int)rc;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(B, plan, stream, &attr);
   rc = cudaLaunchKernelEx(&cfg, kernel, tb, plan, scores, n_valid, d_in,
-                          c_in, d_out, c_out, ex, exc, tb_prev, tb_word, Tc,
-                          S, t0, clocks);
+                          c_in, d_out, c_out, scratch_f, scratch_i, tb_prev,
+                          tb_word, Tc, S, t0, clocks);
   if (rc != cudaSuccess) return (int)rc;
   return (int)cudaGetLastError();
 }
@@ -1691,34 +2005,41 @@ using LaunchFn = int (*)(int, const ScanPlan&, cudaStream_t,
                          float*, int32_t*, int32_t*, int32_t*, int, int, int,
                          long long*);
 using ClustersFn = cudaError_t (*)(const ScanPlan&, int*);
-// indexed by onchip * 6 + rows_smem * 3 + regs_kind
-#define SCAN_KINDS(f, on, rows)                                             \
-  f<on, rows, 0, 0>, f<on, rows, 8, 2>, f<on, rows, NS_MAX, W_MAX>
+// off chip indexed by rows_smem * 2 + regs_kind, on chip by 4 + rows_smem
+// * 3 + regs_kind
 #define SCAN_INSTANCES(f)                                                   \
-  {SCAN_KINDS(f, false, false), SCAN_KINDS(f, false, true),                \
-   SCAN_KINDS(f, true, false), SCAN_KINDS(f, true, true)}
-constexpr LaunchFn LAUNCH[12] = SCAN_INSTANCES(launch);
-constexpr ClustersFn CLUSTERS[12] = SCAN_INSTANCES(active_clusters);
+  {f<false, false, 0, 0>, f<false, false, 8, 2>, f<false, true, 0, 0>,     \
+   f<false, true, 8, 2>, f<true, false, 0, 0>, f<true, false, 8, 2>,       \
+   f<true, false, NS_MAX, W_MAX>, f<true, true, 0, 0>, f<true, true, 8, 2>, \
+   f<true, true, NS_MAX, W_MAX>}
+constexpr LaunchFn LAUNCH[10] = SCAN_INSTANCES(launch);
+constexpr ClustersFn CLUSTERS[10] = SCAN_INSTANCES(active_clusters);
 
 int instance(const ScanPlan& p, const ScanTables& tb) {
-  return p.onchip * 6 + p.rows_smem * 3 + regs_kind(tb.n_states, tb.band_w);
+  const int kind = regs_kind(tb.n_states, tb.band_w, p.onchip);
+  return p.onchip ? 4 + p.rows_smem * 3 + kind : p.rows_smem * 2 + kind;
 }
 
-// A plan and the clusters of its shape the card runs at once (1 where
-// the CTAs are not clustered), kept per device and shape: choosing a
-// cluster size asks the card for the occupancy of each size that fits.
+// A shape's plans, kept per device and shape (choosing a layout asks the
+// card for the occupancy of each size that fits): the on-chip plan and the
+// clusters of its shape the card runs at once (1 where the CTAs are not
+// clustered), or, where the carry stays off chip, the device-memory
+// route's layout at each cluster size and the clusters (CTAs at size 1) of
+// it the card runs at once.
 struct Planned {
   int key[7];
   ScanPlan plan;
   int active;
+  ScanPlan by_size[MAX_CLUSTER];
+  int active_by_size[MAX_CLUSTER];
+  long long l2_bytes;
 };
 std::mutex plans_mutex;
 std::vector<Planned> plans;
 constexpr size_t PLANS_KEPT = 64;
 
-// The plan for these tables at S senones on the current device, a
-// cluster's shape weighed by the clusters of it the card runs at once.
-// Returns the first error of the occupancy queries, or cudaSuccess.
+// The plans for these tables at S senones on the current device.  Returns
+// the first error of the occupancy queries, or cudaSuccess.
 cudaError_t plan_for(const ScanTables& tb, int S, Planned* out) {
   int dev = 0;
   cudaError_t rc = cudaGetDevice(&dev);
@@ -1731,38 +2052,88 @@ cudaError_t plan_for(const ScanTables& tb, int S, Planned* out) {
       *out = p;
       return cudaSuccess;
     }
-  const ScanPlan plan = scan_plan(
+  Planned p{};
+  std::copy(key, key + 7, p.key);
+  p.plan = onchip_plan(
       tb.n_nodes, tb.n_states, tb.band_w, S, tb.n_groups, tb.r_top,
-      [&](const ScanPlan& p) {
+      [&](const ScanPlan& q) {
         int n = 0;
-        if (rc == cudaSuccess) rc = CLUSTERS[instance(p, tb)](p, &n);
+        if (rc == cudaSuccess) rc = CLUSTERS[instance(q, tb)](q, &n);
         return rc == cudaSuccess ? n : 0;
       });
   if (rc != cudaSuccess) return rc;
-  int active = 1;
-  if (plan.cs > 1) {
-    rc = CLUSTERS[instance(plan, tb)](plan, &active);
+  p.active = 1;
+  if (p.plan.onchip && p.plan.cs > 1) {
+    rc = CLUSTERS[instance(p.plan, tb)](p.plan, &p.active);
     if (rc != cudaSuccess) return rc;
   }
-  Planned p{};
-  std::copy(key, key + 7, p.key);
-  p.plan = plan;
-  p.active = active;
+  if (!p.plan.onchip) {
+    int l2 = 0;
+    rc = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
+    if (rc != cudaSuccess) return rc;
+    p.l2_bytes = l2;
+  }
+  if (!p.plan.onchip)
+    for (int cs = 1; cs <= MAX_CLUSTER; ++cs) {
+      ScanPlan& q = p.by_size[cs - 1];
+      q = device_plan(tb.n_nodes, tb.n_states, tb.band_w, S, tb.n_groups,
+                      tb.r_top, cs);
+      if (q.smem > SMEM_LIMIT) continue;   // lists and group tables alone
+      rc = CLUSTERS[instance(q, tb)](q, &p.active_by_size[cs - 1]);
+      if (rc != cudaSuccess) return rc;
+    }
   if (plans.size() >= PLANS_KEPT) plans.erase(plans.begin());
   plans.push_back(p);
   *out = p;
   return cudaSuccess;
 }
 
-// What the n-best kernel keeps in shared memory: the selection's arrays,
-// then the traceback rows where they fit, then ac where it fits.
+// The plan for B utterances and the clusters (CTAs) of it the card runs at
+// once.  Off chip, a wave of utterances takes about as long as the nodes a
+// CTA owns while the scratch of the utterances in flight stays in L2 (an
+// H100 80GB HBM3 at 700 W, `state_num = 10` over 21,589 nodes, B = 8:
+// 11.2 ms on clusters of 9, the card running 9 at once; 12.3 on 8; 13.8 on
+// 16, 7 at once, two waves; 83.0 on one CTA an utterance; B = 128: 122.2
+// on clusters of 8, 131.2 on 16, 156.0 on one CTA with ~400 MB of scratch
+// in flight): the size with the fewest waves times nodes a CTA, among the
+// sizes whose utterances in flight keep their scratch within the L2 (all
+// sizes where none does); the largest size among equals.
+// cudaErrorInvalidValue where the card runs no size.
+cudaError_t choose(const Planned& p, int B, ScanPlan* plan, int* active) {
+  if (p.plan.onchip) {
+    *plan = p.plan;
+    *active = p.active;
+    return cudaSuccess;
+  }
+  long long best = -1;
+  for (int fit_l2 = 1; fit_l2 >= 0 && best < 0; --fit_l2)
+    for (int cs = 1; cs <= MAX_CLUSTER; ++cs) {
+      const int a = p.active_by_size[cs - 1];
+      if (a < 1) continue;
+      const ScanPlan& q = p.by_size[cs - 1];
+      const long long in_flight = std::min(B, a) * q.scratch_words * 8;
+      if (fit_l2 && in_flight > p.l2_bytes) continue;
+      const long long cost = (B + a - 1) / a * (long long)q.chunk;
+      if (best < 0 || cost <= best) {
+        best = cost;
+        *plan = q;
+        *active = a;
+      }
+    }
+  return best < 0 ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+// What the n-best kernel keeps in shared memory: the selection's arrays
+// and the warps' lists, then the traceback rows where they fit, then ac
+// where it fits.
 struct FinalizePlan {
   bool rows_smem, ac_smem;
   size_t smem;
 };
 
 FinalizePlan finalize_plan(int Q, int T, int C, int R) {
-  const size_t base = 16 * (size_t)R + 4 * (size_t)C;
+  const size_t warps = threads_for(Q) / 32;
+  const size_t base = 16 * (size_t)R + 4 * (size_t)C + 8 * warps * R;
   const size_t rows = 8 * (size_t)T, ac = 4 * (size_t)Q;
   FinalizePlan p;
   p.rows_smem = base + rows <= SMEM_LIMIT;
@@ -1849,14 +2220,16 @@ bool bad_tables(const ScanTables& tb) {
 // cudaErrorInvalidValue for a shape it does not take; the launch is
 // asynchronous on `stream`.  The carry goes from (d_in, c_in) to
 // (d_out, c_out) ([B, N, Ns]); tb_prev and tb_word ([B, Tc]) are written
-// whole.  ex_scratch / exc_scratch ([B, 2, N]) are read only where the
-// carry stays off chip (decoder_scan_plan's first entry 0).  clocks: null,
-// or EXACT_PHASES int64 counters the first utterance's cycles are added to.
+// whole.  scratch_f / scratch_i (float32 and int32, [B, scratch words]:
+// decoder_scan_plan's last entry) are read only where the carry stays off
+// chip (its first entry 0) and the scratch words are more than 0.  clocks:
+// null, or EXACT_PHASES int64 counters the first utterance's cycles are
+// added to.
 extern "C" int decoder_scan_exact(const ScanTables* tables,
                                   const void* scores, const void* n_valid,
                                   const void* d_in, const void* c_in,
-                                  void* d_out, void* c_out, void* ex_scratch,
-                                  void* exc_scratch, void* tb_prev,
+                                  void* d_out, void* c_out, void* scratch_f,
+                                  void* scratch_i, void* tb_prev,
                                   void* tb_word, int B, int Tc, int S, int t0,
                                   void* clocks, void* stream_) {
   const ScanTables tb = *tables;
@@ -1864,46 +2237,57 @@ extern "C" int decoder_scan_exact(const ScanTables* tables,
       tb.r_top > R_MAX || tb.r_top > tb.n_slots || t0 < 0)
     return (int)cudaErrorInvalidValue;
   Planned planned;
-  const cudaError_t rc = plan_for(tb, S, &planned);
+  cudaError_t rc = plan_for(tb, S, &planned);
   if (rc != cudaSuccess) return (int)rc;
-  const ScanPlan& plan = planned.plan;
-  if (!plan.onchip && (ex_scratch == nullptr || exc_scratch == nullptr))
+  ScanPlan plan;
+  int active = 0;
+  rc = choose(planned, B, &plan, &active);
+  if (rc != cudaSuccess) return (int)rc;
+  if (!plan.onchip && plan.scratch_words > 0 &&
+      (scratch_f == nullptr || scratch_i == nullptr))
     return (int)cudaErrorInvalidValue;
   return LAUNCH[instance(plan, tb)](
       B, plan, (cudaStream_t)stream_, tb, static_cast<const float*>(scores),
       static_cast<const int32_t*>(n_valid), static_cast<const float*>(d_in),
       static_cast<const int32_t*>(c_in), static_cast<float*>(d_out),
-      static_cast<int32_t*>(c_out), static_cast<float*>(ex_scratch),
-      static_cast<int32_t*>(exc_scratch), static_cast<int32_t*>(tb_prev),
+      static_cast<int32_t*>(c_out), static_cast<float*>(scratch_f),
+      static_cast<int32_t*>(scratch_i), static_cast<int32_t*>(tb_prev),
       static_cast<int32_t*>(tb_word), Tc, S, t0,
       static_cast<long long*>(clocks));
 }
 
-// The exact scan's plan for these tables at S senones, into out[8]: on
-// chip (1) or not (0), CTAs an utterance, nodes a CTA, threads a CTA, the
-// rows in shared memory, the group tables in shared memory, dynamic shared
-// memory bytes a CTA, and the clusters of that shape the card runs at once
-// (1 where the CTAs are not clustered).  Returns 0, the error of an
-// occupancy query, or cudaErrorInvalidValue for tables the scan does not
-// take.
-extern "C" int decoder_scan_plan(const ScanTables* tables, int S, int* out) {
+// The exact scan's plan for these tables at S senones and B utterances,
+// into out[11]: on chip (1) or not (0), CTAs an utterance, nodes a CTA,
+// threads a CTA, the rows in shared memory, the group tables in shared
+// memory, dynamic shared memory bytes a CTA, the clusters of that shape
+// the card runs at once (1 where the CTAs of an on-chip plan are not
+// clustered; CTAs where an off-chip plan's are not), the nodes a CTA keeps
+// the carry of in shared memory, the info and exits in shared memory, and
+// the scratch words an utterance.  Returns 0, the error of an occupancy
+// query, or cudaErrorInvalidValue for tables the scan does not take.
+extern "C" int decoder_scan_plan(const ScanTables* tables, int S, int B,
+                                 long long* out) {
   const ScanTables tb = *tables;
-  if (S < 1 || bad_tables(tb) || tb.r_top < 1 || tb.r_top > R_MAX)
+  if (S < 1 || B < 1 || bad_tables(tb) || tb.r_top < 1 || tb.r_top > R_MAX)
     return (int)cudaErrorInvalidValue;
   Planned planned;
-  const cudaError_t rc = plan_for(tb, S, &planned);
+  cudaError_t rc = plan_for(tb, S, &planned);
   if (rc != cudaSuccess) return (int)rc;
-  const ScanPlan& p = planned.plan;
-  const int fields[8] = {p.onchip,    p.cs,           p.chunk,
-                         p.threads,   p.rows_smem,    p.groups_smem,
-                         (int)p.smem, planned.active};
-  for (int i = 0; i < 8; ++i) out[i] = fields[i];
+  ScanPlan p;
+  int active = 0;
+  rc = choose(planned, B, &p, &active);
+  if (rc != cudaSuccess) return (int)rc;
+  const long long fields[11] = {p.onchip,    p.cs,        p.chunk,
+                                p.threads,   p.rows_smem, p.groups_smem,
+                                p.smem,      active,      p.in_nodes,
+                                p.ex_smem,   p.scratch_words};
+  for (int i = 0; i < 11; ++i) out[i] = fields[i];
   return 0;
 }
-// 1 where a node's states live in registers, 0 where the advance runs in
-// place in the carry.
+// 1 where a node's states live in registers on chip (off chip only up to
+// 8 states at W <= 2), 0 where the advance runs in place in the carry.
 extern "C" int decoder_scan_states_in_regs(int Ns, int W) {
-  return regs_kind(Ns, W) > 0;
+  return regs_kind(Ns, W, true) > 0;
 }
 extern "C" int decoder_scan_max_r() { return R_MAX; }
 

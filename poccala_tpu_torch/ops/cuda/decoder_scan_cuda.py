@@ -17,11 +17,16 @@ not emitting) and each node's info (group, parent and root-child flag in
 one word, valid slot range).  CUDA tensors only: the
 wrapper raises on a CPU tensor and on an operand of the wrong dtype, and
 when the kernel does not launch.  Any token-state count, band width and
-bank size launches: the source chooses among twelve instantiations
-(states in registers, unrolled to 8 states and 2 offsets or 16 and 8, or
-in place in the carry; carry and scores rows in shared or device memory) and, on chip, the CTAs an utterance takes (one, or a
-thread-block cluster of up to 16 whose distributed shared memory holds the
-carry), see :func:`scan_plan` and :func:`states_in_regs`.  The tables it
+bank size launches: the source chooses among ten instantiations (states
+in registers, unrolled to 8 states and 2 offsets or, on chip, 16 and 8,
+or in place in the carry; carry and scores rows in shared or device
+memory) and the CTAs an utterance takes: on chip one, or a thread-block
+cluster of up to 16 whose distributed shared memory holds the carry; past
+that (the device-memory route) a cluster of the size that runs the batch
+in the fewest waves times nodes a CTA, each CTA keeping its nodes' info,
+exits and what fits of their carry in shared memory and the rest of the
+carry in a scratch the wrapper allocates; see :func:`scan_plan` and
+:func:`states_in_regs`.  The tables it
 reads by group (:func:`pack_tables`): each node's band and senone rows are
 one of a few hundred distinct pairs, staged in shared memory.
 
@@ -331,8 +336,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.decoder_pruned_smem.argtypes = [_I] * 8
     lib.decoder_pruned_phases.argtypes = []
     lib.decoder_exact_phases.argtypes = []
-    lib.decoder_scan_plan.argtypes = [ctypes.POINTER(_ScanTables), _I,
-                                      ctypes.POINTER(ctypes.c_int)]
+    lib.decoder_scan_plan.argtypes = [ctypes.POINTER(_ScanTables), _I, _I,
+                                      ctypes.POINTER(ctypes.c_longlong)]
     lib.decoder_scan_states_in_regs.argtypes = [_I, _I]
     lib.decoder_scan_max_r.argtypes = []
     for fn in (lib.decoder_finalize_rows_in_smem,
@@ -357,20 +362,28 @@ def _lib() -> ctypes.CDLL:
 
 
 PLAN_FIELDS = ("onchip", "cluster", "nodes_per_cta", "threads", "rows_smem",
-               "groups_smem", "smem_bytes", "active_clusters")
+               "groups_smem", "smem_bytes", "active_clusters",
+               "nodes_on_chip", "exits_smem", "scratch_words")
 
 
-def scan_plan(tabs, n_senones: int, r_top: int, lib=None) -> dict:
+def scan_plan(tabs, n_senones: int, r_top: int, lib=None,
+              batch: int = 1) -> dict:
     """How the exact scan runs these tables (``_Tables``) at ``n_senones``
-    with ``r_top`` candidates, over :data:`PLAN_FIELDS`: the carry on chip
-    or in device memory, the CTAs an utterance takes (``cluster``: 1, or a
-    thread-block cluster's size), the nodes and threads a CTA, the scores
-    rows and the group tables in shared memory or not, a CTA's dynamic
-    shared memory and the clusters of that shape the card runs at once;
-    ``route`` is ``"smem"`` (one CTA), ``"cluster"`` or ``"global"``
-    (``lib``: a bound library other than the built one, which keeps its
-    plans per device and shape)."""
-    return _plan_of(_shape_struct(tabs, r_top), n_senones, lib or _lib())
+    with ``r_top`` candidates for ``batch`` utterances, over
+    :data:`PLAN_FIELDS`: the carry on chip or in device memory, the CTAs an
+    utterance takes (``cluster``: 1, or a thread-block cluster's size), the
+    nodes and threads a CTA, the scores rows and the group tables in shared
+    memory or not, a CTA's dynamic shared memory, the clusters of that
+    shape the card runs at once (CTAs where a device-memory plan's are not
+    clustered), the nodes a CTA keeps the carry of in shared memory, the
+    nodes' info and exits in shared memory or not, and the scratch words
+    (float32 and int32 each) an utterance; ``route`` is ``"smem"`` (one
+    CTA), ``"cluster"`` or ``"global"`` (the carry, or part of it, in device
+    memory; only there does ``batch`` choose the cluster size) (``lib``: a
+    bound library other than the built one, which keeps its plans per
+    device and shape)."""
+    return _plan_of(_shape_struct(tabs, r_top), n_senones, lib or _lib(),
+                    batch)
 
 
 def _shape_struct(tabs, r_top: int) -> _ScanTables:
@@ -386,16 +399,17 @@ def _shape_struct(tabs, r_top: int) -> _ScanTables:
         r_top=int(r_top), n_groups=g["group_senone"].shape[0])
 
 
-def _plan_of(struct: _ScanTables, n_senones: int, lib) -> dict:
-    out = (ctypes.c_int * len(PLAN_FIELDS))()
-    rc = lib.decoder_scan_plan(ctypes.byref(struct), int(n_senones), out)
+def _plan_of(struct: _ScanTables, n_senones: int, lib, batch: int) -> dict:
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    rc = lib.decoder_scan_plan(ctypes.byref(struct), int(n_senones),
+                               int(batch), out)
     if rc == 1:                                    # cudaErrorInvalidValue
         raise ValueError("the exact scan does not take these tables")
     if rc:
         raise RuntimeError("decoder_scan plan failed: "
                            + lib.decoder_scan_error_string(rc).decode())
     plan = dict(zip(PLAN_FIELDS, (int(x) for x in out)))
-    for name in ("onchip", "rows_smem", "groups_smem"):
+    for name in ("onchip", "rows_smem", "groups_smem", "exits_smem"):
         plan[name] = bool(plan[name])
     plan["route"] = ("global" if not plan["onchip"] else
                      "smem" if plan["cluster"] == 1 else "cluster")
@@ -482,16 +496,19 @@ def decoder_scan_cuda(tabs, carry, scores: torch.Tensor, t0: int, n_valid,
     tb_word = torch.empty((b, t_c), dtype=torch.int32, device=dev)
     if b == 0 or t_c == 0:
         return (deltas.clone(), ctx.clone()), tb_prev, tb_word
-    ex = exc = None
-    if not _plan_of(struct, s, lib)["onchip"]:
-        ex = torch.empty((b, 2, n), dtype=torch.float32, device=dev)
-        exc = torch.empty((b, 2, n), dtype=torch.int32, device=dev)
+    xf = xi = None     # the device-memory route's carry and exits
+    plan = _plan_of(struct, s, lib, b)
+    if not plan["onchip"] and plan["scratch_words"]:
+        xf = torch.empty((b, plan["scratch_words"]), dtype=torch.float32,
+                         device=dev)
+        xi = torch.empty((b, plan["scratch_words"]), dtype=torch.int32,
+                         device=dev)
     with torch.cuda.device(dev):
         rc = lib.decoder_scan_exact(
             ctypes.byref(struct), scores.data_ptr(), n_valid.data_ptr(),
             deltas.data_ptr(), ctx.data_ptr(), d_out.data_ptr(),
-            c_out.data_ptr(), None if ex is None else ex.data_ptr(),
-            None if exc is None else exc.data_ptr(), tb_prev.data_ptr(),
+            c_out.data_ptr(), None if xf is None else xf.data_ptr(),
+            None if xi is None else xi.data_ptr(), tb_prev.data_ptr(),
             tb_word.data_ptr(), b, t_c, s, int(t0),
             None if phase_clocks is None else phase_clocks.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)

@@ -333,18 +333,19 @@ def emulated_scan(lib, dec, tabs, carry, scores, t0, n_valid):
     """``decoder_scan_cuda``'s call, made on CPU tensors."""
     deltas, ctx = carry
     b, t_c, s = scores.shape
-    n = tabs.bands.shape[0]
     _, st = dk._cached(tabs, dec._n_vocab, dec._r_top(tabs),
                        -float(dec.word_penalty))
     out = (torch.empty_like(deltas), torch.empty_like(ctx))
     rows = [torch.empty((b, t_c), dtype=torch.int32) for _ in range(2)]
-    ex = torch.full((b, 2, n), float("nan"))
-    exc = torch.full((b, 2, n), -77, dtype=torch.int32)
+    # the device-memory route's scratch, stale as on a card
+    words = max(1, dk._plan_of(st, s, lib, b)["scratch_words"])
+    xf = torch.full((b, words), float("nan"))
+    xi = torch.full((b, words), -77, dtype=torch.int32)
     nv = torch.as_tensor(n_valid, dtype=torch.int32)
     rc = lib.decoder_scan_exact(
         ctypes.byref(st), scores.data_ptr(), nv.data_ptr(),
         deltas.data_ptr(), ctx.data_ptr(), out[0].data_ptr(),
-        out[1].data_ptr(), ex.data_ptr(), exc.data_ptr(), rows[0].data_ptr(),
+        out[1].data_ptr(), xf.data_ptr(), xi.data_ptr(), rows[0].data_ptr(),
         rows[1].data_ptr(), b, t_c, s, t0, None, None)
     assert rc == 0
     return out, rows[0], rows[1]
@@ -553,12 +554,109 @@ def test_kernel_source_on_cpu_takes_every_shape(
     assert (g_word >= 0).any()
 
 
+# The device-memory route (a carry no on-chip cluster holds) on clusters of
+# 2 and 3 CTAs: (state_num, skips, LM, cut shared memory, most CTAs an
+# utterance, CTAs an utterance, rows in shared memory, info and exits in
+# shared memory, nodes a CTA keeps the carry of on chip, of nodes a CTA);
+# the register kind (8 states and 2 offsets, the only one off chip), the
+# in-place advance by windows of states (band width 2: 12 and 18 states)
+# and a node at a time (band width 5 and 10), part of each CTA's carry on
+# chip or none, exits in shared memory or in the scratch (read across CTAs
+# there).
+GLOBAL_CASES = [
+    (5, False, "none", 10000, 3, 3, True, True, 15, 42),
+    (5, False, "sparse", 10000, 2, 2, False, True, 24, 63),
+    (5, False, "flat", 8000, 3, 3, False, True, 4, 42),
+    (5, True, "none", 12000, 2, 2, True, True, 36, 63),
+    (7, False, "none", 8000, 2, 2, False, True, 58, 63),
+    (10, False, "none", 6000, 3, 3, False, True, 29, 42),
+    (10, False, "flat", 12000, 2, 2, False, True, 24, 63),
+    (10, True, "sparse", 10000, 3, 3, False, True, 15, 42),
+    (5, False, "none", 8000, 3, 3, True, False, 0, 42),
+    (10, False, "flat", 8000, 2, 2, False, False, 0, 63),
+]
+
+
+@pytest.mark.parametrize(
+    "state_num,skips,lm_kind,limit,most,ctas,rows,exits,on_chip,chunk",
+    GLOBAL_CASES,
+    ids=[f"s{c[0]}{'skip' if c[1] else ''}{c[2]}lim{c[3]}c{c[4]}"
+         for c in GLOBAL_CASES])
+def test_device_memory_route_on_cpu_is_the_plain_loop(
+        worlds, emulated_limits, state_num, skips, lm_kind, limit, most,
+        ctas, rows, exits, on_chip, chunk):
+    """A carry that no cluster of ``most`` CTAs holds on chip: each
+    utterance over a cluster of 2 or 3 CTAs, each CTA with its nodes' info
+    and exits in its shared memory (or, where they do not fit, in the
+    scratch) and the carry of its first nodes on chip, the rest in the
+    scratch, by state: carry and rows equal the plain loop's bit for bit
+    over two chunks of tied scores (t0 = 0 and 12), rows frozen inside the
+    second; and a batch too large for the card to run in one wave at that
+    cluster size takes one CTA an utterance."""
+    lib = emulated_limits(limit, most)
+    wd = worlds(state_num, None, skips)
+    _, dec = decoders(wd, lm_kind)
+    tabs = dec._prep_device()
+    s, r_top = dec.bank.num_states, dec._r_top(tabs)
+    plan = dk.scan_plan(tabs, s, r_top, lib=lib, batch=3)
+    assert (plan["route"], plan["cluster"], plan["rows_smem"],
+            plan["exits_smem"], plan["nodes_on_chip"],
+            plan["nodes_per_cta"]) == \
+        ("global", ctas, rows, exits, on_chip, chunk)
+    n, n_s, _ = tabs.bands.shape
+    assert plan["scratch_words"] == ctas * (
+        n_s * (chunk - on_chip) + (0 if exits else 2 * chunk))
+    # the emulated card runs 132 / cluster size clusters at once: 100
+    # utterances in one wave of single CTAs
+    assert dk.scan_plan(tabs, s, r_top, lib=lib, batch=100)["cluster"] == 1
+    scores = torch.round(dec._scores(torch.as_tensor(wd["feats"])) / 8) * 8
+    n_frames = np.minimum(wd["n_frames"], 24)
+    got = want = dec._seed(tabs, 3)
+    for t0 in (0, 12):
+        part = scores[:, t0:t0 + 12].contiguous()
+        nv = np.clip(n_frames - t0, 0, 12)
+        got, g_prev, g_word = emulated_scan(lib, dec, tabs, got, part, t0, nv)
+        want, w_prev, w_word = dec._scan_plain(tabs, want, part, t0, nv)
+        for g, w in zip((*got, g_prev, g_word), (*want, w_prev, w_word)):
+            assert torch.equal(g, w)
+    assert (g_word >= 0).any()
+
+
 # the emission's total order reversed on equal values: the higher slot first
 ORDER_MUTANT = ("return va > vb || (va == vb && qa < qb);",
                 "return va > vb || (va == vb && qa > qb);")
 KEY_MUTANT = (("q = (int)__reduce_min_sync(", "q = (int)__reduce_max_sync("),
               ("key == top ? (unsigned)q : 0xffffffffu",
                "key == top ? (unsigned)q : 0u"))
+
+
+@pytest.mark.parametrize("exits", [True, False])
+def test_device_memory_route_tie_mutant_is_rejected(world, tmp_path, exits):
+    """The device-memory route over a cluster of 3 CTAs (the nodes' exits in
+    shared memory or in the scratch) with the emission's slot order
+    reversed among equal exits: on tied scores its rows or carry leave the
+    plain loop's."""
+    limit = 10000 if exits else 8000
+    src = emulated_source(limit, 3)
+    for old, new in (ORDER_MUTANT, *KEY_MUTANT):
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    lib = emulated_library(tmp_path, source=src)
+    _, dec = decoders(world, "none")
+    tabs = dec._prep_device()
+    plan = dk.scan_plan(tabs, dec.bank.num_states, dec._r_top(tabs),
+                        lib=lib, batch=3)
+    assert (plan["route"], plan["cluster"], plan["exits_smem"]) == \
+        ("global", 3, exits)
+    scores = torch.round(dec._scores(torch.as_tensor(world["feats"])) / 8) * 8
+    n_frames = np.minimum(world["n_frames"], 24)
+    part = scores[:, :24].contiguous()
+    got, g_prev, g_word = emulated_scan(lib, dec, tabs, dec._seed(tabs, 3),
+                                        part, 0, n_frames)
+    want, w_prev, w_word = dec._scan_plain(tabs, dec._seed(tabs, 3), part, 0,
+                                           n_frames)
+    assert not all(torch.equal(g, w) for g, w in zip(
+        (*got, g_prev, g_word), (*want, w_prev, w_word)))
 
 
 # a cluster occupancy query that fails (the card refusing a shape)

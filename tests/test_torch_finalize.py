@@ -32,7 +32,9 @@ from poccala_tpu_torch.decoder import device as tdev
 from poccala_tpu_torch.decoder.device import DeviceBeamDecoder
 from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
 
-from .test_torch_decoder_scan import emulated_library, jax_scan, make_world
+from .test_torch_decoder_scan import (KEY_MUTANT, ORDER_MUTANT,
+                                      emulated_library, emulated_source,
+                                      jax_scan, make_world)
 from .test_torch_lexicon import _ForeignLM
 
 torch.set_num_threads(1)
@@ -192,6 +194,14 @@ def emulated_finalize(lib, dec, carry, tb_prev, tb_word, n_cand):
     return seqs, scores
 
 
+def lists_bytes(q: int, r: int) -> int:
+    """The shared memory of the kernel's per-warp top-R lists: a value and
+    a slot for each of R entries of each warp (a thread a slot, 64 to 256
+    threads)."""
+    warps = min(8, max(2, -(-q // 32)))
+    return 8 * warps * r
+
+
 @pytest.fixture(scope="module")
 def emulated_limits(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("decoder_finalize_emu")
@@ -204,8 +214,9 @@ def emulated_limits(tmp_path_factory):
     return get
 
 
-# (lexicon, LM, return_nbest, max_words, cut shared memory, rows in shared
-#  memory, ac in shared memory); the traceback rows are 48 frames (384 B)
+# (lexicon, LM, return_nbest, max_words, cut shared memory past the warps'
+#  lists, rows in shared memory, ac in shared memory); the traceback rows
+#  are 48 frames (384 B)
 EMU_CASES = [
     ("builtin", "none", 1, 64, None, True, True),
     ("builtin", "flat", 3, 64, None, True, True),
@@ -229,7 +240,6 @@ def test_kernel_source_on_cpu_is_the_plain_version(
     rows in shared memory and in the one that reads them from device
     memory (the limit cut), with the slots' scores in shared memory or in
     the device scratch."""
-    lib = emulated_limits(limit)
     penalty = -20.0 if max_words < 64 else 1.5
     jd, td = decoders(worlds[lex], lm_kind, max_words, penalty)
     _, (tcarry, tprev, tword) = tied_scan(jd, td)
@@ -237,6 +247,8 @@ def test_kernel_source_on_cpu_is_the_plain_version(
     q, t = int(tabs.node_slot.shape[0]), int(tprev.shape[1])
     n_cand = td._n_cand(nbest)
     c, r = dk.finalize_sizes(q, n_cand)
+    lib = emulated_limits(None if limit is None
+                          else limit + lists_bytes(q, r))
     assert (lib.decoder_finalize_rows_in_smem(q, t, c, r),
             lib.decoder_finalize_ac_in_smem(q, t, c, r)) == (rows, ac)
     got = emulated_finalize(lib, td, tcarry, tprev, tword, n_cand)
@@ -245,3 +257,80 @@ def test_kernel_source_on_cpu_is_the_plain_version(
     assert (want[1][0] > -1e30 / 2).any() and (want[1][2] <= -1e30 / 2).all()
     if max_words < 64:
         assert bool((want[0] >= 0).all(dim=2).any())
+
+
+# ----------------------------------------------------------------------
+# thousands of slots: the top R over many warps' lists
+
+@pytest.fixture(scope="module")
+def big_world(worlds):
+    """The built-in world's bank over a synthetic lexicon of ~2,000 nodes
+    (thousands of word slots; the nodes of one unit share their bands, so
+    equal states give equal exits)."""
+    from poccala_tpu_torch.io.corpus import UnitInventory
+    from poccala_tpu_torch.lexicon.build import synthetic_lexicon
+
+    flat, _, _ = synthetic_lexicon(UnitInventory.standard("XIF_tone"),
+                                   min_nodes=2000, n_chars=30)
+    return dict(worlds["builtin"], tflat=flat)
+
+
+def tied_carry(dec, b=3, t=48, seed=3):
+    """A random final carry and traceback rows for ``dec``'s tables:
+    states from a few multiples of 8 (a tenth at NEG_INF), so that the
+    exits of the nodes of a unit tie everywhere; contexts and rows that
+    point at earlier frames and real words."""
+    tabs = dec._prep_device()
+    n, n_s, _ = tabs.bands.shape
+    v = dec._n_vocab
+    rng = np.random.default_rng(seed)
+    deltas = (rng.integers(-4, 1, size=(b, n, n_s)) * 8).astype(np.float32)
+    deltas[rng.random(size=deltas.shape) < 0.1] = -1e30
+    ctx = ((rng.integers(-1, t, size=(b, n, n_s)) + 1) * (v + 1)
+           + rng.integers(0, v + 1, size=(b, n, n_s))).astype(np.int32)
+    word = rng.integers(-1, v, size=(b, t)).astype(np.int32)
+    prev = np.minimum(rng.integers(-1, t, size=(b, t)),
+                      np.arange(t) - 1).astype(np.int32)
+    return ((torch.as_tensor(deltas), torch.as_tensor(ctx)),
+            torch.as_tensor(prev), torch.as_tensor(word))
+
+
+@pytest.mark.parametrize("nbest", [1, 5, 10])
+@pytest.mark.parametrize("lm_kind", LMS)
+def test_kernel_source_on_cpu_at_thousands_of_slots(big_world, lm_kind,
+                                                    nbest, emulated_limits):
+    """Thousands of slots (eight warps' lists of R = 32, or 64 at
+    ``return_nbest`` 10, merged by rank) on a carry whose exits tie in
+    large groups: ``seqs`` and ``scores`` equal ``_finalize_plain``'s bit
+    for bit."""
+    lib = emulated_limits(None)
+    _, td = decoders(big_world, lm_kind, penalty=-4.0)
+    tabs = td._prep_device()
+    q = int(tabs.node_slot.shape[0])
+    assert q > 2000
+    n_cand = td._n_cand(nbest)
+    assert dk.finalize_sizes(q, n_cand)[1] == (64 if nbest == 10 else 32)
+    carry, prev, word = tied_carry(td)
+    got = emulated_finalize(lib, td, carry, prev, word, n_cand)
+    want = td._finalize_plain(tabs, carry, prev, word, n_cand)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (want[1] > -1e30 / 2).all() and (want[0] >= 0).any()
+
+
+def test_top_k_order_mutant_is_rejected(big_world, tmp_path):
+    """The n-best's order reversed among equal values (the higher slot, and
+    the later candidate, first: a consistent order, but not ``_top_k``'s):
+    on the tied carry its ``seqs`` or ``scores`` leave ``_finalize_plain``'s.
+    """
+    src = emulated_source()
+    for old, new in (ORDER_MUTANT, *KEY_MUTANT):
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    lib = emulated_library(tmp_path, source=src)
+    _, td = decoders(big_world, "sparse", penalty=-4.0)
+    tabs = td._prep_device()
+    carry, prev, word = tied_carry(td)
+    got = emulated_finalize(lib, td, carry, prev, word, 16)
+    want = td._finalize_plain(tabs, carry, prev, word, 16)
+    assert not (torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1]))

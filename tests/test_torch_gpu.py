@@ -1058,10 +1058,32 @@ def test_decoder_scan_at_state_num_10(cuda, skips, lm_kind):
     assert len(hyps) == 7 and len(hyps[0]) >= 1
 
 
+def chunked_scan_both(dec, scores, n, chunk=25):
+    """``scores`` through ``scan_both`` in chunks of ``chunk`` frames (each
+    held to the plain loop from the same carry, the n-best over the rows so
+    far), equal to the one-shot scan of all of them."""
+    whole = scan_both(dec, scores, n)
+    carry, prev, word = None, [], []
+    for t0 in range(0, scores.shape[1], chunk):
+        before = (torch.cat(prev, 1), torch.cat(word, 1)) if t0 else None
+        carry, p, w = scan_both(dec, scores[:, t0:t0 + chunk].contiguous(),
+                                np.clip(n - t0, 0, chunk), t0, carry, before)
+        prev.append(p)
+        word.append(w)
+    for g, w in zip((*carry, torch.cat(prev, 1), torch.cat(word, 1)),
+                    (*whole[0], whole[1], whole[2])):
+        assert torch.equal(g, w)
+
+
 def test_decoder_scan_past_shared_memory(cuda):
     """A bank of 29,500 senones: each frame's scores row is read from
     device memory, bit for bit with the plain loop, and a decode runs the
-    GMM kernel and the scan on it."""
+    GMM kernel and the scan on it.  Then carries past every on-chip
+    cluster (the device-memory route, each utterance over a cluster all
+    the same): 18 token states over the 21,589-node lexicon at B = 1 and
+    8, in one call and in three 25-frame chunks, and the default topology
+    over 40,000 nodes at B = 8."""
+    from poccala_tpu_torch.lexicon.build import synthetic_lexicon
     from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
 
     dec = scan_decoder(cuda, "sparse", seed=12, penalty=1.5,
@@ -1078,6 +1100,24 @@ def test_decoder_scan_past_shared_memory(cuda):
     before = dk.decoder_scan_cuda.launches
     assert all(len(h) >= 1 for h in dec.decode_batch(feats, [40, 31, 12]))
     assert dk.decoder_scan_cuda.launches == before + 1
+
+    inv = UnitInventory.standard("XIF_tone")
+    feats = torch.tensor((rng.normal(size=(8, 75, 13)) * 2)
+                         .astype(np.float32), device=cuda)
+    n = rng.integers(30, 76, size=8)
+    n[0] = 75
+    for state_num, min_nodes in ((10, None), (5, 40_000)):
+        flat, _, _ = synthetic_lexicon(
+            inv, **({} if min_nodes is None else dict(min_nodes=min_nodes)))
+        dec = scan_decoder(cuda, "sparse", flat=flat, seed=12, penalty=1.5,
+                           state_num=state_num)
+        tabs = dec._prep_device()
+        scores = torch.round(dec._scores(feats) / 8) * 8
+        for b in ((1, 8) if min_nodes is None else (8,)):
+            plan = dk.scan_plan(tabs, dec.bank.num_states, dec._r_top(tabs),
+                                batch=b)
+            assert plan["route"] == "global" and plan["cluster"] > 1, plan
+            chunked_scan_both(dec, scores[:b].contiguous(), n[:b])
 
 
 @pytest.mark.parametrize("b,t_pad", [(3, 41), (1, 2)])
@@ -1183,18 +1223,19 @@ def test_decoder_finalize_after_stream_chunks(cuda):
         assert [h.words for h in g] == [h.words for h in w]
 
 
-@pytest.mark.parametrize("min_nodes", [875, None])
+@pytest.mark.parametrize("min_nodes", [875, None, 40_000])
 def test_decoder_finalize_large_lexicons(cuda, min_nodes):
-    """The 875-node lexicon (the CD graph's size) and the 21,589-node
-    synthetic one, exact and (at 21,589) block-pruned: the compact carry
-    is expanded in PyTorch, then one launch."""
+    """The 875-node lexicon (the CD graph's size), the 21,589-node
+    synthetic one (22,989 slots), exact and block-pruned (the compact carry
+    is expanded in PyTorch, then one launch), and 40,000 nodes, at
+    ``return_nbest`` 1 and 5."""
     from poccala_tpu_torch.lexicon.build import FULL_VOCAB_NODES, \
         synthetic_lexicon
 
     inv = UnitInventory.standard("XIF_tone")
     flat, _, _ = synthetic_lexicon(
         inv, min_nodes=min_nodes or FULL_VOCAB_NODES,
-        n_chars=12 if min_nodes else None)
+        n_chars=12 if min_nodes == 875 else None)
     rng = np.random.default_rng(9)
     feats = torch.tensor((rng.normal(size=(3, 40, 13)) * 2)
                          .astype(np.float32), device=cuda)
