@@ -72,6 +72,7 @@ nor anything of the JAX package.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import os
@@ -1015,8 +1016,11 @@ def phase_hmm_kernels(seed: int) -> dict:
     (:func:`viterbi_routes`).  Times at the last two shapes: ``ms`` one
     event pair around a wrapper call, ``device_ms`` the kernel alone under
     the profiler, ``ms_b1`` / ``device_ms_b1`` the same for the first
-    utterance alone (the length of the dependent chain), ``parent_ms`` /
-    ``parent_device_ms`` the block kernel on the same inputs."""
+    utterance alone (the length of the dependent chain), ``block_ms`` /
+    ``block_device_ms`` the block route on the same inputs.  Then the block
+    route at the shapes it serves (:func:`block_route_shapes`) and its
+    launches on the training path at L = 88 (:func:`training_path_launches`).
+    Returns the ``kernels`` records."""
     gen = torch.Generator().manual_seed(seed)
     record = {}
     w = TRAIN_W
@@ -1067,8 +1071,8 @@ def phase_hmm_kernels(seed: int) -> dict:
                 line["ms_b1"] = median_ms(first[name][0], reps=21)
                 line["device_ms_b1"] = kernel_device_ms(first[name][0],
                                                         name)
-                line["parent_ms"] = median_ms(block[name][0], reps=21)
-                line["parent_device_ms"] = kernel_device_ms(
+                line["block_ms"] = median_ms(block[name][0], reps=21)
+                line["block_device_ms"] = kernel_device_ms(
                     block[name][0], name)
                 line["plain_ms"] = median_ms(plain, reps=3)
                 line.update(hmm_bound(name, b, t, n, w))
@@ -1083,7 +1087,258 @@ def phase_hmm_kernels(seed: int) -> dict:
                   f"warp and block kernels bit-equal at {line}")
     viterbi_routes(gen, w)
     torch.cuda.empty_cache()
+    shapes = block_route_shapes(gen)
+    launches = training_path_launches(gen, BLOCK_SHAPES[0][1])
+    for name in ("forward", "backward"):
+        first = shapes[name][0]
+        record[f"{name}_block"] = dict(
+            launches=launches[name],
+            **{f: first[f] for f in ("max_abs_err", "ms", "device_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "plan")},
+            library_ms=None,
+            shapes=[{f: v[f] for f in ("b", "n_s", "ms", "device_ms",
+                                       "ms_b1", "device_ms_b1", "plain_ms",
+                                       "bound_ms", "plan")}
+                    for v in shapes[name]])
+    say("hmm_block_route_summary", launches_training_path_l88=launches,
+        ptxas_registers_spill_stores_loads={
+            k: v for k, v in PTXAS.get("hmm_banded", {}).items()
+            if "block_kernel" in k})
     return record
+
+
+# The block route's timed shapes (T = 319, W = 5): (B, L), a label budget
+# of L units giving N = 2 + 3 L sentence states at state_num = 5 (two XIF
+# units a character): sentences of 44 characters, of 100, the existing
+# shapes case, and a carry spread over a cluster.
+BLOCK_SHAPES = ((256, 88), (256, 200), (64, 366), (8, 2800))
+
+
+def digest(x: torch.Tensor) -> str:
+    """The first 16 hex digits of the tensor's bytes' SHA-256: two
+    checkouts' runs on the same inputs agree bit for bit when these do."""
+    return hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def block_route_shapes(gen: torch.Generator) -> dict:
+    """Forward and backward on the block route at BLOCK_SHAPES, each
+    against its plain version at DP_TOL: wrapper ``ms``, ``device_ms``
+    (kernel alone), the same at B = 1, ``plain_ms``, bound, the launch plan
+    (:func:`hmm_banded_cuda.block_plan`), digests of alpha / beta (and
+    loglik) to hold two checkouts' runs against each other."""
+    out = {"forward": [], "backward": []}
+    for b, max_l in BLOCK_SHAPES:
+        band, log_pi, log_b, masks = dp_inputs(gen, b, TRAIN_T, max_l)
+        t, n = int(log_b.shape[1]), int(band.shape[1])
+        check(n == 2 + 3 * max_l and not hk.takes_warp(n, TRAIN_W),
+              f"N = {n} takes the block route")
+        calls = {
+            "forward": lambda lo, hi: (
+                lambda: hk.forward_banded_cuda(
+                    band[lo:hi], log_pi[lo:hi], log_b[lo:hi], masks[lo:hi],
+                    TRAIN_W),
+                lambda: hmm_ops.forward_log_banded_plain(
+                    band[lo:hi], log_pi[lo:hi], log_b[lo:hi], masks[lo:hi],
+                    TRAIN_W)),
+            "backward": lambda lo, hi: (
+                lambda: hk.backward_banded_cuda(band[lo:hi], log_b[lo:hi],
+                                                masks[lo:hi], TRAIN_W),
+                lambda: hmm_ops.backward_log_banded_plain(
+                    band[lo:hi], log_b[lo:hi], masks[lo:hi], TRAIN_W)),
+        }
+        for name, make in calls.items():
+            kernel, plain = make(0, b)
+            kernel1, plain1 = make(0, 1)
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err, ok, tol = compare_dp(name, got, want)
+            check(ok, f"{name} block route vs plain at N = {n}: {err}")
+            err1, ok1, _ = compare_dp(name, kernel1(), plain1())
+            check(ok1, f"{name} block route vs plain at N = {n}, B = 1")
+            lattice = got[0] if name == "forward" else got
+            # the parent checkout, run with this script copied in to hold
+            # its times and digests against these, has no plan to report
+            plan = (hk.block_plan(b, n, TRAIN_W, name == "forward")
+                    if hasattr(hk, "block_plan") else "not in this checkout")
+            line = dict(kernel=name, route="block", b=b, t=t, n_s=n,
+                        w=TRAIN_W, plan=plan, max_abs_err=err, tol=tol,
+                        ok=bool(ok), digest=digest(lattice),
+                        loglik_digest=(digest(got[1]) if name == "forward"
+                                       else None),
+                        ms=median_ms(kernel, reps=11),
+                        device_ms=kernel_device_ms(kernel, name, reps=10),
+                        ms_b1=median_ms(kernel1, reps=11),
+                        device_ms_b1=kernel_device_ms(kernel1, name,
+                                                      reps=10),
+                        plain_ms=median_ms(plain, reps=3),
+                        **hmm_bound(name, b, t, n, TRAIN_W))
+            del got, want, lattice
+            say("hmm_block_route", **line)
+            out[name].append(line)
+        del band, log_pi, log_b, masks
+        torch.cuda.empty_cache()
+    return out
+
+
+# The cluster-size sweep's shapes: BLOCK_SHAPES, N = 8,402 at B = 64 and
+# 16, N = 3,002 at B = 32, N = 1,100 at B = 128, and B = 1 at 266, 1,100
+# and 8,402.
+SWEEP_SHAPES = BLOCK_SHAPES + ((64, 2800), (16, 2800), (32, 1000),
+                               (128, 366), (1, 88), (1, 366), (1, 2800))
+
+# The sweep's library also reports every cluster size's shape.
+SWEEP_SIZES = """
+extern "C" int hmm_sweep_sizes(int N, int W, int forward, int* out) {
+  BlockShapes s;
+  const cudaError_t rc =
+      forward ? block_shapes_for(FORWARD_BLOCK, 1, N, W, &s)
+              : block_shapes_for(BACKWARD_BLOCK, 0, N, W, &s);
+  for (int i = 0; i < MAX_CLUSTER; ++i) {
+    const BlockShape& p = s.by_size[i];
+    int* o = out + 6 * i;
+    o[0] = p.cs;
+    o[1] = p.cs ? BLOCK_K[p.kidx] : 0;
+    o[2] = p.warps;
+    o[3] = (int)p.smem;
+    o[4] = p.active;
+    o[5] = p.spread;
+  }
+  return (int)rc;
+}
+"""
+
+
+def sweep_library():
+    """``hmm_banded.cu`` built once more with two globals that override
+    the block route's choices (a cluster size; the runtime band width's
+    instantiations at every W), for :func:`phase_block_sweep` alone: the
+    library the port loads has neither."""
+    import ctypes
+
+    src = (build.CSRC / "hmm_banded.cu").read_text()
+    swaps = [("  *out = block_choose(s, B, N);",
+              "  *out = hmm_force_cluster ? s.by_size[hmm_force_cluster - 1]"
+              " : block_choose(s, B, N);"),
+             ("int block_w_index(int W) {\n",
+              "int block_w_index(int W) {\n  if (hmm_force_runtime_w) "
+              "return 0;\n")]
+    for old, new in swaps:
+        check(src.count(old) == 1, f"sweep swap applies once: {old!r}")
+        src = src.replace(old, new)
+    src = ('extern "C" { int hmm_force_cluster = 0; '
+           'int hmm_force_runtime_w = 0; }\n' + src + SWEEP_SIZES)
+    out_dir = build.BUILD_DIR / "block_sweep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu, so = out_dir / "hmm_banded_sweep.cu", out_dir / "libhmm_sweep.so"
+    cu.write_text(src)
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
+                           str(cu)], capture_output=True, text=True)
+    check(proc.returncode == 0, f"sweep build: {proc.stderr[-2000:]}")
+    lib = hk.bind(ctypes.CDLL(str(so)))
+    return (lib, ctypes.c_int.in_dll(lib, "hmm_force_cluster"),
+            ctypes.c_int.in_dll(lib, "hmm_force_runtime_w"))
+
+
+def phase_block_sweep(seed: int, smi: str) -> None:
+    """Forward and backward's block route at SWEEP_SHAPES on every cluster
+    size it takes there, forced (sizes in ascending order, then in
+    descending), kernel alone, beside the size ``block_plan`` picks; and
+    at the planned size, the runtime band width's instantiation against
+    W = 5's (template, runtime, runtime, template).  Every forced launch
+    gives alpha / beta equal bit for bit to the planned launch's."""
+    import ctypes
+
+    gen = torch.Generator().manual_seed(seed)
+    lib, force_cs, force_w0 = sweep_library()
+    lib.hmm_sweep_sizes.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    port_lib = hk._lib
+    hk._lib = lambda: lib
+    try:
+        for b, max_l in SWEEP_SHAPES:
+            # B = 1: the first of two (its frames all valid)
+            band, log_pi, log_b, masks = (
+                a[:b].contiguous()
+                for a in dp_inputs(gen, max(b, 2), TRAIN_T, max_l))
+            n = int(band.shape[1])
+            calls = {
+                "forward": lambda: hk.forward_banded_cuda(
+                    band, log_pi, log_b, masks, TRAIN_W),
+                "backward": lambda: hk.backward_banded_cuda(
+                    band, log_b, masks, TRAIN_W)}
+            for name, fn in calls.items():
+                force_cs.value = force_w0.value = 0
+                plan = hk.block_plan(b, n, TRAIN_W, name == "forward")
+                by_size = (ctypes.c_int * 96)()
+                check(lib.hmm_sweep_sizes(n, TRAIN_W, int(name == "forward"),
+                                          by_size) == 0, "sweep sizes")
+                sizes_shapes = {
+                    by_size[6 * i]: dict(zip(hk.BLOCK_PLAN_FIELDS[1:],
+                                             by_size[6 * i + 1:6 * i + 6]))
+                    for i in range(16) if by_size[6 * i]}
+                ref = fn()
+                ref = ref[0] if name == "forward" else ref
+                sizes = range(1, min(16, (n + 31) // 32) + 1)
+                forced = {}
+
+                def timed(cs, w0):
+                    force_cs.value, force_w0.value = cs, w0
+                    try:
+                        got = fn()
+                    except RuntimeError as e:  # not taken at this size
+                        return str(e).splitlines()[0][:60]
+                    got = got[0] if name == "forward" else got
+                    check(torch.equal(got, ref), f"{name} at N = {n}, "
+                          f"cluster {cs}, runtime W {w0}: equal bit for bit")
+                    return kernel_device_ms(fn, name, reps=5)
+
+                for order in (list(sizes), list(sizes)[::-1]):
+                    for cs in order:
+                        forced.setdefault(cs, []).append(timed(cs, 0))
+                ok = {cs: v for cs, v in forced.items()
+                      if all(isinstance(x, float) for x in v)}
+                best = min(ok, key=lambda cs: sum(ok[cs]))
+                widths = {w0: [] for w0 in (0, 1)}
+                for w0 in (0, 1, 1, 0):
+                    widths[w0].append(timed(plan["cluster"], w0))
+                force_cs.value = force_w0.value = 0
+                say("hmm_block_sweep", kernel=name, b=b, t=TRAIN_T, n_s=n,
+                    w=TRAIN_W, plan=plan, sizes=sizes_shapes,
+                    forced_ms=forced,
+                    best_cluster=best, best_ms=ok[best],
+                    planned_ms=ok.get(plan["cluster"]),
+                    template_w_ms=widths[0], runtime_w_ms=widths[1],
+                    nvidia_smi=smi)
+                del ref
+            del band, log_pi, log_b, masks
+            torch.cuda.empty_cache()
+    finally:
+        hk._lib = port_lib
+
+
+def training_path_launches(gen: torch.Generator, max_l: int) -> dict:
+    """One E-step and one alignment of 16 x 4 s at labels of ``max_l``
+    units on a random XIF bank, each DP kernel's launches counted from zero
+    before them; finite logliks and alignment scores."""
+    tcfg = train_config()
+    tbank = sb.create_bank(len(UnitInventory.standard("XIF")), tcfg.model, D,
+                           generator=gen, device="cuda")
+    labels = torch.randint(0, tbank.num_units, (16, max_l),
+                           generator=gen).cuda()
+    lens = torch.full((16,), max_l, dtype=torch.int32).cuda()
+    xs = (torch.randn(16, TRAIN_T, D, generator=gen) * 2).cuda()
+    tm = torch.ones(16, TRAIN_T, dtype=torch.bool, device="cuda")
+    reset_kernel_counts()
+    stats, _ = acc.batch_stats(tbank, labels, lens, xs, tm, 5, max_l)
+    sc, _ = align.align_batch(tbank, labels, lens, xs, tm, 5, max_l)
+    check(bool(torch.isfinite(stats.loglik).all())
+          and bool(torch.isfinite(sc).all()),
+          f"finite logliks and alignment scores at L = {max_l}")
+    launches = {k: f.launches for k, f in hk.KERNELS.items()}
+    check(all(v > 0 for v in launches.values()),
+          f"the training path at L = {max_l} ran every DP kernel: "
+          f"{launches}")
+    return launches
 
 
 def train_batch(seed: int, cfg: Config, n_units: int):
@@ -3078,14 +3333,20 @@ def device_memory_times(seed: int, dec: DeviceBeamDecoder, feats, n_frames,
     """The exact scan's device-memory route alone: ``state_num = 10`` over
     ``flat`` (the 21,589-node lexicon) at B = 8 and 128 and a 25-frame chunk
     at B = 1, the default topology (``dec``'s bank) over 40,000 nodes at
-    B = 8, each with its plan and the first utterance's SM cycles a frame
-    by phase; and the n-best alone over the 40,000 nodes at B = 256."""
+    B = 8, each with its plan, its bound (:func:`scan_bound`) and the first
+    utterance's SM cycles a frame by phase; and the n-best alone over the
+    40,000 nodes at B = 256."""
     inv = UnitInventory.standard("XIF_tone")
-    out = dict(alone={}, wrapper={}, plans={}, cycles={}, call_bytes={})
+    out = dict(alone={}, wrapper={}, plans={}, cycles={}, call_bytes={},
+               bound={})
 
     def case(name, d, sc, nv, t0=0, carry=None):
         out["alone"][name], out["wrapper"][name] = scan_alone_ms(
             d, sc, nv, t0, carry, wrapper=True)
+        b, t_c = int(sc.shape[0]), int(sc.shape[1])
+        out["bound"][name] = scan_bound(
+            d._prep_device(), b, t_c,
+            int(np.clip(np.asarray(nv), 0, t_c).sum()))
         out["plans"][name], out["cycles"][name] = scan_trace(d, sc, nv, t0,
                                                              carry)
         out["call_bytes"][name] = scan_call_bytes(d, sc, nv, t0, carry)
@@ -3203,7 +3464,8 @@ def phase_scan_times(seed: int, smi: str) -> dict:
         device_memory_wrapper_ms=glob["wrapper"],
         device_memory_plans=glob["plans"],
         device_memory_cycles_per_frame_utt0=glob["cycles"],
-        device_memory_call_bytes=glob["call_bytes"], calls_21k=walls,
+        device_memory_call_bytes=glob["call_bytes"],
+        device_memory_bound=glob["bound"], calls_21k=walls,
         source=dk.SOURCE, device=torch.cuda.get_device_name(0),
         nvidia_smi=smi)
     return alone
@@ -3568,24 +3830,7 @@ def phase_shapes(seed: int, smi: str) -> dict:
         say("shapes_hmm_kernel_vs_plain", **dp[name])
     del band, log_pi, log_b, masks
     # the training path at that label length: one E-step and one alignment
-    tcfg = train_config()
-    tbank = sb.create_bank(len(UnitInventory.standard("XIF")), tcfg.model, D,
-                           generator=gen, device="cuda")
-    labels = torch.randint(0, tbank.num_units, (16, SHAPES_MAX_L),
-                           generator=gen).cuda()
-    lens = torch.full((16,), SHAPES_MAX_L, dtype=torch.int32).cuda()
-    xs = (torch.randn(16, TRAIN_T, D, generator=gen) * 2).cuda()
-    tm = torch.ones(16, TRAIN_T, dtype=torch.bool, device="cuda")
-    reset_kernel_counts()
-    stats, _ = acc.batch_stats(tbank, labels, lens, xs, tm, 5, SHAPES_MAX_L)
-    sc, _ = align.align_batch(tbank, labels, lens, xs, tm, 5, SHAPES_MAX_L)
-    check(bool(torch.isfinite(stats.loglik).all())
-          and bool(torch.isfinite(sc).all()),
-          "finite logliks and alignment scores at N = 1,100")
-    train_launches = {k: f.launches for k, f in hk.KERNELS.items()}
-    check(all(v > 0 for v in train_launches.values()),
-          f"the training path at N = 1,100 ran every DP kernel: "
-          f"{train_launches}")
+    train_launches = training_path_launches(gen, SHAPES_MAX_L)
     say("shapes_summary", dp_launches_training_path=train_launches,
         dp_max_n=hk._lib().hmm_banded_max_n(),
         ptxas_registers_spill_stores_loads=dict(
@@ -3624,6 +3869,7 @@ SOLO = {
     "scan_times": phase_scan_times,
     "finalize": phase_finalize,
     "shapes": phase_shapes,
+    "block_sweep": phase_block_sweep,
 }
 
 
@@ -3759,6 +4005,11 @@ def main(argv=None) -> int:
     kernels += [dict(name=f"hmm_{k}_banded_loop", route="cuda",
                      source=hk.SOURCE, replaces=hk.REPLACES[k],
                      **records[f"{k}_loop"]) for k in hk.KERNELS]
+    # forward and backward's block route (N > 128): its launches in one
+    # E-step and one alignment at L = 88, its times at BLOCK_SHAPES
+    kernels += [dict(name=f"hmm_{k}_banded_block", route="cuda",
+                     source=hk.SOURCE, replaces=hk.REPLACES[k],
+                     **records[f"{k}_block"]) for k in ("forward", "backward")]
     check(all(k["launches"] > 0 for k in kernels),
           f"every kernel was launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,18 +10,22 @@ stream, counts the launch and raises if the launch fails.  CUDA tensors
 only: :mod:`poccala_tpu_torch.ops.hmm`'s ``*_batch`` dispatchers route a
 CPU tensor to the plain version instead.
 
-Each recursion has three kernels, chosen by shape inside the library: a
-warp per utterance with the carry in registers where ``N <= 128`` and
-``3 <= W <= 7`` (:func:`takes_warp`), a block per utterance with the carry
-in shared memory elsewhere, a thread a state up to ``N = 1024`` and, past
-that, 512 threads looping over the states (up to
-``hmm_banded_max_n()``, 29,056 states: the carry in shared memory).  The warp Viterbi kernel also keeps its
+Forward and backward have two routes, chosen by shape inside the library:
+a warp per utterance with the carry in registers where ``N <= 128`` and
+``3 <= W <= 7`` (:func:`takes_warp`), and elsewhere the block route (up to
+``hmm_banded_max_n()``, 29,056 states, and ``W <= 16``): the same design
+over the warps of a CTA, K = 1, 2 or 4 places a lane in registers, and past
+one CTA (2,048 places) over a thread-block cluster of up to 16 CTAs; the
+launch chooses the cluster size from ``(B, N, W)`` and the card's occupancy
+(:func:`block_plan`).  Viterbi has a warp kernel (which also keeps its
 backpointers in shared memory, so an utterance too long for that goes to
-the block kernel too (:func:`viterbi_takes_warp`).  ``block=True`` sends a
-call to the block kernel whatever its shape, to hold one kernel against
-the other; both give the same ``alpha`` / ``beta`` and the same Viterbi
-``score``, ``path`` and final ``delta`` bit for bit, and ``loglik`` to
-float32 rounding (the warp kernel sums by shuffles).
+the block kernel: :func:`viterbi_takes_warp`) and a block kernel, a thread
+a state up to ``N = 1024`` and, past that, 512 threads looping over the
+states.  ``block=True`` sends a call to the block route or kernel whatever
+its shape, to hold one against the other; both give the same ``alpha`` /
+``beta`` and the same Viterbi ``score``, ``path`` and final ``delta`` bit
+for bit, and ``loglik`` to float32 rounding (the reductions sum in another
+order).
 """
 
 from __future__ import annotations
@@ -52,13 +56,15 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hmm_backward_banded_block.argtypes = lib.hmm_backward_banded.argtypes
     lib.hmm_viterbi_banded.argtypes = [_P] * 8 + [_I] * 5 + [_P]
     lib.hmm_viterbi_banded_block.argtypes = lib.hmm_viterbi_banded.argtypes
+    lib.hmm_banded_block_plan.argtypes = [_I] * 4 + [_P]
     lib.hmm_banded_takes_warp.argtypes = [_I, _I]
     lib.hmm_viterbi_takes_warp.argtypes = [_I, _I, _I]
     for fn in (lib.hmm_forward_banded, lib.hmm_backward_banded,
                lib.hmm_forward_banded_block, lib.hmm_backward_banded_block,
                lib.hmm_viterbi_banded, lib.hmm_viterbi_banded_block,
                lib.hmm_banded_max_w, lib.hmm_banded_max_n,
-               lib.hmm_banded_takes_warp, lib.hmm_viterbi_takes_warp):
+               lib.hmm_banded_takes_warp, lib.hmm_viterbi_takes_warp,
+               lib.hmm_banded_block_plan):
         fn.restype = ctypes.c_int
     lib.hmm_banded_max_w.argtypes = []
     lib.hmm_banded_max_n.argtypes = []
@@ -83,6 +89,25 @@ def viterbi_takes_warp(t: int, n: int, w: int) -> bool:
     ``w`` on the warp kernel: :func:`takes_warp`, and ``t - 1`` frames of
     backpointers fit the block's shared memory."""
     return bool(_lib().hmm_viterbi_takes_warp(t, n, w))
+
+
+BLOCK_PLAN_FIELDS = ("cluster", "k", "warps", "smem_bytes",
+                     "active_clusters", "spread_clusters")
+
+
+def block_plan(b: int, n: int, w: int, forward: bool = True) -> dict:
+    """The block route's launch for ``b`` utterances of ``n`` states at
+    band width ``w`` on the current device: CTAs an utterance
+    (``cluster``), places a lane (``k``), warps a CTA, dynamic shared
+    memory, the clusters of that shape the card runs at once, and how
+    many of them it holds one CTA an SM."""
+    out = (ctypes.c_int * len(BLOCK_PLAN_FIELDS))()
+    lib = _lib()
+    rc = lib.hmm_banded_block_plan(b, n, w, int(forward), out)
+    if rc != 0:
+        raise RuntimeError("hmm_banded block plan failed: "
+                           + lib.hmm_banded_error_string(rc).decode())
+    return dict(zip(BLOCK_PLAN_FIELDS, out))
 
 
 def _operands(bands, log_bs, t_masks, w: int, log_pis=None):
@@ -111,8 +136,8 @@ def _operands(bands, log_bs, t_masks, w: int, log_pis=None):
                          f"{lib.hmm_banded_max_w()}]")
     if n > lib.hmm_banded_max_n():
         raise ValueError(f"{n} sentence states exceed the kernels' "
-                         f"{lib.hmm_banded_max_n()} (their carry in a "
-                         "block's shared memory)")
+                         f"{lib.hmm_banded_max_n()} (Viterbi's block "
+                         "kernel's carry in a block's shared memory)")
     if t < 1:
         raise ValueError("the kernels need at least one frame")
     f32 = torch.float32

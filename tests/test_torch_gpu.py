@@ -345,9 +345,10 @@ def banded_inputs(rng, b, t_pad, n, w):
 
 # Forward and backward: a lane of the warp kernels owns K = ceil(N / 32)
 # states and log_b runs 7 frames ahead through a ring of 8; N > 128 or a
-# band width outside 3..7 goes to the block kernels.  Viterbi's warp kernel
-# takes the same shapes as long as T - 1 frames of backpointers fit the
-# block's shared memory.
+# band width outside 3..7 goes to the block route (the same design over a
+# CTA's warps, past 2,048 places over a thread-block cluster).  Viterbi's
+# warp kernel takes the same shapes as long as T - 1 frames of backpointers
+# fit the block's shared memory.
 HMM_SHAPES = [
     (3, 1, 11, 5), (6, 37, 26, 5), (64, 319, 50, 5),    # K = 1, 1, 2
     (4, 60, 300, 7),                                    # block: N > 128
@@ -359,6 +360,8 @@ HMM_SHAPES = [
     (6, 29, 128, 7), (4, 2, 128, 3),                    # K = 4, full
     (3, 19, 129, 5), (2, 9, 1024, 16),                  # block: N > 128
     (4, 23, 50, 9), (3, 6, 26, 16),                     # block: W > 7
+    (5, 31, 266, 5), (3, 17, 602, 5),                   # block: L = 88, 200
+    (2, 9, 8402, 5),                                    # block: a cluster
 ]
 
 
@@ -404,6 +407,70 @@ def test_hmm_kernels_match_plain(cuda, b, t_pad, n, w):
     torch.cuda.synchronize()
     assert torch.equal(la, old_a) and torch.equal(lb, old_b)
     assert torch.allclose(ll, old_ll, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("b,t_pad,n,w", [
+    (5, 40, 31, 3), (4, 33, 50, 5), (6, 64, 65, 4), (3, 41, 98, 7),
+    (4, 39, 128, 6), (1, 2, 97, 5)], ids=lambda v: str(v))
+def test_block_route_is_the_warp_kernels(cuda, b, t_pad, n, w):
+    """Every shape the warp kernels take, on tied scores and ragged frames,
+    through ``block=True`` (the block route: more warps, fewer places a
+    lane, edges between warps): alpha and beta equal the default route's
+    bit for bit; loglik, reduced over the CTA, at float32 rounding."""
+    rng = np.random.default_rng(7 * n + w)
+    band, log_pi, log_b, masks = [a.to(cuda) for a in
+                                  banded_inputs(rng, b, t_pad, n, w)]
+    log_b = torch.where(log_b > -1e29, torch.round(log_b / 8) * 8, log_b)
+    assert hk.takes_warp(n, w)
+    la, ll = hk.forward_banded_cuda(band, log_pi, log_b, masks, w)
+    lb = hk.backward_banded_cuda(band, log_b, masks, w)
+    ba, bll = hk.forward_banded_cuda(band, log_pi, log_b, masks, w,
+                                     block=True)
+    bb = hk.backward_banded_cuda(band, log_b, masks, w, block=True)
+    torch.cuda.synchronize()
+    assert torch.equal(la, ba) and torch.equal(lb, bb)
+    assert torch.allclose(ll, bll, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("n,w", [(29056, 16), (29056, 5), (16385, 9)],
+                         ids=lambda v: str(v))
+def test_block_route_at_its_limit(cuda, n, w):
+    """The most states the kernels take (``hmm_banded_max_n()``), at the
+    runtime band width's widest and at W = 5, and just past 16,384 (K = 4
+    places a lane): forward and backward on the block route over a
+    cluster of CTAs, against the plain versions, one launch each."""
+    assert n <= hk._lib().hmm_banded_max_n()
+    block_route_once(cuda, n, w)
+
+
+def block_route_once(cuda, n, w):
+    """Forward and backward at B = 2, T = 5 on the block route over a
+    cluster of CTAs, against the plain versions, one launch each."""
+    rng = np.random.default_rng(n + w)
+    band, log_pi, log_b, masks = [a.to(cuda) for a in
+                                  banded_inputs(rng, 2, 5, n, w)]
+    plan = hk.block_plan(2, n, w)
+    assert plan["cluster"] > 1 and plan["active_clusters"] > 0, plan
+    before = {k: f.launches for k, f in hk.KERNELS.items()}
+    la, ll = hk.forward_banded_cuda(band, log_pi, log_b, masks, w)
+    lb = hk.backward_banded_cuda(band, log_b, masks, w)
+    want_a, want_ll = thmm.forward_log_banded_plain(band, log_pi, log_b,
+                                                    masks, w)
+    want_b = thmm.backward_log_banded_plain(band, log_b, masks, w)
+    torch.cuda.synchronize()
+    assert {k: f.launches - before[k] for k, f in hk.KERNELS.items()} == \
+        {"forward": 1, "backward": 1, "viterbi": 0}
+    assert torch.allclose(la, want_a, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(ll, want_ll, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(lb, want_b, rtol=1e-5, atol=1e-5)
+
+
+def test_block_route_after_a_smaller_plan(cuda):
+    """A shape's launch does not depend on what ran before it: (16,385, 9)
+    plans the runtime-width instantiations at less shared memory than
+    (29,056, 16) takes, and (29,056, 16) then launches again."""
+    for n, w in [(29056, 16), (16385, 9), (29056, 16)]:
+        block_route_once(cuda, n, w)
 
 
 def viterbi_three_ways(band, log_pi, log_b, masks, w, end_states):

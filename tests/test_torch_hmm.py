@@ -9,10 +9,14 @@ exactly.  The sentence-HMM tables of ``models/topology.py`` are equal
 exactly, and the ``__graft_entry__.entry`` forward step composed from the
 port's modules gives the JAX logliks.  The kernels' source
 ``csrc/hmm_banded.cu``, compiled with g++ against
-``tests/cuda_emu/cuda_runtime.h`` (one thread per CUDA thread), runs the
-block kernels' loop instantiations (N > 1,024 states) on the CPU: equal to
-the plain versions at N = 1,100, and bit for bit to the one-thread-a-state
-instantiations where both take a shape.
+``tests/cuda_emu/cuda_runtime.h`` (one thread per CUDA thread, a cluster's
+CTAs together), runs on the CPU: forward and backward's block route
+against the plain versions (N = 129 to 1,100, W = 9 and 16), bit for bit
+against the warp kernels at N <= 128 and against the block kernels it
+replaced (``tests/cuda_emu/hmm_banded_parent.cu``) on one CTA an
+utterance and over clusters; Viterbi's loop instantiation (N > 1,024)
+against the plain version at N = 1,100 and bit for bit against the
+one-thread-a-state one where both take a shape.
 """
 
 import ctypes
@@ -59,8 +63,9 @@ def banded_inputs(rng, b, t_pad, n, w, ragged=True):
     band = np.log(rng.dirichlet(np.ones(w), size=(b, n))).astype(np.float32)
     col = np.arange(n)[:, None] + np.arange(w)[None, :]
     band = np.where(col[None] < n, band, NEG).astype(np.float32)
-    band[:, :, 3:] = np.where(rng.uniform(size=(b, n, w - 3)) < 0.5, NEG,
-                              band[:, :, 3:])
+    if w >= 3:
+        band[:, :, 3:] = np.where(rng.uniform(size=(b, n, w - 3)) < 0.5,
+                                  NEG, band[:, :, 3:])
     log_pi = np.log(rng.dirichlet(np.ones(n), size=b)).astype(np.float32)
     log_b = (rng.normal(size=(b, t_pad, n)) * 20 - 60).astype(np.float32)
     log_b[:, :, -1] = NEG
@@ -274,51 +279,110 @@ __device__ __forceinline__ void cp_async_wait() {}
 __device__ __forceinline__ float select_f32(bool c, float x, float y) {
   return c ? x : y;
 }
+__device__ __forceinline__ void cluster_sync() { emu_cluster_sync(); }
+template <class T>
+__device__ __forceinline__ T* cluster_map(T* p, unsigned rank) {
+  return emu_cluster_map(p, rank);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  emu_mbar_init(bar, count);
+}
+__device__ __forceinline__ void mbar_init_fence() {}
+__device__ __forceinline__ void mbar_arm(uint64_t* bar, unsigned bytes) {
+  emu_mbar_update(bar, 1, (int)bytes);
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  emu_mbar_wait(bar, parity);
+}
+__device__ __forceinline__ void st_async(float* dst, float v, uint64_t* bar,
+                                         unsigned rank) {
+  *emu_cluster_map(dst, rank) = v;
+  emu_mbar_update(emu_cluster_map(bar, rank), 0, -4);
+}
 
 """
+PARENT_SOURCE = Path(__file__).resolve().parent / "cuda_emu" / \
+    "hmm_banded_parent.cu"
 
 
-def emulated_dp_source(block_max_n=None) -> str:
-    """``csrc/hmm_banded.cu`` for g++: the ``cp.async`` and ``selp`` bodies
-    become plain C, the dynamic shared memory a per-block buffer, every
-    launch a call of ``emu_launch``; ``block_max_n`` cuts the block
-    kernels' limit, so that smaller shapes take the loop kernels."""
-    src = (REPO / hk.SOURCE).read_text()
+def emulated_dp_source(block_max_n=None, parent=False, **limits) -> str:
+    """``csrc/hmm_banded.cu`` (``parent``: the block kernels before their
+    redesign, ``tests/cuda_emu/hmm_banded_parent.cu``) for g++: the
+    ``cp.async``, ``selp``, cluster (barrier, distributed shared memory),
+    mbarrier and ``st.async`` bodies become plain C or the emulation's, the dynamic shared
+    memory a per-block buffer, every ``<<<...>>>`` launch a call of
+    ``emu_launch`` (the block route's ``cudaLaunchKernelEx`` runs its
+    clusters in the emulation); ``block_max_n`` cuts Viterbi's block
+    kernel's limit, so that smaller shapes take its loop instantiation, and
+    ``limits`` (``BLOCK_WARPS``, ``MAX_CLUSTER``) the block route's CTA and
+    cluster, so that smaller shapes take several CTAs or more places a
+    lane."""
+    src = (PARENT_SOURCE if parent else REPO / hk.SOURCE).read_text()
     a = src.index("__device__ __forceinline__ void cp_async_f32")
-    b = src.index("// The block kernels' lse_of with an exact band width.")
+    b = src.index("// The block kernels' lse_of with an exact band width."
+                  if parent else "// A step's logsumexp at the band width")
     src = src[:a] + DP_PLAIN_ASYNC + src[b:]
     src = src.replace("extern __shared__ float sm[];",
                       "float* sm = reinterpret_cast<float*>(emu_dyn_smem);")
     src = src.replace(
         "extern __shared__ __align__(16) unsigned char viterbi_offs[];",
         "unsigned char* viterbi_offs = emu_dyn_smem;")
+    src = src.replace(
+        "extern __shared__ __align__(16) unsigned char dp_smem[];",
+        "unsigned char* dp_smem = emu_dyn_smem;")
     src, n = re.subn(r"(\b\w+(?:<[^<>]*>)?)<<<([^>]*)>>>\(",
                      r"emu_launch(\1, \2, ", src)
-    assert n == 5   # warp macro, loop helper, three block kernels
+    # parent: warp macro, loop helper, three block kernels; now: warp
+    # macro, loop helper, Viterbi's block kernel (the block route launches
+    # through cudaLaunchKernelEx)
+    assert n == (5 if parent else 3)
+    if parent:   # so that hk.bind binds it: the parent has no block plan
+        src += ('extern "C" int hmm_banded_block_plan(int, int, int, int, '
+                'int*) { return 1; }\n')
     if block_max_n is not None:
-        old = "constexpr int BLOCK_MAX_N = 1024;"
-        assert old in src
-        src = src.replace(old, f"constexpr int BLOCK_MAX_N = {block_max_n};")
+        limits["BLOCK_MAX_N"] = block_max_n
+    for name, value in limits.items():
+        src, n = re.subn(rf"constexpr int {name} = [^;]*;",
+                         f"constexpr int {name} = {value};", src)
+        assert n == 1, name
     return '#include "cuda_runtime.h"\n' + src
+
+
+def emulated_dp_libraries(tmp, sources: dict) -> dict:
+    """name -> ``sources[name]`` (an :func:`emulated_dp_source`) compiled
+    with g++ into ``tmp`` (all at once) and bound."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernels' source for the CPU")
+    procs = {}
+    for name, src in sources.items():
+        cpp, so = tmp / f"{name}.cpp", tmp / f"lib{name}.so"
+        cpp.write_text(src)
+        procs[name] = so, subprocess.Popen(
+            [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+             f"-I{EMU}", "-o", str(so), str(cpp)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    libs = {}
+    for name, (so, proc) in procs.items():
+        _, err = proc.communicate()
+        assert proc.returncode == 0, err.decode()[-3000:]
+        libs[name] = hk.bind(ctypes.CDLL(str(so)))
+    return libs
 
 
 @pytest.fixture(scope="module")
 def emulated_dp(tmp_path_factory):
-    """The DP library as it is, and with the block kernels cut to 64
-    states."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernels' source for the CPU")
-    tmp = tmp_path_factory.mktemp("hmm_banded_emu")
-    libs = {}
-    for name, cut in (("as_is", None), ("cut", 64)):
-        cpp, so = tmp / f"{name}.cpp", tmp / f"lib{name}.so"
-        cpp.write_text(emulated_dp_source(cut))
-        subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                        "-pthread", f"-I{EMU}", "-o", str(so), str(cpp)],
-                       check=True, capture_output=True)
-        libs[name] = hk.bind(ctypes.CDLL(str(so)))
-    return libs
+    """The DP library as it is; with Viterbi's block kernel cut to 64
+    states (``cut``); the block kernels before their redesign
+    (``parent``); the block route on one CTA an utterance (``one_cta``:
+    up to 4 places a lane) and on CTAs of two warps (``small_cta``: an
+    utterance over a cluster of several CTAs)."""
+    builds = {"as_is": {}, "cut": dict(block_max_n=64),
+              "parent": dict(parent=True), "one_cta": dict(MAX_CLUSTER=1),
+              "small_cta": dict(BLOCK_WARPS=2)}
+    return emulated_dp_libraries(
+        tmp_path_factory.mktemp("hmm_banded_emu"),
+        {name: emulated_dp_source(**kw) for name, kw in builds.items()})
 
 
 def dp_calls(lib, band, log_pi, log_b, masks, w, end_states=0,
@@ -351,16 +415,22 @@ def dp_calls(lib, band, log_pi, log_b, masks, w, end_states=0,
     return (alpha, loglik), beta, (score, path, delta)
 
 
-def block_route_matches_plain(lib, n, seed):
+def tied_inputs(rng, b, t_pad, n, w):
+    """:func:`banded_inputs` with log_b rounded to multiples of 8: ties in
+    every step's maximum and at the end."""
+    band, log_pi, log_b, masks = banded_inputs(rng, b, t_pad, n, w)
+    log_b = np.where(log_b > -1e29, np.round(log_b / 8) * 8,
+                     log_b).astype(np.float32)
+    return band, log_pi, log_b, masks
+
+
+def block_route_matches_plain(lib, n, seed, w=5):
     """The block route at ``n`` states on tied scores (Viterbi's first
     maximum) and ragged frames against the plain versions: Viterbi bit for
     bit, alpha and beta bit for bit where the lse's expf / logf agree
     (glibc's with torch's) and at float32 rounding elsewhere."""
     rng = np.random.default_rng(seed)
-    b, t_pad, w = 3, 6, 5
-    band, log_pi, log_b, masks = banded_inputs(rng, b, t_pad, n, w)
-    log_b = np.where(log_b > -1e29, np.round(log_b / 8) * 8,
-                     log_b).astype(np.float32)
+    band, log_pi, log_b, masks = tied_inputs(rng, 3, 6, n, w)
     (alpha, ll), beta, (sc, path, delta) = dp_calls(
         lib, band, log_pi, log_b, masks, w, end_states=3)
     tb, tpi, tlb, tm = t(band), t(log_pi), t(log_b), t(masks)
@@ -377,10 +447,19 @@ def block_route_matches_plain(lib, n, seed):
     assert float(exact) > 0.99
 
 
+def block_plan(lib, b, n, w, forward=True):
+    """The library's block-route launch: (CTAs an utterance, places a
+    lane, warps a CTA)."""
+    out = (ctypes.c_int * len(hk.BLOCK_PLAN_FIELDS))()
+    assert lib.hmm_banded_block_plan(b, n, w, int(forward), out) == 0
+    return tuple(out[:3])
+
+
 def test_loop_kernels_source_on_cpu_match_plain(emulated_dp):
-    """N = 1,100 sentence states (past the block kernels' 1,024 threads):
-    the loop instantiations' alpha, beta and Viterbi score, path and final
-    delta against the plain versions."""
+    """N = 1,100 sentence states (past Viterbi's block kernel's 1,024
+    threads): forward and backward's block route (over a cluster, as the
+    emulation's occupancy plans it) and Viterbi's loop instantiation
+    against the plain versions."""
     lib = emulated_dp["as_is"]
     assert lib.hmm_banded_max_n() == 29056
     block_route_matches_plain(lib, 1100, 1100)
@@ -388,16 +467,17 @@ def test_loop_kernels_source_on_cpu_match_plain(emulated_dp):
 
 @pytest.mark.parametrize("n", [1024, 1025])
 def test_block_kernels_source_on_cpu_at_their_limit(emulated_dp, n):
-    """The last shape a thread a state takes (1,024 threads) and the first
-    the loop instantiations take, against the plain versions."""
+    """The last shape Viterbi's block kernel takes a thread a state (1,024
+    threads) and the first its loop instantiation takes, against the plain
+    versions, with forward and backward's block route."""
     block_route_matches_plain(emulated_dp["as_is"], n, n)
 
 
 @pytest.mark.parametrize("n,w", [(100, 5), (160, 9)])
 def test_loop_kernels_source_on_cpu_are_the_block_kernels(emulated_dp, n, w):
-    """With the block kernels' limit cut to 64 states, the block route of
-    the same shape runs the loop kernels: alpha, beta and all of Viterbi's
-    outputs equal the block kernels' bit for bit."""
+    """With Viterbi's block kernel's limit cut to 64 states, the block
+    route of the same shape runs its loop instantiation: alpha, beta and
+    all of Viterbi's outputs equal the uncut library's bit for bit."""
     rng = np.random.default_rng(n + w)
     ops = banded_inputs(rng, 3, 7, n, w)
     want = dp_calls(emulated_dp["as_is"], *ops, w, block=True)
@@ -405,3 +485,68 @@ def test_loop_kernels_source_on_cpu_are_the_block_kernels(emulated_dp, n, w):
     for g, o in zip((*got[0], got[1], *got[2]),
                     (*want[0], want[1], *want[2])):
         assert torch.equal(g, o)
+
+
+@pytest.mark.parametrize("n,w", [(129, 5), (266, 5), (150, 9), (140, 16)])
+def test_block_route_source_on_cpu_matches_plain(emulated_dp, n, w):
+    """The block route just past the warp kernels (N = 129), at L = 88
+    (N = 266), and at band widths the warp kernels do not take (W = 9, 16:
+    the runtime-width instantiations), against the plain versions."""
+    block_route_matches_plain(emulated_dp["as_is"], n, n + w, w)
+
+
+@pytest.mark.parametrize("n,w", [(31, 3), (50, 5), (65, 4), (98, 7),
+                                 (128, 6)])
+def test_block_route_source_on_cpu_is_the_warp_kernels(emulated_dp, n, w):
+    """Every register count of the warp kernels (K = 1..4) through
+    ``block=True``, on one CTA and on CTAs of two warps: alpha and beta
+    equal the warp kernels' bit for bit on tied scores and ragged frames;
+    loglik at float32 rounding (both reduce, in other orders)."""
+    rng = np.random.default_rng(3 * n + w)
+    ops = tied_inputs(rng, 4, 9, n, w)
+    want = dp_calls(emulated_dp["as_is"], *ops, w)
+    for route in ("as_is", "small_cta"):
+        got = dp_calls(emulated_dp[route], *ops, w, block=True)
+        assert torch.equal(got[0][0], want[0][0]), route
+        assert torch.equal(got[1], want[1]), route
+        close(got[0][1], want[0][1], rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("n,w", [(129, 5), (266, 5), (700, 7), (1100, 5),
+                                 (300, 9), (200, 16), (150, 2)])
+def test_block_route_source_on_cpu_is_the_parent(emulated_dp, n, w):
+    """The block route against the block kernels it replaced
+    (``tests/cuda_emu/hmm_banded_parent.cu``: a thread a state, or past
+    1,024 states 512 threads looping over them), on tied scores and ragged
+    frames, as planned, on one CTA an utterance (up to 4 places a lane)
+    and over clusters of CTAs of two warps: alpha and beta bit for bit,
+    loglik at float32 rounding (the parent sums on one thread)."""
+    rng = np.random.default_rng(5 * n + w)
+    ops = tied_inputs(rng, 3, 7, n, w)
+    want = dp_calls(emulated_dp["parent"], *ops, w, block=True)
+    plans = {}
+    for route in ("as_is", "one_cta", "small_cta"):
+        got = dp_calls(emulated_dp[route], *ops, w, block=True)
+        assert torch.equal(got[0][0], want[0][0]), route
+        assert torch.equal(got[1], want[1]), route
+        close(got[0][1], want[0][1], rtol=1e-6, atol=0.0)
+        plans[route] = block_plan(emulated_dp[route], 3, n, w)
+    assert plans["one_cta"][0] == 1
+    # two warps of up to 4 places a lane: 256 places a CTA
+    assert plans["small_cta"][0] >= -(-n // 256) and plans["small_cta"][2] <= 2
+
+
+def test_block_route_edge_mutant_is_rejected(tmp_path):
+    """The comparison with the parent sees the edges between warps: a
+    source whose warps read the warp below's top places one slot off
+    differs from the parent."""
+    src = emulated_dp_source()
+    old = "const float* edge = c.slot + s * EDGE - c.lane - 1;"
+    assert old in src
+    lib = emulated_dp_libraries(tmp_path, {"mutant": src.replace(
+        old, old.replace(" - 1;", ";"))})["mutant"]
+    rng = np.random.default_rng(266)
+    ops = tied_inputs(rng, 2, 6, 266, 5)
+    want = thmm.forward_log_banded_plain(*(t(a) for a in ops), 5)[0]
+    got = dp_calls(lib, *ops, 5, block=True)[0][0]
+    assert not torch.allclose(got, want, rtol=1e-5, atol=1e-5)
