@@ -951,13 +951,13 @@ def compare_dp(name: str, got, want) -> tuple[float, bool, dict]:
 
 
 def same_as_block(name: str, got, old) -> dict:
-    """A warp kernel's outputs against the block kernel's on the same
+    """A warp kernel's outputs against the block route's on the same
     inputs: alpha, beta and all of Viterbi's (score, path, final delta) bit
     for bit; forward's loglik, which the warp sums in another order, at
     DP_TOL."""
     if name == "forward":
         check(torch.allclose(got[1], old[1], **DP_TOL),
-              "warp forward loglik vs the block kernel's")
+              "warp forward loglik vs the block route's")
         return dict(
             alpha_equals_block_kernel=torch.equal(got[0], old[0]),
             loglik_max_rel_diff_vs_block_kernel=float(
@@ -973,7 +973,7 @@ def viterbi_routes(gen: torch.Generator, w: int) -> None:
     scores (ties in every step and at the end), a degenerate utterance (all
     deltas at the sentinel), ``end_states`` 0 / 1 / N, one frame, and an
     utterance whose backpointers do not fit shared memory, which the
-    dispatch sends to the block kernel.  Each against the plain version
+    dispatch sends to the block route.  Each against the plain version
     (paths equal) and warp against block bit for bit."""
     band, log_pi, log_b, masks = dp_inputs(gen, 8, 64, TRAIN_L)
     n = int(band.shape[1])
@@ -1011,8 +1011,8 @@ def phase_hmm_kernels(seed: int) -> dict:
     """Each DP kernel against its plain version at a small ragged shape, a
     shape with four registers a lane (N = 98, the default config's sentence
     width) and bench.py's training shape, and bit for bit against the block
-    kernels, which were the only kernels before the warp kernels came and
-    still take the shapes these do not; then Viterbi's special cases
+    route (``block=True``), which takes the shapes these do not; then
+    Viterbi's special cases
     (:func:`viterbi_routes`).  Times at the last two shapes: ``ms`` one
     event pair around a wrapper call, ``device_ms`` the kernel alone under
     the profiler, ``ms_b1`` / ``device_ms_b1`` the same for the first
@@ -1089,17 +1089,18 @@ def phase_hmm_kernels(seed: int) -> dict:
     torch.cuda.empty_cache()
     shapes = block_route_shapes(gen)
     launches = training_path_launches(gen, BLOCK_SHAPES[0][1])
-    for name in ("forward", "backward"):
+    for name in ("forward", "backward", "viterbi"):
         first = shapes[name][0]
+        extra = ("scratch_bytes",) if name == "viterbi" else ()
         record[f"{name}_block"] = dict(
             launches=launches[name],
             **{f: first[f] for f in ("max_abs_err", "ms", "device_ms",
                                      "plain_ms", "bound_ms", "bound_by",
-                                     "plan")},
+                                     "plan") + extra},
             library_ms=None,
-            shapes=[{f: v[f] for f in ("b", "n_s", "ms", "device_ms",
+            shapes=[{f: v[f] for f in ("b", "t", "n_s", "ms", "device_ms",
                                        "ms_b1", "device_ms_b1", "plain_ms",
-                                       "bound_ms", "plan")}
+                                       "bound_ms", "plan") + extra}
                     for v in shapes[name]])
     say("hmm_block_route_summary", launches_training_path_l88=launches,
         ptxas_registers_spill_stores_loads={
@@ -1113,6 +1114,9 @@ def phase_hmm_kernels(seed: int) -> dict:
 # units a character): sentences of 44 characters, of 100, the existing
 # shapes case, and a carry spread over a cluster.
 BLOCK_SHAPES = ((256, 88), (256, 200), (64, 366), (8, 2800))
+# Viterbi's long utterance at the default label budget: (B, T, L), 20 s of
+# frames at N = 98, whose backpointers the warp kernel cannot hold.
+VITERBI_LONG = (64, 1600, 32)
 
 
 def digest(x: torch.Tensor) -> str:
@@ -1121,79 +1125,115 @@ def digest(x: torch.Tensor) -> str:
     return hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
+def viterbi_scratch(b: int, t: int, n: int) -> tuple:
+    """Viterbi's block-route scratch in bytes as this checkout allocates
+    it, and the one-byte-a-state ``[B, T-1, N]`` scratch of the kernel the
+    route replaced."""
+    old = b * (t - 1) * n
+    if not hasattr(hk, "viterbi_scratch_bytes"):   # a parent checkout
+        return old, old
+    return hk.viterbi_scratch_bytes(b, t, n, TRAIN_W, block=True), old
+
+
 def block_route_shapes(gen: torch.Generator) -> dict:
-    """Forward and backward on the block route at BLOCK_SHAPES, each
-    against its plain version at DP_TOL: wrapper ``ms``, ``device_ms``
-    (kernel alone), the same at B = 1, ``plain_ms``, bound, the launch plan
-    (:func:`hmm_banded_cuda.block_plan`), digests of alpha / beta (and
-    loglik) to hold two checkouts' runs against each other."""
-    out = {"forward": [], "backward": []}
-    for b, max_l in BLOCK_SHAPES:
-        band, log_pi, log_b, masks = dp_inputs(gen, b, TRAIN_T, max_l)
-        t, n = int(log_b.shape[1]), int(band.shape[1])
-        check(n == 2 + 3 * max_l and not hk.takes_warp(n, TRAIN_W),
-              f"N = {n} takes the block route")
-        calls = {
-            "forward": lambda lo, hi: (
-                lambda: hk.forward_banded_cuda(
-                    band[lo:hi], log_pi[lo:hi], log_b[lo:hi], masks[lo:hi],
-                    TRAIN_W),
-                lambda: hmm_ops.forward_log_banded_plain(
-                    band[lo:hi], log_pi[lo:hi], log_b[lo:hi], masks[lo:hi],
-                    TRAIN_W)),
-            "backward": lambda lo, hi: (
-                lambda: hk.backward_banded_cuda(band[lo:hi], log_b[lo:hi],
-                                                masks[lo:hi], TRAIN_W),
-                lambda: hmm_ops.backward_log_banded_plain(
-                    band[lo:hi], log_b[lo:hi], masks[lo:hi], TRAIN_W)),
-        }
-        for name, make in calls.items():
-            kernel, plain = make(0, b)
-            kernel1, plain1 = make(0, 1)
+    """Forward, backward and Viterbi on the block route at BLOCK_SHAPES,
+    and Viterbi at VITERBI_LONG, each against its plain version (Viterbi:
+    paths equal): wrapper ``ms``, ``device_ms`` (kernel alone), the same at
+    B = 1, ``plain_ms``, bound, the launch plan
+    (:func:`hmm_banded_cuda.block_plan`, :func:`~hmm_banded_cuda.
+    viterbi_block_plan`), Viterbi's scratch bytes, digests of alpha / beta
+    (and loglik) and of Viterbi's score, path and final delta to hold two
+    checkouts' runs against each other."""
+    out = {"forward": [], "backward": [], "viterbi": []}
+    shapes = [(b, TRAIN_T, max_l) for b, max_l in BLOCK_SHAPES]
+    for b, t, max_l in shapes + [VITERBI_LONG]:
+        band, log_pi, log_b, masks = dp_inputs(gen, b, t, max_l)
+        n = int(band.shape[1])
+        check(n == 2 + 3 * max_l and not hk.viterbi_takes_warp(t, n, TRAIN_W),
+              f"N = {n}, T = {t} takes the block route")
+
+        def calls(lo, hi):
+            bd, pi, lb, mk = (a[lo:hi] for a in (band, log_pi, log_b, masks))
+            return {
+                "forward": (
+                    lambda: hk.forward_banded_cuda(bd, pi, lb, mk, TRAIN_W),
+                    lambda: hmm_ops.forward_log_banded_plain(bd, pi, lb, mk,
+                                                             TRAIN_W)),
+                "backward": (
+                    lambda: hk.backward_banded_cuda(bd, lb, mk, TRAIN_W),
+                    lambda: hmm_ops.backward_log_banded_plain(bd, lb, mk,
+                                                              TRAIN_W)),
+                "viterbi": (
+                    lambda: hk.viterbi_banded_cuda(bd, pi, lb, mk, TRAIN_W),
+                    lambda: hmm_ops.viterbi_log_banded_plain(bd, pi, lb, mk,
+                                                             TRAIN_W)),
+            }
+
+        names = ["viterbi"] if t != TRAIN_T else list(out)
+        full, first = calls(0, b), calls(0, 1)
+        for name in names:
+            kernel, plain = full[name]
+            kernel1, plain1 = first[name]
             got, want = kernel(), plain()
             torch.cuda.synchronize()
             err, ok, tol = compare_dp(name, got, want)
             check(ok, f"{name} block route vs plain at N = {n}: {err}")
             err1, ok1, _ = compare_dp(name, kernel1(), plain1())
             check(ok1, f"{name} block route vs plain at N = {n}, B = 1")
-            lattice = got[0] if name == "forward" else got
             # the parent checkout, run with this script copied in to hold
             # its times and digests against these, has no plan to report
-            plan = (hk.block_plan(b, n, TRAIN_W, name == "forward")
-                    if hasattr(hk, "block_plan") else "not in this checkout")
             line = dict(kernel=name, route="block", b=b, t=t, n_s=n,
-                        w=TRAIN_W, plan=plan, max_abs_err=err, tol=tol,
-                        ok=bool(ok), digest=digest(lattice),
-                        loglik_digest=(digest(got[1]) if name == "forward"
-                                       else None),
-                        ms=median_ms(kernel, reps=11),
+                        w=TRAIN_W, max_abs_err=err, tol=tol, ok=bool(ok))
+            if name == "viterbi":
+                scratch, old = viterbi_scratch(b, t, n)
+                line.update(
+                    plan=(hk.viterbi_block_plan(b, t, n, TRAIN_W)
+                          if hasattr(hk, "viterbi_block_plan")
+                          else "not in this checkout"),
+                    scratch_bytes=scratch, uint8_scratch_bytes=old,
+                    bit_equal_to_plain=all(torch.equal(g, w_)
+                                           for g, w_ in zip(got, want)),
+                    digest={f: digest(v) for f, v in
+                            zip(("score", "path", "delta"), got)})
+            else:
+                lattice = got[0] if name == "forward" else got
+                line.update(
+                    plan=(hk.block_plan(b, n, TRAIN_W, name == "forward")
+                          if hasattr(hk, "block_plan")
+                          else "not in this checkout"),
+                    digest=digest(lattice),
+                    loglik_digest=(digest(got[1]) if name == "forward"
+                                   else None))
+                del lattice
+            line.update(ms=median_ms(kernel, reps=11),
                         device_ms=kernel_device_ms(kernel, name, reps=10),
                         ms_b1=median_ms(kernel1, reps=11),
                         device_ms_b1=kernel_device_ms(kernel1, name,
                                                       reps=10),
                         plain_ms=median_ms(plain, reps=3),
                         **hmm_bound(name, b, t, n, TRAIN_W))
-            del got, want, lattice
+            del got, want
             say("hmm_block_route", **line)
             out[name].append(line)
-        del band, log_pi, log_b, masks
+        del band, log_pi, log_b, masks, full, first
         torch.cuda.empty_cache()
     return out
 
 
 # The cluster-size sweep's shapes: BLOCK_SHAPES, N = 8,402 at B = 64 and
 # 16, N = 3,002 at B = 32, N = 1,100 at B = 128, and B = 1 at 266, 1,100
-# and 8,402.
+# and 8,402 (T = 319); Viterbi also at VITERBI_LONG.
 SWEEP_SHAPES = BLOCK_SHAPES + ((64, 2800), (16, 2800), (32, 1000),
                                (128, 366), (1, 88), (1, 366), (1, 2800))
 
 # The sweep's library also reports every cluster size's shape.
 SWEEP_SIZES = """
-extern "C" int hmm_sweep_sizes(int N, int W, int forward, int* out) {
+extern "C" int hmm_sweep_sizes(int N, int W, int dir, int* out) {
   BlockShapes s;
   const cudaError_t rc =
-      forward ? block_shapes_for(FORWARD_BLOCK, 1, N, W, &s)
-              : block_shapes_for(BACKWARD_BLOCK, 0, N, W, &s);
+      dir == VITERBI  ? block_shapes_for(VITERBI_BLOCK, VITERBI, N, W, &s)
+      : dir == FORWARD ? block_shapes_for(FORWARD_BLOCK, FORWARD, N, W, &s)
+                       : block_shapes_for(BACKWARD_BLOCK, BACKWARD, N, W, &s);
   for (int i = 0; i < MAX_CLUSTER; ++i) {
     const BlockShape& p = s.by_size[i];
     int* o = out + 6 * i;
@@ -1210,10 +1250,11 @@ extern "C" int hmm_sweep_sizes(int N, int W, int forward, int* out) {
 
 
 def sweep_library():
-    """``hmm_banded.cu`` built once more with two globals that override
+    """``hmm_banded.cu`` built once more with three globals that override
     the block route's choices (a cluster size; the runtime band width's
-    instantiations at every W), for :func:`phase_block_sweep` alone: the
-    library the port loads has neither."""
+    instantiations at every W; Viterbi without its backtrace walk), for
+    :func:`phase_block_sweep` alone: the library the port loads has
+    none."""
     import ctypes
 
     src = (build.CSRC / "hmm_banded.cu").read_text()
@@ -1222,12 +1263,21 @@ def sweep_library():
               " : block_choose(s, B, N);"),
              ("int block_w_index(int W) {\n",
               "int block_w_index(int W) {\n  if (hmm_force_runtime_w) "
-              "return 0;\n")]
+              "return 0;\n"),
+             # the walk's switch rides on end_states' bit 30 (a host global
+             # is not seen by the device; the skipped walk's outputs are
+             # not compared)
+             ("  if (!walker) return;",
+              "  if (!walker || (end_states >> 30)) return;"),
+             ("                      delta_last, T, N, W, end_states);",
+              "                      delta_last, T, N, W,\n"
+              "                      end_states | (hmm_skip_walk << 30));")]
     for old, new in swaps:
         check(src.count(old) == 1, f"sweep swap applies once: {old!r}")
         src = src.replace(old, new)
     src = ('extern "C" { int hmm_force_cluster = 0; '
-           'int hmm_force_runtime_w = 0; }\n' + src + SWEEP_SIZES)
+           'int hmm_force_runtime_w = 0; int hmm_skip_walk = 0; }\n' + src
+           + SWEEP_SIZES)
     out_dir = build.BUILD_DIR / "block_sweep"
     out_dir.mkdir(parents=True, exist_ok=True)
     cu, so = out_dir / "hmm_banded_sweep.cu", out_dir / "libhmm_sweep.so"
@@ -1236,78 +1286,100 @@ def sweep_library():
                            str(cu)], capture_output=True, text=True)
     check(proc.returncode == 0, f"sweep build: {proc.stderr[-2000:]}")
     lib = hk.bind(ctypes.CDLL(str(so)))
-    return (lib, ctypes.c_int.in_dll(lib, "hmm_force_cluster"),
-            ctypes.c_int.in_dll(lib, "hmm_force_runtime_w"))
+    return lib, {name: ctypes.c_int.in_dll(lib, f"hmm_{name}")
+                 for name in ("force_cluster", "force_runtime_w",
+                              "skip_walk")}
 
 
 def phase_block_sweep(seed: int, smi: str) -> None:
-    """Forward and backward's block route at SWEEP_SHAPES on every cluster
-    size it takes there, forced (sizes in ascending order, then in
-    descending), kernel alone, beside the size ``block_plan`` picks; and
-    at the planned size, the runtime band width's instantiation against
-    W = 5's (template, runtime, runtime, template).  Every forced launch
-    gives alpha / beta equal bit for bit to the planned launch's."""
+    """The block route at SWEEP_SHAPES (forward, backward and Viterbi) and
+    VITERBI_LONG (Viterbi) on every cluster size it takes there, forced
+    (sizes in ascending order, then in descending), kernel alone, beside
+    the size the plan picks; at the planned size, the runtime band width's
+    instantiation against W = 5's (template, runtime, runtime, template),
+    and Viterbi with its backtrace walk and without (with, without,
+    without, with: the walk's share of the kernel).  Every forced launch
+    gives outputs equal bit for bit to the planned launch's."""
     import ctypes
 
     gen = torch.Generator().manual_seed(seed)
-    lib, force_cs, force_w0 = sweep_library()
+    lib, force = sweep_library()
     lib.hmm_sweep_sizes.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     port_lib = hk._lib
     hk._lib = lambda: lib
+    shapes = [(b, TRAIN_T, max_l) for b, max_l in SWEEP_SHAPES]
     try:
-        for b, max_l in SWEEP_SHAPES:
+        for b, t, max_l in shapes + [VITERBI_LONG]:
             # B = 1: the first of two (its frames all valid)
             band, log_pi, log_b, masks = (
                 a[:b].contiguous()
-                for a in dp_inputs(gen, max(b, 2), TRAIN_T, max_l))
+                for a in dp_inputs(gen, max(b, 2), t, max_l))
             n = int(band.shape[1])
             calls = {
                 "forward": lambda: hk.forward_banded_cuda(
-                    band, log_pi, log_b, masks, TRAIN_W),
-                "backward": lambda: hk.backward_banded_cuda(
-                    band, log_b, masks, TRAIN_W)}
-            for name, fn in calls.items():
-                force_cs.value = force_w0.value = 0
-                plan = hk.block_plan(b, n, TRAIN_W, name == "forward")
+                    band, log_pi, log_b, masks, TRAIN_W)[:1],
+                "backward": lambda: (hk.backward_banded_cuda(
+                    band, log_b, masks, TRAIN_W),),
+                "viterbi": lambda: hk.viterbi_banded_cuda(
+                    band, log_pi, log_b, masks, TRAIN_W)}
+            dirs = {"forward": 1, "backward": 0, "viterbi": 2}
+            names = ["viterbi"] if t != TRAIN_T else list(calls)
+            for name in names:
+                fn = calls[name]
+                for v in force.values():
+                    v.value = 0
+                plan = (hk.viterbi_block_plan(b, t, n, TRAIN_W)
+                        if name == "viterbi"
+                        else hk.block_plan(b, n, TRAIN_W, name == "forward"))
                 by_size = (ctypes.c_int * 96)()
-                check(lib.hmm_sweep_sizes(n, TRAIN_W, int(name == "forward"),
+                check(lib.hmm_sweep_sizes(n, TRAIN_W, dirs[name],
                                           by_size) == 0, "sweep sizes")
                 sizes_shapes = {
                     by_size[6 * i]: dict(zip(hk.BLOCK_PLAN_FIELDS[1:],
                                              by_size[6 * i + 1:6 * i + 6]))
                     for i in range(16) if by_size[6 * i]}
                 ref = fn()
-                ref = ref[0] if name == "forward" else ref
                 sizes = range(1, min(16, (n + 31) // 32) + 1)
                 forced = {}
 
-                def timed(cs, w0):
-                    force_cs.value, force_w0.value = cs, w0
+                def timed(cs, w0=0, skip=0):
+                    force["force_cluster"].value = cs
+                    force["force_runtime_w"].value = w0
+                    force["skip_walk"].value = skip
                     try:
                         got = fn()
                     except RuntimeError as e:  # not taken at this size
                         return str(e).splitlines()[0][:60]
-                    got = got[0] if name == "forward" else got
-                    check(torch.equal(got, ref), f"{name} at N = {n}, "
-                          f"cluster {cs}, runtime W {w0}: equal bit for bit")
+                    check(skip or all(torch.equal(g, r)
+                                      for g, r in zip(got, ref)),
+                          f"{name} at N = {n}, cluster {cs}, runtime W "
+                          f"{w0}: equal bit for bit")
                     return kernel_device_ms(fn, name, reps=5)
 
                 for order in (list(sizes), list(sizes)[::-1]):
                     for cs in order:
-                        forced.setdefault(cs, []).append(timed(cs, 0))
+                        forced.setdefault(cs, []).append(timed(cs))
                 ok = {cs: v for cs, v in forced.items()
                       if all(isinstance(x, float) for x in v)}
                 best = min(ok, key=lambda cs: sum(ok[cs]))
                 widths = {w0: [] for w0 in (0, 1)}
                 for w0 in (0, 1, 1, 0):
                     widths[w0].append(timed(plan["cluster"], w0))
-                force_cs.value = force_w0.value = 0
-                say("hmm_block_sweep", kernel=name, b=b, t=TRAIN_T, n_s=n,
+                walk = {}
+                if name == "viterbi":
+                    for skip in (0, 1, 1, 0):
+                        walk.setdefault(skip, []).append(
+                            timed(plan["cluster"], skip=skip))
+                for v in force.values():
+                    v.value = 0
+                say("hmm_block_sweep", kernel=name, b=b, t=t, n_s=n,
                     w=TRAIN_W, plan=plan, sizes=sizes_shapes,
                     forced_ms=forced,
                     best_cluster=best, best_ms=ok[best],
                     planned_ms=ok.get(plan["cluster"]),
                     template_w_ms=widths[0], runtime_w_ms=widths[1],
+                    **({"with_walk_ms": walk[0], "without_walk_ms": walk[1]}
+                       if walk else {}),
                     nvidia_smi=smi)
                 del ref
             del band, log_pi, log_b, masks
@@ -3708,7 +3780,7 @@ def phase_shapes(seed: int, smi: str) -> dict:
     4 s); a decode call (its words held to the plain versions') and a
     stream chunk through each; and forward, backward and
     Viterbi at N = 1,100 sentence states
-    (the block kernels' loop instantiations; labels of up to 366 units,
+    (the block route over a cluster; labels of up to 366 units,
     64 x 4 s), timed, with
     their launches in one E-step and one alignment at that length.
     Returns the ``kernels`` records."""
@@ -3818,7 +3890,7 @@ def phase_shapes(seed: int, smi: str) -> dict:
         err, ok, tol = compare_dp(name, got, want)
         exact = (all(torch.equal(g, w_) for g, w_ in zip(got, want))
                  if name == "viterbi" else None)
-        check(ok and exact is not False, f"{name} loop instantiation vs plain at "
+        check(ok and exact is not False, f"{name} block route vs plain at "
               f"N = {n}: {err}")
         dp[name] = dict(kernel=name, b=b, t=t, n_s=n, w=TRAIN_W,
                         max_abs_err=err, tol=tol, ok=bool(ok),
@@ -3848,7 +3920,7 @@ def phase_shapes(seed: int, smi: str) -> dict:
     for k in ("global_chunk_b1", "global_40k"):
         records["scan_global"][k] = records.pop(f"scan_{k}")
     for k, v in dp.items():
-        records[f"{k}_loop"] = dict(
+        records[f"{k}_n1100"] = dict(
             launches=train_launches[k],
             **{f: v[f] for f in ("max_abs_err", "ms", "kernel_ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")})
@@ -4002,14 +4074,17 @@ def main(argv=None) -> int:
         dict(name="decoder_scan_exact_global", route="cuda",
              source=dk.SOURCE, replaces=dk.REPLACES,
              **records["scan_global"])]
-    kernels += [dict(name=f"hmm_{k}_banded_loop", route="cuda",
+    # the block route at N = 1,100 (labels of 366 units, a cluster of
+    # CTAs), with its launches in one E-step and one alignment there
+    kernels += [dict(name=f"hmm_{k}_banded_block_n1100", route="cuda",
                      source=hk.SOURCE, replaces=hk.REPLACES[k],
-                     **records[f"{k}_loop"]) for k in hk.KERNELS]
-    # forward and backward's block route (N > 128): its launches in one
-    # E-step and one alignment at L = 88, its times at BLOCK_SHAPES
+                     **records[f"{k}_n1100"]) for k in hk.KERNELS]
+    # the block route (N > 128; Viterbi also past ~850 frames): its
+    # launches in one E-step and one alignment at L = 88, its times at
+    # BLOCK_SHAPES (and Viterbi's at VITERBI_LONG)
     kernels += [dict(name=f"hmm_{k}_banded_block", route="cuda",
                      source=hk.SOURCE, replaces=hk.REPLACES[k],
-                     **records[f"{k}_block"]) for k in ("forward", "backward")]
+                     **records[f"{k}_block"]) for k in hk.KERNELS]
     check(all(k["launches"] > 0 for k in kernels),
           f"every kernel was launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}), flush=True)

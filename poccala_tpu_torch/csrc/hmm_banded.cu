@@ -78,12 +78,13 @@
 // * Viterbi's step has no expf and no logf: W adds and a first-maximum
 //   compare-select chain.  Its backpointers stay on the SM, 4 bits a state
 //   in shared memory, and the backtrace reads them there; an utterance
-//   whose T-1 frames of them do not fit goes to the block kernel.
+//   whose T-1 frames of them do not fit goes to the block route.
 //
-// N > 128 or another W (up to MAX_N and MAX_W): forward and backward's
-// block route (forward_block_kernel / backward_block_kernel, see "Block
-// route" below) is the warp kernels' design spread over the warps of a CTA,
-// and past one CTA over a thread-block cluster:
+// N > 128 or another W (up to MAX_N and MAX_W), and Viterbi's utterances
+// too long for its warp kernel: the block route (forward_block_kernel /
+// backward_block_kernel / viterbi_block_kernel, see "Block route" and
+// "Viterbi's block route" below) is the warp kernels' design spread over
+// the warps of a CTA, and past one CTA over a thread-block cluster:
 //
 // * The carry stays in registers, K = 1, 2 or 4 places a lane, the W band
 //   entries of each place loaded once; up to 16 warps a CTA (2,048 places)
@@ -95,21 +96,12 @@
 //   mbarrier, in the next CTA for a CTA's last warp), so the warps run as
 //   a wavefront.
 // * log_b through the warp kernels' cp.async ring, RING-1 frames ahead.
-// * loglik is a reduction over the cluster (maximum, then the sum of expf).
+// * loglik (and Viterbi's end state) is a reduction over the cluster.
+// * Viterbi's backpointers, 4 bits a place, go to a device scratch a word
+//   of 8 steps at a time; after the loop one warp walks the backtrace by
+//   windows of 32 steps staged in shared memory.
 // * The launch chooses the cluster size from (B, N, W) and the card's
-//   occupancy (block_plan).
-//
-// Viterbi's block kernel (N > 128, another W, or an utterance too long for
-// the warp kernel's shared memory; past BLOCK_MAX_N = 1,024 states its
-// <true> instantiation, which loops over the states):
-//
-// * One block per utterance, one thread per sentence state (rounded up to
-//   a warp multiple).  The carry lives in shared memory, double-buffered,
-//   so one __syncthreads per frame suffices.
-// * A thread's W incoming band entries are loaded into registers once.
-// * Next frame's log_b and mask are loaded one step ahead.
-// * Viterbi writes uint8 offsets to a [B, T-1, N] scratch and thread 0
-//   walks the backtrace after the loop, inside the same launch.
+//   occupancy (block_plan), for each recursion's own instantiations.
 //
 // Every kernel does a step's arithmetic in the same order (terms k =
 // 0..W-1 ascending, the maximum first, then the sum of expf(x - max),
@@ -131,51 +123,6 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_W = 16;
-constexpr int BLOCK_MAX_N = 1024;   // Viterbi's block kernel: a thread a state
-
-// Thread 0's Viterbi backtrace from the last frame's deltas `last` [N] and
-// one utterance's offsets `off` [T-1, N]: the first maximum over the
-// states [N - end_states, N) (all where end_states is 0), then T-1 steps.
-__device__ void viterbi_backtrace(const float* last, const uint8_t* off,
-                                  int T, int N, int end_states,
-                                  float* score, int32_t* p) {
-  const int lo = end_states > 0 ? N - end_states : 0;
-  int state = lo;
-  for (int s = lo + 1; s < N; ++s)
-    if (last[s] > last[state]) state = s;  // first maximum
-  *score = last[state];
-  p[T - 1] = state;
-  for (int t = T - 2; t >= 0; --t) {
-    // JAX's dynamic indexing: a negative state (a degenerate utterance
-    // whose deltas all sit at the sentinel backtraces below 0) counts
-    // from the end once, then clamps
-    int idx = state < 0 ? state + N : state;
-    idx = idx < 0 ? 0 : (idx > N - 1 ? N - 1 : idx);
-    state -= off[(size_t)t * N + idx];
-    p[t] = state;
-  }
-}
-
-// Viterbi's block kernel's launch shapes: one thread a state up to
-// BLOCK_MAX_N states (LOOP = false), past that LOOP_THREADS threads each
-// looping over the states j = tid, tid + LOOP_THREADS, ... (LOOP = true,
-// the carry still in shared memory; see "Loop instantiations" below).  One
-// body: where LOOP is false a thread's band entries, its state's value and
-// its next log_b live in registers, where it is true they are read from
-// memory each frame; the arithmetic is the same term for term.
-constexpr int LOOP_THREADS = 512;
-
-// f(j) for each state j of this thread: its one state, where it has one
-// (LOOP = false), or j = tid, tid + blockDim.x, ... (LOOP = true).
-template <bool LOOP, class F>
-__device__ __forceinline__ void for_states(int N, F&& f) {
-  const int tid = threadIdx.x;
-  if (LOOP) {
-    for (int j = tid; j < N; j += blockDim.x) f(j);
-  } else if (tid < N) {
-    f(tid);
-  }
-}
 
 // ----------------------------------------------------------------------
 // Warp kernels: forward and backward at N <= 128, W in 3..7
@@ -522,7 +469,7 @@ backward_warp_kernel(const float* __restrict__ band,
 
 // ----------------------------------------------------------------------
 // Block route: forward and backward where the warp kernels do not take
-// (N, W), up to MAX_N states and MAX_W
+// (N, W), up to MAX_N states and MAX_W (Viterbi's: see below)
 // ----------------------------------------------------------------------
 //
 // The warp kernels' design over many warps.  An utterance's places (forward:
@@ -922,6 +869,317 @@ backward_block_kernel(const float* __restrict__ band,
   cluster_sync();  // no CTA leaves while another may arrive on its barriers
 }
 
+// ----------------------------------------------------------------------
+// Viterbi's block route
+// ----------------------------------------------------------------------
+//
+// forward_block_kernel's layout, feed and hand-off with Viterbi's step: W
+// adds and a first-maximum compare-select chain (strict >, so the smallest
+// offset wins a tie), then the clamp; a padded frame keeps delta and
+// writes offset 0.  The arithmetic is adds and maxima, so score, path and
+// final delta equal the warp kernel's bit for bit whatever the layout.
+//
+// The backpointers (an offset < W <= 16: 4 bits) go to a device scratch of
+// ceil((T-1) / 8) x N words an utterance, word q of state j holding j's
+// offsets of steps 8q .. 8q+7: a lane packs each of its places' offsets
+// into a register and stores the K words every 8th step, coalesced, fire
+// and forget.  (On chip they would not fit: a CTA of 16 warps at K = 4
+// makes 1 KB of them a frame, 318 KB at T = 319, beside its ~66 KB ring.)
+//
+// After the loop the end state, the first maximum over the end states, is
+// reduced over the cluster as loglik is: each warp's by shuffles (the
+// larger value, on equal values the lower state), then the CTA's and the
+// cluster's in rank order.  One cluster barrier makes every CTA's scratch
+// words visible, and one warp walks the backtrace by windows of WALK = 32
+// steps, every lane the same state, storing path 32 frames at a time.  An
+// offset is < W, so the states of a window's steps lie within 32 (W-1)
+// places below the state it starts from, and those of the next window
+// within 64 (W-1): as the warp starts a window it copies the next
+// window's 4 words of each of those places into a second buffer of shared
+// memory by cp.async, and walks the window from the first buffer: 32
+// unrolled steps of one shared-memory load each, with no branch, whose
+// chain hides the copies' latency.  A degenerate utterance whose deltas
+// all sit at the sentinel backtraces below state 0, and JAX's indexing (a
+// negative state counts from the end once, then clamps) jumps to the top
+// of the range, out of the buffer: that window is walked again by checked
+// steps that stage what they need.
+
+constexpr int OFFS_STEPS = 8;   // steps of offsets in a scratch word
+constexpr int WALK = 32;        // steps of a backtrace window
+static_assert(WALK == 32, "a window's frames are a warp's path stores");
+constexpr int NO_STATE = 0x7fffffff;
+
+// Words of one utterance's backpointers in the scratch.
+__host__ __device__ inline size_t viterbi_block_words(int T, int N) {
+  return (size_t)((T - 1 + OFFS_STEPS - 1) / OFFS_STEPS) * N;
+}
+
+// Places a staged backtrace window holds at band width w: those its own
+// steps and the next window's can reach.
+__host__ __device__ inline int walk_span(int w) {
+  return 2 * WALK * (w - 1) + 1;
+}
+
+// Viterbi's CTA's dynamic shared memory: the block route's, then each
+// warp's end state and the CTA's [warps + 1], then two staged windows'
+// words [2][WALK / OFFS_STEPS][walk_span(w)].
+__host__ __device__ inline size_t viterbi_smem_bytes(int warps, int k,
+                                                     int w) {
+  return block_smem_bytes(warps, k) + sizeof(int) * (warps + 1) +
+         sizeof(uint32_t) * 2 * (WALK / OFFS_STEPS) * walk_span(w);
+}
+
+// Copy by cp.async the words of window `window`'s steps (its WALK /
+// OFFS_STEPS groups of the utterance's `groups`) of the places [lo, hi],
+// lo = max(hi - span + 1, 0), into buf [WALK / OFFS_STEPS][span], a lane
+// every 32nd place; returns lo.  One commit group.
+__device__ __forceinline__ int walk_stage(uint32_t* buf,
+                                          const uint32_t* words, int window,
+                                          int hi, int span, int groups,
+                                          int N, int lane) {
+  const int lo = hi - span + 1 > 0 ? hi - span + 1 : 0;
+#pragma unroll
+  for (int g = 0; g < WALK / OFFS_STEPS; ++g) {
+    const int q = window * (WALK / OFFS_STEPS) + g;
+    if (q < groups)
+      for (int i = lane; i <= hi - lo; i += 32)
+        cp_async_f32(reinterpret_cast<float*>(buf + g * span + i),
+                     reinterpret_cast<const float*>(words + (size_t)q * N +
+                                                    lo + i));
+  }
+  cp_async_commit();
+  return lo;
+}
+
+// The first maximum over the warp's lanes: the larger value, on equal
+// values the lower state; a lane holding NO_STATE holds none.  Every lane
+// ends with the same (top, state).
+__device__ __forceinline__ void warp_first_max(float& top, int& state) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float v = __shfl_xor_sync(FULL, top, o);
+    const int j = __shfl_xor_sync(FULL, state, o);
+    if (j != NO_STATE &&
+        (state == NO_STATE || v > top || (v == top && j < state))) {
+      top = v;
+      state = j;
+    }
+  }
+}
+
+template <int K, int W>  // W = 0: the band width w_rt at run time
+__global__ void __launch_bounds__(32 * BLOCK_WARPS)
+viterbi_block_kernel(const float* __restrict__ band,
+                     const float* __restrict__ log_pi,
+                     const float* __restrict__ log_b,
+                     const uint8_t* __restrict__ mask,
+                     uint32_t* __restrict__ offs, float* __restrict__ score,
+                     int32_t* __restrict__ path,
+                     float* __restrict__ delta_last, int T, int N, int w_rt,
+                     int end_states, int cs) {
+  constexpr int WA = W ? W : MAX_W;
+  const int wn = W ? W : w_rt;
+  extern __shared__ __align__(16) unsigned char dp_smem[];
+  const BlockCta c = block_cta<K>(dp_smem, cs, T, wn);
+  const int lane = c.lane;
+  const float* lb = log_b + (size_t)c.b * T * N + c.base + lane;
+  uint32_t* const words = offs + (size_t)c.b * viterbi_block_words(T, N);
+  uint32_t* out = words + c.base + lane;
+  FrameFeed<K, true> feed{lb + N, mask + (size_t)c.b * T, c.ring + lane, T,
+                          N, lane, 0, 0, N > c.base ? N - c.base : 0};
+  feed.start();
+
+  bool live[K];
+  float bin[K][WA];  // bin[r][k] = band[b, j-k, k], j = base + lane + 32 r
+  float d[K];        // NEG_INF at dead places
+  uint32_t packed[K];  // this word's offsets so far, 4 bits a step
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    const int j = c.base + lane + 32 * r;
+    live[r] = j < N;
+#pragma unroll
+    for (int k = 0; k < WA; ++k)
+      bin[r][k] = (k < wn && live[r] && j - k >= 0)
+                      ? band[((size_t)c.b * N + (j - k)) * wn + k] : 0.0f;
+    d[r] = live[r] ? log_pi[(size_t)c.b * N + j] + lb[32 * r] : NEG_INF;
+    packed[r] = 0u;
+  }
+  block_start(c);
+  if (T > 1) hand_up(c, d[K - 1], 0);
+
+#pragma unroll 1
+  for (int t = 1; t < T; ++t) {
+    float b_t[K];
+    const bool m_t = feed.step(t - 1, b_t);  // the same for every lane
+    const int at = 4 * ((t - 1) & (OFFS_STEPS - 1));  // its bits in a word
+    float edge[WA], hi[WA], lo[WA];  // the carry k places below rows r, r-1
+    take_below<WA>(c, t - 1, edge);
+    shuffle_below<WA>(d[K - 1], lane, wn, hi);
+#pragma unroll
+    for (int r = K - 1; r >= 0; --r) {
+      if (r > 0) {
+        shuffle_below<WA>(d[r > 0 ? r - 1 : 0], lane, wn, lo);
+      } else {
+#pragma unroll
+        for (int k = 1; k < WA; ++k) lo[k] = edge[k];
+      }
+      float best = d[r] + bin[r][0];
+      unsigned bk = 0;
+#pragma unroll
+      for (int k = 1; k < WA; ++k)
+        if (k < wn) {
+          // below state 0 bin is 0, and the candidate exactly NEG_INF
+          const float cand = (lane >= k ? hi[k] : lo[k]) + bin[r][k];
+          const bool wins = cand > best;  // strict: the smallest offset wins
+          best = wins ? cand : best;
+          bk = wins ? (unsigned)k : bk;
+        }
+      const bool take = m_t && live[r];
+      d[r] = select_f32(take, fmaxf(best + b_t[r], NEG_INF), d[r]);
+      packed[r] |= (take ? bk : 0u) << at;  // a padded frame: offset 0
+#pragma unroll
+      for (int k = 1; k < WA; ++k) hi[k] = lo[k];
+    }
+    if (t + 1 < T) hand_up(c, d[K - 1], t);
+    if (at == 4 * (OFFS_STEPS - 1) || t + 1 == T) {  // the word is complete
+#pragma unroll
+      for (int r = 0; r < K; ++r) {
+        if (live[r]) out[32 * r] = packed[r];
+        packed[r] = 0u;
+      }
+      out += N;
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < K; ++r)
+    if (live[r]) delta_last[(size_t)c.b * N + c.base + lane + 32 * r] = d[r];
+
+  // The end state: a lane's own first maximum over [lo_end, N) (its places
+  // ascend with r), the warp's, the CTA's in warp order, the cluster's.
+  const int lo_end = end_states > 0 ? N - end_states : 0;
+  float top = 0.0f;
+  int state = NO_STATE;
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    const int j = c.base + lane + 32 * r;
+    if (j >= lo_end && j < N && (state == NO_STATE || d[r] > top)) {
+      top = d[r];
+      state = j;
+    }
+  }
+  warp_first_max(top, state);
+  int* const arg = reinterpret_cast<int*>(dp_smem +
+                                          block_smem_bytes(c.warps, K));
+  if (lane == 0) {
+    c.part[c.wid] = top;
+    arg[c.wid] = state;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float v = c.part[0];
+    int s = arg[0];
+    for (int w = 1; w < c.warps; ++w)
+      if (arg[w] != NO_STATE && (s == NO_STATE || c.part[w] > v)) {
+        v = c.part[w];
+        s = arg[w];
+      }
+    c.part[c.warps] = v;
+    arg[c.warps] = s;
+  }
+  cluster_sync();  // every CTA's end state and scratch words are seen
+  const bool walker = c.rank == 0 && c.wid == 0;
+  if (walker) {
+    top = 0.0f;
+    state = NO_STATE;
+    if (lane < cs) {
+      top = *cluster_map(c.part + c.warps, (unsigned)lane);
+      state = *cluster_map(arg + c.warps, (unsigned)lane);
+    }
+    warp_first_max(top, state);
+  }
+  cluster_sync();  // no CTA leaves while rank 0 reads its end state
+  if (!walker) return;
+  if (lane == 0) score[c.b] = top;
+
+  // The backtrace by windows of frames WALK m .. WALK m + WALK-1, from the
+  // top, the same state in every lane.  `cur` holds window m's words of
+  // the places [cf, cl].  Each window's steps run unrolled and without a
+  // branch, in places counted from cf: a load from the staged words (its
+  // place clamped into the buffer), the offset out of it, a subtraction.
+  // A state outside [cf, cl] on the way (a wrap below state 0, or the top
+  // window's first state) is flagged, and the window is walked again by
+  // checked steps that stage what they need.
+  uint32_t* cur = reinterpret_cast<uint32_t*>(arg + c.warps + 1);
+  const int span = walk_span(wn);
+  uint32_t* nxt = cur + (WALK / OFFS_STEPS) * span;
+  const int groups = (T - 1 + OFFS_STEPS - 1) / OFFS_STEPS;
+  int32_t* const p = path + (size_t)c.b * T;
+  int cf = 0, cl = -1;
+  int mine = state;  // the state of the frame WALK m + lane
+#pragma unroll 1
+  for (int m = (T - 1) / WALK; m >= 0; --m) {
+    const int t0 = m * WALK;
+    const int top = min(T - 2 - t0, WALK - 1);  // the window's last step
+    const int s = state;                        // frame t0 + top + 1's
+    // JAX's indexing of a negative state: from the end once, then clamped
+    // (a state never passes N-1: it only decreases)
+    const int idx = s >= 0 ? s : max(s + N, 0);
+    if (top >= 0 && (idx < cf || idx > cl)) {   // not staged
+      cf = walk_stage(cur, words, m, idx, span, groups, N, lane);
+      cl = idx;
+      cp_async_wait<0>();
+      __syncwarp();
+    }
+    // the next window's words: its states lie within 2 WALK (W-1) places
+    // below this window's first one
+    int nf = 0, nl = -1;
+    if (m > 0) {
+      nf = walk_stage(nxt, words, m - 1, idx, span, groups, N, lane);
+      nl = idx;
+    }
+    const unsigned range = (unsigned)(cl - cf);
+    int loc = s - cf;  // the state, counted from cf
+    bool out = false;  // a state outside [cf, cl] on the way
+#pragma unroll
+    for (int i = WALK - 1; i >= 0; --i) {  // step t0 + i
+      const uint32_t* row = cur + (i / OFFS_STEPS) * span;
+      const unsigned at = (unsigned)loc;
+      out |= i <= top && at > range;
+      const uint32_t word = row[min(at, (unsigned)(span - 1))];
+      const int off = (int)((word >> (4 * (i % OFFS_STEPS))) & 15u);
+      if (i <= top) loc -= off;
+      if (i == lane) mine = loc + cf;
+    }
+    state = loc + cf;
+    if (out) {  // again, step by step
+      state = s;
+#pragma unroll 1
+      for (int t = t0 + top; t >= t0; --t) {
+        const int j = state >= 0 ? state : max(state + N, 0);
+        if (j < cf || j > cl) {
+          __syncwarp();  // every lane is done with `cur`
+          cf = walk_stage(cur, words, m, j, span, groups, N, lane);
+          cl = j;
+          cp_async_wait<0>();
+          __syncwarp();
+        }
+        state -= (int)((cur[(t - t0) / OFFS_STEPS * span + j - cf] >>
+                        (4 * (t % OFFS_STEPS))) & 15u);
+        if (t - t0 == lane) mine = state;
+      }
+    }
+    if (t0 + lane < T) p[t0 + lane] = mine;
+    cp_async_wait<0>();
+    __syncwarp();  // the next window's words landed; `cur` is free
+    uint32_t* const done = cur;
+    cur = nxt;
+    nxt = done;
+    cf = nf;
+    cl = nl;
+  }
+}
+
 // Viterbi's backpointers of one lane at one frame, 4 bits a place (an
 // offset is < W <= 7), packed into one word: a byte while a lane owns at
 // most two places, else 16 bits.
@@ -1098,7 +1356,7 @@ bool takes_warp(int N, int W) {
 
 // Shared memory a block may hold in all (the card's 227 KB), and what the
 // warp Viterbi kernel asks of it: the log_b rings and four utterances'
-// backpointers.  An utterance too long for that goes to the block kernel.
+// backpointers.  An utterance too long for that goes to the block route.
 constexpr size_t SMEM_PER_BLOCK = 227 * 1024;
 
 size_t viterbi_warp_smem(int T, int N) {
@@ -1110,118 +1368,15 @@ bool viterbi_takes_warp(int T, int N, int W) {
          viterbi_warp_smem(T, N) + ring_bytes((N + 31) / 32) <= SMEM_PER_BLOCK;
 }
 
-template <bool LOOP>
-__global__ void viterbi_block_kernel(const float* __restrict__ band,
-                     const float* __restrict__ log_pi,
-                     const float* __restrict__ log_b,
-                     const uint8_t* __restrict__ mask,
-                     uint8_t* __restrict__ offs, float* __restrict__ score,
-                     int32_t* __restrict__ path,
-                     float* __restrict__ delta_last, int T, int N, int W,
-                     int end_states) {
-  extern __shared__ float sm[];  // [2][N]
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const bool live = tid < N;
-  const float* lb = log_b + (size_t)b * T * N;
-  const float* bd = band + (size_t)b * N * W;
-  const uint8_t* mk = mask + (size_t)b * T;
-  uint8_t* off = offs + (size_t)b * (T - 1) * N;
-
-  float bin[MAX_W];  // !LOOP: bin[k] = band[b, j-k, k] of the thread's j
-  if (!LOOP) {
-#pragma unroll
-    for (int k = 0; k < MAX_W; ++k)
-      bin[k] = (live && k < W && tid - k >= 0)
-                   ? band[((size_t)b * N + (tid - k)) * W + k] : 0.0f;
-  }
-
-  float d = 0.0f;
-  for_states<LOOP>(N, [&](int j) {
-    d = log_pi[(size_t)b * N + j] + lb[j];
-    sm[j] = d;
-  });
-  float b_next = (!LOOP && live && T > 1) ? lb[N + tid] : 0.0f;
-  uint8_t m_next = T > 1 ? mk[1] : 0;
-  __syncthreads();
-
-  int cur = 0;
-  for (int t = 1; t < T; ++t) {
-    const float b_reg = b_next;
-    const uint8_t m_t = m_next;
-    if (t + 1 < T) {
-      if (!LOOP && live) b_next = lb[(size_t)(t + 1) * N + tid];
-      m_next = mk[t + 1];
-    }
-    const float* prev = sm + cur * N;
-    for_states<LOOP>(N, [&](int j) {
-      if (LOOP) d = prev[j];
-      uint8_t bk = 0;
-      if (m_t) {
-        float best = prev[j] + (LOOP ? bd[(size_t)j * W] : bin[0]);
-#pragma unroll
-        for (int k = 1; k < MAX_W; ++k) {
-          if (k < W) {
-            const float cand =
-                (j - k >= 0)
-                    ? prev[j - k]
-                          + (LOOP ? bd[(size_t)(j - k) * W + k] : bin[k])
-                    : NEG_INF;
-            if (cand > best) {  // strict: the smallest offset wins a tie
-              best = cand;
-              bk = (uint8_t)k;
-            }
-          }
-        }
-        const float b_t = LOOP ? lb[(size_t)t * N + j] : b_reg;
-        d = fmaxf(best + b_t, NEG_INF);
-      }
-      sm[(cur ^ 1) * N + j] = d;
-      off[(size_t)(t - 1) * N + j] = bk;
-    });
-    cur ^= 1;
-    __syncthreads();  // also publishes this block's offsets in global memory
-  }
-  for_states<LOOP>(N, [&](int j) {
-    delta_last[(size_t)b * N + j] = LOOP ? sm[cur * N + j] : d;
-  });
-  if (tid == 0)
-    viterbi_backtrace(sm + cur * N, off, T, N, end_states, score + b,
-                      path + (size_t)b * T);
-}
-
-// ----------------------------------------------------------------------
-// Viterbi's loop instantiation: BLOCK_MAX_N < N <= MAX_N
-// ----------------------------------------------------------------------
-//
-// LOOP = false gives each state a thread, so it stops at a block's 1,024
-// threads.  Past that the <true> instantiation runs LOOP_THREADS threads
-// over the states.  The double-buffered carry [2][N] stays in shared
-// memory (opting in past 48 KB), which sets MAX_N for every recursion; the
-// band entries and log_b are read where they are, each frame, since a
-// thread's share of them no longer fits its registers.
-
-constexpr int MAX_N = (int)(SMEM_PER_BLOCK / (2 * sizeof(float)));
-
-int threads_for(int N) { return ((N + 31) / 32) * 32; }
+// The most sentence states the kernels take, the limit the GPU tests hold
+// all three recursions to: 227 KB over two floats a state, the
+// double-buffered shared-memory carry of the kernels the block route
+// replaced, kept so that no shape they took is lost.  The block route's
+// registers hold up to 32,768.
+constexpr int MAX_N = 29056;
 
 bool bad_shape(int B, int T, int N, int W) {
   return B < 1 || T < 1 || N < 1 || N > MAX_N || W < 1 || W > MAX_W;
-}
-
-// A loop kernel's launch: its carry [2][N] in dynamic shared memory,
-// opted into past 48 KB.
-template <class Kernel, class... Args>
-int launch_loop(Kernel kernel, int B, int N, cudaStream_t stream,
-                Args... args) {
-  const size_t smem = 2 * (size_t)N * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
-  kernel<<<B, LOOP_THREADS, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
 }
 
 // ----------------------------------------------------------------------
@@ -1233,6 +1388,12 @@ using ForwardBlockFn = void (*)(const float*, const float*, const float*,
                                 int, int);
 using BackwardBlockFn = void (*)(const float*, const float*, const uint8_t*,
                                  float*, int, int, int, int);
+using ViterbiBlockFn = void (*)(const float*, const float*, const float*,
+                                const uint8_t*, uint32_t*, float*, int32_t*,
+                                float*, int, int, int, int, int);
+
+// The block route's recursions, as the plan and its C entry name them.
+enum BlockDir { BACKWARD = 0, FORWARD = 1, VITERBI = 2 };
 
 // Places a lane by index, and the instantiations: [K index][W - 2 for W in
 // 3..7, else 0 (the runtime band width)].
@@ -1246,6 +1407,9 @@ const ForwardBlockFn FORWARD_BLOCK[3][6] = {
 const BackwardBlockFn BACKWARD_BLOCK[3][6] = {
     BLOCK_ROW(backward_block_kernel, 1), BLOCK_ROW(backward_block_kernel, 2),
     BLOCK_ROW(backward_block_kernel, 4)};
+const ViterbiBlockFn VITERBI_BLOCK[3][6] = {
+    BLOCK_ROW(viterbi_block_kernel, 1), BLOCK_ROW(viterbi_block_kernel, 2),
+    BLOCK_ROW(viterbi_block_kernel, 4)};
 #undef BLOCK_ROW
 
 int block_w_index(int W) {
@@ -1264,8 +1428,9 @@ struct BlockShape {
 };
 
 // The shape on cs CTAs: the least K whose BLOCK_WARPS warps hold the CTA's
-// ceil(N / cs) places.
-BlockShape block_shape(int N, int cs) {
+// ceil(N / cs) places; Viterbi's CTAs also hold its end states and a
+// backtrace window at band width W.
+BlockShape block_shape(int dir, int N, int W, int cs) {
   BlockShape p{};
   const int chunk = (N + cs - 1) / cs;
   for (int i = 0; i < 3; ++i) {
@@ -1274,7 +1439,8 @@ BlockShape block_shape(int N, int cs) {
       p.cs = cs;
       p.kidx = i;
       p.warps = (chunk + per_warp - 1) / per_warp;
-      p.smem = block_smem_bytes(p.warps, BLOCK_K[i]);
+      p.smem = dir == VITERBI ? viterbi_smem_bytes(p.warps, BLOCK_K[i], W)
+                              : block_smem_bytes(p.warps, BLOCK_K[i]);
       return p;
     }
   }
@@ -1340,7 +1506,7 @@ cudaError_t block_active(Fn kernel, BlockShape* p, int sms, int sm_smem) {
   return rc;
 }
 
-// Every cluster size's shape for one (device, direction, N, W), kept.
+// Every cluster size's shape for one (device, recursion, N, W), kept.
 struct BlockShapes {
   int key[4];
   int sms, sm_smem;
@@ -1351,12 +1517,12 @@ std::vector<BlockShapes> block_shapes;
 constexpr size_t BLOCK_SHAPES_KEPT = 64;
 
 template <class Fn>
-cudaError_t block_shapes_for(const Fn (&table)[3][6], int forward, int N,
+cudaError_t block_shapes_for(const Fn (&table)[3][6], int dir, int N,
                              int W, BlockShapes* out) {
   int dev = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc != cudaSuccess) return rc;
-  const int key[4] = {dev, forward, N, W};
+  const int key[4] = {dev, dir, N, W};
   std::lock_guard<std::mutex> lock(block_mutex);
   for (const BlockShapes& s : block_shapes)
     if (std::equal(key, key + 4, s.key)) {
@@ -1374,7 +1540,7 @@ cudaError_t block_shapes_for(const Fn (&table)[3][6], int forward, int N,
   const int most = std::min(MAX_CLUSTER, (N + 31) / 32);
   for (int cs = 1; cs <= most; ++cs) {
     BlockShape& p = s.by_size[cs - 1];
-    p = block_shape(N, cs);
+    p = block_shape(dir, N, W, cs);
     if (p.cs == 0) continue;
     rc = block_active(table[p.kidx][block_w_index(W)], &p, s.sms,
                       s.sm_smem);
@@ -1422,10 +1588,10 @@ BlockShape block_choose(const BlockShapes& s, int B, int N) {
 }
 
 template <class Fn>
-cudaError_t block_plan(const Fn (&table)[3][6], int forward, int B, int N,
+cudaError_t block_plan(const Fn (&table)[3][6], int dir, int B, int N,
                        int W, BlockShape* out) {
   BlockShapes s;
-  const cudaError_t rc = block_shapes_for(table, forward, N, W, &s);
+  const cudaError_t rc = block_shapes_for(table, dir, N, W, &s);
   if (rc != cudaSuccess) return rc;
   *out = block_choose(s, B, N);
   return out->cs ? cudaSuccess : cudaErrorInvalidValue;
@@ -1434,10 +1600,10 @@ cudaError_t block_plan(const Fn (&table)[3][6], int forward, int B, int N,
 // One launch of the block route on the plan's clusters; the kernel's last
 // argument is the cluster size.
 template <class Fn, class... Args>
-int block_launch(const Fn (&table)[3][6], int forward, int B, int N, int W,
+int block_launch(const Fn (&table)[3][6], int dir, int B, int N, int W,
                  cudaStream_t stream, Args... args) {
   BlockShape p{};
-  cudaError_t rc = block_plan(table, forward, B, N, W, &p);
+  cudaError_t rc = block_plan(table, dir, B, N, W, &p);
   const Fn kernel = table[p.kidx][block_w_index(W)];
   if (rc == cudaSuccess) rc = block_opt_in(kernel, p);
   cudaLaunchAttribute attr;
@@ -1455,8 +1621,8 @@ int block_launch(const Fn (&table)[3][6], int forward, int B, int N, int W,
 // launch (0 = cudaSuccess), or cudaErrorInvalidValue for a shape it does
 // not take; the launch is asynchronous on `stream`.  Each recursion
 // chooses its kernel by shape: the warp kernel where it takes (N, W) (and,
-// for Viterbi, T), the block kernel elsewhere; `block_only` != 0 sends
-// every shape to the block kernel (for holding one against the other).
+// for Viterbi, T), the block route elsewhere; `block_only` != 0 sends
+// every shape to the block route (for holding one against the other).
 // One launch either way.
 namespace {
 
@@ -1475,7 +1641,7 @@ int forward_banded(const void* band_, const void* log_pi_, const void* log_b_,
     HMM_WARP_LAUNCH(forward_warp_kernel, B, N, W, 0, band, log_pi, log_b, mask,
                     alpha, loglik, B, T, N);
   else
-    return block_launch(FORWARD_BLOCK, 1, B, N, W, stream, band, log_pi,
+    return block_launch(FORWARD_BLOCK, FORWARD, B, N, W, stream, band, log_pi,
                         log_b, mask, alpha, loglik, T, N, W);
   return (int)cudaGetLastError();
 }
@@ -1493,12 +1659,13 @@ int backward_banded(const void* band_, const void* log_b_, const void* mask_,
     HMM_WARP_LAUNCH(backward_warp_kernel, B, N, W, 0, band, log_b, mask, beta, B,
                     T, N);
   else
-    return block_launch(BACKWARD_BLOCK, 0, B, N, W, stream, band, log_b,
+    return block_launch(BACKWARD_BLOCK, BACKWARD, B, N, W, stream, band, log_b,
                         mask, beta, T, N, W);
   return (int)cudaGetLastError();
 }
 
-// `offs` is the block kernel's [B, T-1, N] uint8 scratch in device memory;
+// `offs` is the block route's backpointer scratch in device memory,
+// viterbi_block_words(T, N) words an utterance (hmm_viterbi_scratch_bytes);
 // the warp kernel keeps its backpointers in shared memory and reads none.
 int viterbi_banded(const void* band_, const void* log_pi_, const void* log_b_,
                    const void* mask_, void* offs_, void* score_, void* path_,
@@ -1518,18 +1685,12 @@ int viterbi_banded(const void* band_, const void* log_pi_, const void* log_b_,
     HMM_WARP_LAUNCH(viterbi_warp_kernel, B, N, W, viterbi_warp_smem(T, N),
                     band, log_pi, log_b, mask, score, path, delta_last, B, T,
                     N, end_states);
-  } else {
-    if (offs_ == nullptr && T > 1) return (int)cudaErrorInvalidValue;
-    if (N > BLOCK_MAX_N)
-      return launch_loop(viterbi_block_kernel<true>, B, N, stream, band,
-                         log_pi, log_b, mask, static_cast<uint8_t*>(offs_),
-                         score, path, delta_last, T, N, W, end_states);
-    viterbi_block_kernel<false><<<B, threads_for(N), 2 * N * sizeof(float),
-                           stream>>>(band, log_pi, log_b, mask,
-                                     static_cast<uint8_t*>(offs_), score,
-                                     path, delta_last, T, N, W, end_states);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (offs_ == nullptr && T > 1) return (int)cudaErrorInvalidValue;
+  return block_launch(VITERBI_BLOCK, VITERBI, B, N, W, stream, band, log_pi,
+                      log_b, mask, static_cast<uint32_t*>(offs_), score, path,
+                      delta_last, T, N, W, end_states);
 }
 
 }  // namespace
@@ -1582,16 +1743,19 @@ extern "C" int hmm_viterbi_banded_block(const void* band, const void* log_pi,
 }
 
 // The block route's launch for B utterances of N states at band width W
-// (forward != 0: forward's kernels, else backward's): out = {CTAs an
+// (dir: 1 forward's kernels, 0 backward's, 2 Viterbi's): out = {CTAs an
 // utterance, places a lane, warps a CTA, dynamic shared memory bytes, the
-// clusters (CTAs where it is 1 CTA) the card runs at once}.
-extern "C" int hmm_banded_block_plan(int B, int N, int W, int forward,
+// clusters (CTAs where it is 1 CTA) the card runs at once, how many of
+// those it holds one CTA an SM}.
+extern "C" int hmm_banded_block_plan(int B, int N, int W, int dir,
                                      int* out) {
-  if (bad_shape(B, 1, N, W)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, 1, N, W) || dir < BACKWARD || dir > VITERBI)
+    return (int)cudaErrorInvalidValue;
   BlockShape p;
   const cudaError_t rc =
-      forward ? block_plan(FORWARD_BLOCK, 1, B, N, W, &p)
-              : block_plan(BACKWARD_BLOCK, 0, B, N, W, &p);
+      dir == VITERBI  ? block_plan(VITERBI_BLOCK, VITERBI, B, N, W, &p)
+      : dir == FORWARD ? block_plan(FORWARD_BLOCK, FORWARD, B, N, W, &p)
+                       : block_plan(BACKWARD_BLOCK, BACKWARD, B, N, W, &p);
   if (rc != cudaSuccess) return (int)rc;
   out[0] = p.cs;
   out[1] = BLOCK_K[p.kidx];
@@ -1610,6 +1774,16 @@ extern "C" int hmm_banded_takes_warp(int N, int W) { return takes_warp(N, W); }
 // backpointers in shared memory.
 extern "C" int hmm_viterbi_takes_warp(int T, int N, int W) {
   return viterbi_takes_warp(T, N, W);
+}
+// Bytes of the `offs` scratch hmm_viterbi_banded (block_only != 0:
+// hmm_viterbi_banded_block) needs for the shape: 0 on the warp kernel, -1
+// for a shape no kernel takes.
+extern "C" long long hmm_viterbi_scratch_bytes(int B, int T, int N, int W,
+                                               int block_only) {
+  if (bad_shape(B, T, N, W)) return -1;
+  if (viterbi_takes_warp(T, N, W) && !block_only) return 0;
+  return (long long)B * (long long)(viterbi_block_words(T, N) *
+                                    sizeof(uint32_t));
 }
 
 extern "C" const char* hmm_banded_error_string(int code) {

@@ -10,22 +10,23 @@ stream, counts the launch and raises if the launch fails.  CUDA tensors
 only: :mod:`poccala_tpu_torch.ops.hmm`'s ``*_batch`` dispatchers route a
 CPU tensor to the plain version instead.
 
-Forward and backward have two routes, chosen by shape inside the library:
-a warp per utterance with the carry in registers where ``N <= 128`` and
-``3 <= W <= 7`` (:func:`takes_warp`), and elsewhere the block route (up to
-``hmm_banded_max_n()``, 29,056 states, and ``W <= 16``): the same design
+Each recursion has two routes, chosen by shape inside the library: a warp
+per utterance with the carry in registers where ``N <= 128`` and ``3 <= W
+<= 7`` (:func:`takes_warp`; Viterbi's warp kernel also keeps its
+backpointers in shared memory, so an utterance too long for that takes the
+block route: :func:`viterbi_takes_warp`), and elsewhere the block route (up
+to ``hmm_banded_max_n()``, 29,056 states, and ``W <= 16``): the same design
 over the warps of a CTA, K = 1, 2 or 4 places a lane in registers, and past
 one CTA (2,048 places) over a thread-block cluster of up to 16 CTAs; the
 launch chooses the cluster size from ``(B, N, W)`` and the card's occupancy
-(:func:`block_plan`).  Viterbi has a warp kernel (which also keeps its
-backpointers in shared memory, so an utterance too long for that goes to
-the block kernel: :func:`viterbi_takes_warp`) and a block kernel, a thread
-a state up to ``N = 1024`` and, past that, 512 threads looping over the
-states.  ``block=True`` sends a call to the block route or kernel whatever
-its shape, to hold one against the other; both give the same ``alpha`` /
-``beta`` and the same Viterbi ``score``, ``path`` and final ``delta`` bit
-for bit, and ``loglik`` to float32 rounding (the reductions sum in another
-order).
+(:func:`block_plan`, :func:`viterbi_block_plan`).  Viterbi's block route
+writes its backpointers, 4 bits a state, to a device scratch that the
+wrapper allocates (:func:`viterbi_scratch_bytes`) and walks the backtrace
+in the same launch.  ``block=True`` sends a call to the block route
+whatever its shape, to hold one route against the other; both give the
+same ``alpha`` / ``beta`` and the same Viterbi ``score``, ``path`` and
+final ``delta`` bit for bit, and ``loglik`` to float32 rounding (the
+reductions sum in another order).
 """
 
 from __future__ import annotations
@@ -59,6 +60,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hmm_banded_block_plan.argtypes = [_I] * 4 + [_P]
     lib.hmm_banded_takes_warp.argtypes = [_I, _I]
     lib.hmm_viterbi_takes_warp.argtypes = [_I, _I, _I]
+    lib.hmm_viterbi_scratch_bytes.argtypes = [_I] * 5
+    lib.hmm_viterbi_scratch_bytes.restype = ctypes.c_longlong
     for fn in (lib.hmm_forward_banded, lib.hmm_backward_banded,
                lib.hmm_forward_banded_block, lib.hmm_backward_banded_block,
                lib.hmm_viterbi_banded, lib.hmm_viterbi_banded_block,
@@ -95,19 +98,41 @@ BLOCK_PLAN_FIELDS = ("cluster", "k", "warps", "smem_bytes",
                      "active_clusters", "spread_clusters")
 
 
-def block_plan(b: int, n: int, w: int, forward: bool = True) -> dict:
-    """The block route's launch for ``b`` utterances of ``n`` states at
-    band width ``w`` on the current device: CTAs an utterance
-    (``cluster``), places a lane (``k``), warps a CTA, dynamic shared
-    memory, the clusters of that shape the card runs at once, and how
-    many of them it holds one CTA an SM."""
+def _plan(b: int, n: int, w: int, direction: int) -> dict:
     out = (ctypes.c_int * len(BLOCK_PLAN_FIELDS))()
     lib = _lib()
-    rc = lib.hmm_banded_block_plan(b, n, w, int(forward), out)
+    rc = lib.hmm_banded_block_plan(b, n, w, direction, out)
     if rc != 0:
         raise RuntimeError("hmm_banded block plan failed: "
                            + lib.hmm_banded_error_string(rc).decode())
     return dict(zip(BLOCK_PLAN_FIELDS, out))
+
+
+def block_plan(b: int, n: int, w: int, forward: bool = True) -> dict:
+    """The block route's launch of forward (else backward) for ``b``
+    utterances of ``n`` states at band width ``w`` on the current device:
+    CTAs an utterance (``cluster``), places a lane (``k``), warps a CTA,
+    dynamic shared memory, the clusters of that shape the card runs at
+    once, and how many of them it holds one CTA an SM."""
+    return _plan(b, n, w, int(forward))
+
+
+def viterbi_scratch_bytes(b: int, t: int, n: int, w: int,
+                          block: bool = False) -> int:
+    """Bytes of the backpointer scratch :func:`viterbi_banded_cuda`
+    allocates for the shape: 0 where the warp kernel takes it."""
+    got = _lib().hmm_viterbi_scratch_bytes(b, t, n, w, int(block))
+    if got < 0:
+        raise ValueError(f"no Viterbi kernel takes B={b}, T={t}, N={n}, "
+                         f"W={w}")
+    return got
+
+
+def viterbi_block_plan(b: int, t: int, n: int, w: int) -> dict:
+    """Viterbi's block-route launch (the fields of :func:`block_plan`,
+    from its own instantiations) and its ``scratch_bytes``."""
+    return dict(_plan(b, n, w, 2),
+                scratch_bytes=viterbi_scratch_bytes(b, t, n, w, block=True))
 
 
 def _operands(bands, log_bs, t_masks, w: int, log_pis=None):
@@ -136,8 +161,7 @@ def _operands(bands, log_bs, t_masks, w: int, log_pis=None):
                          f"{lib.hmm_banded_max_w()}]")
     if n > lib.hmm_banded_max_n():
         raise ValueError(f"{n} sentence states exceed the kernels' "
-                         f"{lib.hmm_banded_max_n()} (Viterbi's block "
-                         "kernel's carry in a block's shared memory)")
+                         f"{lib.hmm_banded_max_n()}")
     if t < 1:
         raise ValueError("the kernels need at least one frame")
     f32 = torch.float32
@@ -206,11 +230,10 @@ def viterbi_banded_cuda(bands, log_pis, log_bs, t_masks, w: int,
     path = torch.empty((b, t), dtype=torch.int32, device=dev)
     delta = torch.empty((b, n), dtype=torch.float32, device=dev)
     if b:
-        # only the block kernel keeps its backpointers in device memory
-        offs = None
-        if block or not lib.hmm_viterbi_takes_warp(t, n, w):
-            offs = torch.empty((max(b * (t - 1) * n, 1),), dtype=torch.uint8,
-                               device=dev)
+        # only the block route keeps its backpointers in device memory
+        size = viterbi_scratch_bytes(b, t, n, w, block)
+        offs = (torch.empty((size,), dtype=torch.uint8, device=dev)
+                if size > 0 else None)
         fn = lib.hmm_viterbi_banded_block if block else lib.hmm_viterbi_banded
         _launch(lib, fn, "viterbi", dev,
                 o["band"].data_ptr(), o["log_pi"].data_ptr(),

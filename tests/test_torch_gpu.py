@@ -437,32 +437,36 @@ def test_block_route_is_the_warp_kernels(cuda, b, t_pad, n, w):
 def test_block_route_at_its_limit(cuda, n, w):
     """The most states the kernels take (``hmm_banded_max_n()``), at the
     runtime band width's widest and at W = 5, and just past 16,384 (K = 4
-    places a lane): forward and backward on the block route over a
-    cluster of CTAs, against the plain versions, one launch each."""
+    places a lane): forward, backward and Viterbi on the block route over
+    a cluster of CTAs, against the plain versions, one launch each."""
     assert n <= hk._lib().hmm_banded_max_n()
     block_route_once(cuda, n, w)
 
 
 def block_route_once(cuda, n, w):
-    """Forward and backward at B = 2, T = 5 on the block route over a
-    cluster of CTAs, against the plain versions, one launch each."""
+    """Forward, backward and Viterbi at B = 2, T = 5 on the block route
+    over a cluster of CTAs (each on its own plan), against the plain
+    versions (Viterbi bit for bit), one launch each."""
     rng = np.random.default_rng(n + w)
     band, log_pi, log_b, masks = [a.to(cuda) for a in
                                   banded_inputs(rng, 2, 5, n, w)]
-    plan = hk.block_plan(2, n, w)
-    assert plan["cluster"] > 1 and plan["active_clusters"] > 0, plan
+    for plan in (hk.block_plan(2, n, w), hk.viterbi_block_plan(2, 5, n, w)):
+        assert plan["cluster"] > 1 and plan["active_clusters"] > 0, plan
     before = {k: f.launches for k, f in hk.KERNELS.items()}
     la, ll = hk.forward_banded_cuda(band, log_pi, log_b, masks, w)
     lb = hk.backward_banded_cuda(band, log_b, masks, w)
+    got = hk.viterbi_banded_cuda(band, log_pi, log_b, masks, w, 3)
     want_a, want_ll = thmm.forward_log_banded_plain(band, log_pi, log_b,
                                                     masks, w)
     want_b = thmm.backward_log_banded_plain(band, log_b, masks, w)
+    want = thmm.viterbi_log_banded_plain(band, log_pi, log_b, masks, w, 3)
     torch.cuda.synchronize()
     assert {k: f.launches - before[k] for k, f in hk.KERNELS.items()} == \
-        {"forward": 1, "backward": 1, "viterbi": 0}
+        {"forward": 1, "backward": 1, "viterbi": 1}
     assert torch.allclose(la, want_a, rtol=1e-5, atol=1e-5)
     assert torch.allclose(ll, want_ll, rtol=1e-5, atol=1e-5)
     assert torch.allclose(lb, want_b, rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
 
 
 def test_block_route_after_a_smaller_plan(cuda):
@@ -494,14 +498,17 @@ def viterbi_three_ways(band, log_pi, log_b, masks, w, end_states):
 
 @pytest.mark.parametrize("b,t_pad,n,w", [
     (5, 40, 31, 3), (4, 33, 50, 5), (6, 64, 65, 4), (3, 41, 98, 7),
-    (4, 39, 128, 6)], ids=lambda v: str(v))
+    (4, 39, 128, 6), (3, 1600, 98, 5), (3, 41, 1100, 5)],
+    ids=lambda v: str(v))
 @pytest.mark.parametrize("end_states", [0, 1, "n"])
 def test_viterbi_ties_and_degenerate_utterances(cuda, b, t_pad, n, w,
                                                 end_states):
     """Quantised scores tie in every step and at the end (the first maximum
-    must win in both kernels as in the plain version); one utterance has
+    must win in both routes as in the plain version); one utterance has
     dead self-loops and every delta at the sentinel, and backtraces below
-    state 0 (JAX's wrap-once-then-clamp indexing)."""
+    state 0 (JAX's wrap-once-then-clamp indexing).  T = 1,600 at N = 98
+    and N = 1,100 take the block route either way (its backtrace over 50
+    and 2 windows)."""
     rng = np.random.default_rng(n * w)
     band, log_pi, log_b, masks = banded_inputs(rng, b, t_pad, n, w)
     band = torch.where(band > -1e29, torch.round(band), band)
@@ -519,15 +526,18 @@ def test_viterbi_ties_and_degenerate_utterances(cuda, b, t_pad, n, w,
 @pytest.mark.parametrize("t_pad,n,w,warp", [
     (330, 50, 5, True),     # backpointers + rings pass 48 KB: the opt-in
     (1700, 50, 5, True),    # near the block's 227 KB at K = 2
-    (1900, 50, 5, False),   # past it: the block kernel
+    (1900, 50, 5, False),   # past it: the block route
     (800, 98, 5, True), (1000, 98, 5, False),      # K = 4: 16 bits a lane
-    (64, 300, 5, False), (64, 50, 9, False)])
+    (1600, 98, 5, False),   # 20 s at the default label budget
+    (64, 300, 5, False), (64, 50, 9, False), (64, 1100, 5, False)])
 def test_viterbi_dispatch_routes(cuda, t_pad, n, w, warp):
     """One launch either way: the warp kernel while T - 1 frames of
-    backpointers fit shared memory, else the block kernel."""
+    backpointers fit shared memory, else the block route, which alone
+    takes a scratch."""
     rng = np.random.default_rng(t_pad + n)
     ops = [a.to(cuda) for a in banded_inputs(rng, 5, t_pad, n, w)]
     assert hk.viterbi_takes_warp(t_pad, n, w) == warp
+    assert (hk.viterbi_scratch_bytes(5, t_pad, n, w) == 0) == warp
     viterbi_three_ways(*ops, w, 0)
 
 
@@ -1189,9 +1199,10 @@ def test_decoder_scan_past_shared_memory(cuda):
 
 @pytest.mark.parametrize("b,t_pad", [(3, 41), (1, 2)])
 def test_hmm_kernels_past_1024_states(cuda, b, t_pad):
-    """N = 1,100 sentence states: forward, backward and Viterbi run the
-    loop kernels; alpha, beta and Viterbi's outputs against the plain
-    versions (Viterbi bit for bit, tied scores), one launch each."""
+    """N = 1,100 sentence states (past the 1,024 of a CTA's threads):
+    forward, backward and Viterbi on the block route; alpha, beta and
+    Viterbi's outputs against the plain versions (Viterbi bit for bit,
+    tied scores), one launch each."""
     rng = np.random.default_rng(1100 + b)
     n, w = 1100, 5
     band, log_pi, log_b, masks = [a.to(cuda) for a in

@@ -305,18 +305,16 @@ PARENT_SOURCE = Path(__file__).resolve().parent / "cuda_emu" / \
     "hmm_banded_parent.cu"
 
 
-def emulated_dp_source(block_max_n=None, parent=False, **limits) -> str:
+def emulated_dp_source(parent=False, **limits) -> str:
     """``csrc/hmm_banded.cu`` (``parent``: the block kernels before their
     redesign, ``tests/cuda_emu/hmm_banded_parent.cu``) for g++: the
     ``cp.async``, ``selp``, cluster (barrier, distributed shared memory),
-    mbarrier and ``st.async`` bodies become plain C or the emulation's, the dynamic shared
-    memory a per-block buffer, every ``<<<...>>>`` launch a call of
-    ``emu_launch`` (the block route's ``cudaLaunchKernelEx`` runs its
-    clusters in the emulation); ``block_max_n`` cuts Viterbi's block
-    kernel's limit, so that smaller shapes take its loop instantiation, and
-    ``limits`` (``BLOCK_WARPS``, ``MAX_CLUSTER``) the block route's CTA and
-    cluster, so that smaller shapes take several CTAs or more places a
-    lane."""
+    mbarrier and ``st.async`` bodies become plain C or the emulation's, the
+    dynamic shared memory a per-block buffer, every ``<<<...>>>`` launch a
+    call of ``emu_launch`` (the block route's ``cudaLaunchKernelEx`` runs
+    its clusters in the emulation); ``limits`` (``BLOCK_WARPS``,
+    ``MAX_CLUSTER``) cut the block route's CTA and cluster, so that smaller
+    shapes take several CTAs or more places a lane."""
     src = (PARENT_SOURCE if parent else REPO / hk.SOURCE).read_text()
     a = src.index("__device__ __forceinline__ void cp_async_f32")
     b = src.index("// The block kernels' lse_of with an exact band width."
@@ -332,15 +330,15 @@ def emulated_dp_source(block_max_n=None, parent=False, **limits) -> str:
         "unsigned char* dp_smem = emu_dyn_smem;")
     src, n = re.subn(r"(\b\w+(?:<[^<>]*>)?)<<<([^>]*)>>>\(",
                      r"emu_launch(\1, \2, ", src)
-    # parent: warp macro, loop helper, three block kernels; now: warp
-    # macro, loop helper, Viterbi's block kernel (the block route launches
-    # through cudaLaunchKernelEx)
-    assert n == (5 if parent else 3)
-    if parent:   # so that hk.bind binds it: the parent has no block plan
+    # parent: warp macro, loop helper, three block kernels; now: the warp
+    # macro (the block route launches through cudaLaunchKernelEx)
+    assert n == (5 if parent else 1)
+    if parent:   # so that hk.bind binds them: the parent has no block plan,
+        # and its block kernel's scratch is a byte a state and step
         src += ('extern "C" int hmm_banded_block_plan(int, int, int, int, '
-                'int*) { return 1; }\n')
-    if block_max_n is not None:
-        limits["BLOCK_MAX_N"] = block_max_n
+                'int*) { return 1; }\n'
+                'extern "C" long long hmm_viterbi_scratch_bytes(int B, int T, '
+                'int N, int, int) { return (long long)B * (T - 1) * N; }\n')
     for name, value in limits.items():
         src, n = re.subn(rf"constexpr int {name} = [^;]*;",
                          f"constexpr int {name} = {value};", src)
@@ -372,13 +370,12 @@ def emulated_dp_libraries(tmp, sources: dict) -> dict:
 
 @pytest.fixture(scope="module")
 def emulated_dp(tmp_path_factory):
-    """The DP library as it is; with Viterbi's block kernel cut to 64
-    states (``cut``); the block kernels before their redesign
+    """The DP library as it is; the block kernels before their redesign
     (``parent``); the block route on one CTA an utterance (``one_cta``:
     up to 4 places a lane) and on CTAs of two warps (``small_cta``: an
     utterance over a cluster of several CTAs)."""
-    builds = {"as_is": {}, "cut": dict(block_max_n=64),
-              "parent": dict(parent=True), "one_cta": dict(MAX_CLUSTER=1),
+    builds = {"as_is": {}, "parent": dict(parent=True),
+              "one_cta": dict(MAX_CLUSTER=1),
               "small_cta": dict(BLOCK_WARPS=2)}
     return emulated_dp_libraries(
         tmp_path_factory.mktemp("hmm_banded_emu"),
@@ -397,7 +394,9 @@ def dp_calls(lib, band, log_pi, log_b, masks, w, end_states=0,
     loglik, score = torch.empty(b), torch.empty(b)
     path = torch.empty(b, t_pad, dtype=torch.int32)
     delta = torch.empty(b, n)
-    offs = torch.empty(max(b * (t_pad - 1) * n, 1), dtype=torch.uint8)
+    size = lib.hmm_viterbi_scratch_bytes(b, t_pad, n, w, int(block))
+    assert size >= 0
+    offs = torch.empty(max(size, 1), dtype=torch.uint8)
     sfx = "_block" if block else ""
     rc = [getattr(lib, f"hmm_forward_banded{sfx}")(
               band.data_ptr(), log_pi.data_ptr(), log_b.data_ptr(),
@@ -447,44 +446,30 @@ def block_route_matches_plain(lib, n, seed, w=5):
     assert float(exact) > 0.99
 
 
-def block_plan(lib, b, n, w, forward=True):
-    """The library's block-route launch: (CTAs an utterance, places a
-    lane, warps a CTA)."""
+def block_plan(lib, b, n, w, direction=1):
+    """The library's block-route launch (direction 1 forward, 0 backward,
+    2 Viterbi): (CTAs an utterance, places a lane, warps a CTA)."""
     out = (ctypes.c_int * len(hk.BLOCK_PLAN_FIELDS))()
-    assert lib.hmm_banded_block_plan(b, n, w, int(forward), out) == 0
+    assert lib.hmm_banded_block_plan(b, n, w, direction, out) == 0
     return tuple(out[:3])
 
 
-def test_loop_kernels_source_on_cpu_match_plain(emulated_dp):
-    """N = 1,100 sentence states (past Viterbi's block kernel's 1,024
-    threads): forward and backward's block route (over a cluster, as the
-    emulation's occupancy plans it) and Viterbi's loop instantiation
-    against the plain versions."""
-    lib = emulated_dp["as_is"]
-    assert lib.hmm_banded_max_n() == 29056
-    block_route_matches_plain(lib, 1100, 1100)
-
-
-@pytest.mark.parametrize("n", [1024, 1025])
+@pytest.mark.parametrize("n", [1024, 1025, 2048, 2049])
 def test_block_kernels_source_on_cpu_at_their_limit(emulated_dp, n):
-    """The last shape Viterbi's block kernel takes a thread a state (1,024
-    threads) and the first its loop instantiation takes, against the plain
-    versions, with forward and backward's block route."""
-    block_route_matches_plain(emulated_dp["as_is"], n, n)
-
-
-@pytest.mark.parametrize("n,w", [(100, 5), (160, 9)])
-def test_loop_kernels_source_on_cpu_are_the_block_kernels(emulated_dp, n, w):
-    """With Viterbi's block kernel's limit cut to 64 states, the block
-    route of the same shape runs its loop instantiation: alpha, beta and
-    all of Viterbi's outputs equal the uncut library's bit for bit."""
-    rng = np.random.default_rng(n + w)
-    ops = banded_inputs(rng, 3, 7, n, w)
-    want = dp_calls(emulated_dp["as_is"], *ops, w, block=True)
-    got = dp_calls(emulated_dp["cut"], *ops, w, block=True)
-    for g, o in zip((*got[0], got[1], *got[2]),
-                    (*want[0], want[1], *want[2])):
-        assert torch.equal(g, o)
+    """The block route's own edges, all three recursions against the plain
+    versions: on one CTA the last shape of K = 2 places a lane (1,024) and
+    the first of K = 4 (1,025), one CTA's most places (2,048), and the
+    first shape that needs a cluster of CTAs (2,049)."""
+    route = "one_cta" if n <= 2048 else "as_is"
+    lib = emulated_dp[route]
+    assert lib.hmm_banded_max_n() == 29056
+    for direction in (0, 1, 2):
+        cluster, k, _ = block_plan(lib, 3, n, 5, direction)
+        if n <= 2048:
+            assert (cluster, k) == (1, 2 if n == 1024 else 4)
+        else:
+            assert cluster > 1
+    block_route_matches_plain(lib, n, n)
 
 
 @pytest.mark.parametrize("n,w", [(129, 5), (266, 5), (150, 9), (140, 16)])
@@ -499,17 +484,20 @@ def test_block_route_source_on_cpu_matches_plain(emulated_dp, n, w):
                                  (128, 6)])
 def test_block_route_source_on_cpu_is_the_warp_kernels(emulated_dp, n, w):
     """Every register count of the warp kernels (K = 1..4) through
-    ``block=True``, on one CTA and on CTAs of two warps: alpha and beta
-    equal the warp kernels' bit for bit on tied scores and ragged frames;
-    loglik at float32 rounding (both reduce, in other orders)."""
+    ``block=True``, on one CTA and on CTAs of two warps: alpha, beta and
+    Viterbi's score, path and final delta equal the warp kernels' bit for
+    bit on tied scores and ragged frames; loglik at float32 rounding (both
+    reduce, in other orders)."""
     rng = np.random.default_rng(3 * n + w)
     ops = tied_inputs(rng, 4, 9, n, w)
-    want = dp_calls(emulated_dp["as_is"], *ops, w)
+    want = dp_calls(emulated_dp["as_is"], *ops, w, end_states=2)
     for route in ("as_is", "small_cta"):
-        got = dp_calls(emulated_dp[route], *ops, w, block=True)
+        got = dp_calls(emulated_dp[route], *ops, w, end_states=2, block=True)
         assert torch.equal(got[0][0], want[0][0]), route
         assert torch.equal(got[1], want[1]), route
         close(got[0][1], want[0][1], rtol=1e-6, atol=0.0)
+        for g, o in zip(got[2], want[2]):
+            assert torch.equal(g, o), route
 
 
 @pytest.mark.parametrize("n,w", [(129, 5), (266, 5), (700, 7), (1100, 5),
@@ -519,21 +507,27 @@ def test_block_route_source_on_cpu_is_the_parent(emulated_dp, n, w):
     (``tests/cuda_emu/hmm_banded_parent.cu``: a thread a state, or past
     1,024 states 512 threads looping over them), on tied scores and ragged
     frames, as planned, on one CTA an utterance (up to 4 places a lane)
-    and over clusters of CTAs of two warps: alpha and beta bit for bit,
-    loglik at float32 rounding (the parent sums on one thread)."""
+    and over clusters of CTAs of two warps: alpha, beta and Viterbi's
+    score, path and final delta bit for bit, loglik at float32 rounding
+    (the parent sums on one thread)."""
     rng = np.random.default_rng(5 * n + w)
     ops = tied_inputs(rng, 3, 7, n, w)
-    want = dp_calls(emulated_dp["parent"], *ops, w, block=True)
+    want = dp_calls(emulated_dp["parent"], *ops, w, end_states=2, block=True)
     plans = {}
     for route in ("as_is", "one_cta", "small_cta"):
-        got = dp_calls(emulated_dp[route], *ops, w, block=True)
+        got = dp_calls(emulated_dp[route], *ops, w, end_states=2, block=True)
         assert torch.equal(got[0][0], want[0][0]), route
         assert torch.equal(got[1], want[1]), route
         close(got[0][1], want[0][1], rtol=1e-6, atol=0.0)
-        plans[route] = block_plan(emulated_dp[route], 3, n, w)
-    assert plans["one_cta"][0] == 1
-    # two warps of up to 4 places a lane: 256 places a CTA
-    assert plans["small_cta"][0] >= -(-n // 256) and plans["small_cta"][2] <= 2
+        for g, o in zip(got[2], want[2]):
+            assert torch.equal(g, o), route
+        plans[route] = [block_plan(emulated_dp[route], 3, n, w, direction)
+                        for direction in (1, 2)]
+    for direction in (0, 1):   # forward's plan, then Viterbi's
+        assert plans["one_cta"][direction][0] == 1
+        # two warps of up to 4 places a lane: 256 places a CTA
+        cluster, _, warps = plans["small_cta"][direction]
+        assert cluster >= -(-n // 256) and warps <= 2
 
 
 def test_block_route_edge_mutant_is_rejected(tmp_path):
@@ -550,3 +544,101 @@ def test_block_route_edge_mutant_is_rejected(tmp_path):
     want = thmm.forward_log_banded_plain(*(t(a) for a in ops), 5)[0]
     got = dp_calls(lib, *ops, 5, block=True)[0][0]
     assert not torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def viterbi_inputs(rng, b, t_pad, n, w, degenerate=False):
+    """:func:`tied_inputs` with band entries and log_pi rounded to whole
+    nats too (ties between offsets in every step); ``degenerate``:
+    utterance 1 has dead self-loops and every delta at the sentinel, so
+    that its backtrace goes below state 0 (JAX's wrap once, then clamp)."""
+    band, log_pi, log_b, masks = tied_inputs(rng, b, t_pad, n, w)
+    band = np.where(band > -1e29, np.round(band), band).astype(np.float32)
+    log_pi = np.round(log_pi).astype(np.float32)
+    if degenerate:
+        log_pi[1], log_b[1], band[1, :, 0] = NEG, NEG, NEG
+        masks[1] = True
+    return band, log_pi, log_b, masks
+
+
+# (B, T, N, W, end_states, build): a backtrace over three windows of 32
+# steps; a degenerate utterance that wraps; end_states 0, 1 and N; the
+# widths 2, 9 and 16 (the runtime width); one frame; a cluster of several
+# CTAs of two warps; K = 4 places a lane on one CTA.
+VITERBI_CASES = {
+    "windows": (3, 75, 266, 5, 0, "as_is"),
+    "degenerate_wrap": (3, 40, 150, 5, 0, "as_is"),
+    "end_0": (3, 21, 200, 6, 0, "as_is"),
+    "end_1": (3, 21, 200, 6, 1, "as_is"),
+    "end_n": (3, 21, 200, 6, 200, "as_is"),
+    "w2": (2, 24, 140, 2, 0, "as_is"),
+    "w9": (2, 24, 140, 9, 3, "as_is"),
+    "w16": (2, 24, 300, 16, 0, "as_is"),
+    "one_frame": (3, 1, 150, 5, 2, "as_is"),
+    "cluster": (2, 40, 600, 5, 0, "small_cta"),
+    "cluster_degenerate": (3, 70, 300, 7, 0, "small_cta"),
+    "k4_one_cta": (2, 36, 1100, 5, 4, "one_cta"),
+}
+
+
+@pytest.mark.parametrize("case", list(VITERBI_CASES))
+def test_viterbi_route_source_on_cpu_matches_plain(emulated_dp, case):
+    """Viterbi's block route (``block=True``) against the plain version and
+    the block kernel it replaced: score, path and final delta bit for bit
+    on tied scores and ragged frames, one launch of a scratch of 4 bits a
+    state and step."""
+    b, t_pad, n, w, end, route = VITERBI_CASES[case]
+    rng = np.random.default_rng(t_pad * n + w)
+    ops = viterbi_inputs(rng, b, t_pad, n, w, degenerate="degenerate" in case)
+    lib = emulated_dp[route]
+    got = dp_calls(lib, *ops, w, end_states=end, block=True)[2]
+    want = thmm.viterbi_log_banded_plain(*(t(a) for a in ops), w, end)
+    old = dp_calls(emulated_dp["parent"], *ops, w, end_states=end,
+                   block=True)[2]
+    for g, p, o in zip(got, want, old):
+        assert torch.equal(g, p) and torch.equal(g, o)
+    if "degenerate" in case:
+        assert bool((got[1][1] < 0).any())
+    words = -(-(t_pad - 1) // 8) * n
+    assert lib.hmm_viterbi_scratch_bytes(b, t_pad, n, w, 1) == 4 * b * words
+    plan = block_plan(lib, b, n, w, 2)
+    if route == "small_cta":
+        assert plan[0] > 1 and plan[2] <= 2
+    if route == "one_cta":
+        assert plan[:2] == (1, 4)
+
+
+@pytest.mark.parametrize("n,w", [(31, 3), (98, 7), (128, 5)])
+def test_viterbi_route_source_on_cpu_is_the_warp_kernel(emulated_dp, n, w):
+    """At N <= 128 the dispatch takes Viterbi's warp kernel; ``block=True``
+    sends the same call to the block route: score, path and final delta
+    equal bit for bit, with a backtrace of several windows and a
+    degenerate utterance; the warp kernel needs no scratch."""
+    rng = np.random.default_rng(n + 11 * w)
+    ops = viterbi_inputs(rng, 3, 70, n, w, degenerate=True)
+    lib = emulated_dp["as_is"]
+    assert lib.hmm_viterbi_scratch_bytes(3, 70, n, w, 0) == 0
+    want = dp_calls(lib, *ops, w)[2]
+    got = dp_calls(lib, *ops, w, block=True)[2]
+    for g, o in zip(got, want):
+        assert torch.equal(g, o)
+
+
+@pytest.mark.parametrize("mutant", ["tie_order", "window_one_off"])
+def test_viterbi_route_mutant_is_rejected(tmp_path, mutant):
+    """The comparison sees Viterbi's first maximum and its backtrace
+    windows: a step that lets a later offset win a tie (``>=``), or a walk
+    that reads its window one place off, differs from the plain version."""
+    src = emulated_dp_source()
+    old, new = {
+        "tie_order": ("const bool wins = cand > best;",
+                      "const bool wins = cand >= best;"),
+        "window_one_off": ("row[min(at, (unsigned)(span - 1))]",
+                           "row[min(at + 1, (unsigned)(span - 1))]")}[mutant]
+    assert src.count(old) == 1
+    lib = emulated_dp_libraries(tmp_path, {"mutant": src.replace(old, new)})[
+        "mutant"]
+    rng = np.random.default_rng(266)
+    ops = viterbi_inputs(rng, 3, 40, 266, 5)
+    got = dp_calls(lib, *ops, 5, block=True)[2]
+    want = thmm.viterbi_log_banded_plain(*(t(a) for a in ops), 5)
+    assert not all(torch.equal(g, o) for g, o in zip(got, want))
