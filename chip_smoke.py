@@ -104,6 +104,7 @@ from poccala_tpu_torch.ops import vad as vad_ops
 from poccala_tpu_torch.ops.cuda import build
 from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
 from poccala_tpu_torch.ops.cuda import gmm_score_cuda as gk
+from poccala_tpu_torch.ops.cuda import hmm_assoc_cuda as ak
 from poccala_tpu_torch.ops.cuda import hmm_banded_cuda as hk
 from poccala_tpu_torch.ops.frontend import Frontend
 from poccala_tpu_torch.ops.gmm_score import gmm_log_scores
@@ -129,7 +130,7 @@ S1_E2E_RTOL = 1e-4
 # GPU vs CPU logliks of the CLI's two scheme-2 rounds: they differed by
 # 1.6e-6 relative on an H100; 1e-4 leaves 60x room
 CLI_TRAIN_RTOL = 1e-4
-KERNEL_NAMES = ("gmm_score", "hmm_banded", "decoder_scan")
+KERNEL_NAMES = ("gmm_score", "hmm_banded", "decoder_scan", "hmm_assoc")
 # the context-dependent system: triples, tied senones and mixtures of the
 # JAX package's best artifact (WER_r05_cd2k_map.json)
 CD_TRIPLES, CD_S, CD_M = 1091, 2049, 6
@@ -202,7 +203,15 @@ def kernel_counts() -> dict:
                 **{k: f.launches for k, f in hk.KERNELS.items()},
                 scan=dk.decoder_scan_cuda.launches,
                 pruned=dk.decoder_scan_pruned_cuda.launches,
-                fin=dk.decoder_finalize_cuda.launches)
+                fin=dk.decoder_finalize_cuda.launches,
+                product=ak.lse_product_cuda.launches,
+                rows=ak.lse_rows_cuda.launches)
+
+
+# the counters of kernels that the exact search's paths (decode, stream,
+# CD, sharded) do not launch: the pruned scan, and forward_log_assoc's two
+# (no path of the system calls it)
+OFF_EXACT_PATHS = ("pruned", "product", "rows")
 
 
 def reset_kernel_counts() -> None:
@@ -212,6 +221,8 @@ def reset_kernel_counts() -> None:
     dk.decoder_scan_cuda.launches = 0
     dk.decoder_scan_pruned_cuda.launches = 0
     dk.decoder_finalize_cuda.launches = 0
+    ak.lse_product_cuda.launches = 0
+    ak.lse_rows_cuda.launches = 0
 
 
 def pct(values, q) -> float:
@@ -1977,6 +1988,7 @@ def pruned_case(dec: DeviceBeamDecoder, scores, n_valid, t0: int = 0,
     k = dec.active_blocks
     line = dict(b=b, t_c=t_c, t0=t0, n_nodes=n, n_s=n_s, s=s,
                 block_size=dec.block_size, active_blocks=k,
+                prune_hysteresis=dec.prune_hysteresis,
                 n_blocks=dec._n_blocks, lm="none" if dec.lm is None else
                 "sparse" if tabs.lm_sparse is not None else "flat",
                 placement=dk.tables_placement(tabs, s, k, dec.block_size,
@@ -2000,7 +2012,8 @@ def pruned_case(dec: DeviceBeamDecoder, scores, n_valid, t0: int = 0,
     dk.decoder_scan_pruned_cuda(
         tabs, carry, scores, t0, n_valid, n_vocab=dec._n_vocab,
         r_top=dec._r_top(tabs), penalty=-float(dec.word_penalty),
-        block_size=dec.block_size, phase_clocks=clocks)
+        block_size=dec.block_size, hysteresis=dec.prune_hysteresis,
+        phase_clocks=clocks)
     cycles = clocks.cpu().tolist()
     line["phase_cycles_utt0"] = dict(zip(dk.PRUNED_PHASES, cycles))
     line["phase_share_utt0"] = {k: c / max(1, sum(cycles)) for k, c in
@@ -2009,21 +2022,51 @@ def pruned_case(dec: DeviceBeamDecoder, scores, n_valid, t0: int = 0,
     return line
 
 
+def selection_changes(dec: DeviceBeamDecoder, scores, n_valid) -> int:
+    """The (utterance, frame) pairs of the plain loop (``_scan_plain``) whose
+    step changes the set of active blocks, over the valid frames."""
+    tabs = dec._prep_device()
+    step, changes = dec._step_pruned, []
+
+    def recorder(tabs, carry, frame_scores, ti, active):
+        out = step(tabs, carry, frame_scores, ti, active)
+        old = torch.sort(carry[0], dim=1).values
+        new = torch.sort(out[0][0], dim=1).values
+        changes.append(((old != new).any(dim=1) & active).sum())
+        return out
+    dec._step_pruned = recorder
+    try:
+        dec._scan_plain(tabs, dec._seed(tabs, scores.shape[0]), scores, 0,
+                        n_valid)
+    finally:
+        del dec._step_pruned
+    return int(torch.stack(changes).sum())
+
+
+# the sticky selection's bonus in the pruned cell: the value
+# benchmarks/pruned_trained.py runs
+PRUNE_HYST = 8.0
+
+
 def phase_pruned(seed: int, smi: str, batch: int = 256,
                  utt_seconds: float = 4.0) -> dict:
     """Block-pruned search at the decode batch (bench.py's 256 x 4 s of
     noise through the frontend) over the synthetic ~21.6k-node lexicon
     standing in for Mandarin.dat: exact, then block_size 256 with 8 and 4
-    active blocks, each timed after a warm-up call and a synchronise, with
+    active blocks, and 8 with the sticky selection (``prune_hysteresis``
+    8.0), each timed after a warm-up call and a synchronise, with
     its peak device memory and its launches (the exact call one frame-scan
     launch, a pruned call one pruned-scan launch, each one n-best launch);
     then the pruned scan kernel held to its plain loop at this cell, bit
-    for bit, with its times (also at 8 blocks with a sparse bigram LM);
-    then one pruned stream session (one pruned launch a chunk) against the
-    one-shot pruned decode.  Returns the
+    for bit, with its times (also at 8 blocks with a sparse bigram LM), and
+    at k8 with and without the sticky selection the frames whose step
+    changed the active set (the plain loop's); then one pruned stream
+    session without and one with the sticky selection (one pruned launch a
+    chunk) against the one-shot pruned decode.  Returns the
     frame-scan kernel's launches in the exact call, the pruned kernel's in
-    the pruned calls and chunks, the n-best kernel's in the three calls,
-    and the pruned kernel's ``kernels`` record (k8)."""
+    the pruned calls and chunks, the n-best kernel's in the four calls,
+    and the pruned kernel's ``kernels`` record (k8; k4 and k8 with the
+    sticky selection beside it)."""
     phase_t0 = time.perf_counter()
     cfg = Config()
     cfg.model.mix_level = cfg.model.max_mix_level = M
@@ -2047,7 +2090,9 @@ def phase_pruned(seed: int, smi: str, batch: int = 256,
     launches = dict(scan=0, pruned=0, fin=0)
     for name, kw in (("exact", {}),
                      ("k8", dict(block_size=256, active_blocks=8)),
-                     ("k4", dict(block_size=256, active_blocks=4))):
+                     ("k4", dict(block_size=256, active_blocks=4)),
+                     ("k8_hyst8", dict(block_size=256, active_blocks=8,
+                                       prune_hysteresis=PRUNE_HYST))):
         dec = DeviceBeamDecoder(bank, flat, **kw)
         t0 = time.perf_counter()
         dec._prep_device()
@@ -2085,6 +2130,9 @@ def phase_pruned(seed: int, smi: str, batch: int = 256,
         if kw:
             scores = dec._scores(feats)
             cases[name] = pruned_case(dec, scores, n_frames)
+            if name != "k4":
+                cases[name]["active_set_changes"] = selection_changes(
+                    dec, scores, n_frames)
             del scores
         del dec
         torch.cuda.empty_cache()
@@ -2101,7 +2149,7 @@ def phase_pruned(seed: int, smi: str, batch: int = 256,
     cases["k8_sparse_lm"] = pruned_case(dec, scores, n_frames, reps=3)
     del scores, dec
     torch.cuda.empty_cache()
-    for name in ("k8", "k4"):
+    for name in ("k8", "k4", "k8_hyst8"):
         agree, worst = 0, 0.0
         for he, hp in zip(outs["exact"], outs[name]):
             agree += he[0].words == hp[0].words
@@ -2112,21 +2160,26 @@ def phase_pruned(seed: int, smi: str, batch: int = 256,
                           max_rel_excess_over_exact=worst)
 
     # a pruned stream session of one utterance equals the pruned one-shot,
-    # with one pruned-scan launch a chunk
-    dec = DeviceBeamDecoder(bank, flat, block_size=256, active_blocks=8)
+    # with one pruned-scan launch a chunk; then one with the sticky
+    # selection (its active blocks ride the carry across chunks)
     x = feats[0, : int(n_frames[0])]
-    st = dec.stream_init(batch=1, max_frames=len(x))
-    reset_kernel_counts()
-    for lo in range(0, len(x), CHUNK):
-        dec.stream_feed(st, x[lo:lo + CHUNK])
-    chunks = len(st.tb_prev)
-    stream_counts = kernel_counts()
-    check((stream_counts["pruned"], stream_counts["scan"]) == (chunks, 0),
-          f"one pruned-scan launch a pruned stream chunk: {stream_counts}, "
-          f"{chunks} chunks")
-    launches["pruned_stream"] = stream_counts["pruned"]
-    same_nbest(dec.stream_result(st, 2)[0], dec.decode_batch(
-        x[None], [len(x)], 2)[0], "pruned stream vs pruned one-shot")
+    for key, hyst in (("pruned_stream", 0.0), ("pruned_stream_hyst8",
+                                                PRUNE_HYST)):
+        dec = DeviceBeamDecoder(bank, flat, block_size=256, active_blocks=8,
+                                prune_hysteresis=hyst)
+        st = dec.stream_init(batch=1, max_frames=len(x))
+        reset_kernel_counts()
+        for lo in range(0, len(x), CHUNK):
+            dec.stream_feed(st, x[lo:lo + CHUNK])
+        chunks = len(st.tb_prev)
+        stream_counts = kernel_counts()
+        check((stream_counts["pruned"], stream_counts["scan"]) == (chunks, 0),
+              f"one pruned-scan launch a pruned stream chunk: "
+              f"{stream_counts}, {chunks} chunks")
+        launches[key] = stream_counts["pruned"]
+        same_nbest(dec.stream_result(st, 2)[0], dec.decode_batch(
+            x[None], [len(x)], 2)[0],
+            f"pruned stream vs pruned one-shot (hysteresis {hyst})")
     for name, line in cases.items():
         say("pruned_scan", case=name, **line)
     say("pruned", lexicon_nodes=int(flat.n_nodes), words=len(words),
@@ -2142,7 +2195,266 @@ def phase_pruned(seed: int, smi: str, batch: int = 256,
         "library_ms", "lookahead_traffic_ms")}
     launches["record_k4"] = {k: cases["k4"][k] for k in (
         "ms", "kernel_ms", "plain_ms", "bound_ms")}
+    launches["record_hyst8"] = {k: cases["k8_hyst8"][k] for k in (
+        "prune_hysteresis", "max_abs_err", "ms", "kernel_ms", "plain_ms",
+        "bound_ms", "active_set_changes")}
+    launches["record"]["active_set_changes"] = cases["k8"][
+        "active_set_changes"]
     return launches
+
+
+# forward_log_assoc's cases (N, T, label budget): the training cell's
+# sentence HMM made dense (N = 50, W = 5) over 4 s, and the default label
+# budget's (N = 98) over 20 s and 200 s of frames
+ASSOC_CASES = ((50, TRAIN_T, TRAIN_L), (98, 1600, 32), (98, 16000, 32))
+# finite log_alpha within ASSOC_TOL of max(|value|, 1) and loglik at rtol
+# ASSOC_TOL: the card against the plain version and against float64
+# (tests/test_torch_assoc.py's tolerance against JAX)
+ASSOC_TOL = 1e-5
+
+
+def assoc_seq_tol(t: int) -> float:
+    """The tolerance against the sequential banded kernel: its float32
+    recursion rounds the running log-likelihood once a step, so it may
+    drift from float64 by up to ~T·2⁻²⁴ relative (measured ~1e-4 at T =
+    16,000 with the plain banded forward on the CPU: 8.3 nats of 80,787,
+    where the scan's tree of products drifted 0.0017); twice that, plus
+    ASSOC_TOL."""
+    return 2 * t * 2.0 ** -24 + ASSOC_TOL
+
+# an exponential a cycle per SM quarter: 16 a cycle an SM on Hopper's SFUs,
+# at the H100 SXM's 1,980 MHz boost clock
+EXP_RATE = 132 * 16 * 1.98e9
+
+
+def assoc_products(t: int) -> list:
+    """The batch size P of each product launch of the scan over T - 1
+    operators, in launch order (``ops.hmm._assoc_scan_into``)."""
+    out, n = [], t - 1
+    while n >= 2:
+        out.append(n // 2)
+        out.append(n // 2 - 1 if n % 2 == 0 else n // 2)
+        n //= 2
+    return [p for p in out if p > 0]
+
+
+def assoc_bound(t: int, n: int) -> dict:
+    """The least time of one ``forward_log_assoc`` call's kernels: each
+    product of N x N matrices needs N³ terms of an add, a max, a
+    subtraction, an exponential and a sum add (5 N³ float32 operations) and
+    moves its two operands and its result once (3 N² floats); the tail
+    (T - 1 rows through a product) 5 (T - 1) N² operations and its
+    operators, alpha_0 and its rows once.  The published 67 TFLOP/s counts
+    every operation alike; the card's exponentials run at 16 a cycle an SM
+    (``exp_floor_ms``, ~4.2 T/s), far below it."""
+    ps = assoc_products(t)
+    prod_ops = 5 * sum(ps) * n ** 3
+    prod_bytes = 4 * 3 * sum(ps) * n * n
+    rows_ops = 5 * (t - 1) * n * n
+    rows_bytes = 4 * ((t - 1) * n * n + n + (t - 1) * n)
+    return dict(product=dict(**bound_ms(prod_bytes, prod_ops, "float32"),
+                             exp_floor_ms=sum(ps) * n ** 3 / EXP_RATE * 1e3,
+                             products=len(ps), matrices=sum(ps)),
+                rows=dict(**bound_ms(rows_bytes, rows_ops, "float32"),
+                          exp_floor_ms=(t - 1) * n * n / EXP_RATE * 1e3))
+
+
+def kernel_device_total_ms(fn, name: str, reps: int = 3):
+    """The ``name`` kernel's device time per call of ``fn`` (every launch
+    of the call, summed), under ``torch.profiler``; "not measured" where
+    the profile kept no device event."""
+    per_launch = kernel_device_ms(fn, name, reps=reps)
+    if not isinstance(per_launch, float):
+        return per_launch
+    before = kernel_counts()
+    fn()
+    after = kernel_counts()
+    key = "product" if name == "lse_product" else "rows"
+    return per_launch * (after[key] - before[key])
+
+
+def alpha_error(got, want) -> tuple[float, bool]:
+    """The largest error of finite log_alpha over max(|value|, 1), and
+    whether the finite masks are equal."""
+    got, want = got.double().cpu(), want.double().cpu()
+    fin = want > -1e30 / 2
+    same = bool(torch.equal(got > -1e30 / 2, fin))
+    err = ((got - want).abs()[fin] / want.abs()[fin].clamp(min=1.0))
+    return float(err.max()) if err.numel() else 0.0, same
+
+
+def phase_assoc(seed: int, smi: str) -> dict:
+    """``forward_log_assoc`` (``ops/hmm.py``, JAX's time-parallel forward)
+    on the card at ASSOC_CASES: one utterance's sentence HMM from the
+    training path's operands (``dp_inputs``: labels of up to L units, log_b
+    from a random XIF bank), its band made dense (NEG_INF off it).  Each
+    call is driven with the counts at 0 just before it and read just after
+    (the product kernel once a level's products, the row kernel once).
+    Held to float64 (the plain banded forward on the CPU) within ASSOC_TOL,
+    to the sequential banded kernel (``forward_log_banded``) within
+    :func:`assoc_seq_tol`, and at N = 50 to the plain version on the card
+    within ASSOC_TOL.  Times: one event pair around a call (``ms``), each kernel
+    alone under the profiler per call, the sequential kernel alone, the
+    plain version where its ``[P, N, N, N]`` sums fit (T <= 1,600), and the
+    bounds (:func:`assoc_bound`); where the plain version runs, also its
+    scan of products alone and its tail alone (each kernel's plain
+    version).  Returns the two kernels' ``kernels`` records (at N = 98, T
+    = 1,600) with their launches."""
+    gen = torch.Generator().manual_seed(seed)
+    lines = []
+    for n_want, t, max_l in ASSOC_CASES:
+        band, log_pi, log_b, _ = dp_inputs(gen, 2, t, max_l)
+        band, log_pi, log_b = band[0], log_pi[0], log_b[0].contiguous()
+        n = int(band.shape[0])
+        check(n == n_want, f"assoc: {n} sentence states, expected {n_want}")
+        log_a = hmm_ops.band_to_dense(band)
+        mask = torch.ones(t, dtype=torch.bool, device="cuda")
+
+        def call():
+            return hmm_ops.forward_log_assoc(log_a, log_pi, log_b)
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        got_a, got_ll = call()
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        products = assoc_products(t)
+        check((counts["product"], counts["rows"]) == (len(products), 1),
+              f"assoc N={n} T={t}: launches {counts}, expected "
+              f"{len(products)} products and 1 row launch")
+        check(bool(torch.isfinite(got_a).all()) and got_a.shape == (t, n),
+              f"assoc N={n} T={t}: finite log_alpha of shape (T, N)")
+        ref_a, ref_ll = hmm_ops.forward_log_banded_plain(
+            band[None].double().cpu(), log_pi[None].double().cpu(),
+            log_b[None].double().cpu(), mask[None].cpu(), TRAIN_W)
+        seq_a, seq_ll = hmm_ops.forward_log_banded(band, log_pi, log_b, mask,
+                                                   TRAIN_W)
+        err64, same64 = alpha_error(got_a, ref_a[0])
+        err_seq, same_seq = alpha_error(got_a, seq_a)
+        seq_err64, _ = alpha_error(seq_a, ref_a[0])
+        ll64 = float(ref_ll[0])
+        line = dict(
+            n_s=n, t=t, label_units=max_l, loglik=float(got_ll),
+            loglik_float64=ll64,
+            loglik_rel_err_float64=abs(float(got_ll) - ll64) / abs(ll64),
+            alpha_err_float64=err64,
+            seq_loglik_rel_err_float64=abs(float(seq_ll) - ll64) / abs(ll64),
+            seq_alpha_err_float64=seq_err64,
+            alpha_err_vs_seq=err_seq,
+            loglik_rel_err_vs_seq=abs(float(got_ll) - float(seq_ll))
+            / abs(float(seq_ll)),
+            launches_product=counts["product"], launches_rows=counts["rows"],
+            peak_mem_bytes=peak, operators_bytes=4 * (t - 1) * n * n,
+            tol=dict(float64=ASSOC_TOL, sequential=assoc_seq_tol(t)))
+        check(same64 and err64 <= ASSOC_TOL
+              and line["loglik_rel_err_float64"] <= ASSOC_TOL,
+              f"assoc vs float64: {line}")
+        check(same_seq and err_seq <= assoc_seq_tol(t)
+              and line["loglik_rel_err_vs_seq"] <= assoc_seq_tol(t),
+              f"assoc vs the sequential kernel: {line}")
+        if t <= 1600:
+            plain = lambda: hmm_ops.forward_log_assoc_plain(   # noqa: E731
+                log_a, log_pi, log_b)
+            pl_a, pl_ll = plain()
+            err_pl, same_pl = alpha_error(got_a, pl_a)
+            line.update(alpha_err_vs_plain=err_pl,
+                        loglik_rel_err_vs_plain=abs(
+                            float(got_ll) - float(pl_ll)) / abs(float(pl_ll)),
+                        max_abs_err=float((got_a - pl_a).abs().max()))
+            check(same_pl and err_pl <= ASSOC_TOL
+                  and line["loglik_rel_err_vs_plain"] <= ASSOC_TOL,
+                  f"assoc kernel vs plain: {line}")
+            del pl_a
+            line["plain_ms"] = median_ms(plain, reps=3)
+            # each kernel's plain version alone: the scan's products, and
+            # the tail's rows through the prefix products
+            ops = log_a[None] + log_b[1:, None, :]
+            prefix = torch.empty_like(ops)
+            alpha0 = log_pi + log_b[0]
+            tail = torch.empty((t - 1, n), device="cuda")
+            line["plain_product_ms"] = median_ms(
+                lambda: hmm_ops._assoc_scan_into(
+                    ops, prefix, hmm_ops._product_into_plain), reps=3)
+            line["plain_rows_ms"] = median_ms(
+                lambda: hmm_ops._rows_into_plain(alpha0, prefix, tail),
+                reps=3)
+            del ops, prefix
+        else:
+            line["plain_ms"] = ("not measured: the plain version's [P, N, N, "
+                                "N] sums take ~30 GB")
+        del got_a, seq_a, ref_a
+        torch.cuda.empty_cache()
+        line.update(
+            ms=median_ms(call, reps=5),
+            product_kernel_ms=kernel_device_total_ms(call, "lse_product"),
+            rows_kernel_ms=kernel_device_total_ms(call, "lse_rows"),
+            seq_kernel_ms=kernel_device_ms(
+                lambda: hmm_ops.forward_log_banded(band, log_pi, log_b, mask,
+                                                   TRAIN_W), "forward",
+                reps=5),
+            bound=assoc_bound(t, n), library_ms=None)
+        say("assoc", **line)
+        lines.append(line)
+    rec = next(v for v in lines if v["t"] == 1600)
+    out = {}
+    for key, ms in (("product", "product_kernel_ms"),
+                    ("rows", "rows_kernel_ms")):
+        out[key] = dict(
+            launches=rec[f"launches_{key}"], max_abs_err=rec["max_abs_err"],
+            ms=rec[ms], plain_ms=rec[f"plain_{key}_ms"],
+            plain_call_ms=rec["plain_ms"],
+            bound_ms=rec["bound"][key]["bound_ms"],
+            bound_by=rec["bound"][key]["bound_by"],
+            exp_floor_ms=rec["bound"][key]["exp_floor_ms"], library_ms=None,
+            n_s=rec["n_s"], t=rec["t"], call_ms=rec["ms"],
+            other_cases=[{k: v[k] for k in ("n_s", "t", "ms", ms,
+                                            f"launches_{key}")}
+                         | {"bound_ms": v["bound"][key]["bound_ms"]}
+                         for v in lines if v is not rec])
+    say("assoc_summary", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+        ptxas_registers_spill_stores_loads=PTXAS.get("hmm_assoc", {}))
+    return out
+
+
+def phase_frontend_precision(seed: int, smi: str, batch: int = 256,
+                             utt_seconds: float = 4.0) -> dict:
+    """The frontend at each ``dot_precision`` on the decode cell's batch
+    (256 x 4 s of speech-like audio): ms of one ``mfcc_batch`` call (median
+    of 5, events) and the largest feature difference from 'highest', which
+    the reduced precisions must show and keep finite."""
+    cfg = Config()
+    rate = cfg.frontend.sample_rate
+    rng = np.random.default_rng(seed)
+    signals = torch.as_tensor(np.stack(
+        [synthetic_speech(rng, rate, utt_seconds) for _ in range(batch)]
+    ).astype(np.float32), device="cuda")
+    n_samp = torch.full((batch,), signals.shape[1], device="cuda")
+    out, feats = {}, {}
+    for precision in ("highest", "high", "default"):
+        fcfg = Config().frontend
+        fcfg.dot_precision = precision
+        fe = Frontend(fcfg, device="cuda")
+        feats[precision] = fe.mfcc_batch(signals, n_samp)[0]
+        out[precision] = dict(ms=median_ms(
+            lambda: fe.mfcc_batch(signals, n_samp), reps=5))
+        if precision != "highest":
+            diff = (feats[precision] - feats["highest"]).abs()
+            out[precision]["max_abs_feature_err_vs_highest"] = float(
+                diff.max())
+            out[precision]["mean_abs_feature_err_vs_highest"] = float(
+                diff.mean())
+            check(bool(torch.isfinite(feats[precision]).all())
+                  and float(diff.max()) > 0,
+                  f"frontend at {precision}: finite and apart from "
+                  f"'highest' ({out[precision]})")
+    say("frontend_precision", batch=batch, utt_seconds=utt_seconds,
+        frames=int(feats["highest"].shape[1]), tf32=bool(
+            torch.backends.cuda.matmul.allow_tf32), runs=out,
+        device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    return out
 
 
 def phase_cli(seed: int) -> None:
@@ -2565,8 +2877,9 @@ def phase_cd_e2e(seed: int) -> None:
                   for d in decoded[dev]] for dev in decoded}
     check(hyps["cuda"] == hyps["cpu"], f"decode --cd words on the card "
           f"{hyps['cuda']} vs on the CPU {hyps['cpu']}")
-    # every kernel but the pruned scan: the CD path runs the exact search
-    check(all(n > 0 for k, n in used["cuda"].items() if k != "pruned"),
+    # every kernel of the exact search's paths
+    check(all(n > 0 for k, n in used["cuda"].items()
+              if k not in OFF_EXACT_PATHS),
           f"the CD path launched every kernel on the card: {used['cuda']}")
     check(not any(used["cpu"].values()),
           f"the CPU run launched no kernel: {used['cpu']}")
@@ -2875,8 +3188,8 @@ def phase_parallel_one_rank(seed: int, data: dict) -> dict:
         torch.use_deterministic_algorithms(False)
     dist.destroy_process_group()
 
-    for k, n in launches.items():   # the pruned scan aside: it is exact
-        check(n > 0 or k == "pruned",
+    for k, n in launches.items():   # a sharded call runs the exact search
+        check(n > 0 or k in OFF_EXACT_PATHS,
               f"the sharded path launched the {k} kernel ({n})")
     rel = [abs(g / w - 1) for g, w in zip(got["lls"], want["lls"])]
     check(max(rel) < 1e-4, f"Trainer(mesh=) logliks {got['lls']} against "
@@ -3057,9 +3370,9 @@ def phase_parallel_ranks(seed: int, data: dict, one: dict) -> None:
               f"rank {r}'s logliks against the unsharded E-step")
         check(recs[r]["words"] == one["words"],
               f"rank {r}'s decoded words equal the unsharded decode")
-        # every kernel but the pruned scan: a sharded decode is exact
+        # every kernel of the exact search's paths: a sharded decode is exact
         check(all(n > 0 for k, n in recs[r]["kernel_launches"].items()
-                  if k != "pruned"),
+                  if k not in OFF_EXACT_PATHS),
               f"rank {r} launched every kernel: "
               f"{recs[r]['kernel_launches']}")
         dry = recs[r]["dryrun"]
@@ -3942,6 +4255,8 @@ SOLO = {
     "finalize": phase_finalize,
     "shapes": phase_shapes,
     "block_sweep": phase_block_sweep,
+    "assoc": phase_assoc,
+    "frontend": phase_frontend_precision,
 }
 
 
@@ -3991,6 +4306,8 @@ def main(argv=None) -> int:
     phase_scheme1_e2e(args.seed)
     stream_launches = phase_stream(args.seed, smi)
     pruned_launches = phase_pruned(args.seed, smi)
+    assoc_records = phase_assoc(args.seed, smi)
+    phase_frontend_precision(args.seed, smi)
     phase_cli(args.seed)
     phase_wer_e2e(args.seed)
     phase_cd_e2e(args.seed)
@@ -4053,15 +4370,25 @@ def main(argv=None) -> int:
     check(all(v > 0 for k, v in kernels[-1].items()
               if k.startswith("launches")),
           f"the n-best kernel ran on every path: {kernels[-1]}")
-    # the pruned scan: one launch per pruned decode call (k8, k4) and per
-    # pruned stream chunk; its times at k8 (k4's beside them)
+    # the pruned scan: one launch per pruned decode call (k8, k4, k8 with
+    # the sticky selection) and per pruned stream chunk; its times at k8
+    # (k4's and the sticky selection's beside them)
     kernels.append(dict(
         name="decoder_scan_pruned", route="cuda", source=dk.SOURCE,
         replaces=dk.PRUNED_REPLACES, launches=pruned_launches["pruned"],
         launches_stream=pruned_launches["pruned_stream"],
-        k4=pruned_launches["record_k4"], **pruned_launches["record"]))
-    check(kernels[-1]["launches"] == 2 and kernels[-1]["launches_stream"] > 0,
+        launches_stream_hysteresis=pruned_launches["pruned_stream_hyst8"],
+        k4=pruned_launches["record_k4"],
+        hysteresis=pruned_launches["record_hyst8"],
+        **pruned_launches["record"]))
+    check(kernels[-1]["launches"] == 3 and kernels[-1]["launches_stream"] > 0
+          and kernels[-1]["launches_stream_hysteresis"] > 0,
           f"the pruned scan ran once a pruned call and chunk: {kernels[-1]}")
+    # forward_log_assoc's semiring product and its row form: launches in
+    # the call at N = 98, T = 1,600 (the other cases beside)
+    kernels += [dict(name=f"hmm_lse_{key}", route="cuda", source=ak.SOURCE,
+                     replaces=ak.REPLACES, **assoc_records[key])
+                for key in ("product", "rows")]
     # the instantiations for those shapes, with their launches on their paths
     # (a decode call and a stream chunk; one E-step and one alignment)
     kernels += [

@@ -1401,7 +1401,11 @@ decoder_finalize_kernel(const ScanTables tb, const float* __restrict__ deltas,
 //      j of entry + la; an active block also takes max over its nodes of
 //      (max_s d + la) (the plain loop's scatter_reduce "amax").  la is
 //      computed once per group (a few hundred against 21,760 nodes), the
-//      same max over the same values in the same order;
+//      same max over the same values in the same order; with
+//      prune_hysteresis > 0 an active block's value then takes the bonus
+//      (one float add after every term, as the plain step adds it after
+//      its scatter_reduce; -1e30 + h rounds back to -1e30, so dead active
+//      blocks still tie with dead inactive ones);
 //   2. the K best blocks in _top_k's order (value descending, the lower
 //      block first on ties): each block's rank in that order, the count of
 //      blocks before it (a warp a block), and the blocks of rank < K in
@@ -1471,7 +1475,7 @@ template <bool ROWS_SMEM>
 __global__ void __launch_bounds__(SCAN_THREADS)
 decoder_pruned_kernel(const ScanTables tb, const PrunedTables pt,
                       const PrunedPlan plan, const PrunedIO io, int Tc,
-                      int S, int t0) {
+                      int S, int t0, float hyst) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x, nthr = blockDim.x;
@@ -1691,6 +1695,9 @@ decoder_pruned_kernel(const ScanTables tb, const PrunedTables pt,
           best = x > best ? x : best;
         }
       }
+      // the sticky selection (prune_hysteresis > 0): an active block's
+      // bonus after every term of its value, as the plain step adds it
+      if (k >= 0 && hyst > 0.f) best += hyst;
       if (lane == 0) blk_best[j] = best;
     }
     __syncthreads();
@@ -2193,7 +2200,7 @@ template <bool ROWS_SMEM>
 int launch_pruned(int B, int threads, cudaStream_t stream,
                   const ScanTables& tb, const PrunedTables& pt,
                   const PrunedPlan& plan, const PrunedIO& io, int Tc, int S,
-                  int t0) {
+                  int t0, float hyst) {
   if (plan.smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
         decoder_pruned_kernel<ROWS_SMEM>,
@@ -2201,7 +2208,7 @@ int launch_pruned(int B, int threads, cudaStream_t stream,
     if (rc != cudaSuccess) return (int)rc;
   }
   decoder_pruned_kernel<ROWS_SMEM><<<B, threads, plan.smem, stream>>>(
-      tb, pt, plan, io, Tc, S, t0);
+      tb, pt, plan, io, Tc, S, t0, hyst);
   return (int)cudaGetLastError();
 }
 
@@ -2334,11 +2341,13 @@ extern "C" int decoder_finalize_ac_in_smem(int Q, int T, int C, int R) {
 // S] (the first at absolute frame t0): the carry (kb, deltas, ctx, entry
 // row and contexts) from io's *_in to its *_out tensors, the rows written
 // whole.  The scratch io names is read only where decoder_pruned_smem
-// leaves that part out of shared memory.  Returns as decoder_scan_exact.
+// leaves that part out of shared memory.  hysteresis: the bonus the active
+// blocks' lookahead takes before the top K (prune_hysteresis; none at 0 or
+// below).  Returns as decoder_scan_exact.
 extern "C" int decoder_scan_pruned(const ScanTables* tables,
                                    const PrunedTables* pruned,
                                    const PrunedIO* io_, int B, int Tc, int S,
-                                   int t0, void* stream_) {
+                                   int t0, float hysteresis, void* stream_) {
   const ScanTables tb = *tables;
   const PrunedTables pt = *pruned;
   const PrunedIO io = *io_;
@@ -2363,7 +2372,7 @@ extern "C" int decoder_scan_pruned(const ScanTables* tables,
   const auto fn =
       plan.rows_smem ? &launch_pruned<true> : &launch_pruned<false>;
   return fn(B, threads_for(pt.n_active * pt.block_size, SCAN_THREADS),
-            (cudaStream_t)stream_, tb, pt, plan, io, Tc, S, t0);
+            (cudaStream_t)stream_, tb, pt, plan, io, Tc, S, t0, hysteresis);
 }
 
 extern "C" int decoder_pruned_phases() { return PRUNED_PHASES; }

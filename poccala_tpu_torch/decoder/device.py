@@ -68,8 +68,12 @@ and the GMM kernel, on its own contiguous block of utterances, and
 ``scores`` over the ``data`` group, so every rank returns the full
 hypothesis list, equal to the unsharded decode.
 
-Not ported: ``prune_hysteresis`` (a measured negative, ``benchmarks/
-pruned_trained.json``); it raises.
+``prune_hysteresis`` (JAX's sticky block selection): a bonus in nats
+added to the K active blocks' lookahead before the top K, so a challenger
+must beat an active block by that margin to displace it; 0 (the default)
+or below leaves the selection as it is.  The JAX package measured it worse
+than the plain selection at every width (``benchmarks/
+pruned_trained.json``) and leaves it off by default, as the port does.
 """
 
 from __future__ import annotations
@@ -150,25 +154,20 @@ class DeviceBeamDecoder(VectorBeamDecoder):
     :class:`poccala_tpu_torch.decoder.beam.BeamDecoder`, ``max_words``
     (bounds the backtrace length of one hypothesis), ``emit_top``
     (accepted and ignored, as in JAX), ``block_size`` (clamped to >= 8)
-    and ``active_blocks`` (clamped to >= 1; None keeps the exact search).
-    ``prune_hysteresis`` must be 0."""
+    and ``active_blocks`` (clamped to >= 1; None keeps the exact search),
+    and ``prune_hysteresis`` (the sticky selection's bonus in nats, taken
+    as a float; only a positive value acts)."""
 
     def __init__(self, *args, emit_top: int = 4, max_words: int = 64,
                  block_size: int = 1024, active_blocks: int | None = None,
                  prune_hysteresis: float = 0.0, **kwargs):
-        if float(prune_hysteresis) != 0.0:
-            raise NotImplementedError(
-                "prune_hysteresis is not ported: the sticky block selection "
-                "measured worse than the plain one at every width "
-                "(benchmarks/pruned_trained.json); widen active_blocks "
-                "instead")
         super().__init__(*args, **kwargs)
         self.emit_top = max(1, int(emit_top))  # accepted; not used
         self.max_words = max(2, int(max_words))
         self.block_size = max(8, int(block_size))
         self.active_blocks = (None if active_blocks is None
                               else max(1, int(active_blocks)))
-        self.prune_hysteresis = 0.0
+        self.prune_hysteresis = float(prune_hysteresis)
         self._tabs: _Tables | None = None
         self._prune_on = False
         self._perm = None  # new -> old node permutation (pruned mode)
@@ -616,6 +615,11 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         la_act = la.view(b, n_blk, blk)[rows, kb]           # [B, K, blk]
         int_pot = (d_act.amax(dim=3) + la_act).amax(dim=2)  # [B, K]
         blk_best = blk_best.scatter_reduce(1, kb, int_pot, "amax")
+        if self.prune_hysteresis > 0.0:
+            # sticky selection: the active blocks' bonus after every term
+            # of their value (a dead block's NEG_INF absorbs it)
+            blk_best = blk_best.scatter_add(
+                1, kb, torch.full_like(int_pot, self.prune_hysteresis))
         _, kb_new = _top_k(blk_best, k_act)
 
         # 1. carry remap old -> new active set: surviving blocks keep
@@ -718,7 +722,8 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         if self._prune_on:
             return decoder_scan_pruned_cuda(
                 tabs, carry, scores.contiguous(), t0, n_valid,
-                block_size=self.block_size, **kw)
+                block_size=self.block_size,
+                hysteresis=self.prune_hysteresis, **kw)
         return decoder_scan_cuda(tabs, carry, scores.contiguous(), t0,
                                  n_valid, **kw)
 

@@ -53,7 +53,9 @@ packed tables it takes each block's slot range (:func:`pack_pruned_tables`,
 cached the same way): per lexicon block the distinct groups of its root
 children and of its other nodes, and each node's children, so that a
 frame reads what changed instead of every node; :func:`tables_placement`
-says which parts the kernel keeps in shared memory for a shape.
+says which parts the kernel keeps in shared memory for a shape.  The
+decoder's ``prune_hysteresis`` (``step_pruned``'s sticky selection) is the
+launch's ``hysteresis`` argument.
 """
 
 from __future__ import annotations
@@ -332,7 +334,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [_P] * 7 + [_I] * 5 + [_P]
     lib.decoder_scan_pruned.argtypes = [
         ctypes.POINTER(_ScanTables), ctypes.POINTER(_PrunedTables),
-        ctypes.POINTER(_PrunedIO)] + [_I] * 4 + [_P]
+        ctypes.POINTER(_PrunedIO)] + [_I] * 4 + [ctypes.c_float, _P]
     lib.decoder_pruned_smem.argtypes = [_I] * 8
     lib.decoder_pruned_phases.argtypes = []
     lib.decoder_exact_phases.argtypes = []
@@ -685,6 +687,7 @@ def _io(ops: dict) -> _PrunedIO:
 def decoder_scan_pruned_cuda(tabs, carry, scores: torch.Tensor, t0: int,
                              n_valid, *, n_vocab: int, r_top: int,
                              penalty: float, block_size: int,
+                             hysteresis: float = 0.0,
                              phase_clocks: torch.Tensor | None = None):
     """Every frame of ``scores`` ``[B, Tc, S]`` (float32; the first frame's
     absolute index is ``t0``) through the block-pruned search, from the
@@ -693,6 +696,8 @@ def decoder_scan_pruned_cuda(tabs, carry, scores: torch.Tensor, t0: int,
     frames at or past ``n_valid`` ``[B]`` are frozen.  Returns ``(carry,
     tb_prev, tb_word)``, the rows ``[B, Tc]`` int32 (-1 where no word), as
     ``DeviceBeamDecoder._scan_plain`` does with ``_step_pruned``.
+    ``hysteresis``: the decoder's ``prune_hysteresis``, the bonus the active
+    blocks' lookahead takes before the top K where it is above 0.
     ``phase_clocks`` (int64 ``[len(PRUNED_PHASES)]`` on the card), where
     given, has the first utterance's SM cycles in each phase of
     :data:`PRUNED_PHASES` added to it."""
@@ -736,7 +741,7 @@ def decoder_scan_pruned_cuda(tabs, carry, scores: torch.Tensor, t0: int,
     with torch.cuda.device(dev):
         rc = lib.decoder_scan_pruned(
             ctypes.byref(struct), ctypes.byref(pstruct),
-            ctypes.byref(_io(ops)), b, t_c, s, int(t0),
+            ctypes.byref(_io(ops)), b, t_c, s, int(t0), float(hysteresis),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("decoder_scan_pruned kernel launch failed: "

@@ -13,12 +13,25 @@ Reference-numerics quirks stay flag-gated by
 ascending-sawtooth mel filters, the ``(2k-1)`` DCT index, magnitude
 energy); see the JAX module's docstring.
 
-Precision: every matmul here is exact float32.  On a GPU that needs
-``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default):
-the DFT's high-frequency bins cancel and the log amplifies their
-relative error (``poccala_tpu/config.py:49-56``).  ``dot_precision``
-values other than ``'highest'`` selected the TPU's reduced-precision
-passes and have no counterpart here, so they raise.
+Precision: ``FrontendConfig.dot_precision`` takes JAX's three names
+(``poccala_tpu/config.py:49-57``) and means the same products on every
+device (JAX's CPU run ignores it; only the TPU applies it):
+
+* ``'highest'``: the float32 product;
+* ``'high'`` (bf16_3x): each operand split into ``hi = bf16(x)`` and
+  ``lo = bf16(x - hi)`` (round to nearest even), then ``hi·hi + hi·lo +
+  lo·hi`` accumulated in float32;
+* ``'default'``: one bf16 pass, the operands rounded to bf16 and their
+  exact products accumulated in float32.
+
+It applies to the DFT dot when ``matmul_dft`` is set, and to the mel and
+DCT dots only then (``'highest'`` otherwise), as in JAX; any other name
+raises ``KeyError`` where JAX looks it up.  The reduced forms are float32
+matmuls of the bf16-valued parts, whose products are exact: on a GPU every
+matmul here needs ``torch.backends.cuda.matmul.allow_tf32 = False``
+(PyTorch's default), or TF32 rounds the operands again, and at
+``'highest'`` the DFT's high-frequency bins cancel and the log amplifies
+their relative error.
 """
 
 from __future__ import annotations
@@ -33,6 +46,42 @@ from poccala_tpu_torch.config import FrontendConfig
 from poccala_tpu_torch.utils.device import resolve
 
 _LOG_EPS = 1e-10  # floor before log; the reference takes log(0) -> -inf
+
+# JAX's dot precisions (poccala_tpu/ops/frontend.py:_PRECISION) as the
+# (lhs part, rhs part) products they sum, part 0 = bf16(x), 1 = bf16(x - hi);
+# None: the float32 product
+_PRECISION_PARTS = {
+    "highest": None,
+    "high": ((0, 0), (0, 1), (1, 0)),     # bf16_3x
+    "default": ((0, 0),),                 # one bf16 pass
+}
+
+
+def bf16_parts(x: torch.Tensor) -> tuple:
+    """``(hi, lo)``: ``hi = bf16(x)`` and ``lo = bf16(x - hi)``, each
+    rounded to nearest even and held in ``x``'s dtype."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    return hi, (x - hi).to(torch.bfloat16).to(x.dtype)
+
+
+def split_rhs(w: torch.Tensor, parts) -> torch.Tensor:
+    """The right operand of :func:`precision_dot` for ``parts`` (an entry of
+    ``_PRECISION_PARTS``): the parts of ``w [K, N]`` stacked along K."""
+    if parts is None:
+        return w
+    ws = bf16_parts(w)
+    return torch.cat([ws[j] for _, j in parts], dim=0)
+
+
+def precision_dot(x: torch.Tensor, rhs: torch.Tensor, parts) -> torch.Tensor:
+    """``x @ w`` at a precision of ``_PRECISION_PARTS`` (``rhs`` =
+    ``split_rhs(w, parts)``): one float32 matmul of the bf16-valued parts
+    laid side by side, so each product is exact and the sum is one float32
+    accumulation."""
+    if parts is None:
+        return x @ rhs
+    xs = bf16_parts(x)
+    return torch.cat([xs[i] for i, _ in parts], dim=-1) @ rhs
 
 
 def mel_of_hz(hz):
@@ -120,10 +169,10 @@ class Frontend:
     """
 
     def __init__(self, cfg: FrontendConfig, device=None):
-        if cfg.dot_precision != "highest":
-            raise ValueError(
-                f"dot_precision={cfg.dot_precision!r} has no PyTorch "
-                "counterpart; the port runs the frontend in exact float32")
+        # JAX reads dot_precision only with matmul_dft (a KeyError there
+        # for an unknown name); without it every dot is 'highest'
+        self._parts = (_PRECISION_PARTS[cfg.dot_precision] if cfg.matmul_dft
+                       else None)
         self.cfg = cfg
         self.device = resolve(device)
         self.frame_size = cfg.frame_size
@@ -132,8 +181,9 @@ class Frontend:
         def dev(a):
             return torch.as_tensor(a, dtype=torch.float32, device=self.device)
 
-        self._fbank = dev(mel_filterbank_matrix(cfg))
-        self._dct = dev(dct_matrix(cfg))
+        self._fbank = split_rhs(dev(mel_filterbank_matrix(cfg)),
+                                self._parts)
+        self._dct = split_rhs(dev(dct_matrix(cfg)), self._parts)
         self._window = None
         if not cfg.reference_quirks:
             n = np.arange(cfg.frame_size)
@@ -148,9 +198,9 @@ class Frontend:
             k = (np.arange(cfg.nfft)[:, None]
                  * np.arange(cfg.nfft // 2 + 1)[None, :]
                  * 2.0 * np.pi / cfg.nfft)[: cfg.frame_size]
-            self._dft_cs = dev(np.concatenate(
+            self._dft_cs = split_rhs(dev(np.concatenate(
                 [np.cos(k).astype(np.float32), np.sin(k).astype(np.float32)],
-                axis=1))
+                axis=1)), self._parts)
 
     # ------------------------------------------------------------------
     def _frames(self, signal: torch.Tensor) -> torch.Tensor:
@@ -205,7 +255,7 @@ class Frontend:
 
         if cfg.matmul_dft:
             k = self._dft_cs.shape[1] // 2
-            cs = win @ self._dft_cs
+            cs = precision_dot(win, self._dft_cs, self._parts)
             re, im = cs[..., :k], cs[..., k:]
             spec = torch.sqrt(re * re + im * im)  # [B, T, nfft//2+1]
         else:
@@ -226,9 +276,9 @@ class Frontend:
         else:
             energy = torch.sum(spec * spec, dim=-1)
 
-        fbank = spec @ self._fbank
+        fbank = precision_dot(spec, self._fbank, self._parts)
         log_fbank = torch.log(torch.clamp(fbank, min=_LOG_EPS))
-        ceps = log_fbank @ self._dct
+        ceps = precision_dot(log_fbank, self._dct, self._parts)
 
         # c0 <- log frame energy (AudioProcessing.py:437-438)
         if cfg.energy_c0:

@@ -7,6 +7,11 @@ Two transition representations, as in the JAX package:
 * **banded** ``band[..., N, W]`` with ``band[j, k] = log_A[j, j+k]`` — the
   strictly left-to-right embedded sentence HMM, O(N·W) per step.
 
+:func:`forward_log_assoc` is the dense forward as a time-parallel scan
+(JAX's ``associative_scan`` recursion, O(log T) depth): each level's
+(logsumexp, +) products run on the hand-written kernels of
+``csrc/hmm_assoc.cu`` for a CUDA tensor, in plain PyTorch for a CPU one.
+
 The banded functions are batched natively over a leading utterance axis
 (``bands [B, N, W]``, ``log_bs [B, T, N]``, ``t_masks [B, T]``) where the
 JAX package ``vmap``s a per-utterance ``lax.scan``.  The ``*_batch``
@@ -117,6 +122,85 @@ def viterbi_log(log_A, log_pi, log_b, t_mask):
         state = bp[state]
         path.append(state)
     return score, torch.stack(path[::-1]).to(torch.int32), delta
+
+
+def _lse_product_plain(a, b):
+    """``max(LSE_k(a[p, i, k] + b[p, k, j]), NEG_INF)`` over ``[P, M, N]``:
+    the (logsumexp, +) product, through the ``[P, M, K, N]`` sums."""
+    return _clamp(_lse(a[..., :, :, None] + b[..., None, :, :], dim=-2))
+
+
+def _product_into_plain(a, b, out):
+    out.copy_(_lse_product_plain(a, b))
+
+
+def _rows_into_plain(a, b, out):
+    out.copy_(_clamp(_lse(a[..., :, None] + b, dim=-2)))
+
+
+def _assoc_scan_into(elems, out, product) -> None:
+    """``lax.associative_scan`` of the semiring product over the first axis
+    of ``elems [n, N, N]``, written into ``out`` (a view of the same shape):
+    ``out[t] = elems[0] ∘ ... ∘ elems[t]`` by JAX's recursion, so the tree
+    of products is JAX's.  Pairs ``(0, 1), (2, 3), ...`` are combined, the
+    scan of the results lands in ``out``'s odd places, the even places
+    ``2, 4, ...`` combine them with ``elems[2::2]``, and ``out[0]`` is
+    ``elems[0]``.  ``product(a, b, out)`` writes ``a ∘ b`` into ``out``."""
+    n = elems.shape[0]
+    if n < 2:
+        out.copy_(elems)
+        return
+    reduced = elems.new_empty((n // 2, *elems.shape[1:]))
+    product(elems[0:n - 1:2], elems[1::2], reduced)
+    _assoc_scan_into(reduced, out[1::2], product)
+    odd = out[1:n - 2:2] if n % 2 == 0 else out[1::2]
+    product(odd, elems[2::2], out[2::2])
+    out[0] = elems[0]
+
+
+def _forward_assoc(log_A, log_pi, log_b, product, rows):
+    ops = log_A[None, :, :] + log_b[1:, None, :]       # [T-1, N, N]
+    prefix = torch.empty_like(ops)
+    _assoc_scan_into(ops, prefix, product)
+    alpha0 = log_pi + log_b[0]
+    tail = log_b.new_empty((ops.shape[0], log_b.shape[1]))
+    rows(alpha0, prefix, tail)                          # [T-1, N]
+    log_alpha = torch.cat([alpha0[None], tail], dim=0)
+    return log_alpha, _lse(log_alpha[-1], dim=-1)
+
+
+def forward_log_assoc(log_A, log_pi, log_b):
+    """Forward algorithm via ``associative_scan``, O(log T) depth (port of
+    ``poccala_tpu/ops/hmm.py:forward_log_assoc``): the (logsumexp,
+    +)-semiring operators ``M_t[i, j] = log_A[i, j] + log_b[t, j]`` are
+    multiplied by JAX's scan recursion, and every ``log_alpha`` row is
+    ``alpha_0`` through its prefix product.  O(T·N³) work against the
+    sequential forward's O(T·N²), parallel over time.
+
+    :param log_A: ``[N, N]``; :param log_pi: ``[N]``; :param log_b:
+        ``[T, N]``, one utterance, on one device
+    :returns: (``log_alpha [T, N]``, ``loglik`` 0-d), matching
+        :func:`forward_log` on unmasked inputs
+
+    On a CUDA tensor each product of a level is one launch of
+    ``csrc/hmm_assoc.cu``'s kernel and the tail one of its row form (about
+    ``2·log₂T + 1`` launches; the kernels never form the ``[P, N, N, N]``
+    sums), or this raises; a CPU tensor takes :func:`forward_log_assoc_plain`.
+    """
+    if _route(log_b) == "cuda":
+        from poccala_tpu_torch.ops.cuda import hmm_assoc_cuda
+
+        return _forward_assoc(log_A, log_pi, log_b,
+                              hmm_assoc_cuda.lse_product_cuda,
+                              hmm_assoc_cuda.lse_rows_cuda)
+    return forward_log_assoc_plain(log_A, log_pi, log_b)
+
+
+def forward_log_assoc_plain(log_A, log_pi, log_b):
+    """:func:`forward_log_assoc` in plain PyTorch on any device: the same
+    recursion, each product through the ``[P, N, N, N]`` sums."""
+    return _forward_assoc(log_A, log_pi, log_b, _product_into_plain,
+                          _rows_into_plain)
 
 
 # ======================================================================

@@ -197,6 +197,46 @@ def test_decode_matches_jax(trained, capsys, prune):
                            [h["score"] for h in w["nbest"]], rtol=1e-4)
 
 
+def test_decode_sticky_pruning_matches_jax(trained, capsys, tmp_path):
+    """``decode --decoder device`` with ``decoder.active_blocks``,
+    ``decoder.block_size`` and ``decoder.prune_hysteresis = 4.0`` set in
+    the config, over a lexicon of every word of up to four 你 / 好
+    characters (a node a character: 31 nodes in 4 blocks of 8, 2 active,
+    so the pruning and its sticky selection run): the JAX CLI's words on
+    its checkpoint."""
+    import itertools
+
+    from poccala_tpu_torch.io.corpus import UnitInventory
+    from poccala_tpu_torch.lexicon import FlatLexicon, PronunciationLexicon
+
+    j = trained["jax"]
+    words = tmp_path / "words.txt"
+    words.write_text("".join("".join(w) + "\n" for r in (1, 2, 3, 4)
+                             for w in itertools.product("你好", repeat=r)))
+    lex = str(tmp_path / "lex.pkl")
+    run(capsys, jcli.main, *j["args"], "build-lexicon", "--words", str(words),
+        "--out", lex)
+    tree = PronunciationLexicon()
+    tree.load(lex)
+    inv = UnitInventory(["n", "i3", "h", "ao3", "m", "a1"])
+    assert FlatLexicon.from_tree(tree.lexicon, inv).n_nodes == 31
+    knobs = ["--set", "decoder.active_blocks=2", "--set",
+             "decoder.block_size=8", "--set", "decoder.prune_hysteresis=4.0"]
+    wavs = [os.path.join(j["dirs"]["audio_dir"], f"utt{i:05d}.wav")
+            for i in range(4)]
+    argv = [*j["args"], *knobs, "decode", "--decoder", "device",
+            "--checkpoint", j["ckpt"], "--lexicon", lex, *wavs]
+    want = [json.loads(l) for l in
+            run(capsys, jcli.main, *argv).strip().splitlines()]
+    got = [json.loads(l) for l in tcpu(capsys, *argv).strip().splitlines()]
+    assert any(g["nbest"] for g in got)
+    for g, w in zip(got, want):
+        assert [h["words"] for h in g["nbest"]] == \
+            [h["words"] for h in w["nbest"]]
+        assert np.allclose([h["score"] for h in g["nbest"]],
+                           [h["score"] for h in w["nbest"]], rtol=1e-4)
+
+
 @pytest.mark.parametrize("tier", ["vector", "simple", "default"])
 def test_host_tier_decode_matches_jax(trained, capsys, tier):
     """``decode --decoder vector|simple`` of both CLIs on the JAX CLI's

@@ -148,17 +148,14 @@ def test_top_k_orders_ties_by_index():
 
 
 def test_unported_modes_raise(world, rng, tmp_path):
-    """``prune_hysteresis`` (a measured negative) is not ported; block
-    pruning (``active_blocks``) is, in tests/test_torch_pruned.py, and
-    ``mesh=``, which raised until the parallel tier was ported, decodes:
-    on a one-rank mesh as the unsharded call does."""
+    """``mesh=``, which raised until the parallel tier was ported, decodes:
+    on a one-rank mesh as the unsharded call does.  (Block pruning and its
+    ``prune_hysteresis``, refused here until they were ported, are held to
+    JAX in tests/test_torch_pruned.py.)"""
     import torch.distributed as dist
 
     from poccala_tpu_torch.parallel.mesh import make_mesh
 
-    with pytest.raises(NotImplementedError, match="prune_hysteresis"):
-        DeviceBeamDecoder(world["tbank"], world["tflat"], active_blocks=4,
-                          prune_hysteresis=0.5)
     dec, utt = separable_world(rng)
     feats = np.stack([utt([4, 5]), utt([0, 1])])
     dist.init_process_group("gloo", store=dist.FileStore(

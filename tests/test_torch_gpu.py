@@ -1,8 +1,11 @@
 """The PyTorch port on a CUDA device: the hand-written kernels (GMM
-scoring in float32 and bfloat16, banded HMM forward / backward / Viterbi)
-against their plain versions, the GPU frontend, decoders (the device tier
-and the host tiers) and Baum-Welch statistics against the CPU, the pack
-cache, the profiling ledger and the default device.
+scoring in float32 and bfloat16, banded HMM forward / backward / Viterbi,
+the decoder's scans and n-best, the (logsumexp, +) product of
+``forward_log_assoc``) against their plain versions, the GPU frontend (at
+every ``dot_precision``), decoders (the device tier, with and without the
+sticky block selection, and the host tiers) and Baum-Welch statistics
+against the CPU, the pack cache, the profiling ledger and the default
+device.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The
 file imports no jax, so it also runs where jax is absent, without the
@@ -238,6 +241,108 @@ def test_frontend_gpu_matches_cpu(cuda):
     want, wm = Frontend(cfg, device="cpu").mfcc_batch(sigs, n)
     assert torch.equal(gm.cpu(), wm)
     assert torch.allclose(got.cpu(), want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_frontend_reduced_precision_gpu_matches_cpu(cuda, precision):
+    """``dot_precision`` 'high' (bf16_3x) and 'default' (one bf16 pass) on
+    the card: float32 matmuls of the bf16 parts with TF32 off, held to the
+    CPU's at the frontend's tolerance, and apart from 'highest'."""
+    cfg = Config().frontend
+    cfg.dot_precision = precision
+    rng = np.random.default_rng(1)
+    sigs = (rng.normal(size=(3, 16000)) * 2000).astype(np.float32)
+    n = np.array([16000, 11000, 5000])
+    got, gm = Frontend(cfg, device=cuda).mfcc_batch(sigs, n)
+    want, wm = Frontend(cfg, device="cpu").mfcc_batch(sigs, n)
+    assert torch.equal(gm.cpu(), wm)
+    assert torch.allclose(got.cpu(), want, rtol=2e-3, atol=2e-3)
+    highest, _ = Frontend(Config().frontend, device=cuda).mfcc_batch(sigs, n)
+    assert not torch.equal(got, highest)
+
+
+def assoc_case(rng, n, t, banded):
+    """``log_A [N, N]`` (a band of width 5 made dense, NEG_INF off it, or
+    dense), ``log_pi`` and ``log_b [T, N]``, float32 on the CPU."""
+    if banded:
+        band = np.log(rng.uniform(0.05, 1.0, size=(n, 5)))
+        band = np.where(np.arange(n)[:, None] + np.arange(5) < n, band,
+                        -1e30)
+        log_a = thmm.band_to_dense(torch.tensor(band, dtype=torch.float32))
+        log_pi = torch.full((n,), -1e30)
+        log_pi[0] = 0.0
+    else:
+        a = rng.uniform(0.1, 1.0, size=(n, n))
+        log_a = torch.tensor(np.log(a / a.sum(1, keepdims=True)),
+                             dtype=torch.float32)
+        log_pi = torch.full((n,), -float(np.log(n)))
+    log_b = torch.tensor(rng.normal(size=(t, n)) * 3 - 5, dtype=torch.float32)
+    return log_a, log_pi, log_b
+
+
+@pytest.mark.parametrize("n,t,banded", [(6, 40, False), (50, 319, True),
+                                        (98, 200, True), (33, 1, False),
+                                        (33, 2, False), (20, 77, False)])
+def test_forward_log_assoc_gpu_matches_cpu(cuda, n, t, banded):
+    """``forward_log_assoc`` on the card (the semiring product kernel, one
+    launch a level's products and one for the tail) against the plain
+    version on the CPU: ``loglik`` at rtol 1e-5, the finite masks equal,
+    ``log_alpha`` within 1e-5 of max(|value|, 1); the card's peak memory
+    a few copies of the ``[T-1, N, N]`` operators, never the ``[P, N, N,
+    N]`` sums."""
+    from poccala_tpu_torch.ops.cuda import hmm_assoc_cuda as ak
+
+    rng = np.random.default_rng(n + t)
+    args = assoc_case(rng, n, t, banded)
+    want_a, want_ll = thmm.forward_log_assoc(*args)
+    before = (ak.lse_product_cuda.launches, ak.lse_rows_cuda.launches)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got_a, got_ll = thmm.forward_log_assoc(*(x.to(cuda) for x in args))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    levels, m = 0, t - 1
+    while m >= 2:
+        levels, m = levels + 1, m // 2
+    products = ak.lse_product_cuda.launches - before[0]
+    assert products <= 2 * levels and products >= levels
+    assert ak.lse_rows_cuda.launches - before[1] == (1 if t > 1 else 0)
+    assert peak <= 6 * max(t - 1, 1) * n * n * 4 + (1 << 20), peak
+    assert got_a.is_cuda and got_a.shape == (t, n)
+    assert np.isclose(float(got_ll), float(want_ll), rtol=1e-5, atol=0)
+    got_a, want_a = got_a.cpu().numpy(), want_a.numpy()
+    fin = want_a > -1e30 / 2
+    assert np.array_equal(got_a > -1e30 / 2, fin)
+    err = np.abs(got_a - want_a)[fin] / np.maximum(np.abs(want_a[fin]), 1)
+    assert err.max(initial=0.0) <= 1e-5
+
+
+@pytest.mark.parametrize("p,m,k,n", [(3, 37, 45, 50), (5, 98, 98, 98),
+                                     (2, 1, 70, 65)])
+def test_lse_product_kernel_matches_plain(cuda, p, m, k, n):
+    """The product and row kernels against the plain product on the card:
+    ragged tiles, NEG_INF rows and columns, a strided operand and output;
+    2e-6 relative and 1e-5 absolute."""
+    from poccala_tpu_torch.ops.cuda import hmm_assoc_cuda as ak
+
+    rng = np.random.default_rng(p + m)
+    a = torch.tensor(rng.normal(size=(2 * p, m, k)) * 4, dtype=torch.float32,
+                     device=cuda)
+    b = torch.tensor(rng.normal(size=(p, k, n)) * 4, dtype=torch.float32,
+                     device=cuda)
+    a[:, 0] = -1e30
+    b[:, :, 1 % n] = -1e30
+    out = torch.full((2 * p, m, n), float("nan"), device=cuda)
+    ak.lse_product_cuda(a[0::2], b, out[1::2])
+    want = thmm._lse_product_plain(a[0::2], b)
+    assert torch.allclose(out[1::2], want, rtol=2e-6, atol=1e-5)
+    assert torch.isnan(out[0::2]).all()
+    rows = torch.empty((p, n), device=cuda)
+    ak.lse_rows_cuda(a[0, 0], b, rows)
+    want_rows = torch.empty_like(rows)
+    thmm._rows_into_plain(a[0, 0], b, want_rows)
+    assert torch.allclose(rows, want_rows, rtol=2e-6, atol=1e-5)
 
 
 def test_decoder_gpu_matches_cpu(cuda):
@@ -1504,6 +1609,46 @@ def test_decoder_scan_pruned_at_21k_nodes(cuda, block_size, k_act, lm_kind,
     for name, g, w in zip(PRUNED_NAMES, carry, whole[0]):
         assert torch.equal(g, w), name
     assert torch.equal(torch.cat(word, 1), whole[2])
+
+
+@pytest.mark.parametrize("hyst", [4.0, 8.0])
+@pytest.mark.parametrize("lm_kind", ["none", "sparse"])
+def test_decoder_scan_pruned_with_hysteresis(cuda, lm_kind, hyst):
+    """The sticky selection (``prune_hysteresis``) at 4 of 24 blocks: the
+    kernel against the plain loop bit for bit on tied and untied scores,
+    in one call and in three chunks equal to it; the decode's words and
+    scores those of a CPU decoder."""
+    dec = pruned_decoder(cuda, lm_kind, seed=12, active_blocks=4,
+                         prune_hysteresis=hyst)
+    assert dec.prune_hysteresis == hyst
+    rng = np.random.default_rng(12)
+    feats = (rng.normal(size=(5, 48, 13)) * 2).astype(np.float32)
+    n = np.array([48, 48, 35, 20, 0])
+    scores = dec._scores(torch.tensor(feats, device=cuda))
+    for sc in (scores, torch.round(scores / 8) * 8):
+        whole = pruned_both(dec, sc, n)
+        carry, prev, word = None, [], []
+        for t0 in (0, 16, 32):
+            before = (torch.cat(prev, 1), torch.cat(word, 1)) if t0 else None
+            carry, p, w = pruned_both(dec, sc[:, t0:t0 + 16].contiguous(),
+                                      np.clip(n - t0, 0, 16), t0, carry,
+                                      before)
+            prev.append(p)
+            word.append(w)
+        for name, g, w in zip(PRUNED_NAMES, carry, whole[0]):
+            assert torch.equal(g, w), name
+        assert torch.equal(torch.cat(word, 1), whole[2])
+    cpu = DeviceBeamDecoder(sb.bank_from_numpy(sb.bank_to_numpy(dec.bank),
+                                               device="cpu"), dec.lexicon,
+                            lm=dec.lm, lm_weight=dec.lm_weight,
+                            word_penalty=dec.word_penalty, block_size=64,
+                            active_blocks=4, prune_hysteresis=hyst)
+    for g, w in zip(dec.decode_batch(feats[:4], n[:4], 3),
+                    cpu.decode_batch(feats[:4], n[:4], 3)):
+        assert np.allclose([h.score for h in g], [h.score for h in w],
+                           rtol=1e-4, atol=0.0)
+        if len(w) > 1 and w[0].score - w[1].score > 0.01:
+            assert g[0].words == w[0].words
 
 
 @pytest.mark.parametrize("skips", [False, True])

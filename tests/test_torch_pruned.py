@@ -9,8 +9,10 @@ the built-in G2P table; 24 blocks of 64): a separable random bank over
 the XIF_tone units and utterances of words drawn from the lexicon.  The
 port must reproduce JAX's DFS permutation, parent remap and padding
 exactly, and JAX's pruned 1-best words with scores at rtol 1e-4, with and
-without an LM, on clean and noisy utterances; a pruned search never
-scores above the exact one.
+without an LM, on clean and noisy utterances, with and without the sticky
+selection (``prune_hysteresis`` 4.0 and 6.0, the values of
+``tests/test_block_pruned.py``); a pruned search never scores above the
+exact one.
 """
 
 import dataclasses
@@ -137,9 +139,18 @@ def test_permutation_and_padding_match_jax(world):
     assert int(tabs.node_slot.max()) < n_nodes
 
 
-@pytest.mark.parametrize("noise", [0.3, 0.8], ids=["clean", "noisy"])
-@pytest.mark.parametrize("with_lm", [False, True], ids=["no_lm", "bigram"])
-def test_pruned_matches_jax(world, noise, with_lm):
+# (LM, noise, prune_hysteresis); the sticky cases at 4 of 24 blocks, where
+# the bonus changes which blocks stay active
+MATCH_CASES = [(False, 0.3, 0.0), (False, 0.8, 0.0), (True, 0.3, 0.0),
+               (True, 0.8, 0.0), (False, 0.3, 4.0), (False, 0.8, 6.0),
+               (True, 0.3, 6.0), (True, 0.8, 4.0)]
+
+
+@pytest.mark.parametrize(
+    "with_lm,noise,hyst", MATCH_CASES,
+    ids=[f"{'bigram' if lm else 'no_lm'}-{'noisy' if nz > 0.5 else 'clean'}"
+         + (f"-hyst{h:g}" if h else "") for lm, nz, h in MATCH_CASES])
+def test_pruned_matches_jax(world, noise, with_lm, hyst):
     words, feats, nf = batch(world, 10, seed=int(noise * 10) + with_lm,
                              noise=noise)
     lm = None
@@ -147,10 +158,12 @@ def test_pruned_matches_jax(world, noise, with_lm):
         lm = Ngram(2)
         rng = np.random.default_rng(13)
         lm.train([list(rng.choice(words, size=2)) for _ in range(30)])
-    jd, td = pair(world, lm=lm, **PRUNE)
+    kw = dict(PRUNE, active_blocks=4, prune_hysteresis=hyst) if hyst \
+        else PRUNE
+    jd, td = pair(world, lm=lm, **kw)
     want = jd.decode_batch(feats, nf, return_nbest=2)
     got = td.decode_batch(feats, nf, return_nbest=2)
-    assert td._prune_on
+    assert td._prune_on and td.prune_hysteresis == jd.prune_hysteresis
     for g, wv in zip(got, want):
         assert g and wv
         assert g[0].words == wv[0].words
@@ -200,8 +213,19 @@ def test_noop_below_block_count(world, kw):
 
 
 def test_pruned_stream_equals_pruned_one_shot(world):
+    stream_equals_one_shot(world, PRUNE)
+
+
+def test_pruned_stream_with_hysteresis_equals_one_shot(world):
+    """The sticky selection's active blocks ride the carry across chunks."""
+    stream_equals_one_shot(world, dict(PRUNE, active_blocks=4,
+                                       prune_hysteresis=6.0))
+
+
+def stream_equals_one_shot(world, kw):
+    """Chunks of 10 frames equal the one-shot decode and JAX's stream."""
     _, feats, nf = batch(world, 2, seed=7, noise=0.3)
-    jd, td = pair(world, **PRUNE)
+    jd, td = pair(world, **kw)
     one_shot = td.decode_batch(feats, nf, return_nbest=2)
     st = td.stream_init(batch=2, max_frames=T_PAD)
     for lo in range(0, T_PAD, 10):
@@ -229,8 +253,9 @@ def test_pruned_stream_equals_pruned_one_shot(world):
 def test_jax_keywords_build_a_port_decoder(world):
     """Every keyword the JAX CLI hands the device decoder
     (``poccala_tpu/cli.py:195-203, 404-409, 474-479``) builds a port
-    decoder, with JAX's clamps."""
+    decoder, with JAX's clamps; a non-zero ``prune_hysteresis`` too."""
     cfg = Config()
+    cfg.decoder.prune_hysteresis = 8.0   # benchmarks/pruned_trained.py's
     kw = dict(beam=0.85, lm=None, normalizer="textbook",
               score_dtype=cfg.model.score_dtype, emit_top=4, max_words=64,
               block_size=cfg.decoder.block_size,
@@ -241,6 +266,7 @@ def test_jax_keywords_build_a_port_decoder(world):
     for f in ("emit_top", "max_words", "block_size", "active_blocks",
               "prune_hysteresis", "beam", "normalizer", "score_dtype"):
         assert getattr(td, f) == getattr(jd, f), f
+    assert td.prune_hysteresis == 8.0
     small = dict(emit_top=0, max_words=1, block_size=3, active_blocks=0)
     jd = JaxDecoder(world["jbank"], world["jflat"], **small)
     td = DeviceBeamDecoder(world["tbank"], world["flat"], **small)

@@ -16,7 +16,8 @@ blocks of 64, 2 or 3 active):
   its other nodes, each node's children) round-trip, and the group tables
   reproduce every node's band and senone rows;
 * the plain loop equals JAX's jitted ``step_pruned`` bit for bit on scores
-  rounded to multiples of 8 (ties everywhere), in two chunks;
+  rounded to multiples of 8 (ties everywhere), in two chunks, with and
+  without the sticky selection (``prune_hysteresis``);
 * the kernel's own source, compiled with g++ against
   ``tests/cuda_emu/cuda_runtime.h`` (one thread per CUDA thread), equals the
   plain loop bit for bit (``kb``, ``d_act``, ``c_act``, ``entry``,
@@ -30,8 +31,11 @@ blocks of 64, 2 or 3 active):
   block 0 (the parentless root's) active and inactive; with an LM they
   meet frames of fewer than 16 finite word candidates, where the plain
   loop's top 16 take ``NEG_INF`` slots from outside the active blocks;
+  cases with ``prune_hysteresis`` meet frames where the bonus changes the
+  selection;
 * a mutant of the source whose top-K breaks ties by the higher block is
-  rejected.
+  rejected, and so are two of the sticky selection: the bonus added before
+  the restart and dead folds, and the bonus added to every block.
 """
 
 import ctypes
@@ -205,12 +209,16 @@ def test_packed_pruned_tables_round_trip(world, k_act):
 # ----------------------------------------------------------------------
 # the plain loop against JAX
 
-@pytest.mark.parametrize("lm_kind", ["none", "sparse"])
-def test_plain_pruned_scan_is_jax_step_pruned(world, utts, lm_kind):
+@pytest.mark.parametrize("lm_kind,hyst", [
+    ("none", 0.0), ("sparse", 0.0), ("none", 4.0), ("sparse", 4.0)],
+    ids=["none", "sparse", "none-hyst4", "sparse-hyst4"])
+def test_plain_pruned_scan_is_jax_step_pruned(world, utts, lm_kind, hyst):
     """Two chunks of tied scores through the plain loop and through JAX's
-    ``step_pruned`` under ``lax.scan``: equal carry (``kb`` as values: JAX
-    keeps int32) and traceback rows."""
-    jd, td = pruned_pair(world, lm_kind)
+    ``step_pruned`` under ``lax.scan``, without and with the sticky
+    selection: equal carry (``kb`` as values: JAX keeps int32) and
+    traceback rows."""
+    jd, td = pruned_pair(world, lm_kind, prune_hysteresis=hyst)
+    assert td.prune_hysteresis == jd.prune_hysteresis == hyst
     jd._prep_device()
     tabs = td._prep_device()
     assert jd._prune_on and td._prune_on
@@ -246,28 +254,39 @@ def compile_emulated(tmp, name, src) -> ctypes.CDLL:
     return dk.bind(ctypes.CDLL(str(so)))
 
 
-# the top-K's tie order reversed: on equal lookaheads the higher block first
-TIE_MUTANT = (("n_before += before(blk_best[o], o, x, j);",
-               "n_before += blk_best[o] > x || (blk_best[o] == x && o > j);"),)
+STICKY = "if (k >= 0 && hyst > 0.f) best += hyst;"
+MUTANTS = {
+    # the top-K's tie order reversed: on equal lookaheads the higher block
+    # first
+    "tie": (("n_before += before(blk_best[o], o, x, j);",
+             "n_before += blk_best[o] > x || (blk_best[o] == x && o > j);"),),
+    # the sticky bonus added before the restart and dead folds
+    "bonus_before_folds": (
+        (STICKY, ""),
+        ("      best = warp_max(best);\n      if (i > 0) {",
+         "      best = warp_max(best);\n      " + STICKY
+         + "\n      if (i > 0) {")),
+    # the sticky bonus added to every block, active or not
+    "bonus_everywhere": ((STICKY, "if (hyst > 0.f) best += hyst;"),),
+}
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """The kernel's source at a shared-memory limit (None: the card's), or
-    its tie-order mutant, compiled once each."""
+    one of its ``MUTANTS``, compiled once each."""
     tmp = tmp_path_factory.mktemp("pruned_scan_emu")
     libs = {}
 
-    def get(limit=None, mutant=False):
+    def get(limit=None, mutant=None):
         key = (limit, mutant)
         if key not in libs:
             src = emulated_source(limit)
-            if mutant:
-                for old, new in TIE_MUTANT:
-                    assert src.count(old) == 1, old
-                    src = src.replace(old, new)
+            for old, new in MUTANTS.get(mutant, ()):
+                assert src.count(old) == 1, old
+                src = src.replace(old, new)
             libs[key] = compile_emulated(
-                tmp, f"pruned{limit}{'mut' if mutant else ''}", src)
+                tmp, f"pruned{limit}{mutant or ''}", src)
         return libs[key]
     return get
 
@@ -299,7 +318,7 @@ def emulated_pruned(lib, dec, tabs, carry, scores, t0, n_valid,
                        -float(dec.word_penalty))
     rc = lib.decoder_scan_pruned(ctypes.byref(st), ctypes.byref(pst),
                                  ctypes.byref(dk._io(ops)), b, t_c, s, t0,
-                                 None)
+                                 dec.prune_hysteresis, None)
     assert rc == 0
     return (res["carry"], res["tb_prev"], res["tb_word"]), place
 
@@ -407,40 +426,51 @@ def record_blocks(dec):
     return seen
 
 
-# (LM, tied scores, the parts sent to device memory, active blocks)
+# (LM, tied scores, the parts sent to device memory, active blocks,
+# prune_hysteresis)
 CASES = [
-    ("none", True, "all", 2), ("flat", True, "all", 2),
-    ("sparse", True, "all", 2), ("sparse", False, "all", 2),
-    ("none", True, "entry", 2), ("none", True, "groups", 2),
-    ("sparse", True, "carry", 4),
-    ("flat", True, "rows", 2), ("none", True, "lookahead", 2),
-    ("sparse", True, "every", 2), ("none", True, "exits", 4),
+    ("none", True, "all", 2, 0.0), ("flat", True, "all", 2, 0.0),
+    ("sparse", True, "all", 2, 0.0), ("sparse", False, "all", 2, 0.0),
+    ("none", True, "entry", 2, 0.0), ("none", True, "groups", 2, 0.0),
+    ("sparse", True, "carry", 4, 0.0),
+    ("flat", True, "rows", 2, 0.0), ("none", True, "lookahead", 2, 0.0),
+    ("sparse", True, "every", 2, 0.0), ("none", True, "exits", 4, 0.0),
+    ("none", True, "all", 4, 4.0), ("sparse", True, "all", 4, 8.0),
+    ("sparse", False, "carry", 4, 4.0), ("flat", True, "every", 4, 6.0),
 ]
+
+
+def case_id(c) -> str:
+    return (f"{c[0]}{'_tied' if c[1] else ''}_{c[2]}"
+            + (f"_hyst{c[4]:g}" if c[4] else ""))
 
 
 def test_cases_place_every_part_both_ways(world):
     """Across CASES every part of the pruned scan is in device memory at
     least once (and in shared memory in the default case)."""
     out = set()
-    for lm_kind, _, where, k_act in CASES:
+    for lm_kind, _, where, k_act, _ in CASES:
         _, dec = pruned_pair(world, lm_kind, active_blocks=k_act)
         _, place = cut_limit(where, part_bytes(dec))
         out |= {k for k, v in place.items() if not v}
     assert out == set(dk.PLACES)
 
 
-@pytest.mark.parametrize("lm_kind,tied,where,k_act", CASES,
-                         ids=[f"{c[0]}{'_tied' if c[1] else ''}_{c[2]}"
-                              for c in CASES])
+@pytest.mark.parametrize("lm_kind,tied,where,k_act,hyst", CASES,
+                         ids=[case_id(c) for c in CASES])
 def test_kernel_source_on_cpu_is_the_plain_loop(world, utts, emulated,
-                                                lm_kind, tied, where, k_act):
+                                                lm_kind, tied, where, k_act,
+                                                hyst):
     """Two chunks of the utterances' scores (rounded to multiples of 8 where
     ``tied``), one row ending inside the second chunk and one empty, the
     carry passed from chunk to chunk: the kernel's carry and rows equal the
     plain loop's bit for bit, with the parts ``where`` names in device
     memory (``SMEM_LIMIT`` cut to what the others take) and the rest in
-    shared memory.  The frames met blocks that die and fresh ones."""
-    _, dec = pruned_pair(world, lm_kind, active_blocks=k_act)
+    shared memory.  The frames met blocks that die and fresh ones.  With
+    ``hyst`` (``prune_hysteresis``) the sticky selection's active blocks
+    differ from the plain selection's on some frame."""
+    _, dec = pruned_pair(world, lm_kind, active_blocks=k_act,
+                         prune_hysteresis=hyst)
     limit, placement = cut_limit(where, part_bytes(dec))
     feats, n = utts
     scores = (tied_scores(dec, feats) if tied
@@ -453,6 +483,23 @@ def test_kernel_source_on_cpu_is_the_plain_loop(world, utts, emulated,
     assert any(before - after for before, after in blocks)   # fresh blocks
     if lm_kind != "none":   # frames of 1..15 finite candidates were met
         assert any(0 < c < 16 for c in seen), sorted(set(seen))
+    if hyst:   # the bonus changed the selection
+        _, plain = pruned_pair(world, lm_kind, active_blocks=k_act)
+        assert [a for _, a in blocks] != [a for _, a in
+                                          plain_blocks(plain, scores, n)]
+
+
+def plain_blocks(dec, scores, n):
+    """Each active frame's blocks after the step (as :func:`record_blocks`)
+    over the two chunks of :func:`chunks_equal`, through the plain loop."""
+    tabs = dec._prep_device()
+    blocks = record_blocks(dec)
+    carry = dec._seed(tabs, scores.shape[0])
+    for t0 in (0, CHUNK):
+        carry, _, _ = dec._scan_plain(tabs, carry,
+                                      scores[:, t0:t0 + CHUNK].contiguous(),
+                                      t0, np.clip(n - t0, 0, CHUNK))
+    return blocks
 
 
 @pytest.mark.parametrize("lm_kind", ["none", "sparse"])
@@ -544,7 +591,24 @@ def test_tie_order_mutant_is_rejected(world, utts, emulated):
     feats, n = utts
     with pytest.raises(AssertionError, match="'(kb|d_act|c_act|entry|"
                        "entry_ctx|tb_prev|tb_word)'"):
-        chunks_equal(emulated(mutant=True), dec, tied_scores(dec, feats), n)
+        chunks_equal(emulated(mutant="tie"), dec, tied_scores(dec, feats), n)
+
+
+@pytest.mark.parametrize("mutant", ["bonus_before_folds",
+                                    "bonus_everywhere"])
+def test_sticky_selection_mutants_are_rejected(world, utts, emulated,
+                                               mutant):
+    """The sticky bonus added before an active block's restart and dead
+    folds (the value differs wherever a fold wins), or added to every block
+    (the order stays the plain selection's): the equality check fails on
+    one of the carry's fields or rows."""
+    _, dec = pruned_pair(world, "none", active_blocks=4,
+                         prune_hysteresis=4.0)
+    feats, n = utts
+    with pytest.raises(AssertionError, match="'(kb|d_act|c_act|entry|"
+                       "entry_ctx|tb_prev|tb_word)'"):
+        chunks_equal(emulated(mutant=mutant), dec, tied_scores(dec, feats),
+                     n)
 
 
 def test_placement_at_the_pruned_cell(emulated):
