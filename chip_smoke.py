@@ -2205,8 +2205,13 @@ def phase_pruned(seed: int, smi: str, batch: int = 256,
 
 # forward_log_assoc's cases (N, T, label budget): the training cell's
 # sentence HMM made dense (N = 50, W = 5) over 4 s, and the default label
-# budget's (N = 98) over 20 s and 200 s of frames
-ASSOC_CASES = ((50, TRAIN_T, TRAIN_L), (98, 1600, 32), (98, 16000, 32))
+# budget's (N = 98) over 20 s and 200 s of frames; then random finite
+# operators with no dead entry (dense log_A and log_pi, N = 98, T = 1,600),
+# where the kernels skip nothing; then labels of 40 and 48 units (N = 122,
+# where one product's operands and result fill a CTA's shared memory
+# alone, and N = 146, past it: the k-tiled route) over 20 s
+ASSOC_CASES = ((50, TRAIN_T, TRAIN_L), (98, 1600, 32), (98, 16000, 32),
+               (98, 1600, None), (122, 1600, 40), (146, 1600, 48))
 # finite log_alpha within ASSOC_TOL of max(|value|, 1) and loglik at rtol
 # ASSOC_TOL: the card against the plain version and against float64
 # (tests/test_torch_assoc.py's tolerance against JAX)
@@ -2259,18 +2264,167 @@ def assoc_bound(t: int, n: int) -> dict:
                           exp_floor_ms=(t - 1) * n * n / EXP_RATE * 1e3))
 
 
-def kernel_device_total_ms(fn, name: str, reps: int = 3):
-    """The ``name`` kernel's device time per call of ``fn`` (every launch
-    of the call, summed), under ``torch.profiler``; "not measured" where
-    the profile kept no device event."""
-    per_launch = kernel_device_ms(fn, name, reps=reps)
-    if not isinstance(per_launch, float):
-        return per_launch
-    before = kernel_counts()
+def assoc_live_bound(log_a, log_pi, log_b) -> dict:
+    """:func:`assoc_bound` counted on what this case's operands need: the
+    terms whose two operands are live (above NEG_INF) in each product of
+    the call's scan, counted with boolean products on the card through the
+    same recursion (``ops.hmm._assoc_scan_into``), 5 operations each; the
+    tail's terms of alpha_0's live entries; the bytes as in the dense bound
+    (every operand is read, for its live entries and its NaN)."""
+    t, n = log_b.shape
+    live = (log_a[None] + log_b[1:, None, :] > -1e30).float()
+    terms = []
+
+    def product(x, y, out):
+        terms.append(float((x.sum(-2).double() * y.sum(-1).double()).sum()))
+        out.copy_(torch.bmm(x, y) > 0)
+
+    prefix = torch.empty_like(live)
+    hmm_ops._assoc_scan_into(live, prefix, product)
+    a_live = (log_pi + log_b[0] > -1e30).double()
+    rows_terms = float((prefix.sum(-1).double() @ a_live).sum())
+    prod_terms = sum(terms)
+    prod_bytes = 4 * 3 * sum(assoc_products(t)) * n * n
+    rows_bytes = 4 * ((t - 1) * n * n + n + (t - 1) * n)
+    del live, prefix
+    return dict(product=dict(**bound_ms(prod_bytes, 5 * prod_terms,
+                                        "float32"),
+                             exp_floor_ms=prod_terms / EXP_RATE * 1e3,
+                             live_terms=prod_terms),
+                rows=dict(**bound_ms(rows_bytes, 5 * rows_terms, "float32"),
+                          exp_floor_ms=rows_terms / EXP_RATE * 1e3,
+                          live_terms=rows_terms,
+                          alpha0_live=int(a_live.sum())))
+
+
+def call_device_ms(fn, launches: tuple, reps: int = 3) -> dict:
+    """Device time per call of ``fn`` under ``torch.profiler`` (``reps``
+    calls after a warm-up): the semiring product's launches (``product``),
+    the row kernel's (``rows``), every device event (``busy``), from the
+    first of three profiles that kept every launch (``launches``: the
+    product's and the row kernel's a call); "not measured" where none did.
+    ``events``: the launches each profile kept a call.  Inside the whole
+    script a profile loses some launches to the next one, so a count can
+    match without its events being the profile's own: :func:`graph_ms`
+    is the figure, this one beside it."""
+    from torch.profiler import ProfilerActivity, profile
+
     fn()
-    after = kernel_counts()
-    key = "product" if name == "lse_product" else "rows"
-    return per_launch * (after[key] - before[key])
+    torch.cuda.synchronize()
+    kept = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+
+        def total(key, what="self_device_time_total"):
+            return sum(getattr(e, what) for e in events
+                       if key in e.key) / reps
+
+        kept.append((total("lse_product", "count"),
+                     total("lse_rows", "count")))
+        if kept[-1] == tuple(launches):
+            return dict(product=total("lse_product") / 1e3,
+                        rows=total("lse_rows") / 1e3,
+                        busy=total("") / 1e3, events=kept)
+    return dict.fromkeys(("product", "rows", "busy"), "not measured") | dict(
+        events=kept)
+
+
+def graph_ms(fn, reps: int = 5) -> float:
+    """Median CUDA-event time of one replay of ``fn`` captured in a CUDA
+    graph (after a warm-up call): its kernels back to back, without the
+    host's launch gaps.  The graph's memory is given back after."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    out = median_ms(graph.replay, reps)
+    del graph
+    torch.cuda.empty_cache()
+    return out
+
+
+def build_assoc_variants() -> dict:
+    """Two other builds of ``hmm_assoc.cu``'s C interface, built as the
+    port's sources are (both at once) into
+    ``build/poccala_tpu_torch/assoc_<name>/``, for the ``assoc`` phase's
+    comparisons alone: ``parent``, the dense kernels that the live-range
+    kernels replaced (``tests/cuda_emu/hmm_assoc_parent.cu``, which they
+    equal bit for bit); ``tiled``, ``csrc/hmm_assoc.cu`` with
+    ``SMEM_LIMIT`` 0, every product on the k-tiled route.  name ->
+    ``(product, rows)``: the port's wrappers on that library, their
+    launches not counted."""
+    import ctypes
+    import functools
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "tests", "cuda_emu",
+                           "hmm_assoc_parent.cu")) as f:
+        parent = f.read()
+    tiled, n = re.subn(r"constexpr int SMEM_LIMIT = [^;]*;",
+                       "constexpr int SMEM_LIMIT = 0;",
+                       (build.CSRC / "hmm_assoc.cu").read_text())
+    check(n == 1, "hmm_assoc.cu declares SMEM_LIMIT once")
+    procs = {}
+    for name, src in (("parent", parent), ("tiled", tiled)):
+        out_dir = build.BUILD_DIR / f"assoc_{name}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        cu, so = out_dir / f"hmm_assoc_{name}.cu", out_dir / f"lib{name}.so"
+        cu.write_text(src)
+        procs[name] = so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out = {}
+    for name, (so, proc) in procs.items():
+        _, err = proc.communicate()
+        check(proc.returncode == 0, f"{name} build: {err[-2000:]}")
+        lib = ak.bind(ctypes.CDLL(str(so)))
+        out[name] = (functools.partial(ak.lse_product_cuda, lib=lib),
+                     functools.partial(ak.lse_rows_cuda, lib=lib))
+    return out
+
+
+class SmClock:
+    """The card's SM clock (MHz) as ``nvidia-smi`` reads it every 20 ms
+    while a block runs: ``with SmClock() as clock: ...``, then
+    ``clock.mhz``, the readings taken inside the block (the first one
+    waited for before it starts)."""
+
+    def __enter__(self):
+        import threading
+
+        self.readings = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        t0 = time.time()
+        while (not self.readings and self.proc.poll() is None
+               and time.time() - t0 < 10):
+            time.sleep(0.005)
+        self.first = len(self.readings)
+        return self
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            try:
+                self.readings.append(float(line.strip()))
+            except ValueError:
+                pass
+
+    def __exit__(self, *exc) -> None:
+        last = len(self.readings)
+        self.proc.terminate()
+        self.proc.wait(timeout=10)
+        self.reader.join(timeout=10)
+        self.mhz = self.readings[self.first:last]
 
 
 def alpha_error(got, want) -> tuple[float, bool]:
@@ -2283,35 +2437,63 @@ def alpha_error(got, want) -> tuple[float, bool]:
     return float(err.max()) if err.numel() else 0.0, same
 
 
+def assoc_case(gen, n_want: int, t: int, max_l):
+    """A case's operators: one utterance's sentence HMM from the training
+    path's operands (``dp_inputs``: labels of up to ``max_l`` units, log_b
+    from a random XIF bank), its band made dense (NEG_INF off it); or, at
+    ``max_l = None``, random finite log_A, log_pi and log_b (no dead
+    entry).  Returns (band or None, log_A, log_pi, log_b)."""
+    if max_l is None:
+        a = torch.rand(n_want, n_want, generator=gen) * 0.9 + 0.1
+        pi = torch.rand(n_want, generator=gen) * 0.9 + 0.1
+        log_b = torch.randn(t, n_want, generator=gen) * 3 - 5
+        return (None, (a / a.sum(1, keepdim=True)).log().cuda(),
+                (pi / pi.sum()).log().cuda(), log_b.cuda())
+    band, log_pi, log_b, _ = dp_inputs(gen, 2, t, max_l)
+    band, log_pi, log_b = band[0], log_pi[0], log_b[0].contiguous()
+    check(band.shape[0] == n_want,
+          f"assoc: {band.shape[0]} sentence states, expected {n_want}")
+    return band, hmm_ops.band_to_dense(band), log_pi, log_b
+
+
 def phase_assoc(seed: int, smi: str) -> dict:
     """``forward_log_assoc`` (``ops/hmm.py``, JAX's time-parallel forward)
-    on the card at ASSOC_CASES: one utterance's sentence HMM from the
-    training path's operands (``dp_inputs``: labels of up to L units, log_b
-    from a random XIF bank), its band made dense (NEG_INF off it).  Each
-    call is driven with the counts at 0 just before it and read just after
-    (the product kernel once a level's products, the row kernel once).
-    Held to float64 (the plain banded forward on the CPU) within ASSOC_TOL,
-    to the sequential banded kernel (``forward_log_banded``) within
-    :func:`assoc_seq_tol`, and at N = 50 to the plain version on the card
-    within ASSOC_TOL.  Times: one event pair around a call (``ms``), each kernel
-    alone under the profiler per call, the sequential kernel alone, the
-    plain version where its ``[P, N, N, N]`` sums fit (T <= 1,600), and the
-    bounds (:func:`assoc_bound`); where the plain version runs, also its
-    scan of products alone and its tail alone (each kernel's plain
-    version).  Returns the two kernels' ``kernels`` records (at N = 98, T
-    = 1,600) with their launches."""
+    on the card at ASSOC_CASES (:func:`assoc_case`).  Each call is driven
+    with the counts at 0 just before it and read just after (the product
+    kernel once a level's products, the row kernel once).  Held to float64
+    (the plain banded forward, or the dense forward for the dense case, on
+    the CPU) within ASSOC_TOL, to the sequential banded kernel
+    (``forward_log_banded``) within :func:`assoc_seq_tol`, where the plain
+    version's sums fit (T <= 1,600) to it within ASSOC_TOL, and bit for bit
+    (``torch.equal``, and a digest of log_alpha) to the dense kernels they
+    replaced and to the k-tiled route alone (:func:`build_assoc_variants`).
+    Times: one event pair around a call (``ms``), each kernel alone per
+    call replayed from a CUDA graph (:func:`graph_ms`: the scan's products
+    alone, the tail alone) and under the profiler where every profile kept
+    every launch (:func:`call_device_ms`; ``profiled_*``), in turns (parent,
+    change, tiled, tiled, change, parent) with the card's SM clock read
+    during each (:class:`SmClock`); the call's split (operator build,
+    products, tail, the rest), the sequential kernel alone, the plain
+    version and its scan of products and tail alone (each kernel's plain
+    version) where it runs; the live-term
+    bounds (:func:`assoc_live_bound`, the record's ``bound_ms``) and the
+    dense bounds (:func:`assoc_bound`), each kernel's share of both.
+    Returns the two kernels' ``kernels`` records (at N = 98, T = 1,600)
+    with their launches."""
     gen = torch.Generator().manual_seed(seed)
+    variants = build_assoc_variants()
     lines = []
     for n_want, t, max_l in ASSOC_CASES:
-        band, log_pi, log_b, _ = dp_inputs(gen, 2, t, max_l)
-        band, log_pi, log_b = band[0], log_pi[0], log_b[0].contiguous()
-        n = int(band.shape[0])
-        check(n == n_want, f"assoc: {n} sentence states, expected {n_want}")
-        log_a = hmm_ops.band_to_dense(band)
+        band, log_a, log_pi, log_b = assoc_case(gen, n_want, t, max_l)
+        n = n_want
         mask = torch.ones(t, dtype=torch.bool, device="cuda")
 
         def call():
             return hmm_ops.forward_log_assoc(log_a, log_pi, log_b)
+
+        def variant_call(name):
+            return lambda: hmm_ops._forward_assoc(log_a, log_pi, log_b,
+                                                  *variants[name])
 
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -2327,34 +2509,57 @@ def phase_assoc(seed: int, smi: str) -> dict:
               f"{len(products)} products and 1 row launch")
         check(bool(torch.isfinite(got_a).all()) and got_a.shape == (t, n),
               f"assoc N={n} T={t}: finite log_alpha of shape (T, N)")
-        ref_a, ref_ll = hmm_ops.forward_log_banded_plain(
-            band[None].double().cpu(), log_pi[None].double().cpu(),
-            log_b[None].double().cpu(), mask[None].cpu(), TRAIN_W)
-        seq_a, seq_ll = hmm_ops.forward_log_banded(band, log_pi, log_b, mask,
-                                                   TRAIN_W)
+        par_a, par_ll = variant_call("parent")()
+        til_a, til_ll = variant_call("tiled")()
+        same_parent = bool(torch.equal(got_a, par_a)
+                           and torch.equal(got_ll, par_ll))
+        same_tiled = bool(torch.equal(got_a, til_a)
+                          and torch.equal(got_ll, til_ll))
+        if band is None:
+            ref_a, ref_ll = hmm_ops.forward_log(
+                log_a.double().cpu(), log_pi.double().cpu(),
+                log_b.double().cpu(), mask.cpu())
+            ref_a, ref_ll = ref_a[None], ref_ll[None]
+        else:
+            ref_a, ref_ll = hmm_ops.forward_log_banded_plain(
+                band[None].double().cpu(), log_pi[None].double().cpu(),
+                log_b[None].double().cpu(), mask[None].cpu(), TRAIN_W)
         err64, same64 = alpha_error(got_a, ref_a[0])
-        err_seq, same_seq = alpha_error(got_a, seq_a)
-        seq_err64, _ = alpha_error(seq_a, ref_a[0])
         ll64 = float(ref_ll[0])
         line = dict(
+            case="dense" if band is None else "sentence",
             n_s=n, t=t, label_units=max_l, loglik=float(got_ll),
             loglik_float64=ll64,
             loglik_rel_err_float64=abs(float(got_ll) - ll64) / abs(ll64),
             alpha_err_float64=err64,
-            seq_loglik_rel_err_float64=abs(float(seq_ll) - ll64) / abs(ll64),
-            seq_alpha_err_float64=seq_err64,
-            alpha_err_vs_seq=err_seq,
-            loglik_rel_err_vs_seq=abs(float(got_ll) - float(seq_ll))
-            / abs(float(seq_ll)),
             launches_product=counts["product"], launches_rows=counts["rows"],
+            digest=digest(got_a), parent_digest=digest(par_a),
+            tiled_digest=digest(til_a), bit_equal_to_parent=same_parent,
+            bit_equal_to_tiled=same_tiled,
             peak_mem_bytes=peak, operators_bytes=4 * (t - 1) * n * n,
             tol=dict(float64=ASSOC_TOL, sequential=assoc_seq_tol(t)))
+        check(same_parent and line["digest"] == line["parent_digest"],
+              f"assoc bit for bit the dense kernels': {line}")
+        check(same_tiled and line["digest"] == line["tiled_digest"],
+              f"assoc bit for bit the k-tiled route's: {line}")
         check(same64 and err64 <= ASSOC_TOL
               and line["loglik_rel_err_float64"] <= ASSOC_TOL,
               f"assoc vs float64: {line}")
-        check(same_seq and err_seq <= assoc_seq_tol(t)
-              and line["loglik_rel_err_vs_seq"] <= assoc_seq_tol(t),
-              f"assoc vs the sequential kernel: {line}")
+        seq_a = None
+        if band is not None:
+            seq_a, seq_ll = hmm_ops.forward_log_banded(band, log_pi, log_b,
+                                                       mask, TRAIN_W)
+            err_seq, same_seq = alpha_error(got_a, seq_a)
+            line.update(
+                seq_loglik_rel_err_float64=abs(float(seq_ll) - ll64)
+                / abs(ll64),
+                seq_alpha_err_float64=alpha_error(seq_a, ref_a[0])[0],
+                alpha_err_vs_seq=err_seq,
+                loglik_rel_err_vs_seq=abs(float(got_ll) - float(seq_ll))
+                / abs(float(seq_ll)))
+            check(same_seq and err_seq <= assoc_seq_tol(t)
+                  and line["loglik_rel_err_vs_seq"] <= assoc_seq_tol(t),
+                  f"assoc vs the sequential kernel: {line}")
         if t <= 1600:
             plain = lambda: hmm_ops.forward_log_assoc_plain(   # noqa: E731
                 log_a, log_pi, log_b)
@@ -2385,34 +2590,127 @@ def phase_assoc(seed: int, smi: str) -> dict:
         else:
             line["plain_ms"] = ("not measured: the plain version's [P, N, N, "
                                 "N] sums take ~30 GB")
-        del got_a, seq_a, ref_a
+        del got_a, par_a, til_a, seq_a, ref_a
         torch.cuda.empty_cache()
+        # this, the parent kernels and the k-tiled route alone in turns:
+        # parent, change, tiled, tiled, change, parent, the SM clock read
+        # during each; each turn a call's wall time, the profiler's sums of
+        # its launches, and the scan's products alone and the tail alone
+        # replayed from a CUDA graph
+        fns = {"parent": variant_call("parent"), "change": call,
+               "tiled": variant_call("tiled")}
+        kernels = {"parent": variants["parent"], "tiled": variants["tiled"],
+                   "change": (ak.lse_product_cuda, ak.lse_rows_cuda)}
+        ops = log_a[None] + log_b[1:, None, :]
+        prefix = torch.empty_like(ops)
+        alpha0 = log_pi + log_b[0]
+        tail = torch.empty((t - 1, n), device="cuda")
+        dev = {who: [] for who in fns}
+        wall = {who: [] for who in fns}
+        scan = {who: [] for who in fns}
+        rows_ev = {who: [] for who in fns}
+        clock = {who: [] for who in fns}
+        for who in ("parent", "change", "tiled", "tiled", "change",
+                    "parent"):
+            product, rows = kernels[who]
+            with SmClock() as sm:
+                wall[who].append(median_ms(fns[who], reps=5))
+                dev[who].append(call_device_ms(
+                    fns[who], (len(products), 1)))
+                scan[who].append(graph_ms(
+                    lambda: hmm_ops._assoc_scan_into(ops, prefix, product)))
+                rows_ev[who].append(graph_ms(
+                    lambda: rows(alpha0, prefix, tail)))
+            clock[who].append(float(np.median(sm.mhz)) if sm.mhz
+                              else "not measured")
+        del ops, prefix
+
+        def mean(who, key):
+            """The kernel alone: the mean of the graph replays."""
+            return float(np.mean((scan if key == "product" else
+                                  rows_ev)[who]))
+
+        def profiled(who, key):
+            """The profiler's mean where every turn's profile kept every
+            launch (inside the whole script it may lose some)."""
+            vals = [d[key] for d in dev[who]]
+            return (sum(vals) / len(vals)
+                    if all(isinstance(v, float) for v in vals)
+                    else "not measured")
+
+        ms = float(np.mean(wall["change"]))
+        bound = assoc_bound(t, n)
+        live = assoc_live_bound(log_a, log_pi, log_b)
+        operators_ms = median_ms(lambda: log_a[None] + log_b[1:, None, :])
         line.update(
-            ms=median_ms(call, reps=5),
-            product_kernel_ms=kernel_device_total_ms(call, "lse_product"),
-            rows_kernel_ms=kernel_device_total_ms(call, "lse_rows"),
-            seq_kernel_ms=kernel_device_ms(
+            ms=ms, ms_turns=wall["change"], parent_ms=float(
+                np.mean(wall["parent"])), parent_ms_turns=wall["parent"],
+            tiled_ms=float(np.mean(wall["tiled"])),
+            product_kernel_ms=mean("change", "product"),
+            rows_kernel_ms=mean("change", "rows"),
+            parent_product_kernel_ms=mean("parent", "product"),
+            parent_rows_kernel_ms=mean("parent", "rows"),
+            tiled_product_kernel_ms=mean("tiled", "product"),
+            profiled_ms={w: {k: profiled(w, k) for k in ("product", "rows")}
+                         for w in dev},
+            profiled_product_kernel_ms_turns={
+                w: [d["product"] for d in dev[w]] for w in dev},
+            profiled_launches_turns={w: [d["events"] for d in dev[w]]
+                                     for w in dev},
+            products_graph_ms_turns=scan, rows_graph_ms_turns=rows_ev,
+            sm_clock_mhz_turns=clock, dense_bound=bound, live_bound=live,
+            library_ms=None)
+        for key, k_ms in (("product", line["product_kernel_ms"]),
+                          ("rows", line["rows_kernel_ms"])):
+            line[f"{key}_share_of_live_bound"] = live[key]["bound_ms"] / k_ms
+            line[f"{key}_share_of_dense_bound"] = bound[key]["bound_ms"] / k_ms
+        line["product_vs_parent"] = (line["product_kernel_ms"]
+                                     / line["parent_product_kernel_ms"])
+        line["product_vs_tiled"] = (line["product_kernel_ms"]
+                                    / line["tiled_product_kernel_ms"])
+        # the call's split: the operators' build (one elementwise launch,
+        # alone), the products, the tail, and the rest of the call (the
+        # level copies, the concatenation, the final logsumexp, allocation
+        # and launch gaps); the device's busy time where the profiler kept
+        # every launch
+        busy = profiled("change", "busy")
+        busy = busy if isinstance(busy, float) else None
+        line["split_ms"] = dict(
+            operators=operators_ms, products=line["product_kernel_ms"],
+            tail=line["rows_kernel_ms"],
+            rest=ms - operators_ms - line["product_kernel_ms"]
+            - line["rows_kernel_ms"],
+            device_busy="not measured" if busy is None else busy,
+            device_idle="not measured" if busy is None else ms - busy)
+        if band is not None:
+            line["seq_kernel_ms"] = kernel_device_ms(
                 lambda: hmm_ops.forward_log_banded(band, log_pi, log_b, mask,
                                                    TRAIN_W), "forward",
-                reps=5),
-            bound=assoc_bound(t, n), library_ms=None)
+                reps=5)
         say("assoc", **line)
         lines.append(line)
-    rec = next(v for v in lines if v["t"] == 1600)
+    rec = next(v for v in lines if v["t"] == 1600 and v["n_s"] == 98
+               and v["case"] == "sentence")
     out = {}
     for key, ms in (("product", "product_kernel_ms"),
                     ("rows", "rows_kernel_ms")):
         out[key] = dict(
             launches=rec[f"launches_{key}"], max_abs_err=rec["max_abs_err"],
-            ms=rec[ms], plain_ms=rec[f"plain_{key}_ms"],
-            plain_call_ms=rec["plain_ms"],
-            bound_ms=rec["bound"][key]["bound_ms"],
-            bound_by=rec["bound"][key]["bound_by"],
-            exp_floor_ms=rec["bound"][key]["exp_floor_ms"], library_ms=None,
-            n_s=rec["n_s"], t=rec["t"], call_ms=rec["ms"],
-            other_cases=[{k: v[k] for k in ("n_s", "t", "ms", ms,
+            ms=rec[ms], profiled_ms=rec["profiled_ms"]["change"][key],
+            parent_ms=rec[f"parent_{ms}"],
+            plain_ms=rec[f"plain_{key}_ms"], plain_call_ms=rec["plain_ms"],
+            bound_ms=rec["live_bound"][key]["bound_ms"],
+            bound_by=rec["live_bound"][key]["bound_by"],
+            dense_bound_ms=rec["dense_bound"][key]["bound_ms"],
+            dense_bound_by=rec["dense_bound"][key]["bound_by"],
+            exp_floor_ms=rec["live_bound"][key]["exp_floor_ms"],
+            library_ms=None, n_s=rec["n_s"], t=rec["t"], call_ms=rec["ms"],
+            other_cases=[{k: v[k] for k in ("case", "n_s", "t", "ms", ms,
+                                            f"parent_{ms}",
                                             f"launches_{key}")}
-                         | {"bound_ms": v["bound"][key]["bound_ms"]}
+                         | {"bound_ms": v["live_bound"][key]["bound_ms"],
+                            "dense_bound_ms":
+                                v["dense_bound"][key]["bound_ms"]}
                          for v in lines if v is not rec])
     say("assoc_summary", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
         ptxas_registers_spill_stores_loads=PTXAS.get("hmm_assoc", {}))

@@ -12,7 +12,10 @@ launch and raises if the launch fails.  Operands and output may be strided
 views along their first axis (a level's ``[0:-1:2]`` slices, the
 interleaved output's ``[1::2]``), each matrix row-major and contiguous.
 CUDA tensors only: :func:`poccala_tpu_torch.ops.hmm.forward_log_assoc`
-routes a CPU tensor to the plain version instead.
+routes a CPU tensor to the plain version instead.  ``lib`` runs another
+build of the C interface (:func:`bind`) with the same checks, its launches
+not counted: the kernels the redesign replaced, timed beside it on the
+card, or a host build of the source that the tests run on CPU tensors.
 """
 
 from __future__ import annotations
@@ -70,31 +73,37 @@ def _stride(name: str, x: torch.Tensor, device, shape: tuple) -> int:
     return int(x.stride(0))
 
 
-def _require_cuda(dev: torch.device) -> None:
-    if dev.type != "cuda":
+def _require_cuda(dev: torch.device, lib) -> None:
+    if dev.type != "cuda" and lib is None:
         raise ValueError("the semiring product's kernels take CUDA tensors; "
                          "poccala_tpu_torch.ops.hmm.forward_log_assoc runs "
                          "the plain version on the CPU")
 
 
-def _launch(fn, *args) -> None:
+def _launch(lib, fn, *args) -> None:
+    """``fn`` of ``lib`` (the port's build where None) on the arguments'
+    device: its current CUDA stream, or none for a host build."""
     dev = args[0].device
-    lib = _lib()
-    with torch.cuda.device(dev):
-        rc = getattr(lib, fn)(*(a.data_ptr() if isinstance(a, torch.Tensor)
-                                else a for a in args),
-                              torch.cuda.current_stream(dev).cuda_stream)
+    lib = lib or _lib()
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            rc = getattr(lib, fn)(*ptrs,
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        rc = getattr(lib, fn)(*ptrs, None)
     if rc != 0:
         raise RuntimeError(f"{fn} kernel launch failed: "
                            + lib.hmm_assoc_error_string(rc).decode())
 
 
-def lse_product_cuda(a: torch.Tensor, b: torch.Tensor,
-                     out: torch.Tensor) -> torch.Tensor:
+def lse_product_cuda(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+                     lib: ctypes.CDLL | None = None) -> torch.Tensor:
     """``out[p, i, j] = max(LSE_k(a[p, i, k] + b[p, k, j]), NEG_INF)``
     (JAX's logsumexp: the max first, 0 where it is not finite, the sum in
     ascending ``k``): ``a [P, M, K]``, ``b [P, K, N]``, ``out [P, M, N]``,
-    float32 on one card.  One launch (none at ``P = 0``); returns ``out``."""
+    float32 on one card.  One launch (none at ``P = 0``), counted where
+    ``lib`` is None; returns ``out``."""
     if a.ndim != 3 or b.ndim != 3 or out.ndim != 3:
         raise ValueError(f"a {tuple(a.shape)}, b {tuple(b.shape)}, out "
                          f"{tuple(out.shape)}: expected (P, M, K), (P, K, N) "
@@ -102,34 +111,35 @@ def lse_product_cuda(a: torch.Tensor, b: torch.Tensor,
     p, m, k = a.shape
     n = b.shape[2]
     dev = a.device
-    _require_cuda(dev)
+    _require_cuda(dev, lib)
     strides = [_stride("a", a, dev, (p, m, k)),
                _stride("b", b, dev, (p, k, n)),
                _stride("out", out, dev, (p, m, n))]
     if p == 0:
         return out
-    _launch("hmm_lse_product", a, strides[0], b, strides[1], out, strides[2],
-            p, m, k, n)
-    lse_product_cuda.launches += 1
+    _launch(lib, "hmm_lse_product", a, strides[0], b, strides[1], out,
+            strides[2], p, m, k, n)
+    if lib is None:
+        lse_product_cuda.launches += 1
     return out
 
 
 lse_product_cuda.launches = 0
 
 
-def lse_rows_cuda(a: torch.Tensor, b: torch.Tensor,
-                  out: torch.Tensor) -> torch.Tensor:
+def lse_rows_cuda(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+                  lib: ctypes.CDLL | None = None) -> torch.Tensor:
     """``out[p, j] = max(LSE_k(a[k] + b[p, k, j]), NEG_INF)``, the row form
     of :func:`lse_product_cuda` with one row ``a [K]`` for every ``p`` (or
     ``a [P, K]``, a row each): ``b [P, K, N]``, ``out [P, N]``.  One launch
-    (none at ``P = 0``); returns ``out``."""
+    (none at ``P = 0``), counted where ``lib`` is None; returns ``out``."""
     if a.ndim not in (1, 2) or b.ndim != 3 or out.ndim != 2:
         raise ValueError(f"a {tuple(a.shape)}, b {tuple(b.shape)}, out "
                          f"{tuple(out.shape)}: expected (K,) or (P, K), "
                          "(P, K, N) and (P, N)")
     p, k, n = b.shape
     dev = b.device
-    _require_cuda(dev)
+    _require_cuda(dev, lib)
     if a.ndim == 1:
         _stride("a", a[None], dev, (1, k))
         sa = 0
@@ -139,8 +149,10 @@ def lse_rows_cuda(a: torch.Tensor, b: torch.Tensor,
                _stride("out", out, dev, (p, n))]
     if p == 0:
         return out
-    _launch("hmm_lse_rows", a, sa, b, strides[0], out, strides[1], p, k, n)
-    lse_rows_cuda.launches += 1
+    _launch(lib, "hmm_lse_rows", a, sa, b, strides[0], out, strides[1], p, k,
+            n)
+    if lib is None:
+        lse_rows_cuda.launches += 1
     return out
 
 

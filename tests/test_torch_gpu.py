@@ -319,11 +319,13 @@ def test_forward_log_assoc_gpu_matches_cpu(cuda, n, t, banded):
 
 
 @pytest.mark.parametrize("p,m,k,n", [(3, 37, 45, 50), (5, 98, 98, 98),
-                                     (2, 1, 70, 65)])
+                                     (2, 1, 70, 65), (2, 139, 139, 139),
+                                     (2, 140, 140, 140)])
 def test_lse_product_kernel_matches_plain(cuda, p, m, k, n):
     """The product and row kernels against the plain product on the card:
-    ragged tiles, NEG_INF rows and columns, a strided operand and output;
-    2e-6 relative and 1e-5 absolute."""
+    ragged tiles, NEG_INF rows and columns, a strided operand and output,
+    both sides of the shared-memory route's limit (N = 139 fits a CTA, 140
+    takes k-tiles); 2e-6 relative and 1e-5 absolute."""
     from poccala_tpu_torch.ops.cuda import hmm_assoc_cuda as ak
 
     rng = np.random.default_rng(p + m)
@@ -343,6 +345,56 @@ def test_lse_product_kernel_matches_plain(cuda, p, m, k, n):
     want_rows = torch.empty_like(rows)
     thmm._rows_into_plain(a[0, 0], b, want_rows)
     assert torch.allclose(rows, want_rows, rtol=2e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [98, 140])
+def test_lse_product_kernel_all_dead(cuda, n):
+    """An all-dead product (NEG_INF and -inf operands) on each route of the
+    product kernel (shared memory at N = 98, k-tiles at 140) and through
+    the row kernel: every output exactly NEG_INF, as the plain version's."""
+    from poccala_tpu_torch.ops.cuda import hmm_assoc_cuda as ak
+
+    a = torch.full((3, n, n), -1e30, device=cuda)
+    a[:, ::2] = -float("inf")
+    b = torch.full((3, n, n), -1e30, device=cuda)
+    out = torch.full((3, n, n), float("nan"), device=cuda)
+    ak.lse_product_cuda(a, b, out)
+    assert torch.equal(out, thmm._lse_product_plain(a, b))
+    assert (out == -1e30).all()
+    rows = torch.full((3, n), float("nan"), device=cuda)
+    ak.lse_rows_cuda(a[0, 1], b, rows)
+    assert (rows == -1e30).all()
+
+
+@pytest.mark.parametrize("n", [98, 122, 140])
+def test_lse_product_kernel_nan(cuda, n):
+    """NaN operands where the other operand is dead (a band's outside) on
+    each route of the product kernel (two buffers at N = 98, one at 122,
+    k-tiles at 140) and through the row kernel: NaN wherever the plain
+    version's output is NaN (a row of ``a``, a column of ``b``), the rest
+    within 2e-6 relative and 1e-5 absolute."""
+    from poccala_tpu_torch.ops.cuda import hmm_assoc_cuda as ak
+
+    rng = np.random.default_rng(n)
+    d = np.arange(n)[None, :] - np.arange(n)[:, None]
+    a = np.where((d >= 0) & (d < 9), rng.normal(size=(2, n, n)) * 3, -1e30)
+    b = np.where((d >= 0) & (d < 5), rng.normal(size=(2, n, n)) * 3, -1e30)
+    a[:, n // 2, n - 3] = np.nan
+    b[:, n // 4, n - 2] = b[:, n - 1, 3] = np.nan
+    a, b = (torch.tensor(x, dtype=torch.float32, device=cuda) for x in (a, b))
+    out = torch.empty((2, n, n), device=cuda)
+    ak.lse_product_cuda(a, b, out)
+    want = thmm._lse_product_plain(a, b)
+    assert torch.isnan(out[:, n // 2]).all()
+    assert torch.isnan(out[:, :, n - 2]).all()
+    assert torch.allclose(out, want, rtol=2e-6, atol=1e-5, equal_nan=True)
+    rows = torch.empty((2, n), device=cuda)
+    ak.lse_rows_cuda(a[0, 0], b, rows)
+    want_rows = torch.empty_like(rows)
+    thmm._rows_into_plain(a[0, 0], b, want_rows)
+    assert torch.isnan(rows[:, [3, n - 2]]).all()
+    assert torch.allclose(rows, want_rows, rtol=2e-6, atol=1e-5,
+                          equal_nan=True)
 
 
 def test_decoder_gpu_matches_cpu(cuda):
