@@ -1,0 +1,6 @@
+"""``device_idle_pct.decode``, read in the CD decode cells, which report
+``decode_audio_s_per_s.cd``."""
+
+from asrbench.harness.spec import metric_reader
+
+read = metric_reader("device_idle_pct.decode")
