@@ -1,0 +1,8 @@
+"""Device ms a training step of the program's ``train.align`` span:
+the realignment (``align_batch``), timed by the span's CUDA events."""
+
+from asrbench.harness.spans import device_ms_a_step
+
+
+def read(run):
+    return device_ms_a_step("train.align")

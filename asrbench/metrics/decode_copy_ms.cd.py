@@ -1,0 +1,6 @@
+"""``decode_copy_ms.decode``, read in the CD decode cells, which report
+``decode_audio_s_per_s.cd``."""
+
+from asrbench.harness.spec import metric_reader
+
+read = metric_reader("decode_copy_ms.decode")

@@ -89,6 +89,7 @@ from poccala_tpu_torch.decoder.vector import VectorBeamDecoder
 from poccala_tpu_torch.ops.cuda.decoder_scan_cuda import \
     decoder_finalize_cuda, decoder_scan_cuda, decoder_scan_pruned_cuda
 from poccala_tpu_torch.ops.gmm_score import gmm_log_scores_batch
+from poccala_tpu_torch.utils import profiling
 from poccala_tpu_torch.utils.logmath import NEG_INF
 
 
@@ -293,16 +294,18 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         b_orig = int(np.shape(feats)[0])
         if len(self._roots) == 0:
             return (None, None, b_orig, return_nbest, None)
-        if mesh is not None:
-            from poccala_tpu_torch.parallel import mesh as pmesh
+        with profiling.span("decode.dispatch"):
+            if mesh is not None:
+                from poccala_tpu_torch.parallel import mesh as pmesh
 
-            if isinstance(n_frames, torch.Tensor):
-                n_frames = n_frames.cpu().numpy()
-            (feats, n_frames), _ = pmesh.pad_batch_for_mesh(
-                (feats, np.asarray(n_frames)), mesh)
-            rows = pmesh.data_rows(mesh, feats.shape[0])
-            feats, n_frames = feats[rows], n_frames[rows]
-        seqs, scores = self._run(feats, n_frames, self._n_cand(return_nbest))
+                if isinstance(n_frames, torch.Tensor):
+                    n_frames = n_frames.cpu().numpy()
+                (feats, n_frames), _ = pmesh.pad_batch_for_mesh(
+                    (feats, np.asarray(n_frames)), mesh)
+                rows = pmesh.data_rows(mesh, feats.shape[0])
+                feats, n_frames = feats[rows], n_frames[rows]
+            seqs, scores = self._run(feats, n_frames,
+                                     self._n_cand(return_nbest))
         return (seqs, scores, b_orig, return_nbest, mesh)
 
     def _run(self, feats, n_frames, n_cand: int):
@@ -332,8 +335,15 @@ class DeviceBeamDecoder(VectorBeamDecoder):
             b_pad = seqs.shape[0] * mesh_shape(mesh)["data"]
             seqs = gather_rows(seqs, mesh, b_pad)
             scores = gather_rows(scores, mesh, b_pad)
-        return self._to_hypotheses(seqs.cpu().numpy(), scores.cpu().numpy(),
-                                   b_orig, return_nbest)
+        return self._host_hypotheses(seqs, scores, b_orig, return_nbest)
+
+    def _host_hypotheses(self, seqs, scores, b_orig, return_nbest):
+        """The n-best's two host copies (they wait for the call's device
+        work), then :meth:`_to_hypotheses`."""
+        with profiling.span("decode.copy"):
+            seqs, scores = seqs.cpu().numpy(), scores.cpu().numpy()
+        with profiling.span("decode.map"):
+            return self._to_hypotheses(seqs, scores, b_orig, return_nbest)
 
     @staticmethod
     def _n_cand(return_nbest: int) -> int:
@@ -424,8 +434,7 @@ class DeviceBeamDecoder(VectorBeamDecoder):
         seqs, scores = self._finalize(
             tabs, st.carry, torch.cat(st.tb_prev, dim=1),
             torch.cat(st.tb_word, dim=1), self._n_cand(return_nbest))
-        return self._to_hypotheses(seqs.cpu().numpy(), scores.cpu().numpy(),
-                                   st.batch, return_nbest)
+        return self._host_hypotheses(seqs, scores, st.batch, return_nbest)
 
     def decode_stream(self, chunks, return_nbest: int = 1):
         """Decode one utterance (or a lockstep batch) delivered as a list

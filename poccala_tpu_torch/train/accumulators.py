@@ -42,6 +42,7 @@ from poccala_tpu_torch.models.senone_bank import SenoneBank
 from poccala_tpu_torch.models.topology import EmbeddedHMM, build_embedded_batch
 from poccala_tpu_torch.ops import hmm as hmm_ops
 from poccala_tpu_torch.ops.gmm_score import gmm_component_logpdf
+from poccala_tpu_torch.utils import profiling
 from poccala_tpu_torch.utils.device import resolve
 from poccala_tpu_torch.utils.logmath import NEG_INF, masked_log
 
@@ -164,20 +165,31 @@ def _weighted_stats(bank, ehmm, labels, xs, t_masks, weight, state_num,
                     bw_inner_iters, bw_converge_delta, score_dtype, mark,
                     state_axis_name=None, s_offset=0):
     """The batch's statistics with utterance ``b`` weighted by
-    ``weight[b]``, and the per-utterance log-likelihoods ``[B]``."""
-    emit = state_num - 2
-    s_total = bank.num_states
-    u_total, n, _ = bank.log_A.shape
+    ``weight[b]``, and the per-utterance log-likelihoods ``[B]``: the
+    scoring, the forward-backward and the statistics, each a span."""
     dev = xs.device
-    b, t_pad, _ = xs.shape
-    n_s = ehmm.senone_idx.shape[1]
-    r = torch.arange(n_s, device=dev)[None, :]
-
-    comp, scores, log_b = sentence_scores(bank, ehmm, xs, normalizer,
-                                          score_dtype, state_axis_name,
-                                          s_offset)
+    with profiling.span("train.estep.scoring", dev):
+        comp, scores, log_b = sentence_scores(bank, ehmm, xs, normalizer,
+                                              score_dtype, state_axis_name,
+                                              s_offset)
     mark("scoring")
+    with profiling.span("train.estep.forward_backward", dev):
+        log_alpha, log_beta, loglik = _forward_backward(
+            ehmm, log_b, t_masks, state_num, bw_inner_iters,
+            bw_converge_delta)
+    mark("forward_backward")
+    with profiling.span("train.estep.statistics", dev):
+        stats = _statistics(bank, ehmm, labels, xs, t_masks, weight,
+                            state_num, max_label_len, count_final_exit,
+                            state_axis_name, s_offset, comp, scores, log_b,
+                            log_alpha, log_beta, loglik)
+    mark("statistics")
+    return stats, loglik
 
+
+def _forward_backward(ehmm, log_b, t_masks, state_num, bw_inner_iters,
+                      bw_converge_delta):
+    """``(log_alpha, log_beta, loglik)`` of the sentence HMMs."""
     def fb(log_pi):
         la, ll = hmm_ops.forward_log_banded_batch(
             ehmm.band, log_pi, log_b, t_masks, state_num)
@@ -212,9 +224,21 @@ def _weighted_stats(bank, ehmm, labels, xs, t_masks, weight, state_num,
             g0 = torch.where(a1, la[:, 0] + lb[:, 0], g0)
             it += 1
 
-    log_alpha, log_beta, loglik = fb(log_pi_used)
-    mark("forward_backward")
+    return fb(log_pi_used)
 
+
+def _statistics(bank, ehmm, labels, xs, t_masks, weight, state_num,
+                max_label_len, count_final_exit, state_axis_name, s_offset,
+                comp, scores, log_b, log_alpha, log_beta, loglik) -> BwStats:
+    """The weighted GMM and transition statistics from the lattice's
+    posteriors."""
+    emit = state_num - 2
+    s_total = bank.num_states
+    u_total, n, _ = bank.log_A.shape
+    dev = xs.device
+    b = xs.shape[0]
+    n_s = ehmm.senone_idx.shape[1]
+    r = torch.arange(n_s, device=dev)[None, :]
     w3 = weight[:, None, None]
     emitting = ehmm.senone_idx >= 0                                # [B, N_s]
     ll3 = loglik[:, None, None]
@@ -300,11 +324,9 @@ def _weighted_stats(bank, ehmm, labels, xs, t_masks, weight, state_num,
     trans_den = trans_den[:-1].reshape(u_total, n)
 
     n_frames = t_masks.sum(dim=1).to(torch.float32)
-    stats = BwStats(occ=occ, c=c, cx=cx, cxx=cxx, trans=trans,
-                    trans_den=trans_den, loglik=(loglik * weight).sum(),
-                    n_frames=(n_frames * weight).sum(), n_utts=weight.sum())
-    mark("statistics")
-    return stats, loglik
+    return BwStats(occ=occ, c=c, cx=cx, cxx=cxx, trans=trans,
+                   trans_den=trans_den, loglik=(loglik * weight).sum(),
+                   n_frames=(n_frames * weight).sum(), n_utts=weight.sum())
 
 
 def _no_mark(_: str) -> None:

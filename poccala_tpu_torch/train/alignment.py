@@ -22,6 +22,7 @@ from poccala_tpu_torch.models.senone_bank import SenoneBank
 from poccala_tpu_torch.models.topology import build_embedded_batch
 from poccala_tpu_torch.ops import hmm as hmm_ops
 from poccala_tpu_torch.train.accumulators import sentence_scores
+from poccala_tpu_torch.utils import profiling
 
 
 def align_batch(bank: SenoneBank, labels, label_lens, xs, t_masks,
@@ -34,22 +35,23 @@ def align_batch(bank: SenoneBank, labels, label_lens, xs, t_masks,
         index into the label sequence, -1 on virtual states and padding)
     """
     dev = bank.means.device
-    labels = torch.as_tensor(labels, device=dev)
-    label_lens = torch.as_tensor(label_lens, device=dev)
-    xs = torch.as_tensor(xs, dtype=torch.float32, device=dev)
-    t_masks = torch.as_tensor(t_masks, device=dev).to(torch.bool)
-    ehmm = build_embedded_batch(bank, labels, label_lens, state_num,
-                                max_label_len)
-    _, _, log_b = sentence_scores(bank, ehmm, xs, normalizer, score_dtype,
-                                  state_axis_name, s_offset)
-    score, path, _ = hmm_ops.viterbi_log_banded_batch(
-        ehmm.band, ehmm.log_pi, log_b, t_masks, state_num)
-    emit = state_num - 2
-    path = path.long()
-    pos = torch.div(path - 1, emit, rounding_mode="floor")
-    is_emit = ((path >= 1) & (path < ehmm.n_states[:, None].long() - 1)
-               & t_masks)
-    return score, torch.where(is_emit, pos, -1).to(torch.int32)
+    with profiling.span("train.align", dev):
+        labels = torch.as_tensor(labels, device=dev)
+        label_lens = torch.as_tensor(label_lens, device=dev)
+        xs = torch.as_tensor(xs, dtype=torch.float32, device=dev)
+        t_masks = torch.as_tensor(t_masks, device=dev).to(torch.bool)
+        ehmm = build_embedded_batch(bank, labels, label_lens, state_num,
+                                    max_label_len)
+        _, _, log_b = sentence_scores(bank, ehmm, xs, normalizer,
+                                      score_dtype, state_axis_name, s_offset)
+        score, path, _ = hmm_ops.viterbi_log_banded_batch(
+            ehmm.band, ehmm.log_pi, log_b, t_masks, state_num)
+        emit = state_num - 2
+        path = path.long()
+        pos = torch.div(path - 1, emit, rounding_mode="floor")
+        is_emit = ((path >= 1) & (path < ehmm.n_states[:, None].long() - 1)
+                   & t_masks)
+        return score, torch.where(is_emit, pos, -1).to(torch.int32)
 
 
 def align_utterance(bank, label, label_len, x, t_mask, state_num: int,

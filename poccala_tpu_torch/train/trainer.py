@@ -46,6 +46,7 @@ from poccala_tpu_torch.ops import em as em_ops
 from poccala_tpu_torch.ops import kmeans as km_ops
 from poccala_tpu_torch.train import accumulators as acc
 from poccala_tpu_torch.train import alignment as align
+from poccala_tpu_torch.utils import profiling
 from poccala_tpu_torch.utils.errors import ModeError
 from poccala_tpu_torch.utils.logging import get_logger
 from poccala_tpu_torch.utils.logmath import masked_log
@@ -108,7 +109,10 @@ class Trainer:
 
     ``mark``, when given, is called with a phase name as each scheme-1
     phase has been enqueued — ``"alignment"``, ``"grouping"``,
-    ``"kmeans"``, ``"em"``, ``"smem"``, ``"transmat"`` — for timing.
+    ``"kmeans"``, ``"em"``, ``"smem"``, ``"transmat"`` — and in each
+    embedded epoch (:meth:`scheme2_epoch`, also scheme 1's transmat epoch)
+    as each batch's ``"scoring"``, ``"forward_backward"`` and
+    ``"statistics"`` and the epoch's ``"m_step"`` have been, for timing.
 
     ``mesh``: a ``(data, state)`` mesh (:func:`poccala_tpu_torch.parallel.
     mesh.make_mesh`); ``device`` then defaults to the mesh's.  Every rank
@@ -312,25 +316,28 @@ class Trainer:
                 "scalar c_covariance floor (pass a materialized batch "
                 "list, or call _ensure_var_floor first)")
         mcfg = self.cfg.model
-        total = acc.zero_stats(self.bank)
-        for batch in batches:
-            if self._parallel_estep is not None:
-                arrays, _ = self._padded_batch(batch)
-                stats, _ = self._parallel_estep(self.bank, *arrays)
-            else:
-                stats, _ = acc.batch_stats(
-                    self.bank, batch.labels, batch.label_lens, batch.feats,
-                    batch.t_masks, self.state_num,
-                    self.cfg.train.max_label_len,
-                    normalizer=mcfg.gaussian_normalizer,
-                    count_final_exit=mcfg.count_final_exit,
-                    bw_inner_iters=mcfg.bw_inner_iters,
-                    score_dtype=mcfg.score_dtype)
-            total = acc.add_stats(total, stats)
-        self.bank = acc.apply_update(
-            self.bank, total, c_covariance=self.var_floor,
-            update_transmat=update_transmat, update_gmm=update_gmm)
-        ll = float(total.loglik)
+        with profiling.span("train.epoch", self.device):
+            total = acc.zero_stats(self.bank)
+            for batch in batches:
+                if self._parallel_estep is not None:
+                    arrays, _ = self._padded_batch(batch)
+                    stats, _ = self._parallel_estep(self.bank, *arrays)
+                else:
+                    stats, _ = acc.batch_stats(
+                        self.bank, batch.labels, batch.label_lens,
+                        batch.feats, batch.t_masks, self.state_num,
+                        self.cfg.train.max_label_len,
+                        normalizer=mcfg.gaussian_normalizer,
+                        count_final_exit=mcfg.count_final_exit,
+                        bw_inner_iters=mcfg.bw_inner_iters,
+                        score_dtype=mcfg.score_dtype, mark=self.mark)
+                total = acc.add_stats(total, stats)
+            with profiling.span("train.mstep", self.device):
+                self.bank = acc.apply_update(
+                    self.bank, total, c_covariance=self.var_floor,
+                    update_transmat=update_transmat, update_gmm=update_gmm)
+            self.mark("m_step")
+            ll = float(total.loglik)
         n = max(float(total.n_utts), 1.0)
         self.log.info("embedded BW epoch: loglik=%.2f (%.2f/utt over %d utts)",
                       ll, ll / n, int(n))

@@ -975,6 +975,28 @@ def test_optimer_timeit_synchronises(cuda, monkeypatch):
     assert timer.records["mm"]["calls"] == 5 and "TFLOP/s" in timer.report()
 
 
+def test_optimer_measure_synchronises(cuda, monkeypatch):
+    """``measure`` waits for the card at the block's end, so its time
+    covers the block's device work and not only the enqueue."""
+    from poccala_tpu_torch.utils.profiling import OpTimer
+
+    synced = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: (synced.append(device),
+                                             real(device))[1])
+    a = torch.randn(2048, 2048, device=cuda)
+    (a @ a).sum().item()
+    timer = OpTimer()
+    with timer.measure("mm", flops=10 * 2 * 2048.0 ** 3):
+        for _ in range(10):
+            b = a @ a
+        assert not torch.cuda.current_stream(cuda).query()
+    assert synced == [None] and torch.cuda.current_stream(cuda).query()
+    assert b.is_cuda and timer.records["mm"]["calls"] == 1
+    assert timer.records["mm"]["seconds"] > 1e-4
+
+
 # ----------------------------------------------------------------------
 # the parallel tier on the card
 # ----------------------------------------------------------------------
