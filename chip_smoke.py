@@ -107,7 +107,8 @@ from poccala_tpu_torch.ops.cuda import gmm_score_cuda as gk
 from poccala_tpu_torch.ops.cuda import hmm_assoc_cuda as ak
 from poccala_tpu_torch.ops.cuda import hmm_banded_cuda as hk
 from poccala_tpu_torch.ops.frontend import Frontend
-from poccala_tpu_torch.ops.gmm_score import gmm_log_scores
+from poccala_tpu_torch.ops.gmm_score import (gmm_component_logpdf,
+                                             gmm_log_scores)
 from poccala_tpu_torch.serve import DecodeService
 from poccala_tpu_torch.train import accumulators as acc
 from poccala_tpu_torch.train import alignment as align
@@ -491,6 +492,77 @@ def phase_kernel(seed: int) -> dict:
                 max_abs_err=err, tol=tol, ok=ok)
             check(ok, f"kernel vs plain at ragged {shape} {dtype}")
     torch.cuda.empty_cache()
+    return records
+
+
+# the long-sentence training cell's scoring: 256 utterances of 960 frames,
+# sentences of 266 states, the tied bank of 2,049 senones x 16 mixtures
+SENT_B, SENT_T, SENT_N, SENT_S, SENT_M = 256, 960, 266, 2049, 16
+SENTENCE_REPLACES = ("no Pallas kernel: plain jnp, "
+                     "poccala_tpu/train/accumulators.py:152-166")
+
+
+def sentence_bound(b: int, t: int, n: int, m: int, d: int,
+                   components: bool) -> dict:
+    """x, the rows and the packed bank's rows the sentences name in, the
+    scores [B, T, N] (and the components [B, T, N, M]) out, float32;
+    2·B·T·N·M·2D operations of the product."""
+    n_bytes = 4 * (b * t * d + b * n * (m * (2 * d + 1) + 2) + b * t * n
+                   + (b * t * n * m if components else 0))
+    return bound_ms(n_bytes, 2 * b * t * n * m * 2 * d, "float32")
+
+
+def phase_sentence(seed: int, smi: str) -> dict:
+    """The sentence kernel (the E-step's and the alignment's scoring)
+    against the plain scoring at the training cell's shape and at B = 1:
+    with the components, without them, and the plain version, each time
+    beside its bound.  Returns the records by case."""
+    gen = torch.Generator().manual_seed(seed)
+    x, means, log_var, log_w = scoring_inputs(SENT_T, gen, S=SENT_S,
+                                              M=SENT_M)
+    records = {}
+    for b in (SENT_B, 1):
+        xs = (x[None] + torch.randn(b, SENT_T, D, generator=gen).cuda())
+        sen = torch.randint(0, SENT_S, (b, SENT_N), generator=gen).cuda()
+
+        def plain(xs=xs, sen=sen):
+            comp = gmm_component_logpdf(xs, means[sen], log_var[sen]) \
+                + log_w[sen][:, None]
+            return torch.logsumexp(comp, dim=-1), comp
+
+        # held to the plain version on the first 4 utterances
+        scores, comp = gk.sentence_scores_cuda(xs, sen, means, log_var,
+                                               log_w)
+        want_scores, want_comp = plain(xs[:4].contiguous(), sen[:4])
+        err = max(float((scores[:4] - want_scores).abs().max()),
+                  float((comp[:4] - want_comp).abs().max()))
+        ok = bool(torch.allclose(scores[:4], want_scores, **F32_TOL)
+                  and torch.allclose(comp[:4], want_comp, **F32_TOL))
+        del comp, want_scores, want_comp
+        line = dict(b=b, t=SENT_T, n=SENT_N, s=SENT_S, m=SENT_M, d=D,
+                    max_abs_err=err, tol=F32_TOL, ok=ok)
+        for components in (True, False):
+            key = "comp" if components else "scores"
+
+            def call(components=components):
+                return gk.sentence_scores_cuda(xs, sen, means, log_var,
+                                               log_w, components=components)
+
+            line[key] = dict(
+                ms=median_ms(call),
+                kernel_ms=kernel_device_ms(call, "sentence_score_f32"),
+                **sentence_bound(b, SENT_T, SENT_N, SENT_M, D, components))
+            torch.cuda.empty_cache()
+        line["plain_ms"] = median_ms(plain, reps=3)
+        torch.cuda.empty_cache()
+        line["clocks_under_load"] = clocks_under_load(
+            lambda: gk.sentence_scores_cuda(xs, sen, means, log_var, log_w,
+                                            components=False), 30)
+        line["nvidia_smi"] = smi
+        say("sentence_vs_plain", **line)
+        check(ok, f"sentence kernel vs plain at B = {b}: {line}")
+        records[f"b{b}"] = line
+        del xs, sen
     return records
 
 
@@ -1445,7 +1517,7 @@ def phase_train_throughput(seed: int, smi: str, epochs: int = 8) -> dict:
     """bench.py:143-154's one_epoch on the port: MFCC -> batch_stats ->
     apply_update -> align_batch at 256 x 4 s, one warm-up epoch, then
     ``epochs`` timed epochs synchronised by one probe scalar.  Returns the
-    DP kernels' launches in the timed run."""
+    DP kernels' and the sentence kernel's launches in the timed run."""
     cfg = train_config()
     inv = UnitInventory.standard("XIF")
     signals, n_samp, labels, lens = train_batch(seed, cfg, len(inv))
@@ -1474,6 +1546,7 @@ def phase_train_throughput(seed: int, smi: str, epochs: int = 8) -> dict:
 
     for kernel in hk.KERNELS.values():
         kernel.launches = 0
+    gk.sentence_scores_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bank, total = bank0, 0.0
@@ -1483,6 +1556,7 @@ def phase_train_throughput(seed: int, smi: str, epochs: int = 8) -> dict:
     total = float(total)  # synchronises every epoch's work
     elapsed = time.perf_counter() - t0
     launches = {k: f.launches for k, f in hk.KERNELS.items()}
+    launches["sentence"] = gk.sentence_scores_cuda.launches
     check(np.isfinite(total), f"finite probe ({total})")
     for k, n in launches.items():
         check(n >= epochs, f"the training path launched the {k} kernel "
@@ -4540,6 +4614,7 @@ def phase_shapes(seed: int, smi: str) -> dict:
 
 SOLO = {
     "hmm_kernels": lambda seed, smi: phase_hmm_kernels(seed),
+    "sentence": phase_sentence,
     "host_decode": phase_host_decode,
     "train_throughput": phase_train_throughput,
     "train_scheme1": phase_train_scheme1,
@@ -4588,6 +4663,7 @@ def main(argv=None) -> int:
             SOLO[args.only](args.seed, smi)
         return 0
     records = phase_kernel(args.seed)
+    records["sentence"] = phase_sentence(args.seed, smi)
     records.update(phase_hmm_kernels(args.seed))
     records.update(phase_decoder_scan(args.seed, smi))
     records.update(phase_finalize(args.seed, smi))
@@ -4632,6 +4708,11 @@ def main(argv=None) -> int:
                      source=gk.SOURCE, replaces=gk.REPLACES,
                      launches=cd_launches["gmm_bf16"],
                      **records["bfloat16_cd"])]
+    # the sentence kernel: two launches an epoch (E-step, alignment)
+    kernels.append(dict(name="sentence_scores", route="cuda",
+                        source=gk.SOURCE, replaces=SENTENCE_REPLACES,
+                        launches=train_launches["sentence"],
+                        **records["sentence"]))
     kernels += [dict(name=f"hmm_{k}_banded", route="cuda", source=hk.SOURCE,
                      replaces=hk.REPLACES[k], launches=train_launches[k],
                      launches_cd=cd_launches[k],

@@ -27,8 +27,9 @@ process group —
 * scheme-2 training — corpus batching, flat start, embedded Baum-Welch
   (:mod:`~poccala_tpu_torch.train.accumulators`), Viterbi forced
   alignment and :class:`~poccala_tpu_torch.train.trainer.Trainer`, whose
-  banded forward / backward / Viterbi run hand-written CUDA kernels
-  (``csrc/hmm_banded.cu``) — and npz checkpoints;
+  sentence scoring and banded forward / backward / Viterbi run
+  hand-written CUDA kernels (``csrc/gmm_score.cu``'s sentence kernel,
+  ``csrc/hmm_banded.cu``) — and npz checkpoints;
 * scheme-1 training — per-senone frame buckets from uniform segmentation
   or realignment, grouped k-means and EM (:mod:`~poccala_tpu_torch.ops.
   kmeans`, :mod:`~poccala_tpu_torch.ops.em`), split-and-merge EM

@@ -631,3 +631,322 @@ extern "C" int gmm_score_max_d(int bf16) {
 extern "C" const char* gmm_score_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+// ---------------------------------------------------------------------
+// sentence scoring: each utterance against its own sentence states
+// ---------------------------------------------------------------------
+//
+// The training E-step and the forced alignment score utterance b's frames
+// against the senones of its own sentence HMM only, rows sen[b, n] of the
+// bank (poccala_tpu_torch/train/accumulators.py:sentence_scores).  The
+// kernel writes, in one pass,
+//
+//   scores[b, t, n]  = logsumexp_m comp[b, t, n, m]
+//   comp[b, t, n, m] = [x^2, x][b, t, :] . W[sen[b, n], m, :] + bias   (opt.)
+//
+// with no [B, N, M, D] gather of the bank and no [B, T, N * M] product in
+// device memory.  It replaces no Pallas kernel: the JAX package scores this
+// lattice with plain jnp (a gather, two batched matmuls, a logsumexp).
+//
+// What bounds it, at the long-sentence training batch (B = 256, T = 960,
+// N = 266, M = 16, D = 39): 2*B*T*N*M*2D = 163 GFLOP, 2.44 ms of FMA at
+// 67 TFLOP/s; comp is 4.2 GB, 1.25 ms at 3.35 TB/s: compute-bound, as the
+// shared-bank kernel above.  (On an H100 the comp stores, issued after each
+// pass, hide little of themselves: they add ~1 ms to ~4.9.)
+//
+// Design (exact fp32 FMA, never TF32, for the reason above):
+// * the product is a GEMM whose columns are (state, mixture) pairs in comp's
+//   order.  A pass is 8 sentence states x 8 mixtures = 64 columns against a
+//   tile of 128 frames (32 for short inputs); a thread owns 8 frames (4) x
+//   one state's 8 mixtures, so after the k loop (and the bias) it folds its
+//   own 8 values a frame into the state's running (max, sum), one
+//   exponential each, and
+//   its comp values of a frame are 8 adjacent floats: two 16-byte
+//   streaming stores, whole 32-byte sectors, straight from registers;
+// * the packer lays the bank out senone-major, [S][ceil(M/8)][2D + 1][8]:
+//   per senone and group of 8 mixtures, rows -0.5p, mu p and the bias
+//   (padded mixtures: zero weights, bias -1e30).  A pass's weights are then
+//   8 contiguous 2.5 KB runs, gathered by 16-byte cp.async straight into
+//   the [k][64] shared tile (state j's 4 mixtures of half h at column
+//   32h + 4j, so that the k loop's two 16-byte loads a step cover all 32
+//   banks), the next pass's while this one is multiplied;
+// * a block walks a range of its utterance's states (groups of 8), every
+//   group's mixture passes in turn, with the frame tile staged once (x^2
+//   formed as it is staged); the range is cut so that the grid gives every
+//   SM about eight blocks (the whole sentence a block at the training
+//   batch, one group a block for a short single utterance);
+// * any D (K = 2D a template constant at D = 39, run-time otherwise), any
+//   M, any N; every frame is scored, padding included.
+
+namespace {
+
+constexpr int SQ_MIX = 8;                     // mixtures a pass
+constexpr int SQ_STATES = 8;                  // states a pass
+constexpr int SQ_COLS = SQ_MIX * SQ_STATES;   // columns a pass
+constexpr int SQ_MAX_GROUPS = 64;             // state groups a block at most
+constexpr int SQ_BIG = 128;                   // frames of the large tile
+constexpr int SQ_SMALL = 32;                  // frames of the small tile
+
+// x [B][T][D]; sen [B][N] bank rows (clamped to [0, S)); wq
+// [S][Mg][K + 1][8]; scores [B][T][N]; comp [B][T][N][M] or null.  Block
+// (b, frame tile, chunk) scores groups [g0, g0 + G) of the N / 8 state
+// groups.  KC: K = 2D as a compile-time constant, or 0 for K = 2 * d_rt.
+template <int TT, int RG, int KC>
+__global__ void __launch_bounds__(SQ_STATES * TT / (4 * RG))
+sentence_score_f32_kernel(const float* __restrict__ x,
+                          const long long* __restrict__ sen,
+                          const float* __restrict__ wq,
+                          float* __restrict__ scores, float* __restrict__ comp,
+                          int T, int N, int S, int M, int d_rt, int t_tiles,
+                          int chunks, int G) {
+  constexpr int NTY = TT / (4 * RG);
+  constexpr int THREADS = SQ_STATES * NTY;
+  constexpr int XLD = TT + 4;
+  constexpr int MT = 4 * RG;
+  const int D = KC ? KC / 2 : d_rt;
+  const int K = KC ? KC : 2 * d_rt;
+  const int Mg = (M + SQ_MIX - 1) / SQ_MIX;
+
+  extern __shared__ __align__(16) float sq_smem[];
+  float* xs = sq_smem;            // [K][XLD]: rows 0..D-1 x^2, D..2D-1 x
+  float* ws = xs + K * XLD;       // [2][K + 1][SQ_COLS]
+  int* rows = reinterpret_cast<int*>(ws + 2 * (K + 1) * SQ_COLS);  // [G * 8]
+  const int wtile = (K + 1) * SQ_COLS;
+
+  int blk = blockIdx.x;
+  const int chunk = blk % chunks;
+  blk /= chunks;
+  const int t0 = (blk % t_tiles) * TT;
+  const int b = blk / t_tiles;
+  const int g0 = chunk * G;
+  const int groups = min(G, (N + SQ_STATES - 1) / SQ_STATES - g0);
+  const int passes = groups * Mg;
+  const int tid = threadIdx.x;
+  const int tx = tid % SQ_STATES;  // the thread's state in a pass
+  const int ty = tid / SQ_STATES;
+
+  for (int i = tid; i < groups * SQ_STATES; i += THREADS) {
+    const int n = g0 * SQ_STATES + i;
+    const long long r = n < N ? sen[(size_t)b * N + n] : 0;
+    rows[i] = (int)(r < 0 ? 0 : (r >= S ? S - 1 : r));
+  }
+  __syncthreads();  // the rows name the weights that prefetch copies
+
+  // a 16-byte chunk a copy: the thread's state tx, and q = 2k + h for row
+  // k, half h (mixtures 4h..4h+3), at 4q in the run and at 32q + 4tx in the
+  // tile
+  auto prefetch = [&](int p) {
+    const int g = p / Mg, mg = p - g * Mg;
+    const float* src =
+        wq + ((size_t)rows[g * SQ_STATES + tx] * Mg + mg) * (K + 1) * SQ_MIX;
+    float* dst = ws + (p & 1) * wtile + 4 * tx;
+    for (int q = ty; q < 2 * (K + 1); q += NTY)
+      cp_async16(dst + 32 * q, src + 4 * q);
+    cp_async_commit();
+  };
+  prefetch(0);
+
+  {
+    // the tile's rows are one contiguous run of x; STAGE loads are in
+    // flight before the first is stored
+    const int valid = min(TT, T - t0) * D;
+    const float* xt = x + ((size_t)b * T + t0) * D;
+    for (int i0 = tid; i0 < TT * D; i0 += STAGE * THREADS) {
+      float v[STAGE];
+#pragma unroll
+      for (int u = 0; u < STAGE; ++u) {
+        const int i = i0 + u * THREADS;
+        v[u] = (i < valid) ? xt[i] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < STAGE; ++u) {
+        const int i = i0 + u * THREADS;
+        if (i < TT * D) {
+          const int t = i / D, d = i - t * D;
+          xs[d * XLD + t] = v[u] * v[u];
+          xs[(D + d) * XLD + t] = v[u];
+        }
+      }
+    }
+  }
+
+  float mx[MT], ss[MT];
+  for (int p = 0; p < passes; ++p) {
+    if (p + 1 < passes) {
+      prefetch(p + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // pass p's weights (and, at p = 0, xs) are staged
+    const float* wb = ws + (p & 1) * wtile;
+    const int g = p / Mg, mg = p - g * Mg;
+
+    float acc[MT][SQ_MIX];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < SQ_MIX; ++j) acc[i][j] = 0.0f;
+
+#pragma unroll(K_UNROLL)
+    for (int k = 0; k < K; ++k) {
+      float a[MT], w[SQ_MIX];
+#pragma unroll
+      for (int r = 0; r < RG; ++r) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            &xs[k * XLD + r * (TT / RG) + ty * 4]);
+        a[4 * r] = v.x, a[4 * r + 1] = v.y, a[4 * r + 2] = v.z,
+                a[4 * r + 3] = v.w;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            &wb[k * SQ_COLS + 32 * h + 4 * tx]);
+        w[4 * h] = v.x, w[4 * h + 1] = v.y, w[4 * h + 2] = v.z,
+                w[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < SQ_MIX; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    }
+
+    // the bias last, as in the shared-bank kernel: the sums peak at about
+    // half the bias's magnitude instead of all of it, which halves their
+    // rounding where floored variances make them cancel (added first, the
+    // last alignment's score gap in the training cell was ~2x as large)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          &wb[K * SQ_COLS + 32 * h + 4 * tx]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        acc[i][4 * h] += v.x, acc[i][4 * h + 1] += v.y;
+        acc[i][4 * h + 2] += v.z, acc[i][4 * h + 3] += v.w;
+      }
+    }
+
+    const int n = (g0 + g) * SQ_STATES + tx;
+    if (comp != nullptr && n < N) {
+      const int m0 = mg * SQ_MIX;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int t = t0 + (i / 4) * (TT / RG) + ty * 4 + i % 4;
+        if (t >= T) continue;
+        float* row = comp + (((size_t)b * T + t) * N + n) * M + m0;
+        if ((M & 3) == 0) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (m0 + 4 * h < M)
+              __stcs(reinterpret_cast<float4*>(row + 4 * h),
+                     make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                 acc[i][4 * h + 2], acc[i][4 * h + 3]));
+        } else {
+#pragma unroll
+          for (int j = 0; j < SQ_MIX; ++j)
+            if (m0 + j < M) __stcs(row + j, acc[i][j]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      if (mg == 0) {
+        mx[i] = acc[i][0];
+        ss[i] = 1.0f;
+      } else {
+        lse_fold(acc[i][0], mx[i], ss[i]);
+      }
+#pragma unroll
+      for (int j = 1; j < SQ_MIX; ++j) lse_fold(acc[i][j], mx[i], ss[i]);
+    }
+
+    if (mg == Mg - 1 && n < N) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int t = t0 + (i / 4) * (TT / RG) + ty * 4 + i % 4;
+        if (t < T) scores[((size_t)b * T + t) * N + n] = mx[i] + __logf(ss[i]);
+      }
+    }
+    __syncthreads();  // everyone is done with this buffer
+  }
+}
+
+size_t sentence_smem_bytes(int tt, int k, int groups) {
+  return ((size_t)k * (tt + 4) + 2 * (size_t)(k + 1) * SQ_COLS) *
+             sizeof(float) +
+         (size_t)groups * SQ_STATES * sizeof(int);
+}
+
+template <int TT, int RG, int KC>
+int launch_sentence(const float* x, const long long* sen, const float* wq,
+                    float* scores, float* comp, int B, int T, int N, int S,
+                    int M, int D, cudaStream_t stream) {
+  const int n_groups = (N + SQ_STATES - 1) / SQ_STATES;
+  const int t_tiles = (T + TT - 1) / TT;
+  const long long tiles = (long long)B * t_tiles;
+  // about eight blocks an SM (two resident), at most SQ_MAX_GROUPS a block
+  const long long want = 8LL * sm_count();
+  long long chunks = (want + tiles - 1) / tiles;
+  if (chunks > n_groups) chunks = n_groups;
+  const long long least = (n_groups + SQ_MAX_GROUPS - 1) / SQ_MAX_GROUPS;
+  if (chunks < least) chunks = least;
+  const int G = (int)((n_groups + chunks - 1) / chunks);
+  chunks = (n_groups + G - 1) / G;
+  const long long grid = tiles * chunks;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = sentence_smem_bytes(TT, 2 * D, G);
+  auto kernel = sentence_score_f32_kernel<TT, RG, KC>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  constexpr int THREADS = SQ_STATES * TT / (4 * RG);
+  kernel<<<(unsigned)grid, THREADS, smem, stream>>>(
+      x, sen, wq, scores, comp, T, N, S, M, D, t_tiles, (int)chunks, G);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x [B, T, D] f32, sen [B, N] int64 (rows of the bank, clamped here too),
+// wq [S][ceil(M/8)][2D + 1][8] f32, scores [B, T, N] f32, comp
+// [B, T, N, M] f32 (16-byte aligned) or null.
+extern "C" int sentence_score_f32(const void* x, const void* sen,
+                                  const void* wq, void* scores, void* comp,
+                                  int B, int T, int N, int S, int M, int D,
+                                  void* stream) {
+  const float* xf = static_cast<const float*>(x);
+  const long long* sf = static_cast<const long long*>(sen);
+  const float* wf = static_cast<const float*>(wq);
+  float* of = static_cast<float*>(scores);
+  float* cf = static_cast<float*>(comp);
+  cudaStream_t st = (cudaStream_t)stream;
+  // the large tile once its grid, a state group a block, fills the card
+  // twice over (two blocks an SM)
+  const long long big_blocks = (long long)B * ((T + SQ_BIG - 1) / SQ_BIG) *
+                               ((N + SQ_STATES - 1) / SQ_STATES);
+  const bool big =
+      big_blocks >= 4LL * sm_count() &&
+      sentence_smem_bytes(SQ_BIG, 2 * D, SQ_MAX_GROUPS) <= (size_t)SMEM_MAX;
+  if (D == 39) {
+    if (big)
+      return launch_sentence<SQ_BIG, 2, 78>(xf, sf, wf, of, cf, B, T, N, S,
+                                            M, D, st);
+    return launch_sentence<SQ_SMALL, 1, 78>(xf, sf, wf, of, cf, B, T, N, S, M,
+                                            D, st);
+  }
+  if (big)
+    return launch_sentence<SQ_BIG, 2, 0>(xf, sf, wf, of, cf, B, T, N, S, M, D,
+                                         st);
+  return launch_sentence<SQ_SMALL, 1, 0>(xf, sf, wf, of, cf, B, T, N, S, M, D,
+                                         st);
+}
+
+// Largest feature dimension the sentence kernel's small tile fits.
+extern "C" int sentence_score_max_d() {
+  int d = 0;
+  while (sentence_smem_bytes(SQ_SMALL, 2 * (d + 1), SQ_MAX_GROUPS) <=
+         (size_t)SMEM_MAX)
+    ++d;
+  return d;
+}

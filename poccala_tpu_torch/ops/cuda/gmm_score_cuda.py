@@ -25,10 +25,20 @@ copy to shared memory unchanged:
   ``[M, Dp/8, S_pad, 8]`` bfloat16 (``Dp`` = D rounded up to 8; k = d the
   ``x²`` rows, k = Dp + d the ``x`` rows): 8-row by 16-byte core matrices
   of the tensor cores' shared-memory operand.
+* sentence scoring (:func:`pack_sentence_f32`): senone-major,
+  ``[S, ceil(M/8), 2D + 1, 8]``, the same rows for each group of 8
+  mixtures, so that the kernel gathers a sentence state's weights as one
+  contiguous run; cached like the float32 pack.
 
 :func:`gmm_log_scores_fast` is the dispatcher the decoder calls: a CUDA
 tensor launches the kernel (or raises), a CPU tensor takes the plain
 version :func:`poccala_tpu_torch.ops.gmm_score.gmm_log_scores`.
+
+:func:`sentence_scores_cuda` scores each utterance of a batch against its
+own sentence states (rows of the bank) in one launch, the state scores
+and, if asked, the weighted components; the trainer's
+:func:`~poccala_tpu_torch.train.accumulators.sentence_scores` calls it for
+float32 CUDA tensors.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from poccala_tpu_torch.utils.logmath import NEG_INF
 SOURCE = "poccala_tpu_torch/csrc/gmm_score.cu"
 REPLACES = "poccala_tpu/ops/pallas/gmm_score_tpu.py:105"
 S_TILE = 64          # senones per block in both kernels
+SENTENCE_MIX = 8     # mixtures a group in the sentence kernel's pack
 _CACHE_SIZE = 8      # packed banks kept
 
 
@@ -66,6 +77,26 @@ def pack_f32(means, log_var, log_w, normalizer: str) -> torch.Tensor:
     rows = torch.cat([-0.5 * prec, means * prec, bias[..., None]], dim=2)
     return F.pad(rows.permute(1, 2, 0),
                  (0, _pad_to(s, S_TILE) - s)).contiguous()
+
+
+def pack_sentence_f32(means, log_var, log_w, normalizer: str) -> torch.Tensor:
+    """The sentence kernel's bank operand ``[S, ceil(M/8), 2D + 1, 8]``:
+    per senone and group of 8 mixtures the rows ``-0.5p`` (D), ``μp`` (D)
+    and the bias, as :func:`pack_f32`; padded mixtures have zero weights
+    and the bias ``NEG_INF``."""
+    s, m, d = means.shape
+    prec = torch.exp(-log_var)
+    bias = (-0.5 * torch.sum(means * means * prec, dim=-1)
+            + normalizer_const(log_var, normalizer)
+            + torch.clamp(log_w, min=NEG_INF))             # [S, M]
+    rows = torch.cat([-0.5 * prec, means * prec, bias[..., None]], dim=2)
+    mp = _pad_to(m, SENTENCE_MIX)
+    pad = torch.zeros((s, mp - m, 2 * d + 1), dtype=rows.dtype,
+                      device=rows.device)
+    pad[..., -1] = NEG_INF
+    rows = torch.cat([rows, pad], dim=1)                   # [S, Mp, 2D + 1]
+    return (rows.reshape(s, mp // SENTENCE_MIX, SENTENCE_MIX, 2 * d + 1)
+            .transpose(2, 3).contiguous())
 
 
 def _core_matrices(a: torch.Tensor) -> torch.Tensor:
@@ -122,9 +153,20 @@ def _cached(packer, means, log_var, log_w, normalizer: str):
     return packed
 
 
+def bind_sentence(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the sentence kernel's C interface (``sentence_score_f32``,
+    ``sentence_score_max_d``) of a library built from ``gmm_score.cu``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sentence_score_f32.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.sentence_score_max_d.argtypes = []
+    for fn in (lib.sentence_score_f32, lib.sentence_score_max_d):
+        fn.restype = i
+    return lib
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.load("gmm_score")
+    lib = bind_sentence(build.load("gmm_score"))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gmm_score_f32.argtypes = [p] * 3 + [i] * 5 + [p]
     lib.gmm_score_bf16.argtypes = [p] * 9 + [i] * 5 + [p]
@@ -217,6 +259,73 @@ def gmm_log_scores_cuda(x, means, log_var, log_w, normalizer="textbook",
 
 gmm_log_scores_cuda.launches = 0        # both kernels
 gmm_log_scores_cuda.launches_bf16 = 0   # the bfloat16 kernel's share
+
+
+def sentence_scores_cuda(xs, sen, means, log_var, log_w,
+                         normalizer="textbook", components=True):
+    """Each utterance's frames against its own sentence states, float32, in
+    one launch of the sentence kernel; CUDA tensors only.
+
+    :param xs: ``[B, T, D]`` float32 frames (every frame is scored)
+    :param sen: ``[B, N]`` int64 bank rows of the sentence states (the
+        kernel clamps them to the bank)
+    :param means, log_var: ``[S, M, D]`` float32; :param log_w: ``[S, M]``
+    :param components: also return the weighted component log-probs
+    :returns: (state scores ``[B, T, N]``, components ``[B, T, N, M]`` or
+        None), as ``logsumexp_m(log w + log N)`` of
+        :func:`~poccala_tpu_torch.ops.gmm_score.gmm_component_logpdf`
+    """
+    if xs.dim() != 3 or sen.dim() != 2 or means.dim() != 3:
+        raise ValueError("expected xs [B, T, D], sen [B, N], means [S, M, D]")
+    b, t, d = xs.shape
+    n = sen.shape[1]
+    s, m, _ = means.shape
+    operands = (("xs", xs, torch.float32, (b, t, d)),
+                ("sen", sen, torch.int64, (b, n)),
+                ("means", means, torch.float32, (s, m, d)),
+                ("log_var", log_var, torch.float32, (s, m, d)),
+                ("log_w", log_w, torch.float32, (s, m)))
+    for name, a, dtype, shape in operands:
+        if a.dtype != dtype or tuple(a.shape) != shape:
+            raise ValueError(f"{name} is {a.dtype} {tuple(a.shape)}, "
+                             f"expected {dtype} {shape}")
+    if not xs.is_cuda:
+        raise ValueError("sentence_scores_cuda takes CUDA tensors; the "
+                         "plain version serves the CPU")
+    dev = xs.device
+    for name, a, dtype, shape in operands:
+        _check(name, a, dev, dtype, shape)
+    if m < 1 or s < 1:
+        raise ValueError("the bank has no senones or no mixture slots")
+    lib = _lib()
+    if d > lib.sentence_score_max_d():
+        raise ValueError(f"feature dim {d} too large for the sentence "
+                         "kernel's shared-memory tiles "
+                         f"(D <= {lib.sentence_score_max_d()})")
+    scores = torch.empty((b, t, n), dtype=torch.float32, device=dev)
+    comp = (torch.empty((b, t, n, m), dtype=torch.float32, device=dev)
+            if components else None)
+    if b == 0 or t == 0 or n == 0:
+        return scores, comp
+    with torch.cuda.device(dev):
+        weight = _cached(pack_sentence_f32, means, log_var, log_w,
+                         normalizer)
+        _check("weight", weight, dev, torch.float32,
+               (s, _pad_to(m, SENTENCE_MIX) // SENTENCE_MIX, 2 * d + 1,
+                SENTENCE_MIX))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sentence_score_f32(
+            xs.data_ptr(), sen.data_ptr(), weight.data_ptr(),
+            scores.data_ptr(), None if comp is None else comp.data_ptr(),
+            b, t, n, s, m, d, stream)
+    if rc != 0:
+        raise RuntimeError("sentence_score kernel launch failed: "
+                           + lib.gmm_score_error_string(rc).decode())
+    sentence_scores_cuda.launches += 1
+    return scores, comp
+
+
+sentence_scores_cuda.launches = 0
 
 
 def gmm_log_scores_fast(x, means, log_var, log_w, normalizer="textbook",

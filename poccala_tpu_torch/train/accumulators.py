@@ -119,30 +119,54 @@ def local_senones(bank: SenoneBank, ehmm: EmbeddedHMM,
 def sentence_scores(bank: SenoneBank, ehmm: EmbeddedHMM, xs: torch.Tensor,
                     normalizer: str = "textbook",
                     score_dtype: str = "float32", state_axis_name=None,
-                    s_offset: int = 0):
+                    s_offset: int = 0, components: bool = True):
     """GMM scores of each utterance's own sentence states only (the
     gather keeps the lattice ``[B, T, N_s, M]`` instead of
     ``[B, T, S, M]``; ``accumulators.py:152-158``, ``alignment.py:62-67``).
     With ``state_axis_name`` (a state shard's bank, see the module
     docstring) the state scores are the max over that group.
 
-    :returns: (weighted component log-probs ``[B, T, N_s, M]``, state
-        scores ``[B, T, N_s]``, sentence ``log_b [B, T, N_s]``)
+    Float32 CUDA tensors take the sentence kernel
+    (:func:`~poccala_tpu_torch.ops.cuda.gmm_score_cuda.sentence_scores_cuda`,
+    one launch, no gathered bank, no product in device memory), which
+    writes the components only when ``components`` asks for them; CPU
+    tensors and the bfloat16 scoring take the plain version.
+
+    :returns: (weighted component log-probs ``[B, T, N_s, M]``, None from
+        the kernel without ``components``, state scores ``[B, T, N_s]``,
+        sentence ``log_b [B, T, N_s]``)
     """
     sen, owned = local_senones(bank, ehmm, state_axis_name, s_offset)
-    comp = gmm_component_logpdf(xs, bank.means[sen], bank.log_var[sen],
-                                normalizer=normalizer,
-                                score_dtype=score_dtype)
-    comp = comp + bank.log_w[sen][:, None]                 # [B, T, N_s, M]
     if state_axis_name is not None:
         from poccala_tpu_torch.parallel.mesh import all_reduce
+    if xs.is_cuda and score_dtype == "float32":
+        from poccala_tpu_torch.ops.cuda.gmm_score_cuda import (
+            sentence_scores_cuda)
 
-        comp = torch.where(owned[:, None, :, None], comp, NEG_INF)
-        # exchange the [B, T, N_s] lattice, not the bank
-        scores = all_reduce(torch.logsumexp(comp, dim=-1),
-                            torch.distributed.ReduceOp.MAX, state_axis_name)
+        scores, comp = sentence_scores_cuda(
+            xs.contiguous(), sen.contiguous(), bank.means, bank.log_var,
+            bank.log_w, normalizer=normalizer, components=components)
+        if state_axis_name is not None:
+            # the senones of other shards, as the plain version masks them
+            # before its logsumexp
+            if comp is not None:
+                comp = torch.where(owned[:, None, :, None], comp, NEG_INF)
+            scores = all_reduce(
+                torch.where(owned[:, None, :], scores, NEG_INF),
+                torch.distributed.ReduceOp.MAX, state_axis_name)
     else:
-        scores = torch.logsumexp(comp, dim=-1)             # [B, T, N_s]
+        comp = gmm_component_logpdf(xs, bank.means[sen], bank.log_var[sen],
+                                    normalizer=normalizer,
+                                    score_dtype=score_dtype)
+        comp = comp + bank.log_w[sen][:, None]             # [B, T, N_s, M]
+        if state_axis_name is not None:
+            comp = torch.where(owned[:, None, :, None], comp, NEG_INF)
+            # exchange the [B, T, N_s] lattice, not the bank
+            scores = all_reduce(torch.logsumexp(comp, dim=-1),
+                                torch.distributed.ReduceOp.MAX,
+                                state_axis_name)
+        else:
+            scores = torch.logsumexp(comp, dim=-1)         # [B, T, N_s]
     n_s = sen.shape[1]
     r = torch.arange(n_s, device=xs.device)[None, :]
     is_entry = r == 0

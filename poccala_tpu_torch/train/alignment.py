@@ -4,13 +4,15 @@
 :func:`align_batch` builds each utterance's sentence HMM, scores its own
 senones and runs the banded Viterbi through
 :func:`poccala_tpu_torch.ops.hmm.viterbi_log_banded_batch` (the CUDA
-kernel on the GPU, backtrace included).  With ``state_axis_name`` (the
-state axis's process group) the bank is one state shard: the sentence
-lattice is assembled by ``all_reduce(MAX)`` before the Viterbi kernel, as
-the state-sharded E-step does (JAX ``alignment.py:61-80``).  The host helpers
-(:func:`uniform_label_pos`, :func:`check_alignment`,
-:func:`group_frames_by_senone`) are NumPy code copied verbatim — the JAX
-module imports jax — and ``tests/test_torch_train.py`` pins the copies.
+kernel on the GPU, backtrace included); on the GPU the scores come from
+the sentence kernel, which then writes no components.  With
+``state_axis_name`` (the state axis's process group) the bank is one
+state shard: the sentence lattice is assembled by ``all_reduce(MAX)``
+before the Viterbi kernel, as the state-sharded E-step does (JAX
+``alignment.py:61-80``).  The host helpers (:func:`uniform_label_pos`,
+:func:`check_alignment`, :func:`group_frames_by_senone`) are NumPy code
+copied verbatim — the JAX module imports jax — and
+``tests/test_torch_train.py`` pins the copies.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ def align_batch(bank: SenoneBank, labels, label_lens, xs, t_masks,
         ehmm = build_embedded_batch(bank, labels, label_lens, state_num,
                                     max_label_len)
         _, _, log_b = sentence_scores(bank, ehmm, xs, normalizer,
-                                      score_dtype, state_axis_name, s_offset)
+                                      score_dtype, state_axis_name, s_offset,
+                                      components=False)
         score, path, _ = hmm_ops.viterbi_log_banded_batch(
             ehmm.band, ehmm.log_pi, log_b, t_masks, state_num)
         emit = state_num - 2

@@ -4,8 +4,9 @@ the decoder's scans and n-best, the (logsumexp, +) product of
 ``forward_log_assoc``) against their plain versions, the GPU frontend (at
 every ``dot_precision``), decoders (the device tier, with and without the
 sticky block selection, and the host tiers) and Baum-Welch statistics
-against the CPU, the pack cache, the profiling ledger and the default
-device.
+against the CPU, the sentence kernel of the E-step and the alignment
+against the plain scoring, the pack cache, the profiling ledger and the
+default device.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The
 file imports no jax, so it also runs where jax is absent, without the
@@ -753,6 +754,90 @@ def test_batch_stats_gpu_matches_cpu(cuda, score_dtype):
         err = float(np.abs(g - w).max())
         assert np.allclose(g, w, rtol=1e-4, atol=1e-4 * scale), (f, err,
                                                                   scale)
+
+
+# the sentence kernel: each utterance against its own sentence states.
+# Tolerance F32, as the shared-bank kernel's: the same float32 terms summed
+# in another order than the plain version's two matmuls, and __expf /
+# __logf (absolute errors below 1e-6) in the fold.
+SENTENCE_SHAPES = [
+    # the training cell's shape on a reduced batch: 2,049 senones x 16
+    dict(b=4, t=960, n=266, s=2049, m=16, d=39),
+    # N off the 8-state group, M padded to 8 in the pack, T off the tiles
+    dict(b=3, t=131, n=45, s=70, m=5, d=39),
+    # dead (NEG_INF) slots among 8, another D (run-time K)
+    dict(b=5, t=200, n=61, s=90, m=8, d=13, dead=2),
+    # M a multiple of 4 and not of 8, wide D
+    dict(b=2, t=300, n=130, s=300, m=12, d=40),
+    # B = 1 and a short T (the small tile)
+    dict(b=1, t=25, n=50, s=606, m=16, d=39),
+    # variances at the 1e-6 floor
+    dict(b=6, t=319, n=98, s=606, m=8, d=39, floor=True),
+]
+
+
+@pytest.mark.parametrize("shape", SENTENCE_SHAPES, ids=lambda s: (
+    "b{b}t{t}n{n}m{m}d{d}".format(**s) + ("floor" if s.get("floor") else "")))
+def test_sentence_kernel_matches_plain(cuda, shape):
+    """Scores and components of the sentence kernel against the plain
+    ``sentence_scores`` arithmetic; without the components, the same
+    scores bit for bit."""
+    b, t, n, s, m, d = (shape[k] for k in "btnsmd")
+    rng = np.random.default_rng(b * t + n)
+    x, means, log_var, log_w = scoring_inputs(rng, s, m, d, b * t,
+                                              shape.get("floor", False))
+    if shape.get("dead"):
+        log_w[:, -shape["dead"]:] = -1e30
+    x = x.reshape(b, t, d)
+    sen = torch.as_tensor(rng.integers(0, s, size=(b, n)))
+    args = [a.to(cuda) for a in (x, sen, means, log_var, log_w)]
+    before = gk.sentence_scores_cuda.launches
+    scores, comp = gk.sentence_scores_cuda(*args)
+    alone, none = gk.sentence_scores_cuda(*args, components=False)
+    torch.cuda.synchronize()
+    assert gk.sentence_scores_cuda.launches == before + 2
+    assert none is None and torch.equal(alone, scores)
+    xg, seng, mg, lvg, lwg = args
+    want = tg.gmm_component_logpdf(xg, mg[seng], lvg[seng]) \
+        + lwg[seng][:, None]
+    assert comp.shape == (b, t, n, m) and torch.isfinite(scores).all()
+    assert torch.allclose(comp, want, **F32)
+    assert torch.allclose(scores, torch.logsumexp(want, dim=-1), **F32)
+
+
+def test_sentence_kernel_launches_once_a_batch(cuda):
+    """One launch in ``batch_stats`` and one in ``align_batch`` (one each
+    at B = 1), none with the bfloat16 scoring, which keeps the plain
+    version."""
+    from poccala_tpu_torch.train import alignment as align
+
+    rng = np.random.default_rng(11)
+    cfg = ModelConfig(state_num=5, mix_level=4, max_mix_level=4)
+    bank = sb.create_bank(20, cfg, 13,
+                          generator=torch.Generator().manual_seed(11),
+                          device=cuda)
+    b, t_pad, max_l = 6, 40, 5
+    labels = rng.integers(0, 20, size=(b, max_l)).astype(np.int32)
+    lens = rng.integers(1, max_l + 1, size=b).astype(np.int32)
+    xs = (rng.normal(size=(b, t_pad, 13)) * 1.5).astype(np.float32)
+    masks = np.ones((b, t_pad), bool)
+    calls = [
+        (1, lambda dt: acc.batch_stats(bank, labels, lens, xs, masks, 5,
+                                       max_l, score_dtype=dt)),
+        (1, lambda dt: align.align_batch(bank, labels, lens, xs, masks, 5,
+                                         max_l, score_dtype=dt)),
+        (1, lambda dt: acc.utterance_stats(bank, labels[0], lens[0], xs[0],
+                                           masks[0], 5, max_l,
+                                           score_dtype=dt)),
+        (1, lambda dt: align.align_utterance(bank, labels[0], lens[0], xs[0],
+                                             masks[0], 5, max_l,
+                                             score_dtype=dt))]
+    for n_launch, call in calls:
+        for dtype, want in (("float32", n_launch), ("bfloat16", 0)):
+            before = gk.sentence_scores_cuda.launches
+            call(dtype)
+            torch.cuda.synchronize()
+            assert gk.sentence_scores_cuda.launches == before + want, dtype
 
 
 # ----------------------------------------------------------------------
