@@ -310,16 +310,21 @@ class DeviceBeamDecoder(VectorBeamDecoder):
 
     def _run(self, feats, n_frames, n_cand: int):
         """Scoring, the frame loop and the device n-best of ``[B, T, D]``:
-        ``(seqs [B, C, L] int32, scores [B, C] f32)`` on the device."""
+        ``(seqs [B, C, L] int32, scores [B, C] f32)`` on the device.  Each
+        phase is a span timed on the device (``decode.score``,
+        ``decode.scan``, ``decode.finalize``)."""
         tabs = self._prep_device()
-        feats = torch.as_tensor(feats, dtype=torch.float32,
-                                device=self.device)
+        dev = self.device
+        feats = torch.as_tensor(feats, dtype=torch.float32, device=dev)
         t_pad = feats.shape[1]
         check_context_fits(t_pad, self._n_vocab)
-        carry, tb_prev, tb_word = self._scan(
-            tabs, self._seed(tabs, feats.shape[0]), self._scores(feats), 0,
-            n_frames)
-        return self._finalize(tabs, carry, tb_prev, tb_word, n_cand)
+        with profiling.span("decode.score", dev):
+            scores = self._scores(feats)
+        with profiling.span("decode.scan", dev):
+            carry, tb_prev, tb_word = self._scan(
+                tabs, self._seed(tabs, feats.shape[0]), scores, 0, n_frames)
+        with profiling.span("decode.finalize", dev):
+            return self._finalize(tabs, carry, tb_prev, tb_word, n_cand)
 
     def decode_collect(self, handle):
         """Wait for a :meth:`decode_dispatch` handle (the host copy

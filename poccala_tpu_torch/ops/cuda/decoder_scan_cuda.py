@@ -16,7 +16,8 @@ group tables (the emitting mask folded into ``group_senone``, -1 where
 not emitting) and each node's info (group, parent and root-child flag in
 one word, valid slot range).  CUDA tensors only: the
 wrapper raises on a CPU tensor and on an operand of the wrong dtype, and
-when the kernel does not launch.  Any token-state count, band width and
+when the kernel does not launch; it counts its launches, those on the
+device-memory route also apart.  Any token-state count, band width and
 bank size launches: the source chooses among ten instantiations (states
 in registers, unrolled to 8 states and 2 offsets or, on chip, 16 and 8,
 or in place in the carry; carry and scores rows in shared or device
@@ -465,7 +466,9 @@ def decoder_scan_cuda(tabs, carry, scores: torch.Tensor, t0: int, n_valid,
     ``DeviceBeamDecoder._scan``'s plain loop does.  ``phase_clocks``
     (int64 ``[len(EXACT_PHASES)]`` on the card), where given, has the first
     utterance's SM cycles in each phase of :data:`EXACT_PHASES` added to
-    it."""
+    it.  Each launch counts in ``decoder_scan_cuda.launches``, and one on
+    the device-memory route (:func:`scan_plan`'s ``"global"``) also in
+    ``decoder_scan_cuda.launches_global``."""
     deltas, ctx = carry
     dev = scores.device
     if scores.ndim != 3:
@@ -518,10 +521,12 @@ def decoder_scan_cuda(tabs, carry, scores: torch.Tensor, t0: int, n_valid,
         raise RuntimeError("decoder_scan kernel launch failed: "
                            + lib.decoder_scan_error_string(rc).decode())
     decoder_scan_cuda.launches += 1
+    decoder_scan_cuda.launches_global += not plan["onchip"]
     return (d_out, c_out), tb_prev, tb_word
 
 
 decoder_scan_cuda.launches = 0
+decoder_scan_cuda.launches_global = 0   # the device-memory route's share
 
 
 def finalize_sizes(n_slots: int, n_cand: int) -> tuple[int, int]:

@@ -51,6 +51,7 @@ from poccala_tpu_torch.lexicon import FlatLexicon, PinYin, PronunciationLexicon
 from poccala_tpu_torch.models import senone_bank as tsb
 from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
 
+from .cd_world import cd_decoder, cd_frames
 from .test_torch_decoder import world  # noqa: F401  (module fixture)
 from .test_torch_lexicon import _ForeignLM
 
@@ -611,6 +612,53 @@ def test_device_memory_route_on_cpu_is_the_plain_loop(
     assert dk.scan_plan(tabs, s, r_top, lib=lib, batch=100)["cluster"] == 1
     scores = torch.round(dec._scores(torch.as_tensor(wd["feats"])) / 8) * 8
     n_frames = np.minimum(wd["n_frames"], 24)
+    got = want = dec._seed(tabs, 3)
+    for t0 in (0, 12):
+        part = scores[:, t0:t0 + 12].contiguous()
+        nv = np.clip(n_frames - t0, 0, 12)
+        got, g_prev, g_word = emulated_scan(lib, dec, tabs, got, part, t0, nv)
+        want, w_prev, w_word = dec._scan_plain(tabs, want, part, t0, nv)
+        for g, w in zip((*got, g_prev, g_word), (*want, w_prev, w_word)):
+            assert torch.equal(g, w)
+    assert (g_word >= 0).any()
+
+
+@pytest.fixture(scope="module")
+def cd_world():
+    """Within-word triples over a 10-syllable vocabulary
+    (``tests/cd_world.py``): a 351-node tree of 284 groups, its states tied to 500 senones of two
+    mixtures (only the scores matter here), and three utterances."""
+    dec = cd_decoder(500, 2, min_nodes=200, n_chars=10, seed=23)
+    n_frames = np.array([24, 24, 20])
+    return dict(dec=dec, feats=cd_frames(dec, 3, 24, seed=23),
+                n_frames=n_frames)
+
+
+@pytest.mark.parametrize("limit,most,on_chip,chunk",
+                         [(14000, 3, 60, 117), (16000, 2, 62, 176)])
+def test_device_memory_route_over_a_cd_tree_is_the_plain_loop(
+        cd_world, emulated_limits, limit, most, on_chip, chunk):
+    """The full-vocabulary CD cell's placement at a small size: a carry no
+    on-chip cluster holds, each utterance over a cluster of ``most`` CTAs,
+    the scores rows in shared memory, the group tables (284 groups) in
+    device memory, a node's states in registers, the info, the exits and
+    part of the carry in shared memory: carry and rows equal the plain
+    loop's bit for bit over two chunks of tied scores, a row frozen inside
+    the second."""
+    lib = emulated_limits(limit, most)
+    dec = cd_world["dec"]
+    tabs = dec._prep_device()
+    n, n_s, w = tabs.bands.shape
+    assert (n, n_s, w) == (351, 8, 2) and dk.n_groups(tabs) == 284
+    s = dec.bank.num_states
+    plan = dk.scan_plan(tabs, s, dec._r_top(tabs), lib=lib, batch=3)
+    assert (plan["route"], plan["cluster"], plan["rows_smem"],
+            plan["groups_smem"], plan["exits_smem"], plan["nodes_on_chip"],
+            plan["nodes_per_cta"],
+            bool(lib.decoder_scan_states_in_regs(n_s, w))) == \
+        ("global", most, True, False, True, on_chip, chunk, True)
+    scores = torch.round(dec._scores(cd_world["feats"]) / 8) * 8
+    n_frames = cd_world["n_frames"]
     got = want = dec._seed(tabs, 3)
     for t0 in (0, 12):
         part = scores[:, t0:t0 + 12].contiguous()

@@ -15,6 +15,8 @@ suite's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1459,6 +1461,74 @@ def test_decoder_scan_past_shared_memory(cuda):
                                 batch=b)
             assert plan["route"] == "global" and plan["cluster"] > 1, plan
             chunked_scan_both(dec, scores[:b].contiguous(), n[:b])
+
+
+@functools.lru_cache(maxsize=1)
+def cd_fullvocab_decoder():
+    """6,000 senones x 32 mixtures tied from within-word triples over the
+    full vocabulary (``tests/cd_world.py``: a 30,237-node tree of some
+    18,000 groups) on the card, answers of up to 64 words."""
+    from .cd_world import cd_decoder
+
+    return cd_decoder(6000, 32, seed=31, device="cuda", max_words=64)
+
+
+def test_decoder_scan_at_the_cd_fullvocab_cell(cuda):
+    """The full-vocabulary tied-triphone configuration at its full size:
+    at a batch of 128 the scan takes the device-memory route over
+    clusters, the scores rows in shared memory, the group tables in device
+    memory.  On three utterances the kernel equals the plain loop bit for
+    bit (carry, rows, n-best), and a decode call gives the plain versions'
+    words."""
+    from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
+
+    from .cd_world import cd_frames
+
+    dec = cd_fullvocab_decoder()
+    tabs = dec._prep_device()
+    assert tuple(tabs.bands.shape) == (30237, 8, 2)
+    assert dk.n_groups(tabs) > 15000
+    plan = dk.scan_plan(tabs, 6000, dec._r_top(tabs), batch=128)
+    assert (plan["route"], plan["rows_smem"], plan["groups_smem"]) == \
+        ("global", True, False) and plan["cluster"] > 1, plan
+    feats = cd_frames(dec, 3, 80, seed=31)
+    n = np.array([80, 64, 72])
+    scores = dec._scores(feats)
+    scan_both(dec, scores, n)
+    got = dec.decode_batch(feats, n)
+    carry, prev, word = dec._scan_plain(tabs, dec._seed(tabs, 3), scores, 0,
+                                        n)
+    seqs, sc = dec._finalize_plain(tabs, carry, prev, word, dec._n_cand(1))
+    want = dec._to_hypotheses(seqs.cpu().numpy(), sc.cpu().numpy(), 3, 1)
+    assert all(got) and [[h.words for h in u] for u in got] == \
+        [[h.words for h in u] for u in want]
+
+
+def test_launches_global_counts_the_device_memory_route(cuda):
+    """``decoder_scan_cuda.launches`` counts every launch of the frame
+    scan and ``launches_global`` only those on the device-memory route:
+    the built-in lexicon's carry stays on chip (+0), the full-vocabulary
+    CD tree's goes to device memory (+1); both equal the plain loop."""
+    from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
+
+    from .cd_world import cd_frames
+
+    small = scan_decoder(cuda)
+    rng = np.random.default_rng(13)
+    x = torch.tensor((rng.normal(size=(2, 40, 13)) * 2).astype(np.float32),
+                     device=cuda)
+    cd = cd_fullvocab_decoder()
+    scan = dk.decoder_scan_cuda
+    for dec, feats, on_chip in ((small, x, True),
+                                (cd, cd_frames(cd, 2, 40, seed=13), False)):
+        tabs = dec._prep_device()
+        plan = dk.scan_plan(tabs, dec.bank.num_states, dec._r_top(tabs),
+                            batch=2)
+        assert plan["onchip"] == on_chip, plan
+        before = (scan.launches, scan.launches_global)
+        scan_both(dec, dec._scores(feats), np.array([40, 33]))
+        assert (scan.launches, scan.launches_global) == \
+            (before[0] + 1, before[1] + (not on_chip))
 
 
 @pytest.mark.parametrize("b,t_pad", [(3, 41), (1, 2)])

@@ -27,7 +27,9 @@ from poccala_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
-DECODE = ("decode.dispatch", "decode.copy", "decode.map")
+# the call's device phases (inside decode.dispatch), then its host part
+PHASES = ("decode.score", "decode.scan", "decode.finalize")
+DECODE = ("decode.dispatch",) + PHASES + ("decode.copy", "decode.map")
 ESTEP = ("train.estep.scoring", "train.estep.forward_backward",
          "train.estep.statistics")
 TRAIN = ("train.epoch", "train.mstep") + ESTEP
@@ -122,8 +124,8 @@ def test_a_bare_profile_records_each_span_without_timeline_ranges():
         alignment.align_batch(tr.bank, b.labels, b.label_lens, b.feats,
                               b.t_masks, 5, 3)
     assert added(before) == {
-        "decode.dispatch": 2, "decode.copy": 2, "decode.map": 2,
-        "train.epoch": 1, "train.mstep": 1, **{n: 2 for n in ESTEP},
+        **{n: 2 for n in DECODE}, "train.epoch": 1, "train.mstep": 1,
+        **{n: 2 for n in ESTEP},
         "train.align": 1}
     assert profiling.recorded("train.align")[-1].parent is None
     epoch = profiling.recorded("train.epoch")[-1]
@@ -141,6 +143,45 @@ def test_a_bare_profile_records_each_span_without_timeline_ranges():
     again = counts()
     dec.decode_batch(feats, [48, 48])
     assert added(again) == {}
+
+
+def test_the_decode_call_phases_nest_in_its_dispatch():
+    """Under a profile, each call's ``decode.score``, ``decode.scan`` and
+    ``decode.finalize`` record once, in that order, inside its
+    ``decode.dispatch``; with none they record nothing."""
+    dec, feats = decoder_and_feats()
+    before = counts()
+    dec.decode_batch(feats, [48, 48])
+    assert added(before) == {}
+    with torch.profiler.profile():
+        for n in ([48, 48], [48, 30]):
+            dec.decode_collect(dec.decode_dispatch(feats, n))
+    assert added(before) == {n: 2 for n in DECODE}
+    for k, call in enumerate(profiling.recorded("decode.dispatch")[-2:]):
+        phases = [profiling.recorded(n)[-2 + k] for n in PHASES]
+        at = call.start_ns
+        for rec in phases:
+            assert rec.parent is call and at <= rec.start_ns <= rec.end_ns
+            # on the CPU the work runs as it is called: device ms is host ms
+            assert rec.events is None and rec.device_ms == rec.host_ms > 0
+            at = rec.end_ns
+        assert at <= call.end_ns and call.parent is None
+
+
+def test_a_decode_on_the_cpu_counts_no_scan_launch():
+    """The frame scan's counters count the kernel's launches alone: a
+    decode on the CPU (the plain loop), under a profile or not, leaves
+    ``launches`` and ``launches_global`` (its device-memory share) as they
+    were.  ``tests/test_torch_gpu.py`` counts them on the card."""
+    from poccala_tpu_torch.ops.cuda import decoder_scan_cuda as dk
+
+    dec, feats = decoder_and_feats()
+    scan = dk.decoder_scan_cuda
+    before = (scan.launches, scan.launches_global)
+    dec.decode_batch(feats, [48, 48])
+    with torch.profiler.profile():
+        dec.decode_collect(dec.decode_dispatch(feats, [48, 30]))
+    assert (scan.launches, scan.launches_global) == before
 
 
 def test_trace_puts_the_spans_on_the_timeline(tmp_path):
