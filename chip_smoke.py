@@ -566,6 +566,111 @@ def phase_sentence(seed: int, smi: str) -> dict:
     return records
 
 
+STATS_REPLACES = ("no Pallas kernel: plain jnp, "
+                  "poccala_tpu/train/accumulators.py:231-238")
+
+
+def cell_lattice(seed: int, n_utts: int | None = None):
+    """One batch of the long-sentence training cell, drawn by the
+    benchmark's own generator (``asrbench``: configuration
+    ``cd_tied2k_m16``, traffic ``train_long_b256``) on the card, its first
+    ``n_utts`` utterances if given, scored by the start bank, and the
+    forward-backward's posteriors: ``(bank, (labels, label_lens, xs,
+    t_masks, max_label_len), (comp, scores, gamma, emitting, xs))``, the
+    last the statistics kernel's operands."""
+    from asrbench.harness import spec
+    from asrbench.harness.model import build_model, make_bank, start_bank
+    from asrbench.harness.traffic import make_batches
+
+    cfg = spec.config("cd_tied2k_m16")
+    model = build_model(cfg, seed)
+    gen_bank = make_bank(model, seed, "cuda")
+    batch = make_batches(model, gen_bank, spec.traffic("train_long_b256"),
+                         seed, n_batches=1)[0]
+    start = start_bank(model, gen_bank, seed)
+    bank = sb.SenoneBank(**{k: start[k] for k in (
+        "means", "log_var", "log_w", "log_A", "log_pi", "mix_counts",
+        "senone_map")})
+    b = n_utts or batch.feats.shape[0]
+    n_states, max_l = cfg["state_num"], cfg["train"]["max_label_len"]
+    labels = torch.zeros((b, max_l), dtype=torch.int64, device="cuda")
+    labels[:, :batch.labels.shape[1]] = torch.as_tensor(batch.labels[:b])
+    lens = torch.as_tensor(batch.label_lens[:b], device="cuda")
+    xs, masks = batch.feats[:b].contiguous(), batch.t_masks()[:b]
+    ehmm = build_embedded_batch(bank, labels, lens, n_states, max_l)
+    comp, scores, log_b = acc.sentence_scores(bank, ehmm, xs)
+    la, lb, ll = acc._forward_backward(ehmm, log_b, masks, n_states, 1,
+                                       0.64)
+    gamma = acc._posterior(la + lb - ll[:, None, None],
+                           masks[:, :, None] & ehmm.state_mask[:, None, :])
+    return bank, (labels, lens, xs, masks, max_l), (
+        comp, scores, gamma, ehmm.senone_idx >= 0, xs)
+
+
+def stats_bound(gamma, emitting, m: int, d: int) -> dict:
+    """gamma, the emitting mask and x read once; of comp and scores the
+    rows of the live tiles (32 frames x 8 states); c, cx, cxx written once;
+    float32.  Operations: the 2·M·(2D + 1) of a live (frame, state) pair's
+    moments."""
+    b, t, n = gamma.shape
+    tiles = gk.stats_tiles_plain(gamma, emitting).sum(dim=0).tolist()
+    pairs = int(((gamma != 0) & emitting[:, None, :]).sum())
+    n_bytes = (4 * b * t * n + b * n + 4 * b * t * d
+               + 4 * tiles[0] * 32 * 8 * (m + 1)
+               + 4 * b * n * m * (2 * d + 1))
+    return dict(live_tiles=tiles[0], tiles=tiles[1], live_pairs=pairs,
+                **bound_ms(n_bytes, 2 * pairs * m * (2 * d + 1), "float32"))
+
+
+def phase_stats(seed: int, smi: str) -> dict:
+    """The statistics kernel (the E-step's GMM moments over the live
+    posteriors) at the training cell's shape, on a batch drawn by the
+    benchmark's own generator and its forward-backward's posteriors:
+    against the plain lines, its tally of live tiles against a count over
+    the posteriors, and the kernel alone, the wrapper and the plain lines
+    beside the bound.  Returns the record."""
+    _, _, lattice = cell_lattice(seed)
+    comp, scores, gamma, emitting, xs = lattice
+    b, t, n, m = comp.shape
+    d = xs.shape[2]
+    before = gk.stats_tile_tally()
+    got = gk.sentence_stats_cuda(*lattice)
+    after = gk.stats_tile_tally()
+    want = acc._mixture_moments(*lattice)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    ok = all(bool(torch.allclose(g, w, **F32_TOL))
+             for g, w in zip(got, want))
+    del got, want
+    torch.cuda.empty_cache()
+    bound = stats_bound(gamma, emitting, m, d)
+    tally = dict(live=after[0] - before[0], all=after[1] - before[1])
+
+    def call():
+        return gk.sentence_stats_cuda(*lattice)
+
+    line = dict(b=b, t=t, n=n, m=m, d=d, max_abs_err=err, tol=F32_TOL,
+                ok=ok, tally=tally,
+                live_tile_share=tally["live"] / max(tally["all"], 1),
+                nonzero_gamma_share=bound["live_pairs"] / gamma.numel(),
+                ms=median_ms(call),
+                kernel_ms=kernel_device_ms(call, "sentence_stats_f32"),
+                **bound)
+    torch.cuda.empty_cache()
+    line["plain_ms"] = median_ms(lambda: acc._mixture_moments(*lattice),
+                                 reps=3)
+    torch.cuda.empty_cache()
+    line["ptxas_registers_spill_stores_loads"] = PTXAS.get(
+        "gmm_score", {}).get("sentence_stats_f32_kernel", "not rebuilt")
+    line["clocks_under_load"] = clocks_under_load(call, 30)
+    line["nvidia_smi"] = smi
+    say("stats_vs_plain", **line)
+    check(ok, f"statistics kernel vs plain: {line}")
+    check((tally["live"], tally["all"]) == (bound["live_tiles"],
+                                            bound["tiles"]),
+          f"the tally reads the live tiles: {tally}, {bound}")
+    return line
+
+
 def phase_known_answer(seed: int) -> None:
     """The separable bank and lexicon of tests/test_streaming_decode.py:
     frames drawn around the units' means must decode to their words."""
@@ -1517,7 +1622,8 @@ def phase_train_throughput(seed: int, smi: str, epochs: int = 8) -> dict:
     """bench.py:143-154's one_epoch on the port: MFCC -> batch_stats ->
     apply_update -> align_batch at 256 x 4 s, one warm-up epoch, then
     ``epochs`` timed epochs synchronised by one probe scalar.  Returns the
-    DP kernels' and the sentence kernel's launches in the timed run."""
+    DP kernels', the sentence kernel's and the statistics kernel's
+    launches in the timed run."""
     cfg = train_config()
     inv = UnitInventory.standard("XIF")
     signals, n_samp, labels, lens = train_batch(seed, cfg, len(inv))
@@ -1547,6 +1653,7 @@ def phase_train_throughput(seed: int, smi: str, epochs: int = 8) -> dict:
     for kernel in hk.KERNELS.values():
         kernel.launches = 0
     gk.sentence_scores_cuda.launches = 0
+    gk.sentence_stats_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bank, total = bank0, 0.0
@@ -1557,6 +1664,7 @@ def phase_train_throughput(seed: int, smi: str, epochs: int = 8) -> dict:
     elapsed = time.perf_counter() - t0
     launches = {k: f.launches for k, f in hk.KERNELS.items()}
     launches["sentence"] = gk.sentence_scores_cuda.launches
+    launches["stats"] = gk.sentence_stats_cuda.launches
     check(np.isfinite(total), f"finite probe ({total})")
     for k, n in launches.items():
         check(n >= epochs, f"the training path launched the {k} kernel "
@@ -4615,6 +4723,7 @@ def phase_shapes(seed: int, smi: str) -> dict:
 SOLO = {
     "hmm_kernels": lambda seed, smi: phase_hmm_kernels(seed),
     "sentence": phase_sentence,
+    "stats": phase_stats,
     "host_decode": phase_host_decode,
     "train_throughput": phase_train_throughput,
     "train_scheme1": phase_train_scheme1,
@@ -4664,6 +4773,7 @@ def main(argv=None) -> int:
         return 0
     records = phase_kernel(args.seed)
     records["sentence"] = phase_sentence(args.seed, smi)
+    records["stats"] = phase_stats(args.seed, smi)
     records.update(phase_hmm_kernels(args.seed))
     records.update(phase_decoder_scan(args.seed, smi))
     records.update(phase_finalize(args.seed, smi))
@@ -4713,6 +4823,11 @@ def main(argv=None) -> int:
                         source=gk.SOURCE, replaces=SENTENCE_REPLACES,
                         launches=train_launches["sentence"],
                         **records["sentence"]))
+    # the statistics kernel: one launch an E-step
+    kernels.append(dict(name="sentence_stats", route="cuda",
+                        source=gk.SOURCE, replaces=STATS_REPLACES,
+                        launches=train_launches["stats"],
+                        **records["stats"]))
     kernels += [dict(name=f"hmm_{k}_banded", route="cuda", source=hk.SOURCE,
                      replaces=hk.REPLACES[k], launches=train_launches[k],
                      launches_cd=cd_launches[k],

@@ -950,3 +950,219 @@ extern "C" int sentence_score_max_d() {
     ++d;
   return d;
 }
+
+// ---------------------------------------------------------------------
+// sentence statistics: the E-step's GMM moments over the live posteriors
+// ---------------------------------------------------------------------
+//
+// The E-step's statistics (poccala_tpu_torch/train/accumulators.py
+// _statistics) weight each sentence state's components by the state's
+// posterior gamma:
+//
+//   w[b, t, n, m]     = gamma[b, t, n] exp(min(comp[b, t, n, m] - scores[b, t, n], 0))
+//   c_r[b, n, m]      = sum_t w
+//   cx_r[b, n, m, d]  = sum_t w x[b, t, d]
+//   cxx_r[b, n, m, d] = sum_t w x[b, t, d]^2
+//
+// for the emitting states (the others' sums are 0), comp and scores as the
+// sentence kernel above writes them.  It replaces no Pallas kernel: the JAX
+// package computes these with plain jnp (an exp and two einsums,
+// poccala_tpu/train/accumulators.py:231-238), the port's plain version with
+// as many dense passes over the [B, T, N, M] components.
+//
+// Almost every gamma is exactly 0: a state of a left-to-right sentence HMM
+// lives over a few frames of the utterance (at the long-sentence training
+// batch 0.75% of gamma is nonzero, and 4.9% of the tiles of 32 frames x 8
+// states hold any).  A term whose gamma is 0 adds +0.0 to every sum, so the
+// kernel skips exactly those terms and no others: the same sums as the dense
+// version's.  There is no threshold: a subnormal gamma is a term.
+//
+// What bounds it at that batch (B = 256, T = 960, N = 266, M = 16, D = 39):
+// reading gamma (261 MB) and writing the sums (344 MB), besides the live
+// tiles' rows of comp: ~0.2 ms at 3.35 TB/s.  Its FMAs, 4 M D a live
+// (t, n), come to ~1 GFLOP.
+//
+// Design (exact fp32 FMA, never TF32; no atomics, so the sums are
+// deterministic):
+// * a block is 8 warps on a group of 8 sentence states of one utterance,
+//   warp w on state 8g + w, for 16 mixtures and 64 dims (more mixtures or
+//   dims take more blocks);
+// * gamma comes in chunks of 256 frames x 8 states (a 32-byte sector a
+//   frame), each thread holding the next chunk's 8 values in registers
+//   while the warps walk the one in shared memory;
+// * a warp votes (ballot) on its state's gamma 32 frames at a time: a dead
+//   tile costs nothing more, its comp unread; in a live one the warp takes
+//   the live frames in ascending order, lane m reading comp[b, t, n, m] and
+//   forming its w, and every lane, owning dims lane and lane + 32, adds each
+//   mixture's w (by shuffle) times x and x^2 into registers.  Each sum thus
+//   runs over its frames in order;
+// * the sums leave once, from registers, the lanes on consecutive dims;
+// * each block writes how many of its tiles of 32 frames x 8 states were
+//   live, for the wrapper's tally.
+
+namespace {
+
+constexpr int SS_STATES = 8;                  // states a block, a warp each
+constexpr int SS_THREADS = 32 * SS_STATES;
+constexpr int SS_MIX = 16;                    // mixtures a block
+constexpr int SS_DIMS = 2;                    // dims a lane (64 a block)
+constexpr int SS_TILE = 32;                   // frames a vote
+constexpr int SS_CHUNK = 256;                 // frames of gamma staged at once
+constexpr int SS_LOADS = SS_CHUNK * SS_STATES / SS_THREADS;
+constexpr unsigned SS_FULL = 0xffffffffu;
+
+// comp [B][T][N][M], scores and gamma [B][T][N], emitting [B][N] (bool
+// bytes), x [B][T][D]; c [B][N][M], cx and cxx [B][N][M][D]; tiles
+// [B * groups][2]: (live, all) tiles of the block's state group.  Block
+// ((b, g), mixture pass, dims pass), the dims pass fastest.
+__global__ void __launch_bounds__(SS_THREADS, 2)
+sentence_stats_f32_kernel(const float* __restrict__ comp,
+                          const float* __restrict__ scores,
+                          const float* __restrict__ gamma,
+                          const unsigned char* __restrict__ emitting,
+                          const float* __restrict__ x, float* __restrict__ c,
+                          float* __restrict__ cx, float* __restrict__ cxx,
+                          int* __restrict__ tiles, int T, int N, int M, int D,
+                          int groups, int m_passes, int d_passes) {
+  __shared__ float gs[SS_CHUNK * SS_STATES];        // [frame][state]
+  __shared__ int live_tile[SS_CHUNK / SS_TILE];     // a warp voted live
+
+  int blk = blockIdx.x;
+  const int dp = blk % d_passes;
+  blk /= d_passes;
+  const int mp = blk % m_passes;
+  blk /= m_passes;
+  const int g = blk % groups;
+  const int b = blk / groups;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int n = g * SS_STATES + warp;
+  const int m0 = mp * SS_MIX, d0 = dp * SS_DIMS * 32;
+  const int my_m = m0 + lane;
+  const bool has_m = lane < SS_MIX && my_m < M;
+  const bool emit = n < N && emitting[(size_t)b * N + n] != 0;
+  const bool counts = mp == 0 && dp == 0;
+
+  // value i of a chunk: frame 32i + tid / 8, state tid % 8, at gs[256i + tid]
+  float next[SS_LOADS];
+  auto load_chunk = [&](int t0) {
+    const int ns = g * SS_STATES + tid % SS_STATES;
+#pragma unroll
+    for (int i = 0; i < SS_LOADS; ++i) {
+      const int t = t0 + i * (SS_THREADS / SS_STATES) + tid / SS_STATES;
+      next[i] = (t < T && ns < N) ? gamma[((size_t)b * T + t) * N + ns] : 0.0f;
+    }
+  };
+
+  float acc_c = 0.0f;
+  float ax[SS_MIX][SS_DIMS], axx[SS_MIX][SS_DIMS];
+#pragma unroll
+  for (int m = 0; m < SS_MIX; ++m)
+#pragma unroll
+    for (int j = 0; j < SS_DIMS; ++j) ax[m][j] = axx[m][j] = 0.0f;
+  int live = 0, all = 0;
+  if (tid < SS_CHUNK / SS_TILE) live_tile[tid] = 0;
+  load_chunk(0);
+
+  for (int t0 = 0; t0 < T; t0 += SS_CHUNK) {
+#pragma unroll
+    for (int i = 0; i < SS_LOADS; ++i) gs[i * SS_THREADS + tid] = next[i];
+    __syncthreads();  // the chunk is staged
+    if (t0 + SS_CHUNK < T) load_chunk(t0 + SS_CHUNK);
+
+    for (int k = 0; emit && k < SS_CHUNK / SS_TILE && t0 + k * SS_TILE < T;
+         ++k) {
+      const float gl = gs[(k * SS_TILE + lane) * SS_STATES + warp];
+      // exactly zero is dead; every other value (subnormals too) is a term
+      unsigned live_mask = __ballot_sync(SS_FULL, gl != 0.0f);
+      if (live_mask == 0) continue;
+      if (lane == 0) live_tile[k] = 1;
+      while (live_mask != 0) {
+        const int f = __ffs(live_mask) - 1;
+        live_mask &= live_mask - 1;
+        const int t = t0 + k * SS_TILE + f;
+        const float gv = __shfl_sync(SS_FULL, gl, f);
+        const size_t row = ((size_t)b * T + t) * N + n;
+        float w = 0.0f;
+        if (has_m) {
+          float v = comp[row * M + my_m] - scores[row];
+          v = v > 0.0f ? 0.0f : v;  // min(v, 0), NaN kept
+          w = gv * expf(v);
+        }
+        acc_c += w;
+        float xd[SS_DIMS], x2[SS_DIMS];
+#pragma unroll
+        for (int j = 0; j < SS_DIMS; ++j) {
+          const int d = d0 + lane + 32 * j;
+          xd[j] = d < D ? x[((size_t)b * T + t) * D + d] : 0.0f;
+          x2[j] = xd[j] * xd[j];
+        }
+#pragma unroll
+        for (int m = 0; m < SS_MIX; ++m) {
+          const float wm = __shfl_sync(SS_FULL, w, m);
+#pragma unroll
+          for (int j = 0; j < SS_DIMS; ++j) {
+            ax[m][j] = fmaf(wm, xd[j], ax[m][j]);
+            axx[m][j] = fmaf(wm, x2[j], axx[m][j]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with gs and live_tile
+    if (counts && tid == 0) {
+      for (int k = 0; k < SS_CHUNK / SS_TILE && t0 + k * SS_TILE < T; ++k) {
+        live += live_tile[k];
+        all += 1;
+        live_tile[k] = 0;
+      }
+    }
+  }
+
+  if (n < N) {
+    const size_t rb = (size_t)b * N + n;
+    if (dp == 0 && has_m) c[rb * M + my_m] = acc_c;
+#pragma unroll
+    for (int m = 0; m < SS_MIX; ++m) {
+      if (m0 + m >= M) break;
+#pragma unroll
+      for (int j = 0; j < SS_DIMS; ++j) {
+        const int d = d0 + lane + 32 * j;
+        if (d < D) {
+          cx[(rb * M + m0 + m) * D + d] = ax[m][j];
+          cxx[(rb * M + m0 + m) * D + d] = axx[m][j];
+        }
+      }
+    }
+  }
+  if (counts && tid == 0) {
+    tiles[2 * ((size_t)b * groups + g)] = live;
+    tiles[2 * ((size_t)b * groups + g) + 1] = all;
+  }
+}
+
+}  // namespace
+
+// comp [B, T, N, M], scores and gamma [B, T, N] f32, emitting [B, N] bool,
+// x [B, T, D] f32; out: c [B, N, M], cx and cxx [B, N, M, D] f32, tiles
+// [B * ceil(N / 8), 2] int32.
+extern "C" int sentence_stats_f32(const void* comp, const void* scores,
+                                  const void* gamma, const void* emitting,
+                                  const void* x, void* c, void* cx, void* cxx,
+                                  void* tiles, int B, int T, int N, int M,
+                                  int D, void* stream) {
+  const int groups = (N + SS_STATES - 1) / SS_STATES;
+  const int m_passes = (M + SS_MIX - 1) / SS_MIX;
+  const int d_passes = D > 0 ? (D + 32 * SS_DIMS - 1) / (32 * SS_DIMS) : 1;
+  const long long grid = (long long)B * groups * m_passes * d_passes;
+  if (grid == 0) return 0;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  sentence_stats_f32_kernel<<<(unsigned)grid, SS_THREADS, 0,
+                              (cudaStream_t)stream>>>(
+      static_cast<const float*>(comp), static_cast<const float*>(scores),
+      static_cast<const float*>(gamma),
+      static_cast<const unsigned char*>(emitting),
+      static_cast<const float*>(x), static_cast<float*>(c),
+      static_cast<float*>(cx), static_cast<float*>(cxx),
+      static_cast<int*>(tiles), T, N, M, D, groups, m_passes, d_passes);
+  return (int)cudaGetLastError();
+}

@@ -38,7 +38,9 @@ version :func:`poccala_tpu_torch.ops.gmm_score.gmm_log_scores`.
 own sentence states (rows of the bank) in one launch, the state scores
 and, if asked, the weighted components; the trainer's
 :func:`~poccala_tpu_torch.train.accumulators.sentence_scores` calls it for
-float32 CUDA tensors.
+float32 CUDA tensors.  :func:`sentence_stats_cuda` sums the E-step's GMM
+moments from those components and the state posteriors in one launch,
+skipping the posteriors that are exactly zero.
 """
 
 from __future__ import annotations
@@ -164,9 +166,18 @@ def bind_sentence(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_stats(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the statistics kernel's C interface (``sentence_stats_f32``)
+    of a library built from ``gmm_score.cu``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sentence_stats_f32.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.sentence_stats_f32.restype = i
+    return lib
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = bind_sentence(build.load("gmm_score"))
+    lib = bind_stats(bind_sentence(build.load("gmm_score")))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gmm_score_f32.argtypes = [p] * 3 + [i] * 5 + [p]
     lib.gmm_score_bf16.argtypes = [p] * 9 + [i] * 5 + [p]
@@ -326,6 +337,98 @@ def sentence_scores_cuda(xs, sen, means, log_var, log_w,
 
 
 sentence_scores_cuda.launches = 0
+
+
+def sentence_stats_cuda(comp, scores, gamma, emitting, xs):
+    """The E-step's GMM moments of each utterance's sentence states, float32,
+    in one launch of the statistics kernel; CUDA tensors only.  With
+    ``w = gamma · exp(min(comp - scores, 0))`` on the emitting states (0 on
+    the others), the sums over the frames of ``w``, ``w·x`` and ``w·x²``;
+    the terms whose ``gamma`` is exactly 0 are skipped, which leaves every
+    sum as it is.
+
+    :param comp: ``[B, T, N, M]`` weighted component log-probs and
+        :param scores: ``[B, T, N]`` their logsumexp over M, as
+        :func:`sentence_scores_cuda` writes them
+    :param gamma: ``[B, T, N]`` state posteriors; :param emitting:
+        ``[B, N]`` bool; :param xs: ``[B, T, D]`` frames
+    :returns: (``c_r [B, N, M]``, ``cx_r [B, N, M, D]``, ``cxx_r [B, N, M,
+        D]``), as :func:`~poccala_tpu_torch.train.accumulators._mixture_moments`
+
+    Each launch adds its (live, all) tiles of 32 frames × 8 states to a tally
+    on the device, read by :func:`stats_tile_tally`."""
+    if comp.dim() != 4 or xs.dim() != 3:
+        raise ValueError("expected comp [B, T, N, M] and xs [B, T, D]")
+    b, t, n, m = comp.shape
+    d = xs.shape[2]
+    operands = (("comp", comp, torch.float32, (b, t, n, m)),
+                ("scores", scores, torch.float32, (b, t, n)),
+                ("gamma", gamma, torch.float32, (b, t, n)),
+                ("emitting", emitting, torch.bool, (b, n)),
+                ("xs", xs, torch.float32, (b, t, d)))
+    for name, a, dtype, shape in operands:
+        if a.dtype != dtype or tuple(a.shape) != shape:
+            raise ValueError(f"{name} is {a.dtype} {tuple(a.shape)}, "
+                             f"expected {dtype} {shape}")
+    if not comp.is_cuda:
+        raise ValueError("sentence_stats_cuda takes CUDA tensors; the "
+                         "plain version serves the CPU")
+    dev = comp.device
+    for name, a, dtype, shape in operands:
+        _check(name, a, dev, dtype, shape)
+    c = torch.empty((b, n, m), dtype=torch.float32, device=dev)
+    cx = torch.empty((b, n, m, d), dtype=torch.float32, device=dev)
+    cxx = torch.empty_like(cx)
+    if b == 0 or n == 0 or m == 0:
+        return c, cx, cxx
+    tiles = torch.empty((b * -(-n // 8), 2), dtype=torch.int32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sentence_stats_f32(
+            comp.data_ptr(), scores.data_ptr(), gamma.data_ptr(),
+            emitting.data_ptr(), xs.data_ptr(), c.data_ptr(), cx.data_ptr(),
+            cxx.data_ptr(), tiles.data_ptr(), b, t, n, m, d, stream)
+    if rc != 0:
+        raise RuntimeError("sentence_stats kernel launch failed: "
+                           + lib.gmm_score_error_string(rc).decode())
+    sentence_stats_cuda.launches += 1
+    tally = sentence_stats_cuda.tiles
+    if dev in tally:
+        tally[dev] += tiles.sum(dim=0)
+    else:
+        tally[dev] = tiles.sum(dim=0)
+    return c, cx, cxx
+
+
+sentence_stats_cuda.launches = 0
+sentence_stats_cuda.tiles = {}   # device -> int64 [2]: (live, all) tiles
+
+
+def stats_tiles_plain(gamma, emitting) -> torch.Tensor:
+    """The statistics kernel's tally, plain: for each utterance's group of
+    8 sentence states ``[B * ceil(N / 8), 2]`` int32, its tiles of 32
+    frames that an emitting state of the group is live in (a posterior
+    other than 0), and all of its tiles."""
+    b, t, n = gamma.shape
+    groups, frames = -(-n // 8), -(-t // 32)
+    hit = F.pad((gamma != 0) & emitting[:, None, :],
+                (0, groups * 8 - n, 0, frames * 32 - t))
+    live = hit.reshape(b, frames, 32, groups, 8).any(dim=4).any(dim=2)
+    all_ = torch.full((b, groups), frames, device=gamma.device)
+    return torch.stack([live.sum(dim=1), all_], dim=-1).reshape(
+        b * groups, 2).to(torch.int32)
+
+
+def stats_tile_tally() -> tuple[int, int]:
+    """The statistics kernel's (live, all) tiles of 32 frames × 8 states
+    over its launches so far, on every device; waits for them (for tests
+    and ``chip_smoke.py``: the launches themselves never synchronise)."""
+    live = total = 0
+    for counts in sentence_stats_cuda.tiles.values():
+        a, t = counts.tolist()
+        live, total = live + a, total + t
+    return live, total
 
 
 def gmm_log_scores_fast(x, means, log_var, log_w, normalizer="textbook",

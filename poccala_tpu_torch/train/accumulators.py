@@ -15,9 +15,13 @@ on the GPU), and the per-utterance contributions — weighted 0 for
 batch-padding utterances (``label_len == 0``), as ``accumulators.py:347-352``
 does — are scattered with ``index_add_``.  On a GPU ``index_add_`` adds
 with atomics in no fixed order, so sums agree with the CPU and with JAX
-to float32 rounding, not bit for bit.  The einsum moments are true
-float32 matmuls: TF32 must stay off (the M-step's ``x²p − 2xμp``
-recentring cancels as scoring does).
+to float32 rounding, not bit for bit.  The GMM moments come, for float32
+CUDA tensors, from one launch of the statistics kernel
+(:func:`~poccala_tpu_torch.ops.cuda.gmm_score_cuda.sentence_stats_cuda`),
+which sums the terms of the nonzero state posteriors only, and otherwise
+from the plain lines of :func:`_mixture_moments`; both sum in true
+float32, never TF32 (the M-step's ``x²p − 2xμp`` recentring cancels as
+scoring does).
 
 With ``state_axis_name`` (the state axis's process group, the
 counterpart of JAX's axis name) the bank's GMM tensors are one state
@@ -205,8 +209,8 @@ def _weighted_stats(bank, ehmm, labels, xs, t_masks, weight, state_num,
     with profiling.span("train.estep.statistics", dev):
         stats = _statistics(bank, ehmm, labels, xs, t_masks, weight,
                             state_num, max_label_len, count_final_exit,
-                            state_axis_name, s_offset, comp, scores, log_b,
-                            log_alpha, log_beta, loglik)
+                            state_axis_name, s_offset, score_dtype, comp,
+                            scores, log_b, log_alpha, log_beta, loglik)
     mark("statistics")
     return stats, loglik
 
@@ -251,11 +255,30 @@ def _forward_backward(ehmm, log_b, t_masks, state_num, bw_inner_iters,
     return fb(log_pi_used)
 
 
+def _mixture_moments(comp, scores, gamma, emitting, xs):
+    """The GMM moments of each utterance's sentence states, plain: the
+    mixture posterior within a state times the state posterior ``gamma``,
+    on the emitting states, summed over the frames with ``1``, ``x`` and
+    ``x²``.
+
+    :returns: (``c_r [B, N_s, M]``, ``cx_r``, ``cxx_r [B, N_s, M, D]``)"""
+    comp_post = torch.exp(torch.clamp(comp - scores[..., None], max=0.0))
+    gamma_rm = gamma[..., None] * comp_post                       # [B,T,N_s,M]
+    gamma_rm = torch.where(emitting[:, None, :, None], gamma_rm, 0.0)
+    c_r = gamma_rm.sum(dim=1)                                     # [B,N_s,M]
+    cx_r = torch.einsum("btrm,btd->brmd", gamma_rm, xs)
+    cxx_r = torch.einsum("btrm,btd->brmd", gamma_rm, xs * xs)
+    return c_r, cx_r, cxx_r
+
+
 def _statistics(bank, ehmm, labels, xs, t_masks, weight, state_num,
                 max_label_len, count_final_exit, state_axis_name, s_offset,
-                comp, scores, log_b, log_alpha, log_beta, loglik) -> BwStats:
+                score_dtype, comp, scores, log_b, log_alpha, log_beta,
+                loglik) -> BwStats:
     """The weighted GMM and transition statistics from the lattice's
-    posteriors."""
+    posteriors.  Float32 CUDA tensors sum the GMM moments in the
+    statistics kernel, the CPU and the bfloat16 scoring in
+    :func:`_mixture_moments`."""
     emit = state_num - 2
     s_total = bank.num_states
     u_total, n, _ = bank.log_A.shape
@@ -272,12 +295,15 @@ def _statistics(bank, ehmm, labels, xs, t_masks, weight, state_num,
                        t_masks[:, :, None] & ehmm.state_mask[:, None, :])
 
     # --- GMM statistics: mixture posterior within a state
-    comp_post = torch.exp(torch.clamp(comp - scores[..., None], max=0.0))
-    gamma_rm = gamma[..., None] * comp_post                       # [B,T,N_s,M]
-    gamma_rm = torch.where(emitting[:, None, :, None], gamma_rm, 0.0)
-    c_r = gamma_rm.sum(dim=1)                                     # [B,N_s,M]
-    cx_r = torch.einsum("btrm,btd->brmd", gamma_rm, xs)
-    cxx_r = torch.einsum("btrm,btd->brmd", gamma_rm, xs * xs)
+    if xs.is_cuda and score_dtype == "float32":
+        from poccala_tpu_torch.ops.cuda.gmm_score_cuda import (
+            sentence_stats_cuda)
+
+        c_r, cx_r, cxx_r = sentence_stats_cuda(comp, scores, gamma, emitting,
+                                               xs.contiguous())
+    else:
+        c_r, cx_r, cxx_r = _mixture_moments(comp, scores, gamma, emitting,
+                                            xs)
     occ_r = torch.where(emitting, gamma.sum(dim=1), 0.0)          # [B,N_s]
 
     # dummy bucket s_total for virtual states and (state-sharded) the

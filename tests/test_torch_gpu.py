@@ -5,8 +5,9 @@ the decoder's scans and n-best, the (logsumexp, +) product of
 every ``dot_precision``), decoders (the device tier, with and without the
 sticky block selection, and the host tiers) and Baum-Welch statistics
 against the CPU, the sentence kernel of the E-step and the alignment
-against the plain scoring, the pack cache, the profiling ledger and the
-default device.
+against the plain scoring, the statistics kernel against the plain
+moments (at the training cell's shape, from ``asrbench``'s own traffic),
+the pack cache, the profiling ledger and the default device.
 
 Every test here is marked ``gpu`` and skips without a CUDA device.  The
 file imports no jax, so it also runs where jax is absent, without the
@@ -840,6 +841,97 @@ def test_sentence_kernel_launches_once_a_batch(cuda):
             call(dtype)
             torch.cuda.synchronize()
             assert gk.sentence_scores_cuda.launches == before + want, dtype
+
+
+# the statistics kernel: the E-step's GMM moments over the live posteriors,
+# held to the plain lines (acc._mixture_moments) on the card at F32, on
+# batches of the training cell (chip_smoke.cell_lattice: asrbench's own
+# generator, the posteriors of a forward-backward).
+
+def test_stats_kernel_at_the_cell_shape(cuda):
+    """B = 256, T up to 960 (the batch's longest), N = 266, M = 16, D = 39,
+    the posteriors of a real forward-backward: the kernel's sums against
+    the plain lines, every sum finite, and its tally of live tiles read
+    right."""
+    import chip_smoke
+
+    _, _, lattice = chip_smoke.cell_lattice(2400000001)
+    comp, scores, gamma, emitting, xs = lattice
+    b, t, n, m = comp.shape
+    assert (b, n, m, xs.shape[2]) == (256, 266, 16, 39) and 900 < t <= 960
+    before = gk.sentence_stats_cuda.launches
+    tally = gk.stats_tile_tally()
+    got = gk.sentence_stats_cuda(*lattice)
+    torch.cuda.synchronize()
+    assert gk.sentence_stats_cuda.launches == before + 1
+    live, total = gk.stats_tiles_plain(gamma, emitting).sum(dim=0).tolist()
+    assert 0 < live < total // 4
+    after = gk.stats_tile_tally()
+    assert (after[0] - tally[0], after[1] - tally[1]) == (live, total)
+    want = acc._mixture_moments(*lattice)
+    for name, g, w in zip(("c_r", "cx_r", "cxx_r"), got, want):
+        assert torch.isfinite(g).all(), name
+        assert torch.allclose(g, w, **F32), (name,
+                                             float((g - w).abs().max()))
+
+
+def test_batch_stats_kernel_route_matches_plain_route(cuda, monkeypatch):
+    """``batch_stats``'s whole ``BwStats`` through the kernel against the
+    same call with the plain lines in its place, on 64 utterances of the
+    training cell: every field within rtol 1e-4 plus an absolute 1e-4 of
+    the field's largest magnitude (the index_add_ scatters add in no
+    fixed order on either side)."""
+    import chip_smoke
+
+    bank, (labels, lens, xs, masks, max_l), _ = chip_smoke.cell_lattice(
+        2400000002, n_utts=64)
+    before = gk.sentence_stats_cuda.launches
+    got, gll = acc.batch_stats(bank, labels, lens, xs, masks, 5, max_l)
+    torch.cuda.synchronize()
+    assert gk.sentence_stats_cuda.launches == before + 1
+    monkeypatch.setattr(gk, "sentence_stats_cuda", acc._mixture_moments)
+    want, wll = acc.batch_stats(bank, labels, lens, xs, masks, 5, max_l)
+    assert torch.equal(gll, wll)
+    for f, g in acc.stats_to_numpy(got).items():
+        w = acc.stats_to_numpy(want)[f]
+        scale = max(1.0, float(np.abs(w).max()))
+        err = float(np.abs(g - w).max())
+        assert np.allclose(g, w, rtol=1e-4, atol=1e-4 * scale), (f, err,
+                                                                  scale)
+
+
+def test_stats_kernel_launches_once_a_batch(cuda):
+    """One launch in each float32 ``batch_stats`` and ``utterance_stats``
+    on the card, none with the bfloat16 scoring (the plain lines); the
+    tally grows by the batch's tiles."""
+    rng = np.random.default_rng(12)
+    cfg = ModelConfig(state_num=5, mix_level=4, max_mix_level=4)
+    bank = sb.create_bank(20, cfg, 13,
+                          generator=torch.Generator().manual_seed(12),
+                          device=cuda)
+    b, t_pad, max_l = 6, 40, 5
+    labels = rng.integers(0, 20, size=(b, max_l)).astype(np.int32)
+    lens = rng.integers(1, max_l + 1, size=b).astype(np.int32)
+    xs = (rng.normal(size=(b, t_pad, 13)) * 1.5).astype(np.float32)
+    masks = np.ones((b, t_pad), bool)
+    n_s = 2 + 3 * max_l
+    calls = [
+        (b, lambda dt: acc.batch_stats(bank, labels, lens, xs, masks, 5,
+                                       max_l, score_dtype=dt)),
+        (1, lambda dt: acc.utterance_stats(bank, labels[0], lens[0], xs[0],
+                                           masks[0], 5, max_l,
+                                           score_dtype=dt))]
+    for utts, call in calls:
+        for dtype, want in (("float32", 1), ("bfloat16", 0)):
+            before = gk.sentence_stats_cuda.launches
+            tally = gk.stats_tile_tally()
+            stats, _ = call(dtype)
+            torch.cuda.synchronize()
+            assert float(stats.c.sum()) > 0
+            assert gk.sentence_stats_cuda.launches == before + want, dtype
+            after = gk.stats_tile_tally()
+            assert after[1] - tally[1] == want * utts * -(-n_s // 8) * 2
+            assert 0 < after[0] - tally[0] <= after[1] - tally[1] or not want
 
 
 # ----------------------------------------------------------------------

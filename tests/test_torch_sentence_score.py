@@ -205,7 +205,8 @@ def emulated_sentence_source() -> str:
                src.index("// A finished TT x TS tile")]
     a = src.index("int sm_count() {")
     sm = src[a:src.index("\n}\n", a) + 3]
-    section = src[src.index("// sentence scoring: each utterance"):]
+    section = src[src.index("// sentence scoring: each utterance"):
+                  src.index("// sentence statistics: the E-step")]
     section = section.replace(
         "extern __shared__ __align__(16) float sq_smem[];",
         "float* sq_smem = reinterpret_cast<float*>(emu_dyn_smem);")
